@@ -1,0 +1,185 @@
+"""Kernels K2 (``csrc/ss_group_pass.cu``) and K3 (``csrc/ss_edge_scan.cu``)
+of the grouped spike-and-slab update, each with its plain PyTorch version.
+
+The TPU runs the whole update as one Pallas kernel whose grid walks
+(group, time chunk) in order and runs the edge scan in-kernel at each group
+boundary (``pyglm_tpu/ops/ss_pallas.py::resample_spike_slab_fused``). Hopper
+blocks run in no order, so the group loop lives on the host
+(models/weights.py) as Ng x (K2 + K3) launches plus K2's epilogue.
+
+Layouts (postsyn lanes n last, float32, contiguous):
+  xp, xg   (GB, T)   design rows of groups g-1 and g (rows of Xt)
+  omega, u (T, N)
+  dw, m0, w (GB, N)
+  jgg      (GB(GB+1)/2, N)  packed upper triangle of X_g diag(omega_n) X_g^T,
+                            row-major over p <= q (``torch.triu_indices``)
+  mu (G, N, B), lam (G, N, B, B), lrho (G, N), u_a (G, N), eps (G, N, B)
+
+Dispatch: :func:`ss_group_pass` and :func:`ss_edge_scan` launch the kernel
+for CUDA tensors and take the plain version for CPU tensors only.
+"""
+from __future__ import annotations
+
+import torch
+
+from pyglm_tpu_torch.ops import _build
+
+_MAX_GB = 64           # K2 keeps a group's design rows in shared memory
+_MAX_B = 8             # K3 is instantiated for B = 1 .. 8
+
+
+def pair_index(GB: int, device=None):
+    """(p, q) row indices of the packed upper triangle, p <= q."""
+    iu = torch.triu_indices(GB, GB, device=device)
+    return iu[0], iu[1]
+
+
+def unpack_gram(jgg: torch.Tensor, GB: int) -> torch.Tensor:
+    """Packed (GB(GB+1)/2, N) -> full symmetric (N, GB, GB)."""
+    p, q = pair_index(GB, jgg.device)
+    full = jgg.new_zeros((GB, GB, jgg.shape[1]))
+    full[p, q] = jgg
+    full[q, p] = jgg
+    return full.permute(2, 0, 1)
+
+
+# ---------------------------------------------------------------------------
+# K2: scatter + gather + within-group Gram
+# ---------------------------------------------------------------------------
+
+def ss_group_pass_plain(xp, xg, omega, u, dw, want_sum_omega=False):
+    """Plain version of K2. Updates u in place,
+    u -= omega * (xp^T dw) when xp is given, and returns
+    (M0 = xg u, packed Jgg, sum_t omega or None); (None, None, None) when
+    xg is None (the epilogue)."""
+    if xp is not None:
+        u -= omega * (xp.T @ dw)
+    if xg is None:
+        return None, None, None
+    m0 = xg @ u
+    p, q = pair_index(xg.shape[0], xg.device)
+    jgg = (xg[p] * xg[q]) @ omega
+    return m0, jgg, (omega.sum(0) if want_sum_omega else None)
+
+
+def _check_cuda_f32(name, t, shape):
+    if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous float32 CUDA tensor, "
+                         f"got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+
+
+def _n_split(T: int) -> int:
+    """Time splits of K2: enough blocks to fill the card at T = 1e5
+    (128 splits x 2 lane tiles x 6 row tiles), at least 512 rows each."""
+    return max(1, min(128, -(-T // 512)))
+
+
+def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False):
+    """K2 on the card; same contract as :func:`ss_group_pass_plain`."""
+    T, N = omega.shape
+    ref = xg if xg is not None else xp
+    if ref is None:
+        raise ValueError("ss_group_pass: need xg, xp or both")
+    GB = ref.shape[0]
+    if not 1 <= GB <= _MAX_GB:
+        raise ValueError(f"ss_group_pass: GB={GB} outside 1..{_MAX_GB}")
+    _check_cuda_f32("omega", omega, (T, N))
+    _check_cuda_f32("u", u, (T, N))
+    if xg is not None:
+        _check_cuda_f32("xg", xg, (GB, T))
+    if xp is not None:
+        _check_cuda_f32("xp", xp, (GB, T))
+        _check_cuda_f32("dw", dw, (GB, N))
+    npair = GB * (GB + 1) // 2
+    n_rows = GB + npair + 1
+    n_split = _n_split(T)
+    dev = omega.device
+    part = out = None
+    if xg is not None:
+        part = torch.empty((n_split, n_rows, N), dtype=torch.float32,
+                           device=dev)
+        out = torch.empty((n_rows, N), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.ss_group_pass_launch(
+            xg.data_ptr() if xg is not None else None,
+            xp.data_ptr() if xp is not None else None,
+            omega.data_ptr(), u.data_ptr(),
+            dw.data_ptr() if xp is not None else None,
+            part.data_ptr() if part is not None else None,
+            out.data_ptr() if out is not None else None,
+            T, N, GB, n_split, int(want_sum_omega),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "ss_group_pass")
+    _build.LAUNCHES["ss_group_pass"] += 1
+    if xg is None:
+        return None, None, None
+    return (out[:GB], out[GB:GB + npair],
+            out[GB + npair] if want_sum_omega else None)
+
+
+def ss_group_pass(xp, xg, omega, u, dw, want_sum_omega=False):
+    """K2 for CUDA tensors, its plain version for CPU tensors."""
+    if omega.is_cuda:
+        return ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega)
+    if omega.device.type != "cpu":
+        raise ValueError(f"ss_group_pass: unsupported device {omega.device}")
+    return ss_group_pass_plain(xp, xg, omega, u, dw, want_sum_omega)
+
+
+# ---------------------------------------------------------------------------
+# K3: the edge scan of one group
+# ---------------------------------------------------------------------------
+
+def ss_edge_scan_plain(jgg, m0, w, mu, lam, lrho, u_a, eps):
+    """Plain version of K3: the collapsed Gibbs over one group's G edges
+    (models/weights.py::_group_edge_scan on the unpacked Gram). Updates w
+    in place and returns (dW (GB, N), a (G, N))."""
+    from pyglm_tpu_torch.models.weights import _group_edge_scan
+    from pyglm_tpu_torch.ops.linalg import chol_small
+    GB = m0.shape[0]
+    ld0 = torch.log(torch.diagonal(chol_small(lam), dim1=-2,
+                                   dim2=-1)).sum(-1)
+    dW, w_new, a = _group_edge_scan(unpack_gram(jgg, GB), m0, w, mu, lam,
+                                    ld0, lrho, u_a, eps)
+    w.copy_(w_new)
+    return dW, a
+
+
+def ss_edge_scan_cuda(jgg, m0, w, mu, lam, lrho, u_a, eps):
+    """K3 on the card; same contract as :func:`ss_edge_scan_plain`."""
+    G, N, B = mu.shape
+    GB = G * B
+    if not 1 <= B <= _MAX_B:
+        raise ValueError(f"ss_edge_scan: B={B} outside 1..{_MAX_B}")
+    for name, t, shape in (
+            ("jgg", jgg, (GB * (GB + 1) // 2, N)), ("m0", m0, (GB, N)),
+            ("w", w, (GB, N)), ("mu", mu, (G, N, B)),
+            ("lam", lam, (G, N, B, B)), ("lrho", lrho, (G, N)),
+            ("u_a", u_a, (G, N)), ("eps", eps, (G, N, B))):
+        _check_cuda_f32(name, t, shape)
+    dev = m0.device
+    dW = torch.empty((GB, N), dtype=torch.float32, device=dev)
+    a = torch.empty((G, N), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.ss_edge_scan_launch(
+            jgg.data_ptr(), m0.data_ptr(), w.data_ptr(), dW.data_ptr(),
+            a.data_ptr(), mu.data_ptr(), lam.data_ptr(), lrho.data_ptr(),
+            u_a.data_ptr(), eps.data_ptr(), G, B, N,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "ss_edge_scan")
+    _build.LAUNCHES["ss_edge_scan"] += 1
+    return dW, a
+
+
+def ss_edge_scan(jgg, m0, w, mu, lam, lrho, u_a, eps):
+    """K3 for CUDA tensors, its plain version for CPU tensors."""
+    if m0.is_cuda:
+        return ss_edge_scan_cuda(jgg, m0, w, mu, lam, lrho, u_a, eps)
+    if m0.device.type != "cpu":
+        raise ValueError(f"ss_edge_scan: unsupported device {m0.device}")
+    return ss_edge_scan_plain(jgg, m0, w, mu, lam, lrho, u_a, eps)

@@ -1,0 +1,60 @@
+"""Small numeric helpers (PyTorch counterpart of ``pyglm_tpu/utils/utils.py``).
+
+``logistic``/``logit``/``softplus`` act on tensors; ``expand_scalar`` and
+``expand_cov`` broadcast static hyperparameters on the host and return numpy
+arrays, exactly as the JAX package does.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def logistic(x):
+    """Logistic sigmoid, written as the JAX package writes it."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def logit(p):
+    return torch.log(p) - torch.log1p(-p)
+
+
+def softplus(x):
+    """log(1 + e^x) = logaddexp(x, 0), stable for large |x|."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def expand_scalar(x, shape, dtype=np.float32):
+    """Broadcast a scalar (or compatible array) hyperparameter to `shape`.
+
+    Returns a host numpy array: hyperparameters are static model config.
+    """
+    x = np.asarray(x, dtype=dtype)
+    return np.broadcast_to(x, shape).copy()
+
+
+def expand_cov(sigma, shape):
+    """Broadcast a covariance hyperparameter to a (..., B, B) array.
+
+    Accepts a scalar variance, a (B,) diagonal, a (B, B) matrix, or a fully
+    specified (..., B, B) array.
+    """
+    B = shape[-1]
+    if shape[-2] != B:
+        raise ValueError(f"covariance shape must end in (B, B), got {shape}")
+    sigma = np.asarray(sigma, dtype=np.float32)
+    if sigma.ndim == 0:
+        cov = sigma * np.eye(B, dtype=np.float32)
+    elif sigma.ndim == 1:
+        if sigma.shape != (B,):
+            raise ValueError(f"diagonal covariance must be ({B},), "
+                             f"got {sigma.shape}")
+        cov = np.diag(sigma).astype(np.float32)
+    else:
+        cov = sigma.astype(np.float32)
+    return np.broadcast_to(cov, shape).copy()
+
+
+class PerformanceWarning(UserWarning):
+    """The library took a correct-but-slower path than the model's
+    configuration implies. Results are unaffected; throughput is."""
