@@ -1,6 +1,7 @@
 """User-facing model classes (PyTorch counterpart of
-``pyglm_tpu/models/glm.py``; this slice ports the spike-and-slab Bernoulli
-model with an Erdos-Renyi prior).
+``pyglm_tpu/models/glm.py``; ports the spike-and-slab models with an
+Erdos-Renyi prior and Bernoulli, Binomial or negative-binomial
+observations).
 
 The class is a thin stateful shell: the chain state is a ``GLMState`` of
 tensors on the model's `device`, and one ``resample_model`` call is one
@@ -44,8 +45,9 @@ class NonlinearAutoregressiveModel:
       N: number of neurons.
       B, L: basis dimension / filter length (ignored if `basis` given).
       basis: optional (L, B) filter matrix.
-      observation, network: family / prior names or config objects. This
-        slice runs 'bernoulli' with 'erdos_renyi' and spike_and_slab=True.
+      observation, network: family / prior names or config objects. The
+        port runs 'bernoulli', 'binomial' and 'negative_binomial' with
+        'erdos_renyi' and spike_and_slab=True.
       seed: seed of this model's generators.
       precision: 'high' (default) or 'highest', both fp32 on the card.
       group: presyn neurons per spike-and-slab group (default: the divisor
@@ -100,14 +102,27 @@ class NonlinearAutoregressiveModel:
         return self.N * self.B + 1
 
     def add_data(self, Y) -> None:
-        """Register a (T, N) spike matrix: builds the design (T, P) and its
-        transpose (P, T) on the model's device."""
+        """Register a (T, N) spike matrix: builds the design (T, P), its
+        transpose (P, T) and the family's ll cache on the model's device.
+        Raises ValueError if a count exceeds the family's `max_y`."""
         Y = _as_f32(Y, self.device)
         if Y.ndim != 2 or Y.shape[1] != self.N:
             raise ValueError(f"expected (T, {self.N}) data, got "
                              f"{tuple(Y.shape)}")
+        max_y = getattr(self.observation, "max_y", None)
+        if max_y is not None:
+            # The CRT r update sums max_y tables: a larger count would be
+            # dropped silently, biasing the r conditional.
+            y_max = float(Y.max())
+            if y_max > max_y:
+                raise ValueError(
+                    f"max observed count {y_max:.0f} exceeds the "
+                    f"observation family's max_y={max_y}; construct with "
+                    f"obs_kwargs=dict(max_y={int(y_max)}) or larger so the "
+                    f"CRT dispersion update sees every count")
         Xf = design_matrix(Y, self.basis)
-        self.datas.append(GLMData(Y=Y, Xf=Xf, Xt=Xf.T.contiguous()))
+        self.datas.append(GLMData(Y=Y, Xf=Xf, Xt=Xf.T.contiguous(),
+                                  llc=self.observation.ll_cache(Y)))
 
     def generate(self, T: int, keep: bool = True):
         """Sample a (T, N) spike train from the current parameters."""
@@ -177,6 +192,14 @@ class NonlinearAutoregressiveModel:
 GLM = NonlinearAutoregressiveModel
 
 
+def _merge_net_defaults(kw: dict, **defaults) -> dict:
+    """Merge a convenience class's network-prior defaults under the user's
+    `net_kwargs`. Unbounded links (NB's exp mean) need small weight priors
+    for the forward dynamics to stay stable."""
+    kw["net_kwargs"] = {**defaults, **(kw.get("net_kwargs") or {})}
+    return kw
+
+
 class SparseBernoulliGLM(NonlinearAutoregressiveModel):
     """Spike-and-slab Bernoulli GLM with an Erdos-Renyi prior."""
 
@@ -184,4 +207,17 @@ class SparseBernoulliGLM(NonlinearAutoregressiveModel):
         kw.setdefault("observation", "bernoulli")
         kw.setdefault("network", "erdos_renyi")
         kw.setdefault("spike_and_slab", True)
+        super().__init__(N, **kw)
+
+
+class SparseNegativeBinomialGLM(NonlinearAutoregressiveModel):
+    """Spike-and-slab negative-binomial count GLM with an Erdos-Renyi
+    prior (sigma_w = 0.003, mu_bias = -2 unless `net_kwargs` says
+    otherwise)."""
+
+    def __init__(self, N, **kw):
+        kw.setdefault("observation", "negative_binomial")
+        kw.setdefault("network", "erdos_renyi")
+        kw.setdefault("spike_and_slab", True)
+        kw = _merge_net_defaults(kw, sigma_w=0.003, mu_bias=-2.0)
         super().__init__(N, **kw)

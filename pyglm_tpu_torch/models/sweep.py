@@ -1,5 +1,5 @@
 """The Gibbs sweep, the log-likelihood and autoregressive generation
-(PyTorch counterpart of ``pyglm_tpu/models/sweep.py``; this slice ports the
+(PyTorch counterpart of ``pyglm_tpu/models/sweep.py``; ports the
 spike-and-slab sweep).
 
 PyTorch runs eagerly, so a sweep is a plain function
@@ -23,20 +23,21 @@ class GLMData(NamedTuple):
     Y: torch.Tensor            # (T, N) observations
     Xf: torch.Tensor           # (T, P) design, last column = ones
     Xt: torch.Tensor | None    # (P, T) the same design, presyn-major rows
+    llc: dict | None = None    # the family's ll_cache(Y), or None
 
 
 class GLMState(NamedTuple):
     A: torch.Tensor     # (N, N) adjacency, A[pre, post] in {0, 1}
     W: torch.Tensor     # (N, N, B) weights (0 where A == 0)
     b: torch.Tensor     # (N,) biases
-    aux: object         # observation-family aux params (None for Bernoulli)
+    aux: object         # family aux params: {"r": (N,)} for NB, else None
     net: object         # network-prior state (host tensors)
 
 
 class Generators(NamedTuple):
     """A model's random streams: `device` draws tensors on the model's
     device; `host` (a CPU generator) draws the O(B^2) network updates and
-    the Philox seeds of kernel K1, so neither waits on the device."""
+    the Philox seeds of the kernels, so neither waits on the device."""
     device: torch.Generator
     host: torch.Generator
 
@@ -44,10 +45,14 @@ class Generators(NamedTuple):
 def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
                      group: int | None = None):
     """One Gibbs sweep (the JAX package's move order):
-      1. psi = Xf w;  omega ~ PG(1, psi) (K1), kappa = y - 1/2
+      1. psi = Xf w;  (omega, kappa) from the family: PG(1, psi) by K1 for
+         Bernoulli, PG(y + r, psi) by K4 for NB
       2. (A, W, bias) by the collapsed spike-and-slab update (K2 + K3)
       3. observation aux, then the network hyperparameters given (A, W)
     Returns (new_state, {"log_likelihood", "n_edges"}), both 0-d tensors.
+    The datasets' ll caches are additive summaries (counts, scalar sums),
+    so their sum stands for the concatenated data; it feeds the total
+    log-likelihood and the NB collapsed-CRT r update.
     """
     if not spike_slab:
         raise NotImplementedError(
@@ -59,11 +64,14 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
         dev = w_full.device
         hyp = network.edge_hypers(state.net, dev)
         if len(datas) == 1:
-            Y, Xf, Xt = datas[0]
+            Y, Xf, Xt = datas[0].Y, datas[0].Xf, datas[0].Xt
         else:       # datasets concatenate along time
             Y = torch.cat([d.Y for d in datas])
             Xf = torch.cat([d.Xf for d in datas])
             Xt = torch.cat([d.Xt for d in datas], dim=1)
+        caches = [d.llc for d in datas]
+        llc = (None if any(c is None for c in caches) else
+               {k: sum(c[k] for c in caches) for k in caches[0]})
         psi = Xf @ w_full
         omega, kappa = obs.omega_kappa(gens.host, Y, psi, state.aux)
         A, w_full, u, _ = resample_spike_slab_tspace(
@@ -71,9 +79,9 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
         # psi under the NEW weights, recovered without a second matmul.
         psi = (kappa - u) / omega
         W, b = unpack_weights(w_full, N, B)
-        aux = obs.resample_aux(gens.host, state.aux, Y, psi)
+        aux = obs.resample_aux(gens.host, state.aux, Y, psi, cache=llc)
         net = network.resample(gens.host, state.net, A, W)
-        ll = obs.log_likelihood_sum(Y, psi, aux)
+        ll = obs.log_likelihood_sum(Y, psi, aux, llc)
         diag = {"log_likelihood": ll, "n_edges": A.sum()}
         return GLMState(A, W, b, aux, net), diag
 
@@ -89,9 +97,11 @@ def make_log_likelihood(obs, N: int, B: int):
 
 def make_generator(obs, N: int, B: int):
     """Autoregressive forward simulation from silence: a loop over time bins
-    that keeps the last L bins of output in a ring. ``uniforms`` (T, N), if
-    given, replaces the draws y = 1[U < p] (for reproducing a reference
-    run)."""
+    that keeps the last L bins of output in a ring. The family's
+    psi-independent noise for all T bins (Bernoulli's uniforms, NB's
+    Gamma(r) factors) is drawn before the loop, so a bin costs one draw
+    that needs no host sync. ``uniforms`` (T, N), if given, replaces a
+    Bernoulli family's uniforms (for reproducing a reference run)."""
 
     def generate(generator: torch.Generator, state: GLMState, basis, T: int,
                  uniforms=None):
@@ -104,15 +114,16 @@ def make_generator(obs, N: int, B: int):
         # Each bin is written twice, L rows apart, so rows pos+1 .. pos+L
         # are always the last L bins in time order.
         ring = torch.zeros((2 * L, N), dtype=torch.float32, device=dev)
-        if uniforms is None:
-            uniforms = torch.rand((T, N), generator=generator, device=dev)
+        noise = (obs.sample_noise(generator, (T, N), state.aux)
+                 if uniforms is None else uniforms)
         Y = torch.empty((T, N), dtype=torch.float32, device=dev)
         psi = torch.empty((T, N), dtype=torch.float32, device=dev)
         pos = 0
         for t in range(T):
             F = ring[pos + 1:pos + 1 + L].T @ basis_rev          # (N, B)
             psi[t] = state.b + F.reshape(-1) @ W2
-            y = obs.sample_from_uniform(uniforms[t], psi[t], state.aux)
+            y = obs.sample(generator, psi[t], state.aux,
+                           None if noise is None else noise[t])
             Y[t] = y
             pos = (pos + 1) % L
             ring[pos] = y
@@ -139,4 +150,4 @@ def init_state_from_prior(gens: Generators, obs, network, N: int, B: int,
     W = W * A[:, :, None]
     b = hyp.mu_b + torch.randn((N,), generator=g, device=device) / torch.sqrt(
         hyp.lam_b)
-    return GLMState(A, W, b, obs.init_aux(N), net)
+    return GLMState(A, W, b, obs.init_aux(N, device), net)

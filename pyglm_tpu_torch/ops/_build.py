@@ -16,6 +16,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pyglm_tpu_torch"
@@ -26,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _LL = ctypes.c_longlong
 _ULL = ctypes.c_ulonglong
 # C entry points: name -> argument types. Each returns cudaGetLastError().
@@ -35,16 +38,28 @@ _ENTRY_POINTS = {
                              _I, _I, _I, _I, _I, _P],
     "ss_edge_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _P],
+    "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _P],
+    "crt_sample_launch": [_P, _I, _P, _P, _LL, _I, _I, _ULL, _ULL, _P],
 }
 
 # Kernel launches per wrapper. Each wrapper adds one where it launches its
 # kernel and nowhere else; reset_launches() sets every count to 0.
-LAUNCHES = {"pg_devroye": 0, "ss_group_pass": 0, "ss_edge_scan": 0}
+LAUNCHES = {"pg_devroye": 0, "ss_group_pass": 0, "ss_edge_scan": 0,
+            "pg_gamma_series": 0, "crt_sample": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def philox_seed(generator) -> tuple[int, int]:
+    """A fresh (seed, offset) pair for a kernel's Philox streams, drawn from
+    `generator`. Pass a CPU generator to keep the draw off the device stream:
+    on a CUDA generator ``tolist`` waits for the device."""
+    seed, offset = torch.randint(0, 2 ** 62, (2,), generator=generator,
+                                 device=generator.device).tolist()
+    return seed, offset
 
 
 def _nvcc() -> str:

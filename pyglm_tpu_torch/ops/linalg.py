@@ -9,13 +9,16 @@ Bartlett chi-square terms and the Beta draw of rho come from
 
 The (inverse-)Wishart and NIW draws act on O(B^2) scalars. The model runs
 them on the host, on a CPU generator (models/networks.py), so they add no
-launches to a sweep on the card; every function here is device-generic.
+launches to a sweep on the card; every function here is device-generic,
+except :func:`crt_sample`, which runs kernel K5 on a CUDA tensor.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from pyglm_tpu_torch.ops import _build
 
 _SMALL_B_MAX = 8
 _GAMMA_MAX_ROUNDS = 100     # Marsaglia-Tsang rounds; each accepts w.p. > 0.95
@@ -128,6 +131,49 @@ def sample_beta(a, b, generator: torch.Generator) -> torch.Tensor:
     ga = sample_gamma(a, generator)
     gb = sample_gamma(b, generator)
     return ga / (ga + gb)
+
+
+def _crt_r(y, r):
+    """r as a contiguous float32 (N,) vector on y's device, N = y's last
+    dimension; a scalar r is broadcast."""
+    N = y.shape[-1]
+    r = torch.as_tensor(r, dtype=torch.float32, device=y.device).reshape(-1)
+    if r.numel() == 1:
+        r = r.expand(N)
+    if r.numel() != N:
+        raise ValueError(f"r must broadcast along y's last dimension "
+                         f"{N}, got {r.numel()} values")
+    return r.contiguous()
+
+
+def crt_sample_plain(y, r, max_y: int, generator: torch.Generator):
+    """Plain version of kernel K5: max_y passes of masked Bernoulli draws,
+    l += 1[U < r/(r+i)] where i < y, as the JAX package's XLA loop does."""
+    r = _crt_r(y, r)
+    l = torch.zeros(y.shape, dtype=torch.int32, device=y.device)
+    for i in range(max_y):
+        u = torch.rand(y.shape, generator=generator, device=y.device)
+        l += ((u < r / (r + i)) & (i < y)).to(torch.int32)
+    return l
+
+
+def crt_sample(y, r, max_y: int, generator: torch.Generator):
+    """Chinese-restaurant-table counts l | y, r (Zhou & Carin's NB
+    augmentation): l = sum_{i < y} Bern(r / (r + i)), elementwise over y
+    (..., N) with r of shape (N,) or a scalar. `max_y` bounds y; larger
+    counts seat tables only for i < max_y, as in the JAX package.
+
+    Kernel K5 for a CUDA y (its Philox seed drawn from `generator`; pass a
+    CPU generator), the plain loop for a CPU y; other devices raise."""
+    if y.is_cuda:
+        from pyglm_tpu_torch.ops.crt_cuda import crt_sample_cuda
+        if y.dtype not in (torch.int32, torch.float32):
+            y = y.to(torch.float32)
+        return crt_sample_cuda(y.contiguous(), _crt_r(y, r), max_y,
+                               *_build.philox_seed(generator))
+    if y.device.type != "cpu":
+        raise ValueError(f"crt_sample: no sampler for device {y.device}")
+    return crt_sample_plain(y, r, max_y, generator)
 
 
 # ---------------------------------------------------------------------------

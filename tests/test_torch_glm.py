@@ -124,8 +124,9 @@ def test_posterior_agrees_with_jax():
 
 @pytest.mark.parametrize("kw", [
     dict(precision="default"), dict(precision="sr"),
-    dict(observation="negative_binomial"), dict(observation="gaussian"),
-    dict(observation="binomial"), dict(network="dense"),
+    dict(observation="negative_binomial", precision="default"),
+    dict(observation="gaussian"),
+    dict(observation="binomial", network="sbm"), dict(network="dense"),
     dict(network="sbm"), dict(network="latent_distance"),
     dict(network="erdos_renyi", spike_and_slab=False)])
 def test_unported_configurations_raise(kw):
