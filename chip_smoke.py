@@ -5,19 +5,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
 
   0. Pre-flight: CUDA must be present (else exit 2). Prints the card's name
-     and power limit and builds the kernels from ``pyglm_tpu_torch/csrc``.
+     and power limit and builds the kernels from ``pyglm_tpu_torch/csrc``
+     (one nvcc per source, in parallel).
   1. Kernels: each hand-written kernel against its plain PyTorch version on
-     the card, at the flagships' shapes (N=200, T=100k, B=4, G=8), with the
-     median time of each: K1-K3, then the NB kernels K4 (gamma-series PG)
-     and K5 (CRT counts).
+     the card, with the median time of each, of its plain version and,
+     where one PyTorch call computes the same function, of that call: at
+     the flagships' shapes (N=200, T=100k, B=4, G=8) K1-K3, then the NB
+     kernels K4 (gamma-series PG) and K5 (CRT counts); at the 8-chain
+     latent-distance ensemble's shapes (P=2001, T=20k, 4000 lanes, G=10)
+     K6 (group Gram), plus a small ragged shape.
   2. Slices, each run with the launch counts set to 0 just before and read
      just after: a ground-truth SparseBernoulliGLM(200, B=4, L=10)
      generates T=100k bins and a fresh model fits them (2 warm-up + 5 timed
      sweeps); the same for SparseNegativeBinomialGLM (max_y=16, counts
      capped at 15), followed by one NB dispersion update without the count
-     table, which runs K5. Then small models on the card are held against
-     the same models on the CPU (Bernoulli and NB): same state, same PG
-     draws and noise, same result.
+     table, which runs K5; then the acceptance suite's config 5
+     (latent-distance prior, N=500, T=20k) through fit_ensemble with 8
+     lane-stacked chains, a short collect="samples" run and a timed
+     collect="mean" run on the staged loop (K6 + K3). Then: the staged and
+     the fused loop on one update at the ensemble's width with the same
+     noise; small models on the card held against the same models on the
+     CPU (Bernoulli and NB on the fused loop, 2 stacked chains on the staged
+     loop): same state, same PG draws and noise, same result; and the
+     latent-distance HMC on the card against the CPU with the same noise.
 
 Any failed check exits 1 and prints no result line. On success the last
 three lines are the card's name and power limit (as nvidia-smi prints
@@ -49,6 +59,14 @@ CRT_GRID = [(1, 0.5), (4, 2.0), (12, 5.0), (15, 0.7)]
 KS_P_MIN = 1e-3          # two-sample KS gate, per c
 REL_TOL = 1e-4           # K2, small slice: max |card - plain| / max |plain|
 W_ATOL = 1e-4            # K3: weights
+GRAM_REL_TOL = 1e-5      # K6: fp32 sums over 2e4 terms in another order
+# Acceptance config 5 (benchmarks/acceptance.py): latent-distance prior,
+# pooled ensemble of 8 lane-stacked chains.
+N5, T5, C5, G5 = 500, 20_000, 8, 10
+C5_TRUTH_NET = dict(dim=2, mu_bias=-3.0)
+# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM.
+FP32_FLOPS = 67e12
+HBM_BYTES_S = 3.35e12
 
 KERNELS = {
     "pg_devroye": ("pyglm_tpu_torch/csrc/pg_devroye.cu",
@@ -61,7 +79,12 @@ KERNELS = {
                         "pyglm_tpu/ops/pg_pallas.py:452"),
     "crt_sample": ("pyglm_tpu_torch/csrc/crt.cu",
                    "pyglm_tpu/ops/pg_pallas.py:650"),
+    "group_gram": ("pyglm_tpu_torch/csrc/group_gram.cu",
+                   "pyglm_tpu/ops/gram_pallas.py:63"),
 }
+# Fields every kernel's record must carry; library_ms may be null.
+RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
 
 
 class Checks:
@@ -100,6 +123,15 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def bound(nbytes, flops):
+    """The least time the card could take: the larger of the bytes a call
+    must move (each input read once, each output written once) over the
+    HBM rate and its fp32 operations over the fp32 peak. (ms, bound_by)."""
+    tb, tf = nbytes / HBM_BYTES_S, flops / FP32_FLOPS
+    return {"bound_ms": 1e3 * max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations"}
+
+
 def phase_kernels(check, record):
     """Each kernel against its plain version at main-path shapes."""
     import torch
@@ -109,7 +141,7 @@ def phase_kernels(check, record):
     from pyglm_tpu_torch.ops.polyagamma import (
         pg_devroye_plain, pg_mean, pg_var)
     from pyglm_tpu_torch.ops.ss_cuda import (
-        ss_edge_scan_cuda, ss_edge_scan_plain, ss_group_pass_cuda,
+        pair_index, ss_edge_scan_cuda, ss_edge_scan_plain, ss_group_pass_cuda,
         ss_group_pass_plain)
 
     dev = "cuda"
@@ -142,7 +174,11 @@ def phase_kernels(check, record):
               f"pg_mean={float(pg_mean(1.0, c)):.6f}")
     ms = median_ms(lambda: pg_devroye_cuda(psi, 3, 0), 10)
     plain_ms = median_ms(lambda: pg_devroye_plain(psi, gen), 3)
-    record["pg_devroye"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    # psi in, omega out; at least ~10 fp32 operations per draw (one
+    # proposal and its test), so the bytes set the bound.
+    record["pg_devroye"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                library_ms=None,
+                                **bound(2 * 4 * T * N, 10 * T * N))
     print(f"  K1 {ms:.3f} ms, plain {plain_ms:.3f} ms "
           f"(max_abs_err = largest |mean diff| over the five c)")
 
@@ -174,9 +210,19 @@ def phase_kernels(check, record):
     ms = median_ms(lambda: ss_group_pass_cuda(xp, xg, omega, u_k, dw), 10)
     plain_ms = median_ms(lambda: ss_group_pass_plain(xp, xg, omega, u_p, dw),
                          5)
-    record["ss_group_pass"].update(max_abs_err=max_abs, ms=ms,
-                                   plain_ms=plain_ms)
-    print(f"  K2 {ms:.3f} ms, plain {plain_ms:.3f} ms per group")
+    p_idx, q_idx = pair_index(GB, dev)
+    Z = xg[p_idx] * xg[q_idx]
+    lib_ms = median_ms(lambda: torch.matmul(Z, omega), 10)
+    del Z
+    npair = GB * (GB + 1) // 2
+    # xp, xg, omega, u in and out, dw; M0, packed Gram, sum omega out.
+    # FMAs: the Gram, the gather and the scatter.
+    record["ss_group_pass"].update(
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **bound(4 * (2 * GB * T + 3 * T * N + GB * N + (GB + npair + 1) * N),
+                2 * T * N * (npair + 2 * GB)))
+    print(f"  K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, library (matmul on "
+          f"the materialised Z) {lib_ms:.3f} ms per group")
 
     # --- K3: that group's edge scan, same injected noise -----------------
     print("K3 ss_edge_scan: G=8 edges x 200 lanes, B=4", flush=True)
@@ -203,8 +249,14 @@ def phase_kernels(check, record):
                                              lrho, u_a, eps), 20)
     plain_ms = median_ms(lambda: ss_edge_scan_plain(
         jgg, m0, w0.clone(), mu, lam, lrho, u_a, eps), 5)
-    record["ss_edge_scan"].update(max_abs_err=max(werr, derr), ms=ms,
-                                  plain_ms=plain_ms)
+    npair = GB * (GB + 1) // 2
+    # Packed Gram, M0, w in and out, dW, priors, noise, a; per edge and
+    # lane the m update, a B x B Cholesky and three triangular solves.
+    record["ss_edge_scan"].update(
+        max_abs_err=max(werr, derr), ms=ms, plain_ms=plain_ms,
+        library_ms=None,
+        **bound(4 * N * (npair + 4 * GB + G * (B + B * B + 3 + B)),
+                G * N * (2 * B * GB + 6 * B * B + B ** 3)))
     print(f"  K3 {ms:.3f} ms, plain {plain_ms:.3f} ms per group")
 
 
@@ -255,8 +307,10 @@ def phase_kernels_nb(check, record):
     ms = median_ms(lambda: pg_gamma_series_cuda(b, psi, 3, 0,
                                                 normal_cutoff=170.0), 10)
     plain_ms = median_ms(lambda: pg_gamma_series_plain(b, psi, gen, 170.0), 3)
+    # b and psi in, omega out; at least ~10 fp32 operations per draw.
     record["pg_gamma_series"].update(max_abs_err=worst, ms=ms,
-                                     plain_ms=plain_ms)
+                                     plain_ms=plain_ms, library_ms=None,
+                                     **bound(3 * 4 * T * N, 10 * T * N))
     print(f"  K4 {ms:.3f} ms, plain {plain_ms:.3f} ms "
           f"(max_abs_err = largest |mean diff| over the grid)")
 
@@ -285,7 +339,11 @@ def phase_kernels_nb(check, record):
     yi = y.to(torch.int32)
     ms = median_ms(lambda: crt_sample_cuda(yi, r, 16, 5, 0), 10)
     plain_ms = median_ms(lambda: crt_sample_plain(yi, r, 16, gen), 3)
-    record["crt_sample"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    # y in and counts out (int32), r; the data's sum of min(y, max_y)
+    # Bernoulli draws, ~3 operations each.
+    record["crt_sample"].update(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(4 * (2 * T * N + N), 3 * float(yi.clamp(max=16).sum())))
     print(f"  K5 {ms:.3f} ms, plain {plain_ms:.3f} ms "
           f"(max_abs_err = largest |mean diff| over the grid)")
 
@@ -296,6 +354,7 @@ def phase_slice(check, record):
     import numpy as np
     import torch
     from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
     from pyglm_tpu_torch.ops import _build
     from pyglm_tpu_torch.utils.metrics import link_auc
 
@@ -347,8 +406,10 @@ def phase_slice(check, record):
     for k in ("ss_group_pass", "ss_edge_scan"):
         check(launches[k] >= n_sweeps * (N // G),
               f"{k} launched >= {n_sweeps * (N // G)}")
-    check(launches["pg_gamma_series"] == 0 and launches["crt_sample"] == 0,
-          "K4 and K5 not launched by the Bernoulli sweep")
+    check(launches["pg_gamma_series"] == 0 and launches["crt_sample"] == 0
+          and launches["group_gram"] == 0,
+          "K4, K5 and K6 not launched by the Bernoulli sweep")
+    check(weights.LAST_SS_PATH == "fused", "the flagship ran the fused loop")
     for name in KERNELS:
         record[name]["launches"] += launches[name]
     return {"sweeps_per_s": N_TIMED / dt, "generate_s": gen_s}
@@ -361,6 +422,7 @@ def phase_nb_slice(check, record):
     import numpy as np
     import torch
     from pyglm_tpu_torch import SparseNegativeBinomialGLM
+    from pyglm_tpu_torch.models import weights
     from pyglm_tpu_torch.models.weights import pack_weights
     from pyglm_tpu_torch.ops import _build
 
@@ -417,7 +479,9 @@ def phase_nb_slice(check, record):
     for k in ("ss_group_pass", "ss_edge_scan"):
         check(launches[k] >= n_sweeps * (N // G),
               f"{k} launched >= {n_sweeps * (N // G)} in the NB run")
-    check(launches["pg_devroye"] == 0, "K1 not launched by the NB sweep")
+    check(launches["pg_devroye"] == 0 and launches["group_gram"] == 0,
+          "K1 and K6 not launched by the NB sweep")
+    check(weights.LAST_SS_PATH == "fused", "the NB flagship ran the fused loop")
     for name in KERNELS:
         record[name]["launches"] += launches[name]
 
@@ -448,22 +512,23 @@ def phase_small_parity(check, nb=False):
     import numpy as np
     import torch
     from pyglm_tpu_torch import SparseBernoulliGLM, SparseNegativeBinomialGLM
+    from pyglm_tpu_torch.models import weights
     from pyglm_tpu_torch.models.weights import (
         SpikeSlabNoise, pack_weights, resample_spike_slab_tspace)
     from pyglm_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
-    n, t, g = 20, 5000, 5
+    n, t, g = 20, 5000, 4
     print(f"small {'NB' if nb else 'Bernoulli'} slice: card vs CPU, N={n}, "
           f"T={t}, G={g}", flush=True)
     if nb:
         cls, kw = SparseNegativeBinomialGLM, dict(obs_kwargs=NB_OBS)
         truth = cls(n, seed=3, net_kwargs=NB_TRUTH_NET | dict(
-            rho_init=0.2, mu_bias=-1.0), **kw)
+            rho_init=0.2, mu_bias=-1.0), device="cpu", **kw)
         Y = np.minimum(truth.generate(t, keep=False), 15.0)
     else:
         cls, kw = SparseBernoulliGLM, {}
         truth = cls(n, seed=3, net_kwargs=TRUTH_NET | dict(
-            rho_init=0.2, mu_bias=-1.5))
+            rho_init=0.2, mu_bias=-1.5), device="cpu")
         Y = truth.generate(t, keep=False)
     mc = cls(n, seed=4, group=g, device="cuda", **kw)
     mh = cls(n, seed=4, group=g, device="cpu", **kw)
@@ -472,7 +537,7 @@ def phase_small_parity(check, nb=False):
     mc.fit(n_samples=3)
     s = state_to_numpy(mc.state)
     mh.state = state_from_numpy(s["A"], s["W"], s["b"], s["net"],
-                                aux=s["aux"])
+                                device="cpu", aux=s["aux"])
     xerr = float((mc.datas[0].Xf.cpu() - mh.datas[0].Xf).abs().max())
     check(xerr <= 1e-6, f"design on card vs CPU: max|diff| = {xerr:.2e}")
     if nb:
@@ -507,6 +572,7 @@ def phase_small_parity(check, nb=False):
     out_h = resample_spike_slab_tspace(
         None, mh.datas[0].Xt, omega_h, kappa_h, psi_h, w_h,
         hyp_h, 4, group=g, noise=noise)
+    check(weights.LAST_SS_PATH == "fused", "small update ran the fused loop")
     n_diff = int((out_c[0].cpu() != out_h[0]).sum())
     check(n_diff == 0, f"A identical ({n_diff} of {n * n} differ)")
     # Relative to the largest weight: the card sums M0 and the Gram over
@@ -531,6 +597,325 @@ def phase_small_parity(check, nb=False):
     check(werr <= w_tol, f"w_full max|diff|/max|w| = {werr:.2e} "
           f"(max|w| = {float(out_h[1].abs().max()):.3f}; limit {w_tol:.2e})")
     check(uerr <= u_tol, f"u max|diff| = {uerr:.2e} (limit {u_tol:.2e})")
+
+
+def phase_kernel_gram(check, record):
+    """K6 against its plain version at the 8-chain config-5 ensemble's
+    shapes, and at a small ragged shape."""
+    import torch
+    from pyglm_tpu_torch.ops.basis import design_matrix, cosine_basis
+    from pyglm_tpu_torch.ops.gram_cuda import (
+        group_gram_blocks_cuda, group_gram_blocks_plain)
+    from pyglm_tpu_torch.ops.ss_cuda import pair_index
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5150)
+    lanes, GB = C5 * N5, G5 * B
+    Ng, npair = N5 // G5, GB * (GB + 1) // 2
+    print(f"K6 group_gram: Xt ({N5 * B + 1}, {T5}), omega ({T5}, {lanes}), "
+          f"G={G5}, B={B}", flush=True)
+    Y = (torch.rand((T5, N5), generator=gen, device=dev) < 0.05).float()
+    Xt = design_matrix(Y, cosine_basis(B, L)).T.contiguous()
+    del Y
+    omega = 0.05 + 0.2 * torch.rand((T5, lanes), generator=gen, device=dev)
+    k = group_gram_blocks_cuda(Xt, omega, B, G5)
+    p = group_gram_blocks_plain(Xt, omega, B, G5)
+    torch.cuda.synchronize()
+    err, max_abs = rel_err(k, p), float((k - p).abs().max())
+    check(err <= GRAM_REL_TOL, f"K6 at config 5: max|diff|/max|plain| = "
+          f"{err:.2e} (limit {GRAM_REL_TOL:.0e})")
+    check(torch.equal(k, group_gram_blocks_cuda(Xt, omega, B, G5)),
+          "K6 repeats bit for bit")
+    del k, p
+    Xs = (torch.rand((6 * B + 1, 3001), generator=gen, device=dev)
+          < 0.3).float()
+    oms = 0.05 + 0.2 * torch.rand((3001, 70), generator=gen, device=dev)
+    e2 = rel_err(group_gram_blocks_cuda(Xs, oms, B, 3),
+                 group_gram_blocks_plain(Xs, oms, B, 3))
+    check(e2 <= GRAM_REL_TOL, f"K6 at T=3001, GB=12, 70 lanes: {e2:.2e}")
+    ms = median_ms(lambda: group_gram_blocks_cuda(Xt, omega, B, G5), 5)
+    plain_ms = median_ms(lambda: group_gram_blocks_plain(Xt, omega, B, G5),
+                         3)
+    p_idx, q_idx = pair_index(GB, dev)
+    Z = Xt[:GB][p_idx] * Xt[:GB][q_idx]
+    lib_ms = Ng * median_ms(lambda: torch.matmul(Z, omega), 5)
+    del Z
+    # The design rows and omega in, the packed Gram out; Ng*npair*lanes*T
+    # FMAs.
+    record["group_gram"].update(
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **bound(4 * (Ng * GB * T5 + T5 * lanes + Ng * npair * lanes),
+                2.0 * Ng * npair * lanes * T5))
+    rec = record["group_gram"]
+    print(f"  K6 {ms:.2f} ms, plain {plain_ms:.2f} ms, library (matmul on "
+          f"the materialised Z, x {Ng} groups) {lib_ms:.2f} ms; bound "
+          f"{rec['bound_ms']:.2f} ms ({rec['bound_by']}), "
+          f"{2.0 * Ng * npair * lanes * T5 / ms / 1e9:.1f} TFLOP/s")
+
+
+def phase_config5(check, record, ctx):
+    """Acceptance config 5 through the user entry points: a latent-distance
+    truth model (N=500) generates T=20k bins; the fitted model runs
+    fit_ensemble with 8 lane-stacked chains, first a short
+    collect="samples" run, then the timed collect="mean" run."""
+    import numpy as np
+    import torch
+    from pyglm_tpu_torch import NonlinearAutoregressiveModel
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.ops import _build
+    from pyglm_tpu_torch.utils.metrics import link_auc
+
+    kw = dict(B=B, L=L, observation="bernoulli", network="latent_distance",
+              spike_and_slab=True, device="cuda")
+    print(f"config 5: latent-distance truth N={N5}, generate T={T5}",
+          flush=True)
+    truth = NonlinearAutoregressiveModel(N5, seed=5, net_kwargs=C5_TRUTH_NET,
+                                         **kw)
+    t0 = time.perf_counter()
+    Y = truth.generate(T5, keep=False)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    print(f"  generate: {gen_s:.2f} s, rate {Y.mean():.4f} spikes/bin, "
+          f"{int(truth.A.sum())} true edges")
+    model = NonlinearAutoregressiveModel(N5, seed=0, precision="high",
+                                         net_kwargs=dict(dim=2), **kw)
+    t0 = time.perf_counter()
+    model.add_data(Y)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    print(f"  add_data: {add_s:.3f} s")
+    n_groups = N5 // model.group
+
+    def run(n_burnin, n_samples, collect):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = model.fit_ensemble(n_chains=C5, n_burnin=n_burnin,
+                                 n_samples=n_samples, collect=collect)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        n_sw = n_burnin + n_samples
+        print(f"  fit_ensemble(collect={collect!r}): {n_sw} stacked sweeps "
+              f"in {dt:.3f} s; launches {launches}")
+        check(weights.LAST_SS_PATH == "staged",
+              f"config 5 ran the staged loop ({weights.LAST_SS_PATH})")
+        check(launches["group_gram"] == n_sw,
+              f"K6 launched once per stacked sweep ({launches['group_gram']}"
+              f" for {n_sw})")
+        check(launches["ss_group_pass"] == 0, "K2 not launched")
+        check(launches["pg_devroye"] == n_sw,
+              f"K1 launched once per stacked sweep ({launches['pg_devroye']})")
+        check(launches["ss_edge_scan"] == n_sw * n_groups,
+              f"K3 launched {n_groups} times per stacked sweep")
+        for name in KERNELS:
+            record[name]["launches"] += launches[name]
+        return out, n_sw, dt
+
+    samp, _, _ = run(0, 4, "samples")
+    check(samp["lls"].shape == (C5, 4) and np.isfinite(samp["lls"]).all(),
+          "samples: (C, S) log-likelihoods finite")
+    check(samp["rhat_edge"].shape == (N5, N5) and np.isfinite(
+        samp["rhat_ll"]), f"samples: rhat_ll = {samp['rhat_ll']:.3f}")
+    del samp
+    ens, n_sw, dt = run(1, 4, "mean")
+    lls = ens["lls"]
+    acc = [float(s.net.hmc_accept) for s in ens["final_states"]]
+    auc = link_auc(ens["A_mean_pooled"], truth.A)
+    print(f"  {n_sw / dt:.4f} stacked sweeps/s = {C5 * n_sw / dt:.3f} "
+          f"chain-sweeps/s (precision='high', {C5} chains x {N5} lanes)")
+    print(f"  log-likelihood per chain, last sweep: "
+          f"{[round(float(x), 1) for x in lls[:, -1]]}; hmc_accept "
+          f"{[round(a, 2) for a in acc]}; rhat_ll {ens['rhat_ll']:.3f}; "
+          f"pooled link AUC {auc:.4f}")
+    check(lls.shape == (C5, 4) and np.isfinite(lls).all(),
+          "mean: (C, S) log-likelihoods finite")
+    check(all(0.0 <= a <= 1.0 for a in acc), "0 <= hmc_accept <= 1")
+    check(np.isfinite(ens["rhat_ll"]), "mean: rhat_ll finite")
+    check(ens["A_mean_pooled"].shape == (N5, N5)
+          and np.isfinite(ens["Weff_mean_pooled"]).all(),
+          "pooled means finite, shapes right")
+    ctx.update(model=model, states=ens["final_states"])
+    return {"c5_stacked_sweeps_per_s": n_sw / dt,
+            "c5_chain_sweeps_per_s": C5 * n_sw / dt,
+            "c5_generate_s": gen_s, "c5_add_data_s": add_s}
+
+
+def phase_staged_vs_fused(check, ctx):
+    """One spike-and-slab update at the ensemble's width (4000 lanes) by
+    the staged loop (K6 + K3) and by the fused loop (K2 + K3), from the
+    same state, PG draws and noise."""
+    import torch
+    from pyglm_tpu_torch.models.ensemble import lane_inputs
+    from pyglm_tpu_torch.models.weights import (
+        SpikeSlabNoise, resample_spike_slab_tspace)
+    from pyglm_tpu_torch.ops.gram_cuda import group_gram_blocks_plain
+
+    model, states = ctx["model"], ctx["states"]
+    d = model.datas[0]
+    w, hyp = lane_inputs(model.network, states)
+    lanes, G = w.shape[1], model.group
+    print(f"staged vs fused loop: one update at {lanes} lanes, G={G}",
+          flush=True)
+    psi = d.Xf @ w
+    omega, kappa = model.observation.omega_kappa(
+        model.generators.host, d.Y.repeat(1, len(states)), psi, None)
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    ng = N5 // G
+    noise = SpikeSlabNoise(
+        torch.rand((ng, G, lanes), generator=gen, device="cuda"),
+        torch.randn((ng, G, lanes, B), generator=gen, device="cuda"),
+        torch.randn((lanes,), generator=gen, device="cuda"))
+
+    def update(path):
+        return resample_spike_slab_tspace(None, d.Xt, omega, kappa, psi, w,
+                                          hyp, B, group=G, noise=noise,
+                                          path=path)
+    out = {path: update(path) for path in ("staged", "fused")}
+    ms = {}
+    for path in ("staged", "fused", "fused", "staged"):
+        ms.setdefault(path, []).append(median_ms(lambda: update(path), 2))
+    # The update's own sensitivity to float32 rounding: the fused loop with
+    # psi rounded from a float64 product instead of the float32 GEMM, and
+    # the staged loop on the plain version's Gram (cuBLAS, another
+    # summation order over T) instead of K6's.
+    psi64 = (d.Xf.double() @ w.double()).float()
+    A_r, w_r = resample_spike_slab_tspace(
+        None, d.Xt, omega, kappa, psi64, w, hyp, B, group=G, noise=noise,
+        path="fused")[:2]
+    del psi64
+    A_p, w_p = resample_spike_slab_tspace(
+        None, d.Xt, omega, kappa, psi, w, hyp, B, group=G, noise=noise,
+        Jg=group_gram_blocks_plain(d.Xt, omega, B, G))[:2]
+
+    def compare(A1, w1, A2, w2):
+        diff = A1 != A2
+        same = ~diff.any(0)               # lanes whose edges all agree
+        return (int(diff.sum()),
+                float((w1 - w2)[:, same].abs().max() / w2.abs().max()))
+    (A_s, w_s, _, _), (A_f, w_f, _, _) = out["staged"], out["fused"]
+    n_diff, werr = compare(A_s, w_s, A_f, w_f)
+    n_psi, w_psi = compare(A_r, w_r, A_f, w_f)
+    n_gram, w_gram = compare(A_s, w_s, A_p, w_p)
+    n_self, w_self = max(n_psi, n_gram), max(w_psi, w_gram)
+    n_lim, w_lim = max(5, 10 * n_self), max(1e-4, 10 * w_self)
+    print(f"  staged {ms['staged']} ms, fused {ms['fused']} ms per update "
+          f"(order staged, fused, fused, staged); {int(A_s.sum())} of "
+          f"{A_s.numel()} edges active")
+    print(f"  staged vs fused: {n_diff} edges differ, w {werr:.2e} of "
+          f"max|w| on the agreeing lanes; fused with psi rounded from "
+          f"float64: {n_psi} edges, w {w_psi:.2e}; staged on the plain "
+          f"Gram: {n_gram} edges, w {w_gram:.2e}")
+    check(n_diff <= n_lim, f"A agrees but for {n_diff} edges (limit "
+          f"{n_lim}: 5, or 10x the fused loop's own rounding sensitivity)")
+    check(werr <= w_lim, f"w on the agreeing lanes: {werr:.2e} (limit "
+          f"{w_lim:.2e}: 1e-4, or 10x the own sensitivity)")
+    return {"staged_update_ms": min(ms["staged"]),
+            "fused_update_ms": min(ms["fused"])}
+
+
+def phase_small_staged_parity(check):
+    """One staged spike-and-slab update of 2 lane-stacked chains (N=20,
+    T=300 < 384 routes it staged) on the card (K6 + K3) and on the CPU
+    (plain), from the same states, PG draws and noise."""
+    import torch
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.models.ensemble import chain_generators, lane_inputs
+    from pyglm_tpu_torch.models.sweep import init_state_from_prior
+    from pyglm_tpu_torch.ops import _build
+    from pyglm_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+    n, t, C = 20, 300, 2
+    print(f"small staged update: card vs CPU, N={n}, T={t}, {C} chains",
+          flush=True)
+    truth = SparseBernoulliGLM(n, seed=3, net_kwargs=TRUTH_NET | dict(
+        rho_init=0.2, mu_bias=-1.5), device="cpu")
+    Y = truth.generate(t, keep=False)
+    mc = SparseBernoulliGLM(n, seed=4, device="cuda")
+    mh = SparseBernoulliGLM(n, seed=4, device="cpu")
+    mc.add_data(Y)
+    mh.add_data(Y)
+    states_h = [init_state_from_prior(chain_generators(sd, "cpu"),
+                                      mh.observation, mh.network, n, B, True,
+                                      "cpu") for sd in (1, 2)]
+    states_c = []
+    for st in states_h:
+        x = state_to_numpy(st)
+        states_c.append(state_from_numpy(x["A"], x["W"], x["b"], x["net"]))
+    w_c, hyp_c = lane_inputs(mc.network, states_c)
+    w_h, hyp_h = lane_inputs(mh.network, states_h)
+    psi_c = mc.datas[0].Xf @ w_c
+    omega_c, kappa_c = mc.observation.omega_kappa(
+        mc.generators.host, mc.datas[0].Y.repeat(1, C), psi_c, None)
+    psi_h = mh.datas[0].Xf @ w_h
+    kappa_h = mh.datas[0].Y.repeat(1, C) - 0.5
+    g, lanes = mh.group, C * n
+    gen = torch.Generator().manual_seed(6)
+    noise = weights.SpikeSlabNoise(
+        torch.rand((n // g, g, lanes), generator=gen),
+        torch.randn((n // g, g, lanes, B), generator=gen),
+        torch.randn((lanes,), generator=gen))
+    _build.reset_launches()
+    out_c = weights.resample_spike_slab_tspace(
+        None, mc.datas[0].Xt, omega_c, kappa_c, psi_c, w_c, hyp_c, B,
+        noise=weights.SpikeSlabNoise(*(x.cuda() for x in noise)))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(weights.LAST_SS_PATH == "staged" and launches["group_gram"] == 1
+          and launches["ss_group_pass"] == 0,
+          f"card update ran the staged loop (K6 once, K2 never; {launches})")
+    out_h = weights.resample_spike_slab_tspace(
+        None, mh.datas[0].Xt, omega_c.cpu(), kappa_h, psi_h, w_h, hyp_h, B,
+        noise=noise)
+    n_diff = int((out_c[0].cpu() != out_h[0]).sum())
+    check(n_diff == 0, f"A identical ({n_diff} of {n * lanes} differ; "
+          f"{int(out_h[0].sum())} active)")
+    werr = rel_err(out_c[1].cpu(), out_h[1])
+    uerr = float((out_c[2].cpu() - out_h[2]).abs().max())
+    check(werr <= REL_TOL, f"w_full max|diff|/max|w| = {werr:.2e} "
+          f"(limit {REL_TOL:.0e})")
+    check(uerr <= 1e-3, f"u max|diff| = {uerr:.2e} (limit 1e-3)")
+
+
+def phase_hmc_parity(check):
+    """One latent-distance resample of 2 chains at N=50 on the card and on
+    the CPU with the same injected noise (HMC, swaps, relocations)."""
+    import torch
+    from pyglm_tpu_torch.models.networks import (
+        HMCNoise, LatentDistanceConfig, LatentDistanceState)
+    from pyglm_tpu_torch.models.sweep import Generators
+
+    C, n = 2, 50
+    print(f"latent-distance HMC: card vs CPU, N={n}, {C} chains", flush=True)
+    cfg = LatentDistanceConfig(N=n, B=B, hmc_eps=0.03, swap_moves=10,
+                               relocate_moves=10)
+    g = torch.Generator().manual_seed(8)
+    Lp = 0.8 * torch.randn((C, n, 2), generator=g)
+    gamma = torch.tensor([0.3, -0.2])
+    A = (torch.rand((C, n, n), generator=g)
+         < torch.sigmoid(cfg._logit_rho(Lp, gamma))).float()
+    W = torch.randn((C, n, n, B), generator=g) * A[..., None]
+    noise = cfg.draw_noise(g, C, "cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        st = LatentDistanceState(Lp.to(dev), gamma.to(dev), torch.zeros(C, B),
+                                 torch.eye(B).repeat(C, 1, 1),
+                                 torch.zeros(C, device=dev))
+        gens = Generators(torch.Generator(device=dev),
+                          torch.Generator().manual_seed(1))
+        outs[dev] = cfg.resample(gens, st, A.to(dev), W.to(dev),
+                                 noise=HMCNoise(*(x.to(dev) for x in noise)))
+    h, c = outs["cpu"], outs["cuda"]
+    lerr = float((h.L - c.L.cpu()).abs().max())
+    gerr = float((h.gamma - c.gamma.cpu()).abs().max())
+    print(f"  hmc_accept CPU {h.hmc_accept.tolist()}, card "
+          f"{c.hmc_accept.tolist()}")
+    # Compare counts: the card divides by a scalar through its reciprocal.
+    same = torch.equal((h.hmc_accept * cfg.hmc_iters).round(),
+                       (c.hmc_accept.cpu() * cfg.hmc_iters).round())
+    check(same, "same accepts")
+    check(lerr <= 1e-4 and gerr <= 1e-4,
+          f"L max|diff| = {lerr:.2e}, gamma {gerr:.2e} (limit 1e-4)")
 
 
 def main() -> int:
@@ -562,21 +947,34 @@ def main() -> int:
 
     check = Checks()
     record = {name: {"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": 0}
+                     "replaces": rep, "launches": 0,
+                     **{k: None for k in RECORD_KEYS[1:]}}
               for name, (src, rep) in KERNELS.items()}
-    summary = {}
+    summary, ctx = {}, {}
     for phase in (lambda: phase_kernels(check, record),
                   lambda: phase_kernels_nb(check, record),
+                  lambda: phase_kernel_gram(check, record),
                   lambda: summary.update(phase_slice(check, record)),
                   lambda: summary.update(phase_nb_slice(check, record)),
+                  lambda: summary.update(phase_config5(check, record, ctx)),
+                  lambda: summary.update(phase_staged_vs_fused(check, ctx)),
                   lambda: phase_small_parity(check),
-                  lambda: phase_small_parity(check, nb=True)):
+                  lambda: phase_small_parity(check, nb=True),
+                  lambda: phase_small_staged_parity(check),
+                  lambda: phase_hmc_parity(check)):
         try:
             phase()
         except Exception:                      # recorded; the run fails
             traceback.print_exc()
             check(False, "phase raised")
+        torch.cuda.empty_cache()
     check("jax" not in sys.modules, "JAX was not imported")
+    for name, rec in record.items():
+        missing = [k for k in RECORD_KEYS
+                   if rec[k] is None and k != "library_ms"]
+        check(not missing and rec["launches"] > 0,
+              f"{name}: record complete, launched on a main path "
+              f"({rec['launches']}){f'; missing {missing}' if missing else ''}")
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed: "
               f"{check.failed}", file=sys.stderr)

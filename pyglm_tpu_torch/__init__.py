@@ -2,20 +2,26 @@
 
 A second implementation of the JAX package ``pyglm_tpu`` for one NVIDIA
 H100. The JAX package stays the reference; this package mirrors its module
-names and is tested against it. Every Pallas TPU kernel on the ported path
-is a CUDA C++ kernel written for Hopper (``csrc/``), built with nvcc at
-first use and bound with ctypes; each has a plain PyTorch version beside
+names and is tested against it. Every Pallas TPU kernel of the JAX package
+has a CUDA C++ kernel written for Hopper here (``csrc/``), built with nvcc
+at first use and bound with ctypes; each has a plain PyTorch version beside
 it, which tensors on the CPU take.
 
-It runs the spike-and-slab GLMs with an Erdos-Renyi prior and Bernoulli,
-Binomial or negative-binomial observations:
+It runs the spike-and-slab GLMs with an Erdos-Renyi or latent-distance
+prior and Bernoulli, Binomial or negative-binomial observations, one chain
+or a lane-stacked ensemble. Models live on the card unless
+``device="cpu"`` is passed:
 
-    m = SparseBernoulliGLM(N, B=4, L=10, seed=0, device="cuda")
+    m = SparseBernoulliGLM(N, B=4, L=10, seed=0)
     m.add_data(Y)
     m.fit(n_samples=100, n_burnin=50)
 
-    m = SparseNegativeBinomialGLM(N, seed=0, obs_kwargs=dict(max_y=16),
-                                  device="cuda")
+    m = SparseNegativeBinomialGLM(N, seed=0, obs_kwargs=dict(max_y=16))
+
+    m = NonlinearAutoregressiveModel(N, spike_and_slab=True,
+                                     network="latent_distance")
+    m.add_data(Y)
+    m.fit_ensemble(n_chains=8, n_samples=100, collect="mean")
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,161 @@
+// K6: the omega-weighted within-group Gram blocks of every presyn group, in
+// one launch:
+//
+//   Jg[g, pq, n] = sum_t X[gGB + p, t] X[gGB + q, t] omega[t, n],  p <= q
+//
+// stored as the packed upper triangle (Ng, GB(GB+1)/2, N), row-major over
+// p <= q (``torch.triu_indices``), so the edge scan K3 takes Jg[g] as it
+// takes K2's packed Gram, with no copy.
+//
+// Replaces pyglm_tpu/ops/gram_pallas.py::group_gram_blocks_pallas_t (and
+// group_gram_blocks_pallas, which calls it) with its f32 body
+// _gram_kernel_f32 (bf16x3 on the TPU; fp32 FMA here, the port's "high" and
+// "highest"). The single-bf16-pass body _gram_kernel_fast is not ported.
+// The TPU kernel carries a full GB x GB output block in VMEM across an
+// ordered time-chunk grid axis. Hopper blocks run in no order, so each block
+// owns one (group, pair-row tile, lane tile) and loops over all of T inside
+// itself; nothing is carried between blocks and no atomics are used, so
+// results repeat from run to run. Only the triangle p <= q is formed: half
+// the FMAs of the TPU kernel's GB x GB block (820 pairs instead of 1600 at
+// GB = 40).
+//
+// Bound on the H100: fp32 operations. At the 8-chain latent-distance
+// ensemble (Ng = 50, GB = 40, 4000 lanes, T = 2e4) the Gram is 3.3e12 FMA
+// against ~1.1 GB of inputs and packed output. The tile loop is K2's
+// (csrc/ss_group_pass.cu): 128 pair rows x 128 lanes over 256 threads, each
+// holding an 8 x 8 register micro-tile fed from shared memory by four float4
+// loads per 64 FMAs; the left operand Z[pq, t] = X[p, t] X[q, t] is formed
+// in shared memory and never stored; each step's global loads are issued
+// into registers during the previous step's product; a warp whose rows all
+// lie past the last valid pair row skips the product. The grid is already
+// ~11k blocks at that shape, so there is no split of the time axis. The
+// ragged T edge is masked in the loads (X and omega read as 0 past T).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRT = 128;    // pair rows per tile
+constexpr int kNT = 128;    // postsyn lanes per tile
+constexpr int kKT = 16;     // time steps per shared-memory stage
+constexpr int kThreads = 256;
+constexpr int kMaxGB = 64;
+
+__global__ void __launch_bounds__(kThreads, 2)
+group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
+                  float* __restrict__ out, int T, int N, int GB) {
+  __shared__ float xs[kMaxGB][kKT + 1];
+  __shared__ __align__(16) float as[kKT][kRT];
+  __shared__ __align__(16) float bs[kKT][kNT];
+  __shared__ int pidx[kRT], qidx[kRT];
+
+  const int tid = threadIdx.x;
+  const int lane0 = blockIdx.x * kNT;
+  const int tile = blockIdx.y;
+  const int g = blockIdx.z;
+  const int npair = GB * (GB + 1) / 2;
+  const float* xg = xt + (size_t)g * GB * T;
+
+  if (tid < kRT) {
+    // Row pr of the packed triangle -> (p, q), row-major over p <= q.
+    const int pr = tile * kRT + tid;
+    int p = -1, q = -1;
+    if (pr < npair) {
+      int rem = pr;
+      p = 0;
+      while (rem >= GB - p) {
+        rem -= GB - p;
+        ++p;
+      }
+      q = p + rem;
+    }
+    pidx[tid] = p;
+    qidx[tid] = q;
+  }
+  __syncthreads();
+
+  // micro-tile: rows 8ty .. 8ty+7, lanes 4tx.. and 64+4tx.. (the split keeps
+  // the float4 loads of a warp on distinct banks)
+  const int tx = tid % 16, ty = tid / 16;
+  const int ll = tid % kNT, lk = tid / kNT;    // staging: lane ll, steps lk + 2j
+  const int n_ld = lane0 + ll;
+  // Valid rows of this tile; ty pairs share a warp, so the test is uniform.
+  const int tile_rows = min(kRT, npair - tile * kRT);
+  const bool busy = 16 * (ty / 2) < tile_rows;
+  float acc[8][8] = {};
+
+  constexpr int kXPer = kMaxGB * kKT / kThreads;       // design values
+  constexpr int kBPer = kKT / (kThreads / kNT);        // (t, lane) values
+  float xr[kXPer], omr[kBPer];
+  auto prefetch = [&](int t0) {
+#pragma unroll
+    for (int j = 0; j < kXPer; ++j) {
+      const int i = tid + kThreads * j, r = i / kKT, t = t0 + i % kKT;
+      xr[j] = (i < GB * kKT && t < T) ? xg[(size_t)r * T + t] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kBPer; ++j) {
+      const int t = t0 + lk + (kThreads / kNT) * j;
+      omr[j] = (t < T && n_ld < N) ? om[(size_t)t * N + n_ld] : 0.0f;
+    }
+  };
+  prefetch(0);
+
+  for (int t0 = 0; t0 < T; t0 += kKT) {
+#pragma unroll
+    for (int j = 0; j < kXPer; ++j) {
+      const int i = tid + kThreads * j;
+      if (i < GB * kKT) xs[i / kKT][i % kKT] = xr[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kBPer; ++j) bs[lk + (kThreads / kNT) * j][ll] = omr[j];
+    __syncthreads();
+    for (int i = tid; i < kKT * kRT; i += kThreads) {
+      const int k = i / kRT, r = i % kRT, p = pidx[r];
+      as[k][r] = p >= 0 ? xs[p][k] * xs[qidx[r]][k] : 0.0f;
+    }
+    __syncthreads();
+    if (t0 + kKT < T) prefetch(t0 + kKT);
+    if (busy) {
+#pragma unroll
+      for (int k = 0; k < kKT; ++k) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&as[k][8 * ty]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&as[k][8 * ty + 4]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&bs[k][4 * tx]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&bs[k][64 + 4 * tx]);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* obase = out + (size_t)g * npair * N;
+  for (int i = 0; i < 8; ++i) {
+    const int pr = tile * kRT + 8 * ty + i;
+    if (pr >= npair) continue;
+    for (int j = 0; j < 8; ++j) {
+      const int n = lane0 + (j < 4 ? 0 : 60) + 4 * tx + j;
+      if (n < N) obase[(size_t)pr * N + n] = acc[i][j];
+    }
+  }
+}
+
+}  // namespace
+
+// xt: (>= Ng GB, T) design rows, group g in rows [g GB, (g + 1) GB);
+// om: (T, N); out: (Ng, GB(GB+1)/2, N), every element written.
+extern "C" int group_gram_launch(const float* xt, const float* om, float* out,
+                                 int T, int N, int GB, int Ng, void* stream) {
+  if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || Ng < 1 || Ng > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int npair = GB * (GB + 1) / 2;
+  dim3 grid((N + kNT - 1) / kNT, (npair + kRT - 1) / kRT, Ng);
+  group_gram_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(xt, om, out,
+                                                                  T, N, GB);
+  return (int)cudaGetLastError();
+}

@@ -1,12 +1,12 @@
 """User-facing model classes (PyTorch counterpart of
 ``pyglm_tpu/models/glm.py``; ports the spike-and-slab models with an
-Erdos-Renyi prior and Bernoulli, Binomial or negative-binomial
-observations).
+Erdos-Renyi or latent-distance prior and Bernoulli, Binomial or
+negative-binomial observations, and the multi-chain ``fit_ensemble``).
 
 The class is a thin stateful shell: the chain state is a ``GLMState`` of
-tensors on the model's `device`, and one ``resample_model`` call is one
-Gibbs sweep (models/sweep.py). Randomness comes from the model's own
-generators, seeded from `seed`.
+tensors on the model's `device` (the card unless the caller asks for the
+CPU), and one ``resample_model`` call is one Gibbs sweep (models/sweep.py).
+Randomness comes from the model's own generators, seeded from `seed`.
 """
 from __future__ import annotations
 
@@ -15,14 +15,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pyglm_tpu_torch.models.ensemble import (
+    chain_generators, run_stacked_chains,
+)
 from pyglm_tpu_torch.models.networks import make_network
 from pyglm_tpu_torch.models.observations import make_observation
 from pyglm_tpu_torch.models.sweep import (
-    Generators, GLMData, GLMState, init_state_from_prior, make_generator,
+    GLMData, GLMState, init_state_from_prior, make_generator,
     make_gibbs_sweep, make_log_likelihood,
 )
 from pyglm_tpu_torch.models.weights import _auto_group
 from pyglm_tpu_torch.ops.basis import cosine_basis, design_matrix
+from pyglm_tpu_torch.utils.metrics import split_rhat
+from pyglm_tpu_torch.utils.utils import require_device
 
 # On the card "high" and "highest" both run the fp32 kernels.
 _PRECISIONS = ("high", "highest")
@@ -47,19 +52,21 @@ class NonlinearAutoregressiveModel:
       basis: optional (L, B) filter matrix.
       observation, network: family / prior names or config objects. The
         port runs 'bernoulli', 'binomial' and 'negative_binomial' with
-        'erdos_renyi' and spike_and_slab=True.
+        'erdos_renyi' or 'latent_distance' and spike_and_slab=True.
       seed: seed of this model's generators.
       precision: 'high' (default) or 'highest', both fp32 on the card.
       group: presyn neurons per spike-and-slab group (default: the divisor
         of N nearest 8 with group*B % 8 == 0, i.e. 8 at N = 200, B = 4).
-      device: where the data, the state and the kernels live.
+      device: where the data, the state and the kernels live: the card
+        by default; pass device='cpu' to run the plain versions on the CPU.
+        Raises RuntimeError if the device is a card and none is present.
     """
 
     def __init__(self, N: int, B: int = 4, L: int = 10, basis=None,
                  observation="bernoulli", network="dense",
                  spike_and_slab: bool = False, seed: int = 0,
                  precision: str = "high", group: int | None = None,
-                 device="cpu", obs_kwargs: Optional[dict] = None,
+                 device="cuda", obs_kwargs: Optional[dict] = None,
                  net_kwargs: Optional[dict] = None):
         if precision not in _PRECISIONS:
             raise NotImplementedError(
@@ -73,19 +80,14 @@ class NonlinearAutoregressiveModel:
         self.L, self.B = basis.shape
         self.basis = basis
         self.spike_and_slab = bool(spike_and_slab)
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.observation = (make_observation(observation, **(obs_kwargs or {}))
                             if isinstance(observation, str) else observation)
         self.network = (make_network(network, N=N, B=self.B,
                                      **(net_kwargs or {}))
                         if isinstance(network, str) else network)
         self.group = _auto_group(N, self.B) if group is None else group
-
-        dev_gen = torch.Generator(device=self.device)
-        dev_gen.manual_seed(seed)
-        host_gen = torch.Generator()
-        host_gen.manual_seed(seed + 0x5EED)
-        self.generators = Generators(dev_gen, host_gen)
+        self.generators = chain_generators(seed, self.device)
 
         self._sweep = make_gibbs_sweep(self.observation, self.network, N,
                                        self.B, self.spike_and_slab,
@@ -188,6 +190,74 @@ class NonlinearAutoregressiveModel:
                     else np.zeros(shapes[k], np.float32))
                 for k, v in samples.items()}
 
+    def fit_ensemble(self, n_chains: int = 4, n_samples: int = 100,
+                     n_burnin: int = 0, thin: int = 1, seeds=None,
+                     stacked: bool | str = "auto", mesh=None,
+                     collect: str = "samples"):
+        """Run `n_chains` Gibbs chains from fresh prior draws on the
+        registered data, with split-R-hat over the pooled traces. Chain c
+        draws from generators seeded from ``seeds[c]`` (default 1 .. C).
+
+        ``stacked`` ("auto" or True) runs the C chains as one lane-stacked
+        sweep at C*N postsyn lanes (models/ensemble.py); False runs
+        :meth:`fit` once per chain. ``mesh`` (chain meshes) is not ported.
+
+        ``collect="samples"`` returns 'A' (C,S,N,N), 'W' (C,S,N,N,B),
+        'bias' (C,S,N), 'lls' (C,S), 'rhat_edge' (N,N), 'rhat_bias' (N,)
+        and 'rhat_ll'. ``collect="mean"`` (stacked only; ``thin`` ignored)
+        keeps no samples and returns 'A_mean', 'Weff_mean' (C,N,N), their
+        chain means 'A_mean_pooled', 'Weff_mean_pooled' (N,N), 'lls' (C,S),
+        'rhat_ll' and 'final_states'. The model's own state and generators
+        are restored afterwards.
+        """
+        if not self.datas:
+            raise RuntimeError("call add_data() or generate(keep=True) first")
+        if n_chains < 2 or n_samples < 4:
+            raise ValueError(f"fit_ensemble needs >= 2 chains of >= 4 "
+                             f"samples, got {n_chains} x {n_samples}")
+        if collect not in ("samples", "mean"):
+            raise ValueError(f"collect must be 'samples' or 'mean', got "
+                             f"{collect!r}")
+        if stacked == "auto":
+            stacked = True
+        if collect == "mean" and not stacked:
+            raise ValueError("collect='mean' accumulates in the lane-stacked "
+                             "sweep; it needs stacked=True")
+        seeds = list(range(1, n_chains + 1) if seeds is None else seeds)
+        if stacked:
+            runs = run_stacked_chains(self, n_chains, n_samples=n_samples,
+                                      n_burnin=n_burnin, thin=thin,
+                                      seeds=seeds, mesh=mesh,
+                                      collect=collect)
+        else:
+            if mesh is not None:
+                raise ValueError("mesh= implies the stacked path")
+            state0, gens0 = self.state, self.generators
+            runs = []
+            try:
+                for sd in seeds:
+                    self.generators = chain_generators(sd, self.device)
+                    self.state = init_state_from_prior(
+                        self.generators, self.observation, self.network,
+                        self.N, self.B, self.spike_and_slab, self.device)
+                    runs.append(self.fit(n_samples=n_samples,
+                                         n_burnin=n_burnin, thin=thin))
+            finally:
+                self.state, self.generators = state0, gens0
+        if collect == "mean":
+            out = runs
+            out["lls"] = out["lls"].T                   # (S, C) -> (C, S)
+            out["A_mean_pooled"] = out["A_mean"].mean(axis=0)
+            out["Weff_mean_pooled"] = out["Weff_mean"].mean(axis=0)
+            out["rhat_ll"] = float(split_rhat(out["lls"][..., None])[0])
+            return out
+        out = {k: np.stack([r[k] for r in runs])
+               for k in ("A", "W", "bias", "lls")}
+        out["rhat_edge"] = split_rhat(out["A"])
+        out["rhat_bias"] = split_rhat(out["bias"])
+        out["rhat_ll"] = float(split_rhat(out["lls"][..., None])[0])
+        return out
+
 
 GLM = NonlinearAutoregressiveModel
 
@@ -201,7 +271,8 @@ def _merge_net_defaults(kw: dict, **defaults) -> dict:
 
 
 class SparseBernoulliGLM(NonlinearAutoregressiveModel):
-    """Spike-and-slab Bernoulli GLM with an Erdos-Renyi prior."""
+    """Spike-and-slab Bernoulli GLM with an Erdos-Renyi prior (on the card
+    unless `device` says otherwise)."""
 
     def __init__(self, N, **kw):
         kw.setdefault("observation", "bernoulli")

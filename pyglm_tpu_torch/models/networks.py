@@ -1,15 +1,18 @@
 """Network priors on (A, W) (PyTorch counterpart of
-``pyglm_tpu/models/networks.py``; this slice ports the Erdos-Renyi prior).
+``pyglm_tpu/models/networks.py``; ports the Erdos-Renyi and the
+latent-distance priors).
 
 A prior is a frozen config dataclass with
 
-  init_state()                    -> hyperparameter state (host tensors)
-  edge_hypers(state, device)      -> EdgeHypers on `device`
-  resample(generator, state, A, W) -> new state (one Gibbs move)
+  init_state(gens, device)     -> hyperparameter state
+  edge_hypers(state, device)   -> EdgeHypers on `device`
+  resample(gens, state, A, W)  -> new state (one Gibbs move)
 
-The state is O(B^2) scalars: (mu (B,), Sigma (B, B), rho ()). It lives on
-the host and its draws run there on a CPU generator; `resample` reduces the
-(N, N) edge statistics on the device and brings back B^2 + B + 1 numbers.
+where `gens` are a model's ``Generators`` (models/sweep.py). The weight
+prior's (mu (B,), Sigma (B, B)) and the ER rho live on the host and are
+drawn there on the CPU generator: `resample` reduces the (N, N) edge
+statistics on the device and brings back B^2 + B + 1 numbers. The
+latent-distance positions live on the device, where their HMC runs.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ from pyglm_tpu_torch.models.weights import EdgeHypers
 from pyglm_tpu_torch.ops.linalg import (
     NIWParams, niw_posterior, sample_beta, sample_niw,
 )
-from pyglm_tpu_torch.utils.utils import expand_cov, expand_scalar, logit
+from pyglm_tpu_torch.utils.utils import (
+    expand_cov, expand_scalar, logit, softplus,
+)
 
 
 class GaussianWeightsState(NamedTuple):
@@ -72,21 +77,35 @@ def _niw_params(cfg) -> NIWParams:
 
 def _masked_stats(W, mask):
     """(n, xbar, S) of the active-edge weights W[mask], reduced on W's
-    device and returned on the host: count, mean (B,) and centered scatter
-    (B, B). Inactive edges contribute 0, as in the JAX package."""
+    device and returned on the host in one transfer: count, mean (B,) and
+    centered scatter (B, B), per leading chain index if W is (C, N, N, B).
+    Inactive edges contribute 0, as in the JAX package."""
     B = W.shape[-1]
     m = mask[..., None]
-    n = mask.sum()
-    xbar = (m * W).sum(dim=(0, 1)) / torch.clamp(n, min=1e-12)
-    diffs = (W - xbar) * m
-    S = torch.einsum("ijb,ijc->bc", diffs, diffs)
-    flat = torch.cat([n.reshape(1), xbar, S.reshape(-1)]).cpu()
-    return flat[0], flat[1:1 + B], flat[1 + B:].reshape(B, B)
+    n = mask.sum(dim=(-2, -1))
+    xbar = (m * W).sum(dim=(-3, -2)) / torch.clamp(n, min=1e-12)[..., None]
+    diffs = (W - xbar[..., None, None, :]) * m
+    S = torch.einsum("...ijb,...ijc->...bc", diffs, diffs)
+    flat = torch.cat([n[..., None], xbar, S.flatten(-2)], dim=-1).cpu()
+    return (flat[..., 0], flat[..., 1:1 + B],
+            flat[..., 1 + B:].reshape(*flat.shape[:-1], B, B))
 
 
 def _masked_niw_resample(generator, cfg, n, xbar, S):
     """(mu, Sigma) ~ NIW posterior given the active-edge statistics."""
     return sample_niw(generator, niw_posterior(_niw_params(cfg), n, xbar, S))
+
+
+def _weight_hypers(cfg, state, device):
+    """Per-edge (mu (N, N, B), Lam (N, N, B, B)) on `device`: the learned
+    shared prior of `state`, or the fixed prior of the config."""
+    N, B = cfg.N, cfg.B
+    if cfg.learn_weight_prior:
+        Lam = torch.linalg.inv(state.Sigma.cpu()).to(device)
+        return (state.mu.to(device).expand(N, N, B),
+                Lam.expand(N, N, B, B))
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in cfg._fixed_hypers)
 
 
 @dataclass(frozen=True)
@@ -122,7 +141,8 @@ class ErdosRenyiConfig:
     def _fixed_hypers(self):
         return _fixed_weight_hypers(self)
 
-    def init_state(self) -> GaussianWeightsState:
+    def init_state(self, gens=None, device="cpu") -> GaussianWeightsState:
+        """The fixed initial state (no draw; `gens` and `device` unused)."""
         return GaussianWeightsState(
             mu=torch.zeros((self.B,), dtype=torch.float32),
             Sigma=torch.eye(self.B, dtype=torch.float32)
@@ -133,14 +153,8 @@ class ErdosRenyiConfig:
 
     def edge_hypers(self, state: GaussianWeightsState,
                     device) -> EdgeHypers:
-        N, B = self.N, self.B
-        if self.learn_weight_prior:
-            Lam = torch.linalg.inv(state.Sigma.cpu()).to(device)
-            mu = state.mu.to(device).expand(N, N, B)
-            Lam = Lam.expand(N, N, B, B)
-        else:
-            mu, Lam = (torch.as_tensor(x, device=device)
-                       for x in self._fixed_hypers)
+        N = self.N
+        mu, Lam = _weight_hypers(self, state, device)
         if self.learn_rho:
             rho = state.rho.cpu().expand(N, N)
         else:
@@ -149,11 +163,12 @@ class ErdosRenyiConfig:
         mu_b, lam_b = _bias_hypers(self, N, device)
         return EdgeHypers(mu, Lam, lrho, mu_b, lam_b)
 
-    def resample(self, generator: torch.Generator,
-                 state: GaussianWeightsState, A, W) -> GaussianWeightsState:
+    def resample(self, gens, state: GaussianWeightsState, A,
+                 W) -> GaussianWeightsState:
         """rho ~ Beta(a + #edges, b + #non-edges), then (mu, Sigma) from the
-        NIW posterior of the active weights; draws from the CPU
-        `generator`."""
+        NIW posterior of the active weights; draws from the CPU generator
+        ``gens.host``."""
+        generator = gens.host
         n, xbar, S = _masked_stats(W, A)
         rho = state.rho
         if self.learn_rho:
@@ -165,12 +180,271 @@ class ErdosRenyiConfig:
         return GaussianWeightsState(mu, Sigma, rho)
 
 
+class LatentDistanceState(NamedTuple):
+    """One chain's state, or C chains' with a leading chain axis on every
+    field. L, gamma and hmc_accept live on the device, mu and Sigma on the
+    host."""
+    L: torch.Tensor           # (N, dim) latent positions
+    gamma: torch.Tensor       # () connection-probability offset
+    mu: torch.Tensor          # (B,) shared weight prior mean
+    Sigma: torch.Tensor       # (B, B)
+    hmc_accept: torch.Tensor  # () acceptance rate of the last sweep's HMC
+
+
+class HMCNoise(NamedTuple):
+    """The random numbers of one :meth:`LatentDistanceConfig.resample` on C
+    chains, for callers that must reproduce a reference run. Trajectory k
+    starts from the momenta (mom_L[:, k], mom_gamma[:, k]) and accepts if
+    log u_hmc[:, k] < log alpha; swap move s proposes the pair
+    swap_ij[:, s] and tests u_swap[:, s]; relocation r moves neuron
+    reloc_i[:, r] to sigma_l * reloc_z[:, r] and tests u_reloc[:, r]."""
+    mom_L: torch.Tensor       # (C, hmc_iters, N, dim)
+    mom_gamma: torch.Tensor   # (C, hmc_iters)
+    u_hmc: torch.Tensor       # (C, hmc_iters)
+    swap_ij: torch.Tensor     # (C, swap_moves, 2) int64
+    u_swap: torch.Tensor      # (C, swap_moves)
+    reloc_i: torch.Tensor     # (C, relocate_moves) int64
+    reloc_z: torch.Tensor     # (C, relocate_moves, dim)
+    u_reloc: torch.Tensor     # (C, relocate_moves)
+
+
+@dataclass(frozen=True)
+class LatentDistanceConfig:
+    """rho_ij = logistic(gamma - ||l_i - l_j||^2), l_i ~ N(0, sigma_l^2 I),
+    gamma ~ N(0, sigma_gamma^2); (l, gamma) are resampled by leapfrog HMC
+    with the closed-form gradient, then by optional discrete swap and
+    relocation moves (exact MH on the rows and columns they touch), and the
+    shared weight prior by its NIW posterior.
+
+    Every array op runs over a leading chain axis, so one leapfrog step
+    serves C chains (the lane-stacked ensemble, models/ensemble.py); a
+    single chain's state has no chain axis.
+    """
+    N: int
+    B: int
+    dim: int = 2
+    sigma_l: float = 1.0
+    sigma_gamma: float = 2.0
+    gamma_init: float = 0.0
+    hmc_eps: float | None = None    # None -> 0.15 / sqrt(N)
+    hmc_steps: int = 50
+    hmc_iters: int = 10             # HMC trajectories per Gibbs sweep
+    swap_moves: int = 0
+    relocate_moves: int = 0
+    mu_bias: object = -2.0          # scalar | (N,)
+    sigma_bias: object = 1.0        # scalar | (N,)
+    learn_weight_prior: bool = True
+    niw_mu0: float = 0.0
+    niw_kappa0: float = 1.0
+    niw_nu0: float | None = None
+    niw_psi0: float = 1.0
+    mu_w: object = 0.0              # scalar | (B,) | (N,N,B); fixed prior only
+    sigma_w: object = 1.0           # scalar | (B,) | (B,B) | (N,N,B,B) variance
+    name: str = "latent_distance"
+
+    def __post_init__(self):
+        if self.learn_weight_prior and not (
+                _is_scalar(self.sigma_w) and _is_scalar(self.mu_w)):
+            raise ValueError(
+                "per-edge mu_w/sigma_w require learn_weight_prior=False")
+
+    @functools.cached_property
+    def _fixed_hypers(self):
+        return _fixed_weight_hypers(self)
+
+    @property
+    def eps(self) -> float:
+        """Leapfrog step: the curvature of the potential grows ~N, so the
+        default shrinks as 1/sqrt(N)."""
+        return (self.hmc_eps if self.hmc_eps is not None
+                else 0.15 / float(np.sqrt(self.N)))
+
+    def init_state(self, gens, device="cpu") -> LatentDistanceState:
+        """L ~ N(0, sigma_l^2 I) from the device generator ``gens.device``."""
+        L = self.sigma_l * torch.randn((self.N, self.dim),
+                                       generator=gens.device, device=device)
+        return LatentDistanceState(
+            L=L,
+            gamma=torch.tensor(self.gamma_init, dtype=torch.float32,
+                               device=device),
+            mu=torch.zeros((self.B,), dtype=torch.float32),
+            Sigma=torch.eye(self.B, dtype=torch.float32)
+            * _sigma_w_scalar(self),
+            hmc_accept=torch.zeros((), dtype=torch.float32, device=device))
+
+    @staticmethod
+    def _logit_rho(L, gamma):
+        """gamma - ||l_i - l_j||^2, (..., N, N) from L (..., N, dim)."""
+        d2 = torch.sum((L[..., :, None, :] - L[..., None, :, :]) ** 2,
+                       dim=-1)
+        return gamma[..., None, None] - d2
+
+    def edge_hypers(self, state: LatentDistanceState, device) -> EdgeHypers:
+        mu, Lam = _weight_hypers(self, state, device)
+        lrho = torch.clamp(self._logit_rho(state.L, state.gamma),
+                           -15.0, 15.0).to(device)
+        mu_b, lam_b = _bias_hypers(self, self.N, device)
+        return EdgeHypers(mu, Lam, lrho, mu_b, lam_b)
+
+    def _potential(self, L, gamma, A):
+        """U = -(log p(A | L, gamma) + log p(L) + log p(gamma)), (C,)."""
+        lrho = self._logit_rho(L, gamma)
+        ll = torch.sum(A * lrho - softplus(lrho), dim=(-2, -1))
+        lp = (-0.5 * torch.sum(L ** 2, dim=(-2, -1)) / self.sigma_l ** 2
+              - 0.5 * gamma ** 2 / self.sigma_gamma ** 2)
+        return -(ll + lp)
+
+    def _potential_grad(self, L, gamma, A):
+        """Closed-form (dU/dL, dU/dgamma). With w = sigmoid(lrho) - A and
+        ws = w + w^T:
+          dU/dl_k = 2 [(ws @ L)_k - rowsum(ws)_k l_k] + l_k / sigma_l^2
+          dU/dgamma = sum(w) + gamma / sigma_gamma^2."""
+        w = torch.sigmoid(self._logit_rho(L, gamma)) - A
+        ws = w + w.transpose(-2, -1)
+        gL = (2.0 * (ws @ L - ws.sum(dim=-1, keepdim=True) * L)
+              + L / self.sigma_l ** 2)
+        gg = w.sum(dim=(-2, -1)) + gamma / self.sigma_gamma ** 2
+        return gL, gg
+
+    def draw_noise(self, generator, C: int, device) -> HMCNoise:
+        """One resample's random numbers for C chains, from `generator`."""
+        def normal(*shape):
+            return torch.randn(shape, generator=generator, device=device)
+
+        def uniform(*shape):
+            return torch.rand(shape, generator=generator, device=device)
+
+        def index(*shape):
+            return torch.randint(0, self.N, shape, generator=generator,
+                                 device=device)
+        k, s, r = self.hmc_iters, self.swap_moves, self.relocate_moves
+        return HMCNoise(normal(C, k, self.N, self.dim), normal(C, k),
+                        uniform(C, k), index(C, s, 2), uniform(C, s),
+                        index(C, r), normal(C, r, self.dim), uniform(C, r))
+
+    def _hmc(self, L, gamma, A, noise: HMCNoise):
+        """hmc_iters trajectories of hmc_steps merged-kick leapfrog steps
+        for C chains at once, each with its own MH test. The gradient at a
+        trajectory's end is its last step's, and the potential and gradient
+        at the next start are carried, so a trajectory costs hmc_steps
+        gradients. Returns (L, gamma, acceptance rate (C,))."""
+        eps = self.eps
+        U = self._potential(L, gamma, A)
+        gL, gg = self._potential_grad(L, gamma, A)
+        accepts = []
+        for k in range(self.hmc_iters):
+            mL, mg = noise.mom_L[:, k], noise.mom_gamma[:, k]
+            K0 = 0.5 * (torch.sum(mL ** 2, dim=(-2, -1)) + mg ** 2)
+            mL = mL - 0.5 * eps * gL
+            mg = mg - 0.5 * eps * gg
+            Ln, gn, gLn, ggn = L, gamma, gL, gg
+            for _ in range(self.hmc_steps):
+                Ln = Ln + eps * mL
+                gn = gn + eps * mg
+                gLn, ggn = self._potential_grad(Ln, gn, A)
+                mL = mL - eps * gLn
+                mg = mg - eps * ggn
+            # the last full kick overshot by half a step: undo it.
+            mL = mL + 0.5 * eps * gLn
+            mg = mg + 0.5 * eps * ggn
+            Un = self._potential(Ln, gn, A)
+            K1 = 0.5 * (torch.sum(mL ** 2, dim=(-2, -1)) + mg ** 2)
+            acc = torch.log(noise.u_hmc[:, k]) < U + K0 - Un - K1
+            a3 = acc[:, None, None]
+            L, gL = torch.where(a3, Ln, L), torch.where(a3, gLn, gL)
+            gamma, gg = torch.where(acc, gn, gamma), torch.where(acc, ggn, gg)
+            U = torch.where(acc, Un, U)
+            accepts.append(acc)
+        # count / iters: exact, so the rate repeats across devices
+        rate = (torch.stack(accepts, dim=1).sum(dim=1).to(torch.float32)
+                / self.hmc_iters if accepts else torch.zeros_like(gamma))
+        return L, gamma, rate
+
+    @staticmethod
+    def _row_ll(L, gamma, i_pos, i_idx, A):
+        """Bernoulli log-likelihood of all directed edges touching neuron
+        i_idx[c] when it sits at i_pos[c], per chain c: L (C, N, dim),
+        gamma (C,), i_pos (C, dim), i_idx (C,), A (C, N, N). The (i, i)
+        self term appears in both the out- and in-sums and is subtracted
+        once."""
+        ar = torch.arange(L.shape[0], device=L.device)
+        lr = gamma[:, None] - torch.sum((i_pos[:, None, :] - L) ** 2, dim=-1)
+        sp = softplus(lr)
+        ll_out = torch.sum(A[ar, i_idx, :] * lr - sp, dim=-1)
+        ll_in = torch.sum(A[ar, :, i_idx] * lr - sp, dim=-1)
+        self_t = A[ar, i_idx, i_idx] * lr[ar, i_idx] - sp[ar, i_idx]
+        return ll_out + ll_in - self_t
+
+    def _swap_scan(self, L, gamma, A, ij, u):
+        """Sequential Metropolis exchanges l_i <-> l_j (ij (C, S, 2)). The
+        position prior is exchangeable, so the MH ratio is the Bernoulli
+        log-likelihood change of the touched rows and columns; i == j is a
+        no-op."""
+        ar = torch.arange(L.shape[0], device=L.device)
+        for s in range(ij.shape[1]):
+            i, j = ij[:, s, 0], ij[:, s, 1]
+            li, lj = L[ar, i], L[ar, j]
+            ll_cur = (self._row_ll(L, gamma, li, i, A)
+                      + self._row_ll(L, gamma, lj, j, A))
+            Lp = L.clone()
+            Lp[ar, i] = lj
+            Lp[ar, j] = li
+            ll_new = (self._row_ll(Lp, gamma, lj, i, A)
+                      + self._row_ll(Lp, gamma, li, j, A))
+            acc = (torch.log(u[:, s]) < ll_new - ll_cur) & (i != j)
+            L = torch.where(acc[:, None, None], Lp, L)
+        return L
+
+    def _relocate_scan(self, L, gamma, A, idx, z, u):
+        """Sequential independence-Metropolis moves l_i' = sigma_l z (the
+        prior, so prior and proposal densities cancel), accepted on the
+        restricted A-likelihood."""
+        ar = torch.arange(L.shape[0], device=L.device)
+        for r in range(idx.shape[1]):
+            i, l_new = idx[:, r], self.sigma_l * z[:, r]
+            ll_cur = self._row_ll(L, gamma, L[ar, i], i, A)
+            Lp = L.clone()
+            Lp[ar, i] = l_new
+            ll_new = self._row_ll(Lp, gamma, l_new, i, A)
+            acc = torch.log(u[:, r]) < ll_new - ll_cur
+            L = torch.where(acc[:, None, None], Lp, L)
+        return L
+
+    def resample(self, gens, state: LatentDistanceState, A, W,
+                 noise: HMCNoise | None = None) -> LatentDistanceState:
+        """HMC on (L, gamma), then the swap and relocation moves, on the
+        device (noise from ``gens.device`` unless `noise` is given); then
+        (mu, Sigma) from the NIW posterior of the active weights, drawn on
+        the host from ``gens.host``. `state`, A (N, N) and W (N, N, B) may
+        carry a leading chain axis."""
+        single = state.L.ndim == 2
+        if single:
+            state = LatentDistanceState(*(x[None] for x in state))
+            A, W = A[None], W[None]
+        C = A.shape[0]
+        if noise is None:
+            noise = self.draw_noise(gens.device, C, state.L.device)
+        L, gamma, rate = self._hmc(state.L, state.gamma, A, noise)
+        L = self._swap_scan(L, gamma, A, noise.swap_ij, noise.u_swap)
+        L = self._relocate_scan(L, gamma, A, noise.reloc_i, noise.reloc_z,
+                                noise.u_reloc)
+        mu, Sigma = state.mu, state.Sigma
+        if self.learn_weight_prior:
+            n, xbar, S = _masked_stats(W, A)
+            mu, Sigma = map(torch.stack, zip(*(
+                _masked_niw_resample(gens.host, self, n[c], xbar[c], S[c])
+                for c in range(C))))
+        out = LatentDistanceState(L, gamma, mu, Sigma, rate)
+        return LatentDistanceState(*(x[0] for x in out)) if single else out
+
+
 def make_network(name: str, N: int, B: int, **kwargs):
     name = name.lower()
     if name in ("erdos_renyi", "er", "independent", "sparse"):
         return ErdosRenyiConfig(N=N, B=B, **kwargs)
-    if name in ("dense", "sbm", "stochastic_block", "latent_distance",
-                "distance"):
+    if name in ("latent_distance", "distance"):
+        return LatentDistanceConfig(N=N, B=B, **kwargs)
+    if name in ("dense", "sbm", "stochastic_block"):
         raise NotImplementedError(
             f"network prior {name!r} is not ported to pyglm_tpu_torch yet "
             f"(ROADMAP.md Queue A, items 8 and 10)")

@@ -49,7 +49,8 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
          Bernoulli, PG(y + r, psi) by K4 for NB
       2. (A, W, bias) by the collapsed spike-and-slab update (K2 + K3)
       3. observation aux, then the network hyperparameters given (A, W)
-    Returns (new_state, {"log_likelihood", "n_edges"}), both 0-d tensors.
+    Returns (new_state, {"log_likelihood", "n_edges"}), both 0-d tensors,
+    plus "hmc_accept" when the network state carries one.
     The datasets' ll caches are additive summaries (counts, scalar sums),
     so their sum stands for the concatenated data; it feeds the total
     log-likelihood and the NB collapsed-CRT r update.
@@ -80,9 +81,11 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
         psi = (kappa - u) / omega
         W, b = unpack_weights(w_full, N, B)
         aux = obs.resample_aux(gens.host, state.aux, Y, psi, cache=llc)
-        net = network.resample(gens.host, state.net, A, W)
+        net = network.resample(gens, state.net, A, W)
         ll = obs.log_likelihood_sum(Y, psi, aux, llc)
         diag = {"log_likelihood": ll, "n_edges": A.sum()}
+        if hasattr(net, "hmc_accept"):
+            diag["hmc_accept"] = net.hmc_accept
         return GLMState(A, W, b, aux, net), diag
 
     return sweep
@@ -135,8 +138,9 @@ def make_generator(obs, N: int, B: int):
 
 def init_state_from_prior(gens: Generators, obs, network, N: int, B: int,
                           spike_slab: bool, device) -> GLMState:
-    """Draw (A, W, b, aux, net) from the model prior."""
-    net = network.init_state()
+    """Draw (A, W, b, aux, net) from the model prior: the network state,
+    then A ~ Bern(logistic(logit_rho)), W and b."""
+    net = network.init_state(gens, device)
     hyp = network.edge_hypers(net, device)
     g = gens.device
     if spike_slab:

@@ -6,12 +6,22 @@ presyn neuron j, basis b; last column = bias). w_full[:, n] stacks
 A[j,n] * W[j,n,:] for all j, then b[n].
 
 The update keeps the working residual u = kappa - omega * psi and visits
-the presyn neurons in Ng groups of G. Per group g, kernel K2
-(ops/ss_cuda.py) applies group g-1's weight change to u and forms the
-gather M0 = X_g u and the within-group Gram; kernel K3 then runs the
-collapsed Gibbs over the group's G edges for all postsyn lanes at once.
-This is the loop shape of the JAX package's mesh path
-(``_ss_fused_shard_map``) without the mesh. The bias draw follows.
+the presyn neurons in Ng groups of G, by one of two loops that draw the
+same noise in the same order, so one generator gives the same chain up to
+float rounding:
+
+- "fused": per group g, kernel K2 (ops/ss_cuda.py) applies group g-1's
+  weight change to u and forms the gather M0 = X_g u and the within-group
+  Gram; kernel K3 then runs the collapsed Gibbs over the group's G edges for
+  all postsyn lanes at once. The loop shape of the JAX package's mesh path
+  (``_ss_fused_shard_map``) without the mesh.
+- "staged": kernel K6 (ops/gram_cuda.py) forms every group's Gram in one
+  launch; then per group M0 = X_g u (a GEMM), K3, and the scatter
+  u -= omega * (X_g^T dW) (a GEMM and one elementwise pass). The JAX
+  package's staged path (``_tspace_impl``).
+
+:func:`ss_path` picks the loop where the JAX package's single-device
+dispatcher picks it. The bias draw follows either.
 """
 from __future__ import annotations
 
@@ -22,8 +32,16 @@ import torch
 from pyglm_tpu_torch.ops.linalg import (
     chol_small, solve_lower_small, solve_lower_t_small,
 )
-from pyglm_tpu_torch.ops.ss_cuda import ss_edge_scan, ss_group_pass
+from pyglm_tpu_torch.ops.gram_cuda import (
+    group_gram_blocks_cuda, group_gram_blocks_plain,
+)
+from pyglm_tpu_torch.ops.ss_cuda import (
+    _MAX_B, ss_edge_scan, ss_group_pass, unpack_gram,
+)
 from pyglm_tpu_torch.utils.utils import logistic
+
+# The loop the last resample_spike_slab_tspace call ran: "fused" | "staged".
+LAST_SS_PATH = None
 
 
 class EdgeHypers(NamedTuple):
@@ -112,42 +130,93 @@ def _group_edge_scan(Jgg, M0, wg, mu0g, Lam0g, ld0g, lrhog, u_a, eps):
     return dW, w_cur, a_g
 
 
-def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
-                               psi, w_full, hyp: EdgeHypers, B: int,
-                               group: int | None = None,
-                               noise: SpikeSlabNoise | None = None):
-    """Collapsed spike-and-slab for all neurons in residual (T-) space.
+# Scoped-vmem budget of the JAX package's monolithic fused TPU kernel
+# (pyglm_tpu/models/weights.py); kept only so that ss_path routes a
+# configuration as the JAX package does.
+_FUSED_VMEM_CAP = int(15.5 * 2 ** 20)
 
-    Args:
-      generator: draws the update's noise on omega's device (unless
-        `noise` is given).
-      Xt: (P, T) transposed design; omega, kappa, psi: (T, N).
-      w_full: (P, N) current packed weights; hyp: per-edge priors.
-      group: presyn neurons per group (default :func:`_auto_group`).
-      noise: the update's random numbers, to reproduce a reference chain.
 
-    Returns (A (N_pre, N), w_full (P, N), u (T, N), sum_omega (N,)); psi
-    under the new weights is (kappa - u) / omega.
-    """
-    T, N = omega.shape
-    P = w_full.shape[0]
-    N_pre = (P - 1) // B
-    G = _auto_group(N_pre, B) if group is None else group
-    if N_pre % G:
-        raise ValueError(f"group={G} does not divide N_pre={N_pre}")
-    Ng = N_pre // G
+def _fused_vmem_bytes(G: int, B: int, npad: int, tc: int) -> int:
+    """The JAX package's estimate of its fused kernel's scoped-vmem stack
+    (double-buffered streams and slabs plus the Gram-triangle scratch)."""
     GB = G * B
-    dev = omega.device
-    f32 = torch.float32
+    G8 = -(-G // 8) * 8
+    streams = 2 * 4 * (2 * GB * tc + 3 * tc * npad)
+    slabs = 2 * 4 * npad * (3 * GB + G * B * B + 2 * G8 + 8)
+    scratch = 4 * npad * (G * (G + 1) // 2 * B * B + 2 * GB)
+    return streams + slabs + scratch
 
-    u = kappa - omega * psi
-    w = w_full.clone()
-    mu = hyp.mu.contiguous()
-    lam = hyp.Lam.contiguous()
-    lrho = hyp.logit_rho.contiguous()
-    A = torch.empty((N_pre, N), dtype=f32, device=dev)
-    dW = None
-    sum_om = None
+
+def _fused_plan(N_pre: int, B: int, npad: int, t_chunk: int,
+                group: int | None = None):
+    """(G, tc) of the JAX package's fused kernel, or None when no group
+    fits its budget (npad around 4096 and wider)."""
+    if group is not None:
+        gs = [group]
+    else:
+        gs = sorted((g for g in range(1, min(16, N_pre) + 1)
+                     if N_pre % g == 0 and (g * B) % 8 == 0),
+                    key=lambda g: (abs(g - 8), -g))
+    for g in gs:
+        tc = max(t_chunk, 1024)
+        while tc >= 128:
+            if _fused_vmem_bytes(g, B, npad, tc) <= _FUSED_VMEM_CAP:
+                return g, tc
+            tc //= 2
+    return None
+
+
+def ss_path(N_pre: int, B: int, lanes: int, T: int, group: int | None = None,
+            jg_given: bool = False) -> str:
+    """"staged" or "fused": the loop the JAX package's single-device
+    dispatcher (``_tspace_impl``) picks for this configuration, without its
+    backend tests (TPU, device count, mesh, environment). The same
+    configuration then runs the same algorithm in both packages; on the
+    card both loops are hand-written kernels, so neither is a fallback and
+    nothing warns. Which is faster at wide lanes is measured in PERF.md."""
+    plan = _fused_plan(N_pre, B, -(-lanes // 128) * 128, 512, group=group)
+    if (jg_given or T < 384 or B > _MAX_B or plan is None
+            or (plan[0] * B) % 8):
+        return "staged"
+    return "fused"
+
+
+def group_gram_blocks(Xt, omega, B: int, G: int, packed: bool = True,
+                      fast: bool = False):
+    """Every group's omega-weighted Gram: kernel K6 for CUDA tensors, its
+    plain version for CPU tensors. Xt (P, T) with the bias row last.
+    Returns the packed (Ng, GB(GB+1)/2, N), or with ``packed=False`` the
+    JAX package's (Ng, N, GB, GB)."""
+    if fast:
+        raise NotImplementedError(
+            "the single-bf16-pass Gram (precision='default') is not ported "
+            "to pyglm_tpu_torch yet (ROADMAP.md Queue A, item 7b)")
+    if omega.is_cuda:
+        Jg = group_gram_blocks_cuda(Xt, omega, B, G)
+    elif omega.device.type == "cpu":
+        Jg = group_gram_blocks_plain(Xt, omega, B, G)
+    else:
+        raise ValueError(f"group_gram_blocks: unsupported device "
+                         f"{omega.device}")
+    if packed:
+        return Jg
+    return torch.stack([unpack_gram(j, G * B) for j in Jg])
+
+
+def _draw_group_noise(generator, noise, g, G, N, B, dev):
+    """Group g's (u_a (G, N), eps (G, N, B)): drawn, or taken from noise."""
+    if noise is not None:
+        return noise.u_a[g].contiguous(), noise.eps[g].contiguous()
+    return (torch.rand((G, N), generator=generator, device=dev),
+            torch.randn((G, N, B), generator=generator, device=dev))
+
+
+def _fused_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise):
+    """Ng x (K2 + K3) and K2's epilogue; updates u, w and A in place and
+    returns sum_t omega."""
+    T, N = omega.shape
+    GB, Ng = G * B, A.shape[0] // G
+    dW = sum_om = None
     for g in range(Ng + 1):
         xp = Xt[(g - 1) * GB: g * GB] if g > 0 else None
         xg = Xt[g * GB:(g + 1) * GB] if g < Ng else None
@@ -157,15 +226,81 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
             sum_om = s
         if g == Ng:
             break
-        if noise is None:
-            u_a = torch.rand((G, N), generator=generator, device=dev)
-            eps = torch.randn((G, N, B), generator=generator, device=dev)
-        else:
-            u_a, eps = noise.u_a[g], noise.eps[g]
+        u_a, eps = _draw_group_noise(generator, noise, g, G, N, B, u.device)
         sl = slice(g * G, (g + 1) * G)
-        dW, A[sl] = ss_edge_scan(jgg, m0, w[g * GB:(g + 1) * GB], mu[sl],
-                                 lam[sl], lrho[sl], u_a.contiguous(),
-                                 eps.contiguous())
+        dW, A[sl] = ss_edge_scan(jgg, m0, w[g * GB:(g + 1) * GB], hyp.mu[sl],
+                                 hyp.Lam[sl], hyp.logit_rho[sl], u_a, eps)
+    return sum_om
+
+
+def _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise, Jg=None):
+    """K6 once (unless the packed Jg is given), then per group M0 = X_g u,
+    K3 on Jg[g] and the scatter u -= omega * (X_g^T dW); updates u, w and A
+    in place and returns sum_t omega."""
+    N = omega.shape[1]
+    GB = G * B
+    if Jg is None:
+        Jg = group_gram_blocks(Xt, omega, B, G)
+    for g in range(Jg.shape[0]):
+        xg = Xt[g * GB:(g + 1) * GB]
+        m0 = xg @ u
+        u_a, eps = _draw_group_noise(generator, noise, g, G, N, B, u.device)
+        sl = slice(g * G, (g + 1) * G)
+        dW, A[sl] = ss_edge_scan(Jg[g], m0, w[g * GB:(g + 1) * GB],
+                                 hyp.mu[sl], hyp.Lam[sl], hyp.logit_rho[sl],
+                                 u_a, eps)
+        u.addcmul_(omega, xg.T @ dW, value=-1.0)
+    return omega.sum(0)
+
+
+def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
+                               psi, w_full, hyp: EdgeHypers, B: int,
+                               group: int | None = None,
+                               noise: SpikeSlabNoise | None = None,
+                               path: str | None = None, Jg=None):
+    """Collapsed spike-and-slab for all neurons in residual (T-) space.
+
+    Args:
+      generator: draws the update's noise on omega's device (unless
+        `noise` is given).
+      Xt: (P, T) transposed design; omega, kappa, psi: (T, N).
+      w_full: (P, N) current packed weights; hyp: per-edge priors.
+      group: presyn neurons per group (default :func:`_auto_group`).
+      noise: the update's random numbers, to reproduce a reference chain.
+      path: "fused" or "staged" to force a loop (default :func:`ss_path`).
+      Jg: every group's packed Gram (:func:`group_gram_blocks`), to run the
+        staged loop on it instead of forming it.
+
+    Returns (A (N_pre, N), w_full (P, N), u (T, N), sum_omega (N,)); psi
+    under the new weights is (kappa - u) / omega. The loop run is recorded
+    in ``LAST_SS_PATH``.
+    """
+    global LAST_SS_PATH
+    T, N = omega.shape
+    P = w_full.shape[0]
+    N_pre = (P - 1) // B
+    G = _auto_group(N_pre, B) if group is None else group
+    if N_pre % G:
+        raise ValueError(f"group={G} does not divide N_pre={N_pre}")
+    if path is None:
+        path = ss_path(N_pre, B, N, T, group=group, jg_given=Jg is not None)
+    if path not in ("fused", "staged") or (Jg is not None
+                                          and path != "staged"):
+        raise ValueError(f"path={path!r}: 'fused' or 'staged' (a given Jg "
+                         f"runs the staged loop)")
+    LAST_SS_PATH = path
+    dev = omega.device
+
+    u = kappa - omega * psi
+    w = w_full.clone()
+    hyp = hyp._replace(mu=hyp.mu.contiguous(), Lam=hyp.Lam.contiguous(),
+                       logit_rho=hyp.logit_rho.contiguous())
+    A = torch.empty((N_pre, N), dtype=torch.float32, device=dev)
+    if path == "staged":
+        sum_om = _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B,
+                              noise, Jg)
+    else:
+        sum_om = _fused_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise)
 
     # Bias column (always active): X_bias = ones.
     b_old = w[P - 1].clone()

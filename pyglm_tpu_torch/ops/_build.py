@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-On first use, ``nvcc`` compiles every ``pyglm_tpu_torch/csrc/*.cu`` into
-one shared library with a plain C interface, in ``build/pyglm_tpu_torch/``
-at the root of the checkout, and ``ctypes`` loads it. The library is rebuilt
-when a source is newer than it. A missing ``nvcc`` or a failed build raises:
+On first use, one ``nvcc`` per ``pyglm_tpu_torch/csrc/*.cu``, all started
+together, compiles the sources to objects, and one more links them into a
+shared library with a plain C interface, in ``build/pyglm_tpu_torch/`` at
+the root of the checkout; ``ctypes`` loads it. The library is rebuilt when
+a source is newer than it. A missing ``nvcc`` or a failed build raises:
 there is no fallback. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ BUILD_DIR = _PKG.parent / "build" / "pyglm_tpu_torch"
 LIB_PATH = BUILD_DIR / "libpyglm_tpu_torch_kernels.so"
 LOG_PATH = BUILD_DIR / "nvcc.log"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,12 +41,13 @@ _ENTRY_POINTS = {
                             _I, _I, _I, _P],
     "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _P],
     "crt_sample_launch": [_P, _I, _P, _P, _LL, _I, _I, _ULL, _ULL, _P],
+    "group_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # Kernel launches per wrapper. Each wrapper adds one where it launches its
 # kernel and nowhere else; reset_launches() sets every count to 0.
 LAUNCHES = {"pg_devroye": 0, "ss_group_pass": 0, "ss_edge_scan": 0,
-            "pg_gamma_series": 0, "crt_sample": 0}
+            "pg_gamma_series": 0, "crt_sample": 0, "group_gram": 0}
 
 
 def reset_launches() -> None:
@@ -84,17 +86,37 @@ def build(force: bool = False) -> float:
             s.stat().st_mtime <= LIB_PATH.stat().st_mtime for s in srcs)):
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    LOG_PATH.write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stderr[-4000:]}")
-    os.replace(tmp, LIB_PATH)
+    cus = [s for s in srcs if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{s.stem}.{pid}.o" for s in cus]   # nvcc reads .o
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(cus, objs))]
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{pid}.tmp")
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    log = []
+    try:
+        for cmd, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out[-4000:]}")
+        res = subprocess.run(link, capture_output=True, text=True)
+        log.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(link)}\n{res.stderr[-4000:]}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for _, proc in jobs:
+            proc.kill()
+            proc.wait()
+        LOG_PATH.write_text("".join(log))
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return time.perf_counter() - t0
 
 

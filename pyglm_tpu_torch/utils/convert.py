@@ -1,32 +1,48 @@
 """Carry a chain state between the JAX package and the port as numpy
-arrays, so both packages can be set to exactly the same state."""
+arrays, so both packages can be set to exactly the same state. Every array
+may carry a leading chain axis: a stacked (C-leading) state of the JAX
+ensemble converts as it is."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from pyglm_tpu_torch.models.networks import GaussianWeightsState
+from pyglm_tpu_torch.models.networks import (
+    GaussianWeightsState, LatentDistanceState,
+)
 from pyglm_tpu_torch.models.sweep import GLMState
+from pyglm_tpu_torch.utils.utils import require_device
 
 
-def state_from_numpy(A, W, b, net, device="cpu", aux=None) -> GLMState:
+def state_from_numpy(A, W, b, net, device="cuda", aux=None) -> GLMState:
     """GLMState from numpy arrays: A (N, N), W (N, N, B), b (N,) go to
-    `device`; net = (mu (B,), Sigma (B, B), rho ()) stays on the host, where
-    the port keeps the network state. ``tuple(jax_state.net)`` of a JAX
-    Erdos-Renyi state is such a triple. `aux` is the family's aux as a dict
-    of arrays ({'r': (N,)} for NB, as the JAX state holds it) or None."""
+    `device`. `net` is ``tuple(jax_state.net)``: an Erdos-Renyi
+    (mu (B,), Sigma (B, B), rho ()), kept on the host, or a latent-distance
+    (L (N, dim), gamma (), mu, Sigma[, hmc_accept ()]), whose L, gamma and
+    hmc_accept go to `device`. `aux` is the family's aux as a dict of arrays
+    ({'r': (N,)} for NB, as the JAX state holds it) or None."""
+    device = require_device(device)
+
     def dev(x):
         return torch.tensor(np.asarray(x, np.float32), device=device)
 
-    mu, Sigma, rho = (torch.tensor(np.asarray(x, np.float32)) for x in net)
+    def host(x):
+        return torch.tensor(np.asarray(x, np.float32))
+
     aux = None if aux is None else {k: dev(v) for k, v in aux.items()}
-    return GLMState(dev(A), dev(W), dev(b), aux,
-                    GaussianWeightsState(mu, Sigma, rho))
+    if len(net) == 3:
+        net = GaussianWeightsState(*map(host, net))
+    else:
+        L, gamma, mu, Sigma = net[:4]
+        acc = net[4] if len(net) > 4 else np.zeros(np.shape(gamma))
+        net = LatentDistanceState(dev(L), dev(gamma), host(mu), host(Sigma),
+                                  dev(acc))
+    return GLMState(dev(A), dev(W), dev(b), aux, net)
 
 
 def state_to_numpy(state: GLMState) -> dict:
-    """{'A', 'W', 'b', 'net': (mu, Sigma, rho), 'aux'} as float32 numpy
-    arrays; 'aux' is a dict of arrays or None."""
+    """{'A', 'W', 'b', 'net', 'aux'} as float32 numpy arrays: 'net' is the
+    network state's fields in order, 'aux' a dict of arrays or None."""
     aux = (None if state.aux is None else
            {k: v.cpu().numpy() for k, v in state.aux.items()})
     return {"A": state.A.cpu().numpy(), "W": state.W.cpu().numpy(),

@@ -1,5 +1,5 @@
-"""Evaluation metrics (the port's subset of ``pyglm_tpu/utils/metrics.py``).
-Host-side numpy, like the JAX package's."""
+"""Evaluation metrics and convergence diagnostics (the port's subset of
+``pyglm_tpu/utils/metrics.py``). Host-side numpy, like the JAX package's."""
 from __future__ import annotations
 
 import numpy as np
@@ -29,3 +29,47 @@ def link_auc(edge_scores, A_true) -> float:
     r_pos = ranks[: len(pos)]
     return float((r_pos.sum() - len(pos) * (len(pos) + 1) / 2)
                  / (len(pos) * len(neg)))
+
+
+def split_rhat(chains):
+    """Split-R-hat (Gelman-Rubin potential scale reduction) per scalar
+    component of (C, S, ...) traces: C chains of S >= 4 post-burn-in
+    samples. Returns an array of shape ``chains.shape[2:]``. A component
+    constant within every half-chain gives 1 where the chains agree and
+    +inf where they differ (e.g. an edge frozen at 1 in one chain and at 0
+    in another)."""
+    x = np.asarray(chains, np.float64)
+    C, S = x.shape[:2]
+    if C < 2 or S < 4:
+        raise ValueError(f"split_rhat needs >= 2 chains of >= 4 samples, "
+                         f"got {C} x {S}")
+    half = S // 2
+    x = np.concatenate([x[:, :half], x[:, half: 2 * half]], axis=0)
+    mean_j = x.mean(axis=1)
+    W = x.var(axis=1, ddof=1).mean(axis=0)
+    B = half * mean_j.var(axis=0, ddof=1)
+    var_plus = (half - 1) / half * W + B / half
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rhat = np.sqrt(var_plus / W)
+    tiny = 1e-12 * max(1.0, float(np.max(np.abs(mean_j))) ** 2)
+    return np.where(W > 0, rhat, np.where(B <= tiny, 1.0, np.inf))
+
+
+def ess_per_chain(x) -> float:
+    """Effective sample size of a (S,) scalar trace by the initial positive
+    sequence estimator of the autocorrelation time (Geyer 1992)."""
+    x = np.asarray(x, np.float64)
+    n = x.size
+    x = x - x.mean()
+    var = np.mean(x * x)
+    if var <= 0:
+        return float(n)
+    acf = np.correlate(x, x, mode="full")[n - 1:] / (var * n)
+    tau, k = 1.0, 1
+    while k + 1 < n:
+        pair = acf[k] + acf[k + 1]
+        if pair < 0:
+            break
+        tau += 2.0 * pair
+        k += 2
+    return float(n / max(tau, 1.0))

@@ -55,6 +55,13 @@ def expand_cov(sigma, shape):
     return np.broadcast_to(cov, shape).copy()
 
 
-class PerformanceWarning(UserWarning):
-    """The library took a correct-but-slower path than the model's
-    configuration implies. Results are unaffected; throughput is."""
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; raises if it is a card and none is
+    present, rather than running silently on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pyglm_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return dev
+

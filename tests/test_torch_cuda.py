@@ -12,6 +12,8 @@ import torch
 
 from pyglm_tpu_torch.ops import _build
 from pyglm_tpu_torch.ops.crt_cuda import crt_sample_cuda
+from pyglm_tpu_torch.ops.gram_cuda import (
+    group_gram_blocks_cuda, group_gram_blocks_plain)
 from pyglm_tpu_torch.ops.linalg import crt_sample_plain
 from pyglm_tpu_torch.ops.pg_cuda import pg_devroye_cuda
 from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
@@ -122,7 +124,7 @@ def test_sweep_on_card_launches_each_kernel(gen):
     m.fit(n_samples=3)
     assert _build.LAUNCHES == {"pg_devroye": 3, "ss_group_pass": 3 * 5,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
-                               "crt_sample": 0}
+                               "crt_sample": 0, "group_gram": 0}
     assert np.isfinite(m.log_likelihood())
 
 
@@ -217,7 +219,7 @@ def test_nb_sweep_on_card_launches_k4_k2_k3(gen):
     m.fit(n_samples=3)
     assert _build.LAUNCHES == {"pg_devroye": 0, "ss_group_pass": 3 * 5,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 3,
-                               "crt_sample": 0}
+                               "crt_sample": 0, "group_gram": 0}
     assert np.isfinite(m.log_likelihood())
     r = m.state.aux["r"]
     assert r.is_cuda and torch.all(r > 0)
@@ -245,3 +247,75 @@ def test_binomial_sweep_on_card_dispatch(gen, n_trials, kernel):
     assert _build.LAUNCHES["pg_devroye"] + _build.LAUNCHES[
         "pg_gamma_series"] == 3
     assert np.isfinite(m.log_likelihood())
+
+
+@pytest.mark.parametrize("T,N_pre,B,G,lanes", [(3001, 12, 4, 3, 70),
+                                               (20_000, 20, 4, 10, 300)])
+def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes):
+    """K6 against its plain version: a ragged T with GB = 12, and the
+    ensemble's GB = 40 over three lane tiles."""
+    Xt = (torch.rand((N_pre * B + 1, T), generator=gen, device="cuda")
+          < 0.3).float()
+    om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")
+    k = group_gram_blocks_cuda(Xt, om, B, G)
+    p = group_gram_blocks_plain(Xt, om, B, G)
+    assert k.shape == p.shape == (N_pre // G, G * B * (G * B + 1) // 2,
+                                  lanes)
+    assert _rel(k, p) <= 1e-5
+    assert torch.equal(k, group_gram_blocks_cuda(Xt, om, B, G))
+    with pytest.raises(ValueError):
+        group_gram_blocks_cuda(Xt, om.double(), B, G)
+
+
+def test_staged_path_launches_k6_not_k2(gen):
+    """T < 384 routes the sweep to the staged loop: K6 once per sweep, K3
+    per group, K2 never."""
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
+    Y = SparseBernoulliGLM(16, seed=1, device="cuda").generate(300,
+                                                                keep=False)
+    m = SparseBernoulliGLM(16, seed=2, group=4, device="cuda")
+    m.add_data(Y)
+    _build.reset_launches()
+    m.fit(n_samples=3)
+    assert weights.LAST_SS_PATH == "staged"
+    assert _build.LAUNCHES == {"pg_devroye": 3, "ss_group_pass": 0,
+                               "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
+                               "crt_sample": 0, "group_gram": 3}
+    assert np.isfinite(m.log_likelihood())
+
+
+def test_latent_distance_hmc_on_card_matches_cpu(gen):
+    """One batched LD resample (C = 2 chains, N = 50) on the card and on
+    the CPU with the same injected noise: the same accepts, L and gamma
+    within 1e-4."""
+    from pyglm_tpu_torch.models.networks import (
+        HMCNoise, LatentDistanceConfig, LatentDistanceState)
+    from pyglm_tpu_torch.models.sweep import Generators
+    C, N, B = 2, 50, 4
+    cfg = LatentDistanceConfig(N=N, B=B, hmc_eps=0.03, swap_moves=10,
+                               relocate_moves=10)
+    g = torch.Generator().manual_seed(5)
+    L = 0.8 * torch.randn((C, N, 2), generator=g)
+    gamma = torch.tensor([0.3, -0.2])
+    p = torch.sigmoid(cfg._logit_rho(L, gamma))
+    A = (torch.rand((C, N, N), generator=g) < p).float()
+    W = torch.randn((C, N, N, B), generator=g) * A[..., None]
+    noise = cfg.draw_noise(g, C, "cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        st = LatentDistanceState(L.to(dev), gamma.to(dev),
+                                 torch.zeros(C, B), torch.eye(B).repeat(C, 1,
+                                                                      1),
+                                 torch.zeros(C, device=dev))
+        gens = Generators(torch.Generator(device=dev),
+                          torch.Generator().manual_seed(1))
+        outs[dev] = cfg.resample(gens, st, A.to(dev), W.to(dev),
+                                 noise=HMCNoise(*(x.to(dev) for x in noise)))
+    h, c = outs["cpu"], outs["cuda"]
+    # Counts: the card divides by a scalar through its reciprocal.
+    assert torch.equal((h.hmc_accept * 10).round(),
+                       (c.hmc_accept.cpu() * 10).round())
+    assert float((h.L - c.L.cpu()).abs().max()) <= 1e-4
+    assert float((h.gamma - c.gamma.cpu()).abs().max()) <= 1e-4
+    assert c.L.is_cuda and torch.isfinite(c.Sigma).all()

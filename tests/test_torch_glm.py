@@ -6,6 +6,7 @@ pyglm_tpu.SparseBernoulliGLM on the CPU (N=10, T=3000, B=4, L=10, G=5).
 (c) both packages fit the same Y from the same initial state (50 burn-in +
     150 kept sweeps) and must agree on the posterior;
 (d) what the port does not run yet raises NotImplementedError.
+Every port model here is built with device="cpu".
 """
 import numpy as np
 import jax
@@ -42,11 +43,13 @@ def _truth_and_data(seed):
 
 def _port_like(jm, seed):
     """A port model on the CPU set to the JAX model's exact state."""
-    pm = pyglm_tpu_torch.SparseBernoulliGLM(N, B=B, L=L, seed=seed, group=G)
+    pm = pyglm_tpu_torch.SparseBernoulliGLM(N, B=B, L=L, seed=seed, group=G,
+                                            device="cpu")
     s = jm.state
     pm.state = state_from_numpy(np.asarray(s.A), np.asarray(s.W),
                                 np.asarray(s.b),
-                                tuple(np.asarray(x) for x in s.net))
+                                tuple(np.asarray(x) for x in s.net),
+                                device="cpu")
     return pm
 
 
@@ -127,13 +130,13 @@ def test_posterior_agrees_with_jax():
     dict(observation="negative_binomial", precision="default"),
     dict(observation="gaussian"),
     dict(observation="binomial", network="sbm"), dict(network="dense"),
-    dict(network="sbm"), dict(network="latent_distance"),
+    dict(network="sbm"), dict(network="latent_distance", spike_and_slab=False),
     dict(network="erdos_renyi", spike_and_slab=False)])
 def test_unported_configurations_raise(kw):
     cls = (pyglm_tpu_torch.NonlinearAutoregressiveModel
            if "spike_and_slab" in kw else pyglm_tpu_torch.SparseBernoulliGLM)
     with pytest.raises(NotImplementedError):
-        cls(N, B=B, L=L, **kw)
+        cls(N, B=B, L=L, device="cpu", **kw)
 
 
 def test_link_auc_matches_jax_metric():

@@ -157,7 +157,7 @@ def test_r_update_law_matches_jax(cached):
 
 
 def test_add_data_rejects_counts_above_max_y():
-    m = pyglm_tpu_torch.SparseNegativeBinomialGLM(3, B=B, L=L,
+    m = pyglm_tpu_torch.SparseNegativeBinomialGLM(3, B=B, L=L, device="cpu",
                                                   obs_kwargs=dict(max_y=4))
     Y = np.zeros((50, 3), np.float32)
     Y[7, 1] = 5.0
@@ -193,11 +193,12 @@ def _port_like(jm, seed):
     """A port model on the CPU set to the JAX model's exact state."""
     pm = pyglm_tpu_torch.SparseNegativeBinomialGLM(
         N, basis=_basis(), seed=seed, obs_kwargs=dict(r_init=2.0, **OBS),
-        net_kwargs=TRUTH_NET)
+        net_kwargs=TRUTH_NET, device="cpu")
     s = jm.state
     pm.state = state_from_numpy(np.asarray(s.A), np.asarray(s.W),
                                 np.asarray(s.b),
                                 tuple(np.asarray(x) for x in s.net),
+                                device="cpu",
                                 aux={"r": np.asarray(s.aux["r"])})
     return pm
 
@@ -233,7 +234,7 @@ def test_state_round_trip_with_r():
     np.testing.assert_array_equal(back["aux"]["r"], R_SET)
     np.testing.assert_array_equal(back["W"], np.asarray(jm.state.W))
     np.testing.assert_array_equal(back["b"], np.asarray(jm.state.b))
-    m = pyglm_tpu_torch.SparseBernoulliGLM(N, B=B, L=L)
+    m = pyglm_tpu_torch.SparseBernoulliGLM(N, B=B, L=L, device="cpu")
     assert state_to_numpy(m.state)["aux"] is None
 
 
@@ -292,11 +293,13 @@ def test_binomial_model_matches_jax_and_runs():
     jm = pyglm_tpu.NonlinearAutoregressiveModel(N, seed=6, **kw)
     Y = jm.generate(800, keep=False)
     jm.add_data(Y)
-    pm = pyglm_tpu_torch.NonlinearAutoregressiveModel(N, seed=6, **kw)
+    pm = pyglm_tpu_torch.NonlinearAutoregressiveModel(N, seed=6,
+                                                      device="cpu", **kw)
     s = jm.state
     pm.state = state_from_numpy(np.asarray(s.A), np.asarray(s.W),
                                 np.asarray(s.b),
-                                tuple(np.asarray(x) for x in s.net))
+                                tuple(np.asarray(x) for x in s.net),
+                                device="cpu")
     pm.add_data(Y)
     np.testing.assert_allclose(pm.log_likelihood(), jm.log_likelihood(),
                                rtol=1e-5)
