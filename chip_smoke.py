@@ -8,16 +8,22 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      and power limit and builds the kernels from ``pyglm_tpu_torch/csrc``
      (one nvcc per source, in parallel).
   1. Kernels: each hand-written kernel against its plain PyTorch version on
-     the card, with the median time of each, of its plain version and,
-     where one PyTorch call computes the same function, of that call: at
-     the flagships' shapes (N=200, T=100k, B=4, G=8) K1-K3, then the NB
-     kernels K4 (gamma-series PG) and K5 (CRT counts); at the 8-chain
-     latent-distance ensemble's shapes (P=2001, T=20k, 4000 lanes, G=10)
-     K6 (group Gram), plus a small ragged shape.
+     the card, with the device time of each (CUDA events around a run of
+     calls), of its plain version and, where one PyTorch call computes the
+     same function, of that call: at
+     the flagships' shapes (N=200, T=100k, B=4, G=8) K1-K3 (K2's Gram in
+     3xTF32 on the tensor cores, timed at g = 0 and at a middle group),
+     then the NB kernels K4 (gamma-series PG) and K5 (CRT counts); at the
+     8-chain latent-distance ensemble's shapes (P=2001, T=20k, 4000 lanes,
+     G=10) K6 (group Gram) at precision "high" (3xTF32) and "highest"
+     (fp32 FMA), plus a small ragged shape. K2's and K6's Grams and their
+     plain versions are also held against a float64 Gram.
   2. Slices, each run with the launch counts set to 0 just before and read
      just after: a ground-truth SparseBernoulliGLM(200, B=4, L=10)
      generates T=100k bins and a fresh model fits them (2 warm-up + 5 timed
-     sweeps); the same for SparseNegativeBinomialGLM (max_y=16, counts
+     sweeps), then the same data at precision="highest" (the staged loop
+     with K6's fp32 body, no K2); the same for SparseNegativeBinomialGLM
+     (max_y=16, counts
      capped at 15), followed by one NB dispersion update without the count
      table, which runs K5; then the acceptance suite's config 5
      (latent-distance prior, N=500, T=20k) through fit_ensemble with 8
@@ -26,7 +32,8 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      the fused loop on one update at the ensemble's width with the same
      noise; small models on the card held against the same models on the
      CPU (Bernoulli and NB on the fused loop, 2 stacked chains on the staged
-     loop): same state, same PG draws and noise, same result; and the
+     loop at both precisions): same state, same PG draws and noise, same
+     result; and the
      latent-distance HMC on the card against the CPU with the same noise.
 
 Any failed check exits 1 and prints no result line. On success the last
@@ -64,9 +71,14 @@ GRAM_REL_TOL = 1e-5      # K6: fp32 sums over 2e4 terms in another order
 # pooled ensemble of 8 lane-stacked chains.
 N5, T5, C5, G5 = 500, 20_000, 8, 10
 C5_TRUTH_NET = dict(dim=2, mu_bias=-3.0)
-# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM.
+# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, dense
+# TF32 on the tensor cores, HBM.
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_S = 3.35e12
+# A 3xTF32 Gram may be at most this many times further from a float64 Gram
+# than the fp32 plain version (cuBLAS SGEMM on the materialised Z).
+F64_RATIO = 2.0
 
 KERNELS = {
     "pg_devroye": ("pyglm_tpu_torch/csrc/pg_devroye.cu",
@@ -107,6 +119,8 @@ def card_line() -> str:
 
 
 def median_ms(fn, reps):
+    """Median host time of `reps` calls, each between two synchronisations
+    (how PR 1-3 timed every kernel)."""
     import torch
     fn()                                   # warm-up
     times = []
@@ -123,11 +137,27 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def bound(nbytes, flops):
+def event_ms(fn, reps):
+    """Device time per call: CUDA events around `reps` calls in a row after
+    a warm-up call, so the host's time to enqueue overlaps the device's."""
+    import torch
+    fn()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound(nbytes, flops, peak=FP32_FLOPS):
     """The least time the card could take: the larger of the bytes a call
     must move (each input read once, each output written once) over the
-    HBM rate and its fp32 operations over the fp32 peak. (ms, bound_by)."""
-    tb, tf = nbytes / HBM_BYTES_S, flops / FP32_FLOPS
+    HBM rate and its operations over the peak of the arithmetic it uses
+    (fp32 by default; a 3xTF32 kernel passes 3x its operations over the
+    TF32 peak). (ms, bound_by)."""
+    tb, tf = nbytes / HBM_BYTES_S, flops / peak
     return {"bound_ms": 1e3 * max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations"}
 
@@ -172,8 +202,8 @@ def phase_kernels(check, record):
               f"K1 vs plain at c={c}: KS D={ks.statistic:.5f} "
               f"p={ks.pvalue:.4f}, |mean diff|={dmean:.2e}, "
               f"pg_mean={float(pg_mean(1.0, c)):.6f}")
-    ms = median_ms(lambda: pg_devroye_cuda(psi, 3, 0), 10)
-    plain_ms = median_ms(lambda: pg_devroye_plain(psi, gen), 3)
+    ms = event_ms(lambda: pg_devroye_cuda(psi, 3, 0), 10)
+    plain_ms = event_ms(lambda: pg_devroye_plain(psi, gen), 3)
     # psi in, omega out; at least ~10 fp32 operations per draw (one
     # proposal and its test), so the bytes set the bound.
     record["pg_devroye"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
@@ -183,7 +213,7 @@ def phase_kernels(check, record):
           f"(max_abs_err = largest |mean diff| over the five c)")
 
     # --- K2: one group pass at GB=32, T=100k, N=200 -----------------------
-    print("K2 ss_group_pass: group g=3 of 25, GB=32", flush=True)
+    print("K2 ss_group_pass: group g=3 of 25, GB=32, 3xTF32 Gram", flush=True)
     GB = G * B
     Y = (torch.rand((T, N), generator=gen, device=dev) < 0.05).float()
     Xt = design_matrix(Y, cosine_basis(B, L)).T.contiguous()
@@ -207,22 +237,42 @@ def phase_kernels(check, record):
     check(e <= REL_TOL, f"K2 epilogue (scatter only) u: {e:.2e}")
     max_abs = max(float((a - b).abs().max())
                   for a, b in [(u_k, u_p), *zip(out_k, out_p)])
-    ms = median_ms(lambda: ss_group_pass_cuda(xp, xg, omega, u_k, dw), 10)
-    plain_ms = median_ms(lambda: ss_group_pass_plain(xp, xg, omega, u_p, dw),
-                         5)
+    again = ss_group_pass_cuda(xp, xg, omega, u0.clone(), dw, True)
+    check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+          "K2 repeats bit for bit")
     p_idx, q_idx = pair_index(GB, dev)
     Z = xg[p_idx] * xg[q_idx]
-    lib_ms = median_ms(lambda: torch.matmul(Z, omega), 10)
+    j64 = Z.double() @ omega.double()
+    e_k, e_p = rel_err(out_k[1].double(), j64), rel_err(out_p[1].double(), j64)
+    del j64, again
+    check(e_k <= F64_RATIO * e_p,
+          f"K2 Gram (3xTF32) vs a float64 Gram: {e_k:.2e}; the fp32 plain "
+          f"version: {e_p:.2e} (limit {F64_RATIO:g}x)")
+    ms = event_ms(lambda: ss_group_pass_cuda(xp, xg, omega, u_k, dw), 20)
+    ms_g0 = event_ms(lambda: ss_group_pass_cuda(None, xg, omega, u_k, dw,
+                                                True), 20)
+    host_ms = median_ms(lambda: ss_group_pass_cuda(xp, xg, omega, u_k, dw),
+                        10)
+    plain_ms = event_ms(lambda: ss_group_pass_plain(xp, xg, omega, u_p, dw),
+                         5)
+    lib_ms = event_ms(lambda: torch.matmul(Z, omega), 10)
     del Z
     npair = GB * (GB + 1) // 2
     # xp, xg, omega, u in and out, dw; M0, packed Gram, sum omega out.
-    # FMAs: the Gram, the gather and the scatter.
+    # FMAs: the Gram, the gather and the scatter, each as three TF32
+    # products at the tensor cores' peak (precision "high").
     record["ss_group_pass"].update(
         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        precision="high", ms_g0=ms_g0, host_ms=host_ms, f64_rel_err=e_k,
+        plain_f64_rel_err=e_p,
         **bound(4 * (2 * GB * T + 3 * T * N + GB * N + (GB + npair + 1) * N),
-                2 * T * N * (npair + 2 * GB)))
-    print(f"  K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, library (matmul on "
-          f"the materialised Z) {lib_ms:.3f} ms per group")
+                3 * 2 * T * N * (npair + 2 * GB), TF32_FLOPS))
+    rec = record["ss_group_pass"]
+    print(f"  K2 {ms:.3f} ms per middle group, {ms_g0:.3f} at g = 0 (no "
+          f"scatter); {host_ms:.3f} ms per synchronised call on the host "
+          f"clock; plain {plain_ms:.3f} ms, library (fp32 "
+          f"matmul on the materialised Z) {lib_ms:.3f} ms; bound "
+          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, 3xTF32)")
 
     # --- K3: that group's edge scan, same injected noise -----------------
     print("K3 ss_edge_scan: G=8 edges x 200 lanes, B=4", flush=True)
@@ -245,9 +295,9 @@ def phase_kernels(check, record):
     derr = float((dW_k - dW_p).abs().max())
     check(werr <= W_ATOL and derr <= W_ATOL,
           f"K3 W max|diff| = {werr:.2e}, dW max|diff| = {derr:.2e}")
-    ms = median_ms(lambda: ss_edge_scan_cuda(jgg, m0, w0.clone(), mu, lam,
+    ms = event_ms(lambda: ss_edge_scan_cuda(jgg, m0, w0.clone(), mu, lam,
                                              lrho, u_a, eps), 20)
-    plain_ms = median_ms(lambda: ss_edge_scan_plain(
+    plain_ms = event_ms(lambda: ss_edge_scan_plain(
         jgg, m0, w0.clone(), mu, lam, lrho, u_a, eps), 5)
     npair = GB * (GB + 1) // 2
     # Packed Gram, M0, w in and out, dW, priors, noise, a; per edge and
@@ -304,9 +354,9 @@ def phase_kernels_nb(check, record):
               f"K4 vs plain at (b, c)=({bb}, {cc}): KS D={ks.statistic:.5f} "
               f"p={ks.pvalue:.4f}, |mean diff|={dmean:.2e}, "
               f"pg_mean={float(pg_mean(bb, cc)):.6f}")
-    ms = median_ms(lambda: pg_gamma_series_cuda(b, psi, 3, 0,
+    ms = event_ms(lambda: pg_gamma_series_cuda(b, psi, 3, 0,
                                                 normal_cutoff=170.0), 10)
-    plain_ms = median_ms(lambda: pg_gamma_series_plain(b, psi, gen, 170.0), 3)
+    plain_ms = event_ms(lambda: pg_gamma_series_plain(b, psi, gen, 170.0), 3)
     # b and psi in, omega out; at least ~10 fp32 operations per draw.
     record["pg_gamma_series"].update(max_abs_err=worst, ms=ms,
                                      plain_ms=plain_ms, library_ms=None,
@@ -337,8 +387,8 @@ def phase_kernels_nb(check, record):
               f"p={ks.pvalue:.4f}, |mean diff|={dmean:.2e}")
     r = 0.5 + 4.0 * torch.rand((N,), generator=gen, device=dev)
     yi = y.to(torch.int32)
-    ms = median_ms(lambda: crt_sample_cuda(yi, r, 16, 5, 0), 10)
-    plain_ms = median_ms(lambda: crt_sample_plain(yi, r, 16, gen), 3)
+    ms = event_ms(lambda: crt_sample_cuda(yi, r, 16, 5, 0), 10)
+    plain_ms = event_ms(lambda: crt_sample_plain(yi, r, 16, gen), 3)
     # y in and counts out (int32), r; the data's sum of min(y, max_y)
     # Bernoulli draws, ~3 operations each.
     record["crt_sample"].update(
@@ -348,7 +398,7 @@ def phase_kernels_nb(check, record):
           f"(max_abs_err = largest |mean diff| over the grid)")
 
 
-def phase_slice(check, record):
+def phase_slice(check, record, ctx):
     """The flagship through the user entry points: generate, add_data,
     resample_model, fit, log_likelihood; the launch counts of that run."""
     import numpy as np
@@ -412,7 +462,42 @@ def phase_slice(check, record):
     check(weights.LAST_SS_PATH == "fused", "the flagship ran the fused loop")
     for name in KERNELS:
         record[name]["launches"] += launches[name]
+    ctx["flagship_Y"] = Y
     return {"sweeps_per_s": N_TIMED / dt, "generate_s": gen_s}
+
+
+def phase_highest(check, record, ctx):
+    """The flagship's data at precision="highest": the staged loop with
+    K6's fp32 body, never K2 (the JAX package's "highest" takes its staged
+    path with the f32 XLA Gram)."""
+    import math
+    import torch
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.ops import _build
+
+    print(f"flagship at precision='highest': N={N}, T={T}", flush=True)
+    model = SparseBernoulliGLM(N, B=B, L=L, seed=0, precision="highest",
+                               device="cuda")
+    model.add_data(ctx["flagship_Y"])
+    model.resample_model()                       # warm-up
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lls = [model.resample_model()["log_likelihood"] for _ in range(2)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(f"  2 sweeps in {dt:.3f} s = {2 / dt:.4f} sweeps/s; launches "
+          f"{launches}; LAST_SS_PATH {weights.LAST_SS_PATH!r}")
+    check(weights.LAST_SS_PATH == "staged",
+          "precision='highest' ran the staged loop")
+    check(launches["group_gram"] == 2 and launches["ss_group_pass"] == 0,
+          "K6 once per sweep, K2 never")
+    check(all(math.isfinite(x) for x in lls), "log-likelihoods finite")
+    for name in KERNELS:
+        record[name]["launches"] += launches[name]
+    return {"highest_sweeps_per_s": 2 / dt}
 
 
 def phase_nb_slice(check, record):
@@ -567,11 +652,11 @@ def phase_small_parity(check, nb=False):
     noise_c = SpikeSlabNoise(*(x.cuda() for x in noise))
     out_c = resample_spike_slab_tspace(
         None, mc.datas[0].Xt, omega_c, kappa_c, psi_c, w_c,
-        hyp_c, 4, group=g, noise=noise_c)
+        hyp_c, 4, group=g, noise=noise_c, precision="high")
     omega_h = omega_c.cpu()
     out_h = resample_spike_slab_tspace(
         None, mh.datas[0].Xt, omega_h, kappa_h, psi_h, w_h,
-        hyp_h, 4, group=g, noise=noise)
+        hyp_h, 4, group=g, noise=noise, precision="high")
     check(weights.LAST_SS_PATH == "fused", "small update ran the fused loop")
     n_diff = int((out_c[0].cpu() != out_h[0]).sum())
     check(n_diff == 0, f"A identical ({n_diff} of {n * n} differ)")
@@ -588,7 +673,7 @@ def phase_small_parity(check, nb=False):
         psi64 = (mh.datas[0].Xf.double() @ w_h.double()).float()
         out_64 = resample_spike_slab_tspace(
             None, mh.datas[0].Xt, omega_h, kappa_h, psi64, w_h,
-            hyp_h, 4, group=g, noise=noise)
+            hyp_h, 4, group=g, noise=noise, precision="high")
         sens_w = rel_err(out_64[1], out_h[1])
         sens_u = float((out_64[2] - out_h[2]).abs().max())
         print(f"  CPU's own sensitivity to rounding psi: w {sens_w:.2e}, "
@@ -618,39 +703,74 @@ def phase_kernel_gram(check, record):
     Xt = design_matrix(Y, cosine_basis(B, L)).T.contiguous()
     del Y
     omega = 0.05 + 0.2 * torch.rand((T5, lanes), generator=gen, device=dev)
-    k = group_gram_blocks_cuda(Xt, omega, B, G5)
     p = group_gram_blocks_plain(Xt, omega, B, G5)
-    torch.cuda.synchronize()
-    err, max_abs = rel_err(k, p), float((k - p).abs().max())
-    check(err <= GRAM_REL_TOL, f"K6 at config 5: max|diff|/max|plain| = "
-          f"{err:.2e} (limit {GRAM_REL_TOL:.0e})")
-    check(torch.equal(k, group_gram_blocks_cuda(Xt, omega, B, G5)),
-          "K6 repeats bit for bit")
-    del k, p
+    p_idx, q_idx = pair_index(GB, dev)
+    om64 = omega.double()
+    f64 = {}
+    for prec in ("high", "highest"):
+        k = group_gram_blocks_cuda(Xt, omega, B, G5, precision=prec)
+        torch.cuda.synchronize()
+        err = rel_err(k, p)
+        check(err <= GRAM_REL_TOL, f"K6 {prec} at config 5: max|diff|/"
+              f"max|plain| = {err:.2e} (limit {GRAM_REL_TOL:.0e})")
+        check(torch.equal(k, group_gram_blocks_cuda(Xt, omega, B, G5,
+                                                    precision=prec)),
+              f"K6 {prec} repeats bit for bit")
+        if prec == "high":
+            max_abs = float((k - p).abs().max())
+        # Groups 0 and Ng - 1 against a float64 Gram.
+        for g in (0, Ng - 1):
+            xg = Xt[g * GB:(g + 1) * GB]
+            j64 = (xg[p_idx].double() * xg[q_idx].double()) @ om64
+            f64[prec] = max(f64.get(prec, 0.0), rel_err(k[g].double(), j64))
+            f64["plain"] = max(f64.get("plain", 0.0),
+                               rel_err(p[g].double(), j64))
+            del j64
+        del k
+    del p, om64
+    for prec in ("high", "highest"):
+        print(f"  K6 {prec} vs a float64 Gram (groups 0 and {Ng - 1}): "
+              f"{f64[prec]:.2e}; the fp32 plain version: {f64['plain']:.2e}")
+    check(f64["high"] <= F64_RATIO * f64["plain"],
+          f"K6 high within {F64_RATIO:g}x the plain version's float64 error")
     Xs = (torch.rand((6 * B + 1, 3001), generator=gen, device=dev)
           < 0.3).float()
     oms = 0.05 + 0.2 * torch.rand((3001, 70), generator=gen, device=dev)
-    e2 = rel_err(group_gram_blocks_cuda(Xs, oms, B, 3),
-                 group_gram_blocks_plain(Xs, oms, B, 3))
-    check(e2 <= GRAM_REL_TOL, f"K6 at T=3001, GB=12, 70 lanes: {e2:.2e}")
-    ms = median_ms(lambda: group_gram_blocks_cuda(Xt, omega, B, G5), 5)
-    plain_ms = median_ms(lambda: group_gram_blocks_plain(Xt, omega, B, G5),
+    for prec in ("high", "highest"):
+        e2 = rel_err(group_gram_blocks_cuda(Xs, oms, B, 3, precision=prec),
+                     group_gram_blocks_plain(Xs, oms, B, 3))
+        check(e2 <= GRAM_REL_TOL,
+              f"K6 {prec} at T=3001, GB=12, 70 lanes: {e2:.2e}")
+    times = {}
+    for prec in ("high", "highest", "highest", "high"):
+        times.setdefault(prec, []).append(event_ms(
+            lambda: group_gram_blocks_cuda(Xt, omega, B, G5, precision=prec),
+            3))
+    ms, ms_fp32 = min(times["high"]), min(times["highest"])
+    plain_ms = event_ms(lambda: group_gram_blocks_plain(Xt, omega, B, G5),
                          3)
-    p_idx, q_idx = pair_index(GB, dev)
     Z = Xt[:GB][p_idx] * Xt[:GB][q_idx]
-    lib_ms = Ng * median_ms(lambda: torch.matmul(Z, omega), 5)
+    lib_ms = Ng * event_ms(lambda: torch.matmul(Z, omega), 5)
     del Z
     # The design rows and omega in, the packed Gram out; Ng*npair*lanes*T
-    # FMAs.
+    # FMAs, as three TF32 products at "high", fp32 FMAs at "highest".
+    nbytes = 4 * (Ng * GB * T5 + T5 * lanes + Ng * npair * lanes)
+    flops = 2.0 * Ng * npair * lanes * T5
+    fp32 = bound(nbytes, flops)
     record["group_gram"].update(
         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **bound(4 * (Ng * GB * T5 + T5 * lanes + Ng * npair * lanes),
-                2.0 * Ng * npair * lanes * T5))
+        precision="high", highest_ms=ms_fp32,
+        highest_bound_ms=fp32["bound_ms"], f64_rel_err=f64["high"],
+        highest_f64_rel_err=f64["highest"], plain_f64_rel_err=f64["plain"],
+        **bound(nbytes, 3 * flops, TF32_FLOPS))
     rec = record["group_gram"]
-    print(f"  K6 {ms:.2f} ms, plain {plain_ms:.2f} ms, library (matmul on "
-          f"the materialised Z, x {Ng} groups) {lib_ms:.2f} ms; bound "
-          f"{rec['bound_ms']:.2f} ms ({rec['bound_by']}), "
-          f"{2.0 * Ng * npair * lanes * T5 / ms / 1e9:.1f} TFLOP/s")
+    print(f"  K6 high {times['high']} ms, highest {times['highest']} ms "
+          f"(order high, highest, highest, high); plain {plain_ms:.2f} ms, "
+          f"library (fp32 matmul on the materialised Z, x {Ng} groups) "
+          f"{lib_ms:.2f} ms; bound {rec['bound_ms']:.2f} ms "
+          f"({rec['bound_by']}, 3xTF32), {fp32['bound_ms']:.2f} ms (fp32); "
+          f"{flops / ms / 1e9:.1f} TFLOP/s of fp32 work at high, "
+          f"{flops / ms_fp32 / 1e9:.1f} at highest")
 
 
 def phase_config5(check, record, ctx):
@@ -754,8 +874,8 @@ def phase_staged_vs_fused(check, ctx):
     d = model.datas[0]
     w, hyp = lane_inputs(model.network, states)
     lanes, G = w.shape[1], model.group
-    print(f"staged vs fused loop: one update at {lanes} lanes, G={G}",
-          flush=True)
+    print(f"staged vs fused loop: one update at {lanes} lanes, G={G}, "
+          f"precision='high' (3xTF32 in both)", flush=True)
     psi = d.Xf @ w
     omega, kappa = model.observation.omega_kappa(
         model.generators.host, d.Y.repeat(1, len(states)), psi, None)
@@ -769,11 +889,11 @@ def phase_staged_vs_fused(check, ctx):
     def update(path):
         return resample_spike_slab_tspace(None, d.Xt, omega, kappa, psi, w,
                                           hyp, B, group=G, noise=noise,
-                                          path=path)
+                                          path=path, precision="high")
     out = {path: update(path) for path in ("staged", "fused")}
     ms = {}
     for path in ("staged", "fused", "fused", "staged"):
-        ms.setdefault(path, []).append(median_ms(lambda: update(path), 2))
+        ms.setdefault(path, []).append(event_ms(lambda: update(path), 2))
     # The update's own sensitivity to float32 rounding: the fused loop with
     # psi rounded from a float64 product instead of the float32 GEMM, and
     # the staged loop on the plain version's Gram (cuBLAS, another
@@ -781,7 +901,7 @@ def phase_staged_vs_fused(check, ctx):
     psi64 = (d.Xf.double() @ w.double()).float()
     A_r, w_r = resample_spike_slab_tspace(
         None, d.Xt, omega, kappa, psi64, w, hyp, B, group=G, noise=noise,
-        path="fused")[:2]
+        path="fused", precision="high")[:2]
     del psi64
     A_p, w_p = resample_spike_slab_tspace(
         None, d.Xt, omega, kappa, psi, w, hyp, B, group=G, noise=noise,
@@ -855,26 +975,30 @@ def phase_small_staged_parity(check):
         torch.rand((n // g, g, lanes), generator=gen),
         torch.randn((n // g, g, lanes, B), generator=gen),
         torch.randn((lanes,), generator=gen))
-    _build.reset_launches()
-    out_c = weights.resample_spike_slab_tspace(
-        None, mc.datas[0].Xt, omega_c, kappa_c, psi_c, w_c, hyp_c, B,
-        noise=weights.SpikeSlabNoise(*(x.cuda() for x in noise)))
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    check(weights.LAST_SS_PATH == "staged" and launches["group_gram"] == 1
-          and launches["ss_group_pass"] == 0,
-          f"card update ran the staged loop (K6 once, K2 never; {launches})")
     out_h = weights.resample_spike_slab_tspace(
         None, mh.datas[0].Xt, omega_c.cpu(), kappa_h, psi_h, w_h, hyp_h, B,
         noise=noise)
-    n_diff = int((out_c[0].cpu() != out_h[0]).sum())
-    check(n_diff == 0, f"A identical ({n_diff} of {n * lanes} differ; "
-          f"{int(out_h[0].sum())} active)")
-    werr = rel_err(out_c[1].cpu(), out_h[1])
-    uerr = float((out_c[2].cpu() - out_h[2]).abs().max())
-    check(werr <= REL_TOL, f"w_full max|diff|/max|w| = {werr:.2e} "
-          f"(limit {REL_TOL:.0e})")
-    check(uerr <= 1e-3, f"u max|diff| = {uerr:.2e} (limit 1e-3)")
+    noise_c = weights.SpikeSlabNoise(*(x.cuda() for x in noise))
+    for prec in ("highest", "high"):          # K6's fp32 and 3xTF32 bodies
+        _build.reset_launches()
+        out_c = weights.resample_spike_slab_tspace(
+            None, mc.datas[0].Xt, omega_c, kappa_c, psi_c, w_c, hyp_c, B,
+            noise=noise_c, precision=prec)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        check(weights.LAST_SS_PATH == "staged"
+              and launches["group_gram"] == 1
+              and launches["ss_group_pass"] == 0,
+              f"{prec}: card update ran the staged loop (K6 once, K2 never; "
+              f"{launches})")
+        n_diff = int((out_c[0].cpu() != out_h[0]).sum())
+        check(n_diff == 0, f"{prec}: A identical ({n_diff} of {n * lanes} "
+              f"differ; {int(out_h[0].sum())} active)")
+        werr = rel_err(out_c[1].cpu(), out_h[1])
+        uerr = float((out_c[2].cpu() - out_h[2]).abs().max())
+        check(werr <= REL_TOL, f"{prec}: w_full max|diff|/max|w| = "
+              f"{werr:.2e} (limit {REL_TOL:.0e})")
+        check(uerr <= 1e-3, f"{prec}: u max|diff| = {uerr:.2e} (limit 1e-3)")
 
 
 def phase_hmc_parity(check):
@@ -954,7 +1078,8 @@ def main() -> int:
     for phase in (lambda: phase_kernels(check, record),
                   lambda: phase_kernels_nb(check, record),
                   lambda: phase_kernel_gram(check, record),
-                  lambda: summary.update(phase_slice(check, record)),
+                  lambda: summary.update(phase_slice(check, record, ctx)),
+                  lambda: summary.update(phase_highest(check, record, ctx)),
                   lambda: summary.update(phase_nb_slice(check, record)),
                   lambda: summary.update(phase_config5(check, record, ctx)),
                   lambda: summary.update(phase_staged_vs_fused(check, ctx)),

@@ -9,29 +9,36 @@
 //
 // Replaces pyglm_tpu/ops/gram_pallas.py::group_gram_blocks_pallas_t (and
 // group_gram_blocks_pallas, which calls it) with its f32 body
-// _gram_kernel_f32 (bf16x3 on the TPU; fp32 FMA here, the port's "high" and
-// "highest"). The single-bf16-pass body _gram_kernel_fast is not ported.
-// The TPU kernel carries a full GB x GB output block in VMEM across an
-// ordered time-chunk grid axis. Hopper blocks run in no order, so each block
-// owns one (group, pair-row tile, lane tile) and loops over all of T inside
-// itself; nothing is carried between blocks and no atomics are used, so
-// results repeat from run to run. Only the triangle p <= q is formed: half
-// the FMAs of the TPU kernel's GB x GB block (820 pairs instead of 1600 at
-// GB = 40).
+// _gram_kernel_f32 (bf16x3 on the TPU). The single-bf16-pass body
+// _gram_kernel_fast is not ported. The TPU kernel carries a full GB x GB
+// output block in VMEM across an ordered time-chunk grid axis. Hopper blocks
+// run in no order, so each block owns one (group, pair-row tile, lane tile)
+// and loops over all of T inside itself; nothing is carried between blocks
+// and no atomics are used, so results repeat from run to run. Only the
+// triangle p <= q is formed: half the products of the TPU kernel's GB x GB
+// block (820 pairs instead of 1600 at GB = 40).
 //
-// Bound on the H100: fp32 operations. At the 8-chain latent-distance
-// ensemble (Ng = 50, GB = 40, 4000 lanes, T = 2e4) the Gram is 3.3e12 FMA
-// against ~1.1 GB of inputs and packed output. The tile loop is K2's
-// (csrc/ss_group_pass.cu): 128 pair rows x 128 lanes over 256 threads, each
-// holding an 8 x 8 register micro-tile fed from shared memory by four float4
-// loads per 64 FMAs; the left operand Z[pq, t] = X[p, t] X[q, t] is formed
-// in shared memory and never stored; each step's global loads are issued
-// into registers during the previous step's product; a warp whose rows all
-// lie past the last valid pair row skips the product. The grid is already
-// ~11k blocks at that shape, so there is no split of the time axis. The
-// ragged T edge is masked in the loads (X and omega read as 0 past T).
+// Two bodies, chosen by the caller's precision:
+//   - "high": group_gram_tc_kernel, 3xTF32 on the tensor cores with the
+//     tile loop shared with K2 (gram_tc.cuh): cp.async ring, Z = X_p X_q
+//     formed once per stage in shared memory, fragments past the last pair
+//     row or lane skipped, the fp32 accumulators folded every 128 steps
+//     into a second fp32 sum (two-level, so no accumulator sums 2e4 terms).
+//     Bound: 3 x 2 x 3.3e12 FLOP at config 5 over the 495 TFLOP/s TF32 peak.
+//   - "highest": group_gram_kernel, fp32 FMA on the CUDA cores (the JAX
+//     package's "highest" takes its f32 XLA Gram). 128 pair rows x 128
+//     lanes over 256 threads, each an 8 x 8 register micro-tile fed from
+//     shared memory by four float4 loads per 64 FMAs; Z formed in shared
+//     memory; each step's global loads issued into registers during the
+//     previous step's product; a warp whose rows all lie past the last pair
+//     row skips the product. Bound: 6.6e12 FLOP over the 67 TFLOP/s fp32 peak.
+// The grid is ~11k-21k blocks at the 8-chain ensemble (Ng = 50, GB = 40,
+// 4000 lanes, T = 2e4), so there is no split of the time axis. The ragged T
+// edge is masked in the loads (X and omega read as 0 past T).
 
 #include <cuda_runtime.h>
+
+#include "gram_tc.cuh"
 
 namespace {
 
@@ -40,6 +47,9 @@ constexpr int kNT = 128;    // postsyn lanes per tile
 constexpr int kKT = 16;     // time steps per shared-memory stage
 constexpr int kThreads = 256;
 constexpr int kMaxGB = 64;
+// 3xTF32 stages per fold (128 steps, 48 truncated adds per chunk): 64
+// steps halve the Gram's error and cost ~10% more time (PERF.md).
+constexpr int kFold = 4;
 
 __global__ void __launch_bounds__(kThreads, 2)
 group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
@@ -145,17 +155,46 @@ group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
   }
 }
 
+// "high": 3xTF32 on the tensor cores, one tile of one group per block.
+__global__ void __launch_bounds__(gram_tc::kThreads, 2)
+group_gram_tc_kernel(const float* __restrict__ xt, const float* __restrict__ om,
+                     float* __restrict__ out, int T, int N, int GB, int vec_x,
+                     int vec_o) {
+  extern __shared__ __align__(16) float smem[];
+  const int g = blockIdx.z, npair = GB * (GB + 1) / 2;
+  gram_tc::gram_tile(xt + (size_t)g * GB * T, T, GB, true, om, N, 0, T,
+                     blockIdx.x * gram_tc::kNT, blockIdx.y * gram_tc::kMT,
+                     npair, vec_x, vec_o, kFold, out + (size_t)g * npair * N,
+                     smem);
+}
+
 }  // namespace
 
 // xt: (>= Ng GB, T) design rows, group g in rows [g GB, (g + 1) GB);
-// om: (T, N); out: (Ng, GB(GB+1)/2, N), every element written.
+// om: (T, N); out: (Ng, GB(GB+1)/2, N), every element written; tc: 1 for
+// the 3xTF32 body ("high"), 0 for the fp32 FMA body ("highest").
 extern "C" int group_gram_launch(const float* xt, const float* om, float* out,
-                                 int T, int N, int GB, int Ng, void* stream) {
+                                 int T, int N, int GB, int Ng, int tc,
+                                 void* stream) {
   if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || Ng < 1 || Ng > 65535)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   const int npair = GB * (GB + 1) / 2;
-  dim3 grid((N + kNT - 1) / kNT, (npair + kRT - 1) / kRT, Ng);
-  group_gram_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(xt, om, out,
-                                                                  T, N, GB);
+  if (!tc) {
+    dim3 grid((N + kNT - 1) / kNT, (npair + kRT - 1) / kRT, Ng);
+    group_gram_kernel<<<grid, kThreads, 0, s>>>(xt, om, out, T, N, GB);
+    return (int)cudaGetLastError();
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      group_gram_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gram_tc::smem_floats(gram_tc::kMaxGB) * (int)sizeof(float));
+  if (attr != cudaSuccess) return (int)attr;
+  const int vec_x = T % 4 == 0 && (size_t)xt % 16 == 0;
+  const int vec_o = N % 4 == 0 && (size_t)om % 16 == 0;
+  dim3 grid((N + gram_tc::kNT - 1) / gram_tc::kNT,
+            (npair + gram_tc::kMT - 1) / gram_tc::kMT, Ng);
+  group_gram_tc_kernel<<<grid, gram_tc::kThreads,
+                         gram_tc::smem_floats(GB) * (int)sizeof(float), s>>>(
+      xt, om, out, T, N, GB, vec_x, vec_o);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// K2: the streaming half of the collapsed spike-and-slab update, one launch
+// K2: the streaming half of the collapsed spike-and-slab update, one call
 // per presyn group g = 0 .. Ng (g = Ng is the epilogue, scatter only):
 //
 //   u    -= omega * (X_{g-1}^T dW_{g-1})    (apply the previous group's draws)
@@ -13,252 +13,302 @@
 // The TPU kernel walks its grid in order and carries M0/Jgg in VMEM scratch
 // from one time chunk to the next. Hopper blocks run in no order, so the
 // time axis is split across blocks (split-K): each block owns a t-range and
-// a 128-lane tile and writes its partial sums to a scratch buffer that the
-// wrapper allocated; a second kernel sums the partials in a fixed order, so
-// results repeat from run to run. No atomics.
+// writes its partial sums to a scratch buffer that the wrapper allocated;
+// reduce_splits_kernel sums the partials in a fixed order, so results
+// repeat from run to run. No atomics.
 //
-// Bound on the H100: the Gram, ~GB(GB+1)/2 * N * T fp32 FMAs per group
-// (1.1e10 at GB=32, N=200, T=1e5; 2.6e11 per sweep), plus three (T, N) f32
-// streams (omega, u in, u out). Outputs are tiled 128 rows x 128 lanes over
-// 256 threads, each holding an 8 x 8 register micro-tile fed from shared
-// memory by four float4 loads per 64 FMAs; a warp whose rows all lie past
-// the tile's valid rows skips the product. The Gram's left operand
-// Z[pq, t] = X[p, t] X[q, t] is formed in shared memory and never stored.
-// Each step's global loads are issued into registers during the previous
-// step's product, so their latency is hidden. The first row tile handles
-// M0 and the scatter; only it touches u, so u is updated in place with no
-// race. fp32 FMA throughout ("high" and "highest"); tensor cores are later
-// work.
+// K2 runs only at precision "high" (the JAX package's fused kernel runs its
+// Gram, M0 and scatter in bf16x3 there). Bound on the H100: the Gram,
+// GB(GB+1)/2 * N * T FMAs per group (1.06e10 at GB=32, N=200, T=1e5), as
+// three TF32 tensor-core products each, over 495 TFLOP/s. Three kernels:
+//   - scatter_kernel: u -= omega (X_p^T dW) and sum_t omega in fp32 FMA (u
+//     carries the residual across all groups, so its update stays fp32);
+//     one thread per postsyn lane with dW in registers, u and omega
+//     streamed through shared memory by cp.async; memory-bound, in place;
+//   - gram_tc_kernel (gram_tc.cuh, the tile loop shared with K6), twice:
+//     the packed Gram of omega (Z = X_p X_q formed in shared memory, never
+//     stored) and M0 = X_g u (Z = X_g), 3xTF32 on the tensor cores.
+// The Gram needs only omega, so it runs on the caller's stream beside the
+// scatter and then M0 on a side stream.
 
 #include <cuda_runtime.h>
 
+#include "gram_tc.cuh"
+
 namespace {
 
-constexpr int kRT = 128;    // output rows per tile
-constexpr int kNT = 128;    // postsyn lanes per tile
-constexpr int kKT = 16;     // time steps per shared-memory stage
-constexpr int kThreads = 256;
+constexpr int kLanes = 128;  // scatter: one thread per postsyn lane
+constexpr int kCh = 16;      // time steps per chunk
 constexpr int kMaxGB = 64;
+constexpr int kMaxDevices = 16;
+// 3xTF32 stages per fold (128 steps), as in K6 (group_gram.cu).
+constexpr int kFold = 4;
 
-__global__ void __launch_bounds__(kThreads, 2)
-group_pass_kernel(const float* __restrict__ xg, const float* __restrict__ xp,
-                  const float* __restrict__ om, float* __restrict__ u,
-                  const float* __restrict__ dw, float* __restrict__ part,
-                  int T, int N, int GB, int rows_per_split, int n_rows,
-                  int want_sumom) {
-  __shared__ float xs[kMaxGB][kKT + 1];
-  __shared__ float xps[kMaxGB][kKT + 1];
-  extern __shared__ float dws[];   // (GB, kNT), dynamic
-  __shared__ __align__(16) float as[kKT][kRT];
-  __shared__ __align__(16) float bs[kKT][kNT];
-  __shared__ int pidx[kRT], qidx[kRT];
-  __shared__ float red[kThreads / kNT][kNT];
-
-  const int tid = threadIdx.x;
-  const int split = blockIdx.x;
-  const int lane0 = blockIdx.y * kNT;
-  const int tile = blockIdx.z;
-  const bool m0_tile = tile == 0;
-  const bool gather = xg != nullptr;
-  const bool scatter = m0_tile && xp != nullptr && dw != nullptr;
-  const int npair = GB * (GB + 1) / 2;
-  const int t_begin = split * rows_per_split;
-  const int t_end = min(T, t_begin + rows_per_split);
-
-  if (!m0_tile && tid < kRT) {
-    // Row pr of the packed triangle -> (p, q), row-major over p <= q.
-    const int pr = (tile - 1) * kRT + tid;
-    int p = -1, q = -1;
-    if (pr < npair) {
-      int rem = pr;
-      p = 0;
-      while (rem >= GB - p) {
-        rem -= GB - p;
-        ++p;
-      }
-      q = p + rem;
-    }
-    pidx[tid] = p;
-    qidx[tid] = q;
-  }
-  if (scatter) {
-    for (int i = tid; i < GB * kNT; i += kThreads) {
-      const int r = i / kNT, l = i % kNT, n = lane0 + l;
-      dws[r * kNT + l] = n < N ? dw[(size_t)r * N + n] : 0.0f;
-    }
-  }
-  __syncthreads();
-
-  // micro-tile: rows 8ty .. 8ty+7, lanes 4tx.. and 64+4tx.. (the split keeps
-  // the float4 loads of a warp on distinct banks)
-  const int tx = tid % 16, ty = tid / 16;
-  const int ll = tid % kNT, lk = tid / kNT;    // staging: lane ll, steps lk + 2j
-  const int n_ld = lane0 + ll;
-  // Valid rows of this tile; ty pairs share a warp, so the test is uniform.
-  const int tile_rows = m0_tile ? GB : min(kRT, npair - (tile - 1) * kRT);
-  const bool busy = gather && 16 * (ty / 2) < tile_rows;
-  float acc[8][8] = {};
-  float sum_om = 0.0f;
-
-  // Global loads for step t0 go to registers one step ahead, so their
-  // latency overlaps the previous step's product.
-  constexpr int kXPer = kMaxGB * kKT / kThreads;       // design values
-  constexpr int kBPer = kKT / (kThreads / kNT);        // (t, lane) values
-  float xr[kXPer], xpr[kXPer], omr[kBPer], ur[kBPer];
-  auto prefetch = [&](int t0) {
-#pragma unroll
-    for (int j = 0; j < kXPer; ++j) {
-      const int i = tid + kThreads * j, r = i / kKT, t = t0 + i % kKT;
-      const bool ok = i < GB * kKT && t < t_end;
-      xr[j] = (gather && ok) ? xg[(size_t)r * T + t] : 0.0f;
-      xpr[j] = (scatter && ok) ? xp[(size_t)r * T + t] : 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < kBPer; ++j) {
-      const int t = t0 + lk + (kThreads / kNT) * j;
-      const bool ok = t < t_end && n_ld < N;
-      const size_t idx = (size_t)t * N + n_ld;
-      omr[j] = ok ? om[idx] : 0.0f;
-      ur[j] = (ok && m0_tile) ? u[idx] : 0.0f;
-    }
-  };
-  prefetch(t_begin);
-
-  for (int t0 = t_begin; t0 < t_end; t0 += kKT) {
-#pragma unroll
-    for (int j = 0; j < kXPer; ++j) {
-      const int i = tid + kThreads * j;
-      if (i < GB * kKT) {
-        xs[i / kKT][i % kKT] = xr[j];
-        xps[i / kKT][i % kKT] = xpr[j];
-      }
-    }
-    __syncthreads();
-    if (m0_tile) {
-      for (int i = tid; i < kKT * kRT; i += kThreads) {
-        const int k = i / kRT, r = i % kRT;
-        as[k][r] = r < GB ? xs[r][k] : 0.0f;
-      }
-#pragma unroll
-      for (int j = 0; j < kBPer; ++j) {
-        const int k = lk + (kThreads / kNT) * j, t = t0 + k;
-        float uu = ur[j];
-        if (scatter && t < t_end && n_ld < N) {
-          float s = 0.0f;
-#pragma unroll 8
-          for (int r = 0; r < GB; ++r) s = fmaf(xps[r][k], dws[r * kNT + ll], s);
-          uu -= omr[j] * s;
-          u[(size_t)t * N + n_ld] = uu;
-        }
-        sum_om += omr[j];
-        bs[k][ll] = uu;
-      }
-    } else {
-      for (int i = tid; i < kKT * kRT; i += kThreads) {
-        const int k = i / kRT, r = i % kRT, p = pidx[r];
-        as[k][r] = p >= 0 ? xs[p][k] * xs[qidx[r]][k] : 0.0f;
-      }
-#pragma unroll
-      for (int j = 0; j < kBPer; ++j)
-        bs[lk + (kThreads / kNT) * j][ll] = omr[j];
-    }
-    __syncthreads();
-    if (t0 + kKT < t_end) prefetch(t0 + kKT);
-    if (busy) {
-#pragma unroll
-      for (int k = 0; k < kKT; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&as[k][8 * ty]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&as[k][8 * ty + 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&bs[k][4 * tx]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&bs[k][64 + 4 * tx]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-  if (!gather) return;
-
-  float* pbase = part + (size_t)split * n_rows * N;
-  for (int i = 0; i < 8; ++i) {
-    const int r = 8 * ty + i;
-    int row;
-    if (m0_tile) {
-      if (r >= GB) continue;
-      row = r;
-    } else {
-      const int pr = (tile - 1) * kRT + r;
-      if (pr >= npair) continue;
-      row = GB + pr;
-    }
-    for (int j = 0; j < 8; ++j) {
-      const int n = lane0 + (j < 4 ? 0 : 60) + 4 * tx + j;
-      if (n < N) pbase[(size_t)row * N + n] = acc[i][j];
-    }
-  }
-  if (m0_tile && want_sumom) {
-    red[lk][ll] = sum_om;
-    __syncthreads();
-    if (tid < kNT) {
-      float s = 0.0f;
-      for (int k = 0; k < kThreads / kNT; ++k) s += red[k][tid];
-      const int n = lane0 + tid;
-      if (n < N) pbase[(size_t)(GB + npair) * N + n] = s;
-    }
-  }
+template <int R>
+constexpr int scatter_smem_bytes() {
+  return 4 * (2 * R * kCh + 4 * kCh * kLanes);
 }
 
-// out[i] = sum over splits of part[split, i], in split order.
+// u[t, n] -= omega[t, n] sum_r X_p[r, t] dW[r, n] (each sum over r in
+// order) when xp is given, and the split partial of sum_t omega[t, n] when
+// want_sumom is set. dW of a thread's lane lives in registers (R >= GB).
+// X_p, omega and u come through shared memory kCh steps at a time,
+// double-buffered by cp.async so that the next chunk streams in while this
+// one is computed; X_p is read as float4 over 4 steps, so each shared load
+// feeds 4 FMAs.
+template <int R>
+__global__ void __launch_bounds__(kLanes)
+scatter_kernel(const float* __restrict__ xp, const float* __restrict__ om,
+               float* __restrict__ u, const float* __restrict__ dw,
+               float* __restrict__ part, int T, int N, int GB,
+               int rows_per_split, int want_sumom) {
+  extern __shared__ __align__(16) float sm[];
+  float* xps = sm;                        // [2][R][kCh]
+  float* oms = xps + 2 * R * kCh;         // [2][kCh][kLanes]
+  float* us = oms + 2 * kCh * kLanes;     // [2][kCh][kLanes]
+  const int tid = threadIdx.x;
+  const int n = blockIdx.y * kLanes + tid;
+  const bool lane_ok = n < N;
+  const bool scatter = xp != nullptr;
+  const int t_begin = blockIdx.x * rows_per_split;
+  const int t_end = min(T, t_begin + rows_per_split);
+  const int nch = t_end > t_begin ? (t_end - t_begin + kCh - 1) / kCh : 0;
+
+  auto load_chunk = [&](int c) {
+    const int t0 = t_begin + c * kCh, buf = c & 1;
+    if (scatter) {
+      for (int i = tid; i < GB * kCh; i += kLanes) {
+        const int r = i / kCh, k = i % kCh, t = t0 + k;
+        const bool ok = t < t_end;
+        gram_tc::cp_async4(xps + (buf * R + r) * kCh + k,
+                           ok ? xp + (size_t)r * T + t : xp, ok);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCh; ++k) {
+      const int t = t0 + k;
+      const bool ok = t < t_end && lane_ok;
+      const size_t g = ok ? (size_t)t * N + n : 0;
+      const int o = (buf * kCh + k) * kLanes + tid;
+      gram_tc::cp_async4(oms + o, om + g, ok);
+      if (scatter) gram_tc::cp_async4(us + o, u + g, ok);
+    }
+  };
+
+  float d[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    d[r] = (scatter && r < GB && lane_ok) ? dw[(size_t)r * N + n] : 0.0f;
+  float sum_om = 0.0f;
+
+  if (nch > 0) load_chunk(0);
+  gram_tc::cp_async_commit();
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) load_chunk(c + 1);
+    gram_tc::cp_async_commit();
+    gram_tc::cp_async_wait<1>();
+    __syncthreads();
+    const int t0 = t_begin + c * kCh, buf = c & 1;
+    const float* xpb = xps + buf * R * kCh;
+#pragma unroll
+    for (int k = 0; k < kCh; k += 4) {
+      float w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = oms[(buf * kCh + k + i) * kLanes + tid];
+      sum_om += (w[0] + w[1]) + (w[2] + w[3]);
+      if (!scatter) continue;
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < GB) {
+          const float4 a = *reinterpret_cast<const float4*>(xpb + r * kCh + k);
+          sc[0] = fmaf(a.x, d[r], sc[0]);
+          sc[1] = fmaf(a.y, d[r], sc[1]);
+          sc[2] = fmaf(a.z, d[r], sc[2]);
+          sc[3] = fmaf(a.w, d[r], sc[3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = t0 + k + i;
+        const float uu = us[(buf * kCh + k + i) * kLanes + tid];
+        if (t < t_end && lane_ok) u[(size_t)t * N + n] = uu - w[i] * sc[i];
+      }
+    }
+    __syncthreads();   // the next load refills this chunk's buffers
+  }
+  gram_tc::cp_async_wait<0>();
+  if (want_sumom && lane_ok) part[(size_t)blockIdx.x * N + n] = sum_om;
+}
+
+// One 3xTF32 tile loop per block over its split of T: the packed Gram
+// X_g diag(B) X_g^T (pairs = 1, B = omega) or X_g B (pairs = 0, B = u),
+// as (n_split, n_rows, N) partials.
+__global__ void __launch_bounds__(gram_tc::kThreads, 2)
+gram_tc_kernel(const float* __restrict__ xg, const float* __restrict__ b,
+               float* __restrict__ part, int T, int N, int GB, int pairs,
+               int n_rows, int rows_per_split, int vec_x, int vec_b) {
+  extern __shared__ __align__(16) float smem[];
+  const int split = blockIdx.x;
+  const int t_begin = split * rows_per_split;
+  const int t_end = min(T, t_begin + rows_per_split);
+  gram_tc::gram_tile(xg, T, GB, pairs, b, N, t_begin, t_end,
+                     blockIdx.y * gram_tc::kNT, blockIdx.z * gram_tc::kMT,
+                     n_rows, vec_x, vec_b, kFold,
+                     part + (size_t)split * n_rows * N, smem);
+}
+
+// out[i] = sum over splits of part[split, i], in split order, compensated
+// (each add's rounding error, recovered by TwoSum, is carried to the end).
 __global__ void reduce_splits_kernel(const float* __restrict__ part,
                                      float* __restrict__ out, int n_split,
                                      long long stride, long long count) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= count) return;
-  float s = 0.0f;
-  for (int k = 0; k < n_split; ++k) s += part[k * stride + i];
-  out[i] = s;
+  float s = 0.0f, c = 0.0f;
+  for (int k = 0; k < n_split; ++k) {
+    const float b = part[k * stride + i], t = s + b, bb = t - s;
+    c += (s - (t - bb)) + (b - bb);
+    s = t;
+  }
+  out[i] = s + c;
+}
+
+template <int R>
+cudaError_t launch_scatter_r(const float* xp, const float* om, float* u,
+                             const float* dw, float* part, int T, int N,
+                             int GB, int n_split, int want_sumom,
+                             cudaStream_t s) {
+  const int rows = (T + n_split - 1) / n_split;
+  scatter_kernel<R><<<dim3(n_split, (N + kLanes - 1) / kLanes), kLanes,
+                      scatter_smem_bytes<R>(), s>>>(xp, om, u, dw, part, T, N,
+                                                    GB, rows, want_sumom);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_scatter(const float* xp, const float* om, float* u,
+                           const float* dw, float* part, int T, int N, int GB,
+                           int n_split, int want_sumom, cudaStream_t s) {
+  if (GB <= 16)
+    return launch_scatter_r<16>(xp, om, u, dw, part, T, N, GB, n_split,
+                                want_sumom, s);
+  if (GB <= 32)
+    return launch_scatter_r<32>(xp, om, u, dw, part, T, N, GB, n_split,
+                                want_sumom, s);
+  return launch_scatter_r<64>(xp, om, u, dw, part, T, N, GB, n_split,
+                              want_sumom, s);
+}
+
+cudaError_t launch_tc(const float* xg, const float* b, float* part, int T,
+                      int N, int GB, int pairs, int n_split, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gram_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gram_tc::smem_floats(gram_tc::kMaxGB) * (int)sizeof(float));
+  if (attr != cudaSuccess) return attr;
+  const int n_rows = pairs ? GB * (GB + 1) / 2 : GB;
+  int rows = (T + n_split - 1) / n_split;
+  rows = (rows + gram_tc::kKT - 1) / gram_tc::kKT * gram_tc::kKT;
+  const int vec_x = T % 4 == 0 && (size_t)xg % 16 == 0;
+  const int vec_b = N % 4 == 0 && (size_t)b % 16 == 0;
+  gram_tc_kernel<<<dim3(n_split, (N + gram_tc::kNT - 1) / gram_tc::kNT,
+                        (n_rows + gram_tc::kMT - 1) / gram_tc::kMT),
+                   gram_tc::kThreads,
+                   gram_tc::smem_floats(GB) * (int)sizeof(float), s>>>(
+      xg, b, part, T, N, GB, pairs, n_rows, rows, vec_x, vec_b);
+  return cudaGetLastError();
+}
+
+cudaError_t reduce(const float* part, float* out, int n_split,
+                   long long stride, long long count, cudaStream_t s) {
+  const int threads = 256;
+  reduce_splits_kernel<<<(unsigned)((count + threads - 1) / threads), threads,
+                         0, s>>>(part, out, n_split, stride, count);
+  return cudaGetLastError();
+}
+
+// A side stream and its fork/join events for each device, made at first use.
+struct Side {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t fork = nullptr, join = nullptr;
+};
+
+cudaError_t side_for_current_device(Side** out) {
+  static Side sides[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Side& sd = sides[dev];
+  if (sd.stream == nullptr) {
+    if ((err = cudaStreamCreateWithFlags(&sd.stream, cudaStreamNonBlocking)) !=
+            cudaSuccess ||
+        (err = cudaEventCreateWithFlags(&sd.fork, cudaEventDisableTiming)) !=
+            cudaSuccess ||
+        (err = cudaEventCreateWithFlags(&sd.join, cudaEventDisableTiming)) !=
+            cudaSuccess)
+      return err;
+  }
+  *out = &sd;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // xg, xp: (GB, T) design rows of groups g and g-1 (null when absent);
-// om: (T, N); u: (T, N) updated in place; dw: (GB, N) or null;
-// part: (n_split, GB + npair + 1, N) scratch; out: (GB + npair + 1, N) with
-// rows [M0; packed Jgg; sum_t omega]. The last row is written only when
-// want_sumom is set; nothing is written to out when xg is null.
+// om: (T, N); u: (T, N) updated in place; dw: (GB, N) or null. Scratch:
+// part_g (n_split, GB(GB+1)/2, N), part_m (n_split_m, GB, N) and part_s
+// (n_split_s, N). out: (GB + npair + 1, N) with rows [M0; packed Jgg;
+// sum_t omega]; the last row is written only when want_sumom is set, and
+// nothing is written to out when xg is null (the epilogue).
 extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
                                     const float* om, float* u,
-                                    const float* dw, float* part, float* out,
+                                    const float* dw, float* part_g,
+                                    float* part_m, float* part_s, float* out,
                                     int T, int N, int GB, int n_split,
+                                    int n_split_m, int n_split_s,
                                     int want_sumom, void* stream) {
-  if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || n_split < 1)
+  if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || n_split < 1 ||
+      n_split_m < 1 || n_split_s < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int npair = GB * (GB + 1) / 2;
-  const int n_rows = GB + npair + 1;
-  int rows = (T + n_split - 1) / n_split;
-  rows = (rows + kKT - 1) / kKT * kKT;
-  const bool gather = xg != nullptr;
-  dim3 grid(n_split, (N + kNT - 1) / kNT,
-            gather ? 1 + (npair + kRT - 1) / kRT : 1);
-  // dW of the scatter lives in dynamic shared memory, GB x kNT floats.
-  const int dyn = GB * kNT * (int)sizeof(float);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      group_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxGB * kNT * (int)sizeof(float));
-  if (attr != cudaSuccess) return (int)attr;
-  group_pass_kernel<<<grid, kThreads, dyn, s>>>(xg, xp, om, u, dw, part, T, N,
-                                              GB, rows, n_rows, want_sumom);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !gather) return (int)err;
-  const long long count = (long long)(GB + npair + (want_sumom ? 1 : 0)) * N;
-  const int threads = 256;
-  reduce_splits_kernel<<<(unsigned)((count + threads - 1) / threads), threads,
-                         0, s>>>(part, out, n_split, (long long)n_rows * N,
-                                 count);
-  return (int)cudaGetLastError();
+  const bool scatter = xp != nullptr && dw != nullptr;
+  want_sumom = want_sumom && xg != nullptr;
+  if (xg == nullptr)      // the epilogue: the scatter alone
+    return (int)(scatter ? launch_scatter(xp, om, u, dw, part_s, T, N, GB,
+                                          n_split_s, 0, s)
+                         : cudaSuccess);
+
+  // Side stream: the scatter (memory-bound), then M0 = X_g u. Caller's
+  // stream: the Gram of omega (tensor-bound), then the reductions, after
+  // both.
+  Side* sd = nullptr;
+  cudaError_t err = side_for_current_device(&sd);
+  if (err != cudaSuccess ||
+      (err = cudaEventRecord(sd->fork, s)) != cudaSuccess ||
+      (err = cudaStreamWaitEvent(sd->stream, sd->fork, 0)) != cudaSuccess)
+    return (int)err;
+  if ((scatter || want_sumom) &&
+      (err = launch_scatter(scatter ? xp : nullptr, om, u, dw, part_s, T, N,
+                            GB, n_split_s, want_sumom, sd->stream)) !=
+          cudaSuccess)
+    return (int)err;
+  if ((err = launch_tc(xg, u, part_m, T, N, GB, 0, n_split_m, sd->stream)) !=
+          cudaSuccess ||
+      (err = cudaEventRecord(sd->join, sd->stream)) != cudaSuccess ||
+      (err = launch_tc(xg, om, part_g, T, N, GB, 1, n_split, s)) !=
+          cudaSuccess ||
+      (err = cudaStreamWaitEvent(s, sd->join, 0)) != cudaSuccess)
+    return (int)err;
+
+  // out = [M0; Jgg; sum omega], each summed over its splits in order.
+  if ((err = reduce(part_m, out, n_split_m, (long long)GB * N,
+                    (long long)GB * N, s)) != cudaSuccess ||
+      (err = reduce(part_g, out + (size_t)GB * N, n_split,
+                    (long long)npair * N, (long long)npair * N, s)) !=
+          cudaSuccess)
+    return (int)err;
+  if (want_sumom)
+    err = reduce(part_s, out + (size_t)(GB + npair) * N, n_split_s, N, N, s);
+  return (int)err;
 }

@@ -1,6 +1,7 @@
 """Where the time of one sweep goes on the card.
 
     python -m pyglm_tpu_torch.diagnostics.profile_sweep [flagship|ensemble]
+        [--precision high|highest]
 
 ``flagship``: SparseBernoulliGLM(200, B=4, L=10) on synthetic spikes at rate
 0.15, T=100k, 3 warm-up sweeps, 20 timed sweeps, then 5 traced sweeps (it
@@ -12,7 +13,9 @@ traced sweeps. Prints, per sweep: the wall time untraced (host clock, ending
 in a synchronize) and traced, the device busy time and idle share, the
 kernel time by name (torch.profiler), and for the ensemble the time of the
 spike-and-slab update, of K6 alone and of the network resample (HMC and
-NIW) alone, each timed apart on the same state. Needs a CUDA card.
+NIW) alone, each timed apart on the same state. Every model, sweep and
+update runs at ``--precision`` ("high" by default, as the models). Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -69,21 +72,22 @@ def _report(name, untraced, traced, kernels, top=14):
         print(f"  {v:9.3f} ms  {100 * v / busy:5.1f}%  {k[:90]}")
 
 
-def flagship():
+def flagship(precision):
     from pyglm_tpu_torch import SparseBernoulliGLM
     N, T = 200, 100_000
     gen = torch.Generator(device="cuda").manual_seed(0)
     Y = (torch.rand((T, N), generator=gen, device="cuda") < 0.15).float()
-    m = SparseBernoulliGLM(N, B=4, L=10, seed=0, device="cuda")
+    m = SparseBernoulliGLM(N, B=4, L=10, seed=0, precision=precision,
+                           device="cuda")
     m.add_data(Y)
     for _ in range(3):
         m.resample_model()
     untraced = _wall(m.resample_model, 20)
     traced, kernels = _trace(m.resample_model, 5)
-    _report("flagship sweep", untraced, traced, kernels)
+    _report(f"flagship sweep ({precision})", untraced, traced, kernels)
 
 
-def ensemble():
+def ensemble(precision):
     from pyglm_tpu_torch import NonlinearAutoregressiveModel
     from pyglm_tpu_torch.models.ensemble import (
         chain_generators, lane_inputs, make_stacked_sweep, stack_states,
@@ -96,14 +100,15 @@ def ensemble():
               network="latent_distance", spike_and_slab=True)
     truth = NonlinearAutoregressiveModel(
         N, seed=5, net_kwargs=dict(dim=2, mu_bias=-3.0), **kw)
-    m = NonlinearAutoregressiveModel(N, seed=0, net_kwargs=dict(dim=2), **kw)
+    m = NonlinearAutoregressiveModel(N, seed=0, net_kwargs=dict(dim=2),
+                                     precision=precision, **kw)
     m.add_data(truth.generate(T, keep=False))
     st = stack_states([init_state_from_prior(
         chain_generators(sd, "cuda"), m.observation, m.network, N, B, True,
         "cuda") for sd in range(1, C + 1)])
     gens = chain_generators(99, "cuda")
     sweep = make_stacked_sweep(m.observation, m.network, N, B, C, True,
-                               group=m.group)
+                               group=m.group, precision=precision)
     datas = tuple(m.datas)
     for _ in range(2):
         st, _ = sweep(gens, st, datas)
@@ -113,8 +118,8 @@ def ensemble():
         box[0], _ = sweep(gens, box[0], datas)
     untraced = _wall(one, 3)
     traced, kernels = _trace(one, 2)
-    _report(f"ensemble stacked sweep ({C} chains x {N})", untraced, traced,
-            kernels)
+    _report(f"ensemble stacked sweep ({C} chains x {N}, {precision})",
+            untraced, traced, kernels)
     d = m.datas[0]
     chains = unstack_states(box[0], C)
     w, hyp = lane_inputs(m.network, chains)
@@ -122,8 +127,10 @@ def ensemble():
     omega, kappa = m.observation.omega_kappa(gens.host, d.Y.repeat(1, C),
                                              psi, None)
     ss_ms = _wall(lambda: resample_spike_slab_tspace(
-        gens.device, d.Xt, omega, kappa, psi, w, hyp, B, group=m.group), 3)
-    k6_ms = _wall(lambda: group_gram_blocks(d.Xt, omega, B, m.group), 3)
+        gens.device, d.Xt, omega, kappa, psi, w, hyp, B, group=m.group,
+        precision=precision), 3)
+    k6_ms = _wall(lambda: group_gram_blocks(d.Xt, omega, B, m.group,
+                                            precision=precision), 3)
     st1 = box[0]
     net_ms = _wall(lambda: m.network.resample(gens, st1.net, st1.A, st1.W),
                    3)
@@ -135,6 +142,8 @@ def ensemble():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config", nargs="*", choices=["flagship", "ensemble"])
+    ap.add_argument("--precision", default="high",
+                    choices=["high", "highest"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_sweep: needs a CUDA device")
@@ -143,7 +152,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     for c in args.config or ["flagship", "ensemble"]:
-        {"flagship": flagship, "ensemble": ensemble}[c]()
+        {"flagship": flagship, "ensemble": ensemble}[c](args.precision)
 
 
 if __name__ == "__main__":

@@ -102,12 +102,14 @@ def lane_inputs(network, chains):
 
 
 def make_stacked_sweep(obs, network, N: int, B: int, C: int,
-                       spike_slab: bool, group: int | None = None):
+                       spike_slab: bool, group: int | None = None,
+                       precision: str = "highest"):
     """The C-chain lane-stacked sweep: (generators, stacked state, datas) ->
     (stacked state, diagnostics of shape (C,)): "log_likelihood",
     "n_edges", and "hmc_accept" for the latent-distance prior. The move
     order and conditionals are those of models/sweep.py, per lane and per
-    chain. The observation's ll cache is not used (as in the JAX package):
+    chain, the spike-and-slab update at `precision`. The observation's ll
+    cache is not used (as in the JAX package):
     NB's r update takes its elementwise CRT branch."""
     if not spike_slab:
         raise NotImplementedError(
@@ -132,7 +134,8 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
         psi = Xf @ w_lane
         omega, kappa = obs.omega_kappa(gens.host, Y_lane, psi, aux_lane)
         A_lane, w_lane, u, _ = resample_spike_slab_tspace(
-            gens.device, Xt, omega, kappa, psi, w_lane, hyp, B, group=group)
+            gens.device, Xt, omega, kappa, psi, w_lane, hyp, B, group=group,
+            precision=precision)
         psi = (kappa - u) / omega
         del omega, kappa, u
 
@@ -191,7 +194,7 @@ def run_stacked_chains(model, n_chains: int, n_samples: int,
     gens = chain_generators(int(seeds[0]) + _SWEEP_SALT, dev)
     sweep = make_stacked_sweep(model.observation, model.network, model.N,
                                model.B, C, model.spike_and_slab,
-                               group=model.group)
+                               group=model.group, precision=model.precision)
     datas = tuple(model.datas)
 
     for _ in range(n_burnin):

@@ -24,13 +24,10 @@ from pyglm_tpu_torch.models.sweep import (
     GLMData, GLMState, init_state_from_prior, make_generator,
     make_gibbs_sweep, make_log_likelihood,
 )
-from pyglm_tpu_torch.models.weights import _auto_group
+from pyglm_tpu_torch.models.weights import _auto_group, check_precision
 from pyglm_tpu_torch.ops.basis import cosine_basis, design_matrix
 from pyglm_tpu_torch.utils.metrics import split_rhat
 from pyglm_tpu_torch.utils.utils import require_device
-
-# On the card "high" and "highest" both run the fp32 kernels.
-_PRECISIONS = ("high", "highest")
 
 
 def _as_f32(Y, device) -> torch.Tensor:
@@ -54,7 +51,12 @@ class NonlinearAutoregressiveModel:
         port runs 'bernoulli', 'binomial' and 'negative_binomial' with
         'erdos_renyi' or 'latent_distance' and spike_and_slab=True.
       seed: seed of this model's generators.
-      precision: 'high' (default) or 'highest', both fp32 on the card.
+      precision: 'high' (default): the spike-and-slab Gram runs on the
+        card's tensor cores as 3xTF32 (fp32-grade, as the JAX package's
+        bf16x3), by the fused loop K2 + K3 where the JAX dispatcher picks
+        it (the flagship) and else the staged loop K6 + K3. 'highest': the
+        staged loop with K6's fp32 FMA body, never K2. 'default' and 'sr'
+        (bf16) raise NotImplementedError. On the CPU both run in fp32.
       group: presyn neurons per spike-and-slab group (default: the divisor
         of N nearest 8 with group*B % 8 == 0, i.e. 8 at N = 200, B = 4).
       device: where the data, the state and the kernels live: the card
@@ -68,11 +70,7 @@ class NonlinearAutoregressiveModel:
                  precision: str = "high", group: int | None = None,
                  device="cuda", obs_kwargs: Optional[dict] = None,
                  net_kwargs: Optional[dict] = None):
-        if precision not in _PRECISIONS:
-            raise NotImplementedError(
-                f"precision={precision!r} is not ported to pyglm_tpu_torch "
-                f"yet: only {_PRECISIONS} (ROADMAP.md Queue A, precision "
-                f"modes of K2)")
+        check_precision(precision)
         if basis is None:
             basis = cosine_basis(B=B, L=L)
         basis = np.asarray(basis, np.float32)
@@ -80,6 +78,7 @@ class NonlinearAutoregressiveModel:
         self.L, self.B = basis.shape
         self.basis = basis
         self.spike_and_slab = bool(spike_and_slab)
+        self.precision = precision
         self.device = require_device(device)
         self.observation = (make_observation(observation, **(obs_kwargs or {}))
                             if isinstance(observation, str) else observation)
@@ -91,7 +90,8 @@ class NonlinearAutoregressiveModel:
 
         self._sweep = make_gibbs_sweep(self.observation, self.network, N,
                                        self.B, self.spike_and_slab,
-                                       group=self.group)
+                                       group=self.group,
+                                       precision=self.precision)
         self._loglik = make_log_likelihood(self.observation, N, self.B)
         self._generate = make_generator(self.observation, N, self.B)
         self.state: GLMState = init_state_from_prior(

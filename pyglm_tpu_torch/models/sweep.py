@@ -43,11 +43,12 @@ class Generators(NamedTuple):
 
 
 def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
-                     group: int | None = None):
+                     group: int | None = None, precision: str = "highest"):
     """One Gibbs sweep (the JAX package's move order):
       1. psi = Xf w;  (omega, kappa) from the family: PG(1, psi) by K1 for
          Bernoulli, PG(y + r, psi) by K4 for NB
-      2. (A, W, bias) by the collapsed spike-and-slab update (K2 + K3)
+      2. (A, W, bias) by the collapsed spike-and-slab update at
+         `precision` (models/weights.py: K2 + K3 or K6 + K3)
       3. observation aux, then the network hyperparameters given (A, W)
     Returns (new_state, {"log_likelihood", "n_edges"}), both 0-d tensors,
     plus "hmc_accept" when the network state carries one.
@@ -76,7 +77,8 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
         psi = Xf @ w_full
         omega, kappa = obs.omega_kappa(gens.host, Y, psi, state.aux)
         A, w_full, u, _ = resample_spike_slab_tspace(
-            gens.device, Xt, omega, kappa, psi, w_full, hyp, B, group=group)
+            gens.device, Xt, omega, kappa, psi, w_full, hyp, B, group=group,
+            precision=precision)
         # psi under the NEW weights, recovered without a second matmul.
         psi = (kappa - u) / omega
         W, b = unpack_weights(w_full, N, B)

@@ -21,7 +21,8 @@ float rounding:
   package's staged path (``_tspace_impl``).
 
 :func:`ss_path` picks the loop where the JAX package's single-device
-dispatcher picks it. The bias draw follows either.
+dispatcher picks it: the fused loop only at precision "high". The bias draw
+follows either.
 """
 from __future__ import annotations
 
@@ -166,33 +167,52 @@ def _fused_plan(N_pre: int, B: int, npad: int, t_chunk: int,
     return None
 
 
+# Precision modes the port runs. On the card "high" takes the 3xTF32
+# tensor-core Gram (K2 in the fused loop, K6's "high" body in the staged
+# loop) and "highest" the staged loop on K6's fp32 FMA body; the bf16
+# modes "default" and "sr" are not ported.
+PRECISIONS = ("high", "highest")
+
+
+def check_precision(precision: str) -> None:
+    """Raise for a precision mode the port does not run."""
+    if precision in ("default", "sr"):
+        raise NotImplementedError(
+            f"precision={precision!r} (the bf16 Gram modes) is not ported to "
+            f"pyglm_tpu_torch yet (ROADMAP.md Queue A, item 7b)")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r}: one of {PRECISIONS}")
+
+
 def ss_path(N_pre: int, B: int, lanes: int, T: int, group: int | None = None,
-            jg_given: bool = False) -> str:
+            jg_given: bool = False, precision: str = "highest") -> str:
     """"staged" or "fused": the loop the JAX package's single-device
     dispatcher (``_tspace_impl``) picks for this configuration, without its
     backend tests (TPU, device count, mesh, environment). The same
     configuration then runs the same algorithm in both packages; on the
     card both loops are hand-written kernels, so neither is a fallback and
-    nothing warns. Which is faster at wide lanes is measured in PERF.md."""
+    nothing warns. "highest" always runs the staged loop, as in the JAX
+    package. Which loop is faster at wide lanes is measured in PERF.md."""
+    check_precision(precision)
     plan = _fused_plan(N_pre, B, -(-lanes // 128) * 128, 512, group=group)
-    if (jg_given or T < 384 or B > _MAX_B or plan is None
-            or (plan[0] * B) % 8):
+    if (precision != "high" or jg_given or T < 384 or B > _MAX_B
+            or plan is None or (plan[0] * B) % 8):
         return "staged"
     return "fused"
 
 
 def group_gram_blocks(Xt, omega, B: int, G: int, packed: bool = True,
-                      fast: bool = False):
-    """Every group's omega-weighted Gram: kernel K6 for CUDA tensors, its
-    plain version for CPU tensors. Xt (P, T) with the bias row last.
-    Returns the packed (Ng, GB(GB+1)/2, N), or with ``packed=False`` the
-    JAX package's (Ng, N, GB, GB)."""
+                      fast: bool = False, precision: str = "highest"):
+    """Every group's omega-weighted Gram: kernel K6 for CUDA tensors (its
+    3xTF32 tensor-core body at precision "high", its fp32 FMA body at
+    "highest"), its plain version for CPU tensors. Xt (P, T) with the bias
+    row last. Returns the packed (Ng, GB(GB+1)/2, N), or with
+    ``packed=False`` the JAX package's (Ng, N, GB, GB)."""
     if fast:
-        raise NotImplementedError(
-            "the single-bf16-pass Gram (precision='default') is not ported "
-            "to pyglm_tpu_torch yet (ROADMAP.md Queue A, item 7b)")
+        check_precision("default")
+    check_precision(precision)
     if omega.is_cuda:
-        Jg = group_gram_blocks_cuda(Xt, omega, B, G)
+        Jg = group_gram_blocks_cuda(Xt, omega, B, G, precision=precision)
     elif omega.device.type == "cpu":
         Jg = group_gram_blocks_plain(Xt, omega, B, G)
     else:
@@ -233,14 +253,15 @@ def _fused_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise):
     return sum_om
 
 
-def _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise, Jg=None):
+def _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise, precision,
+                 Jg=None):
     """K6 once (unless the packed Jg is given), then per group M0 = X_g u,
     K3 on Jg[g] and the scatter u -= omega * (X_g^T dW); updates u, w and A
     in place and returns sum_t omega."""
     N = omega.shape[1]
     GB = G * B
     if Jg is None:
-        Jg = group_gram_blocks(Xt, omega, B, G)
+        Jg = group_gram_blocks(Xt, omega, B, G, precision=precision)
     for g in range(Jg.shape[0]):
         xg = Xt[g * GB:(g + 1) * GB]
         m0 = xg @ u
@@ -257,7 +278,8 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
                                psi, w_full, hyp: EdgeHypers, B: int,
                                group: int | None = None,
                                noise: SpikeSlabNoise | None = None,
-                               path: str | None = None, Jg=None):
+                               path: str | None = None, Jg=None,
+                               precision: str = "highest"):
     """Collapsed spike-and-slab for all neurons in residual (T-) space.
 
     Args:
@@ -270,6 +292,9 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
       path: "fused" or "staged" to force a loop (default :func:`ss_path`).
       Jg: every group's packed Gram (:func:`group_gram_blocks`), to run the
         staged loop on it instead of forming it.
+      precision: "high" (3xTF32 Gram on the card; the fused loop where
+        :func:`ss_path` picks it) or "highest" (the staged loop on K6's
+        fp32 body; a forced "fused" raises). Both are fp32 on the CPU.
 
     Returns (A (N_pre, N), w_full (P, N), u (T, N), sum_omega (N,)); psi
     under the new weights is (kappa - u) / omega. The loop run is recorded
@@ -283,11 +308,17 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
     if N_pre % G:
         raise ValueError(f"group={G} does not divide N_pre={N_pre}")
     if path is None:
-        path = ss_path(N_pre, B, N, T, group=group, jg_given=Jg is not None)
+        path = ss_path(N_pre, B, N, T, group=group, jg_given=Jg is not None,
+                       precision=precision)
+    check_precision(precision)
     if path not in ("fused", "staged") or (Jg is not None
                                           and path != "staged"):
         raise ValueError(f"path={path!r}: 'fused' or 'staged' (a given Jg "
                          f"runs the staged loop)")
+    if path == "fused" and precision != "high":
+        raise ValueError(f"path='fused' runs K2's 3xTF32 Gram, which is "
+                         f"precision='high'; precision={precision!r} runs "
+                         f"the staged loop")
     LAST_SS_PATH = path
     dev = omega.device
 
@@ -298,7 +329,7 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
     A = torch.empty((N_pre, N), dtype=torch.float32, device=dev)
     if path == "staged":
         sum_om = _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B,
-                              noise, Jg)
+                              noise, precision, Jg)
     else:
         sum_om = _fused_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise)
 

@@ -35,13 +35,13 @@ _ULL = ctypes.c_ulonglong
 # C entry points: name -> argument types. Each returns cudaGetLastError().
 _ENTRY_POINTS = {
     "pg_devroye_launch": [_P, _P, _LL, _ULL, _ULL, _P],
-    "ss_group_pass_launch": [_P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _P],
+    "ss_group_pass_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _P],
     "ss_edge_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _P],
     "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _P],
     "crt_sample_launch": [_P, _I, _P, _P, _LL, _I, _I, _ULL, _ULL, _P],
-    "group_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "group_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 # Kernel launches per wrapper. Each wrapper adds one where it launches its

@@ -2,8 +2,11 @@
 blocks of every presyn group in one launch, with its plain PyTorch version.
 
 It replaces ``pyglm_tpu/ops/gram_pallas.py::group_gram_blocks_pallas_t``
-(f32 body ``_gram_kernel_f32``), which the JAX package's staged
-spike-and-slab path runs once per sweep before its group loop.
+(f32 body ``_gram_kernel_f32``, bf16x3 on the TPU), which the JAX
+package's staged spike-and-slab path runs once per sweep before its group
+loop at precision "high". At "high" the kernel runs 3xTF32 on the tensor
+cores; at "highest" (where the JAX package takes its f32 XLA Gram) an fp32
+FMA body.
 
 Layouts (float32, contiguous):
   Xt    (P, T)    transposed design; group g is rows [g GB, (g + 1) GB)
@@ -42,8 +45,14 @@ def group_gram_blocks_plain(Xt, omega, B: int, G: int) -> torch.Tensor:
     return out
 
 
-def group_gram_blocks_cuda(Xt, omega, B: int, G: int) -> torch.Tensor:
-    """K6 on the card; same contract as :func:`group_gram_blocks_plain`."""
+def group_gram_blocks_cuda(Xt, omega, B: int, G: int,
+                           precision: str = "highest") -> torch.Tensor:
+    """K6 on the card; same contract as :func:`group_gram_blocks_plain`.
+    ``precision="high"`` runs the 3xTF32 tensor-core body, "highest" the
+    fp32 FMA body."""
+    if precision not in ("high", "highest"):
+        raise ValueError(f"group_gram: precision={precision!r}, need 'high' "
+                         f"or 'highest'")
     T, N = omega.shape
     Ng, GB = _n_groups(Xt, B, G), G * B
     if not 1 <= GB <= _MAX_GB:
@@ -56,7 +65,7 @@ def group_gram_blocks_cuda(Xt, omega, B: int, G: int) -> torch.Tensor:
     with torch.cuda.device(omega.device):
         err = lib.group_gram_launch(
             Xt.data_ptr(), omega.data_ptr(), out.data_ptr(), T, N, GB, Ng,
-            torch.cuda.current_stream().cuda_stream)
+            int(precision == "high"), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "group_gram")
     _build.LAUNCHES["group_gram"] += 1
     return out

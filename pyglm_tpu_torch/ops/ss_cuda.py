@@ -71,14 +71,40 @@ def _check_cuda_f32(name, t, shape):
                          f"got {tuple(t.shape)}")
 
 
-def _n_split(T: int) -> int:
-    """Time splits of K2: enough blocks to fill the card at T = 1e5
-    (128 splits x 2 lane tiles x 6 row tiles), at least 512 rows each."""
-    return max(1, min(128, -(-T // 512)))
+# K2's tensor-core Gram tile (csrc/gram_tc.cuh) and its grid target.
+_TC_ROWS, _TC_LANES = 64, 128
+_K2_BLOCKS = 1152
+
+
+def _n_split(T: int, N: int, GB: int) -> int:
+    """Time splits of K2's Gram: about _K2_BLOCKS blocks in all (~4.4 waves
+    of 2 blocks on each of the H100's 132 SMs; 58 and 114 splits measured
+    slower at the flagship), at least 256 time steps per split and at most
+    128 splits. At the flagship (T = 1e5, N = 200, GB = 32: 2 lane x 9 row
+    tiles) that is 64 splits; at 4000 lanes and GB = 40 (32 x 13 tiles) 3,
+    so the partials stay small."""
+    tiles = (-(-N // _TC_LANES)) * (-(-(GB * (GB + 1) // 2) // _TC_ROWS))
+    return max(1, min(128, -(-T // 256), -(-_K2_BLOCKS // tiles)))
+
+
+def _n_split_m0(T: int, N: int, GB: int) -> int:
+    """Time splits of K2's M0 = X_g u on the tensor cores: about 528
+    blocks (2 waves), at least 256 steps each (128 splits at the
+    flagship)."""
+    tiles = (-(-N // _TC_LANES)) * (-(-GB // _TC_ROWS))
+    return max(1, min(128, -(-T // 256), -(-528 // tiles)))
+
+
+def _n_split_scatter(T: int) -> int:
+    """Time splits of K2's scatter: ~256 steps each (391 at T = 1e5), so
+    enough lanes x splits stream u and omega at once."""
+    return max(1, min(1024, -(-T // 256)))
 
 
 def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False):
-    """K2 on the card; same contract as :func:`ss_group_pass_plain`."""
+    """K2 on the card; same contract as :func:`ss_group_pass_plain`. The
+    Gram and M0 run 3xTF32 on the tensor cores (precision "high"); the
+    scatter and sum_t omega in fp32."""
     T, N = omega.shape
     ref = xg if xg is not None else xp
     if ref is None:
@@ -94,25 +120,26 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False):
         _check_cuda_f32("xp", xp, (GB, T))
         _check_cuda_f32("dw", dw, (GB, N))
     npair = GB * (GB + 1) // 2
-    n_rows = GB + npair + 1
-    n_split = _n_split(T)
+    n_split = _n_split(T, N, GB)
+    n_split_m, n_split_s = _n_split_m0(T, N, GB), _n_split_scatter(T)
     dev = omega.device
-    part = out = None
+    part_g = part_m = part_s = out = None
     if xg is not None:
-        part = torch.empty((n_split, n_rows, N), dtype=torch.float32,
-                           device=dev)
-        out = torch.empty((n_rows, N), dtype=torch.float32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        part_g = torch.empty((n_split, npair, N), **f32)
+        part_m = torch.empty((n_split_m, GB, N), **f32)
+        part_s = torch.empty((n_split_s, N), **f32)
+        out = torch.empty((GB + npair + 1, N), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.ss_group_pass_launch(
-            xg.data_ptr() if xg is not None else None,
-            xp.data_ptr() if xp is not None else None,
-            omega.data_ptr(), u.data_ptr(),
-            dw.data_ptr() if xp is not None else None,
-            part.data_ptr() if part is not None else None,
-            out.data_ptr() if out is not None else None,
-            T, N, GB, n_split, int(want_sum_omega),
-            torch.cuda.current_stream().cuda_stream)
+            ptr(xg), ptr(xp), omega.data_ptr(), u.data_ptr(),
+            ptr(dw) if xp is not None else None, ptr(part_g), ptr(part_m),
+            ptr(part_s), ptr(out), T, N, GB, n_split, n_split_m, n_split_s,
+            int(want_sum_omega), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ss_group_pass")
     _build.LAUNCHES["ss_group_pass"] += 1
     if xg is None:

@@ -20,7 +20,7 @@ from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
 from pyglm_tpu_torch.ops.polyagamma import (
     pg_devroye_plain, pg_gamma_series_plain, pg_mean, pg_var)
 from pyglm_tpu_torch.ops.ss_cuda import (
-    ss_edge_scan_cuda, ss_edge_scan_plain, ss_group_pass_cuda,
+    pair_index, ss_edge_scan_cuda, ss_edge_scan_plain, ss_group_pass_cuda,
     ss_group_pass_plain)
 
 pytestmark = pytest.mark.cuda
@@ -61,10 +61,13 @@ def test_pg_kernel_streams(gen):
         pg_devroye_cuda(c.T, 1, 0)
 
 
-@pytest.mark.parametrize("GB", [8, 32, 64])
+@pytest.mark.parametrize("N", [70, 200])
+@pytest.mark.parametrize("GB", [4, 8, 12, 32, 40, 64])
 @pytest.mark.parametrize("case", ["first", "middle", "epilogue"])
-def test_group_pass_matches_plain(gen, GB, case):
-    Tn, N = 3001, 70
+def test_group_pass_matches_plain(gen, GB, case, N):
+    """K2 (3xTF32 Gram, precision "high") against its plain version at a T
+    that is not a multiple of the 32-step stage, 70 and 200 lanes."""
+    Tn = 3001
     X = (torch.rand((2 * GB, Tn), generator=gen, device="cuda") < 0.3).float()
     xp = None if case == "first" else X[:GB]
     xg = None if case == "epilogue" else X[GB:]
@@ -80,6 +83,48 @@ def test_group_pass_matches_plain(gen, GB, case):
         assert (a is None) == (b is None)
         if a is not None:
             assert _rel(a, b) <= 1e-5
+
+
+def test_group_pass_repeats_bit_for_bit(gen):
+    GB, Tn, N = 32, 5000, 200
+    X = (torch.rand((2 * GB, Tn), generator=gen, device="cuda") < 0.3).float()
+    om = 0.05 + 0.2 * torch.rand((Tn, N), generator=gen, device="cuda")
+    u = torch.randn((Tn, N), generator=gen, device="cuda")
+    dw = 0.1 * torch.randn((GB, N), generator=gen, device="cuda")
+    u1, u2 = u.clone(), u.clone()
+    a = ss_group_pass_cuda(X[:GB], X[GB:], om, u1, dw, True)
+    b = ss_group_pass_cuda(X[:GB], X[GB:], om, u2, dw, True)
+    assert torch.equal(u1, u2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _f64_errors(kernel_gram, plain_gram, X, om, p, q):
+    j64 = (X[p].double() * X[q].double()) @ om.double()
+    return _rel(kernel_gram.double(), j64), _rel(plain_gram.double(), j64)
+
+
+def _design(gen, n_pre, T, B=4, rate=0.15):
+    """The main path's design rows: spikes convolved with the cosine basis,
+    (n_pre B + 1, T) with the bias row last."""
+    from pyglm_tpu_torch.ops.basis import cosine_basis, design_matrix
+    Y = (torch.rand((T, n_pre), generator=gen, device="cuda") < rate).float()
+    return design_matrix(Y, cosine_basis(B, 10)).T.contiguous()
+
+
+def test_group_pass_gram_error_against_float64(gen):
+    """At the flagship's shapes and inputs (GB = 32, T = 1e5, 200 lanes, a
+    design of spikes at rate 0.15 and the cosine basis, PG-like omega), K2's
+    3xTF32 Gram is no further from a float64 Gram than 2x the fp32 plain
+    version (cuBLAS SGEMM on the materialised Z)."""
+    GB, Tn, N = 32, 100_000, 200
+    X = _design(gen, GB // 4, Tn)[:GB]
+    om = 0.05 + 0.2 * torch.rand((Tn, N), generator=gen, device="cuda")
+    u = torch.randn((Tn, N), generator=gen, device="cuda")
+    _, jk, _ = ss_group_pass_cuda(None, X, om, u.clone(), None)
+    _, jp, _ = ss_group_pass_plain(None, X, om, u.clone(), None)
+    p, q = pair_index(GB, "cuda")
+    ek, ep = _f64_errors(jk, jp, X, om, p, q)
+    assert ek <= 2 * ep, (ek, ep)
 
 
 def test_group_pass_rejects_wide_groups(gen):
@@ -249,22 +294,65 @@ def test_binomial_sweep_on_card_dispatch(gen, n_trials, kernel):
     assert np.isfinite(m.log_likelihood())
 
 
+@pytest.mark.parametrize("precision", ["high", "highest"])
 @pytest.mark.parametrize("T,N_pre,B,G,lanes", [(3001, 12, 4, 3, 70),
-                                               (20_000, 20, 4, 10, 300)])
-def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes):
-    """K6 against its plain version: a ragged T with GB = 12, and the
-    ensemble's GB = 40 over three lane tiles."""
+                                               (20_000, 20, 4, 10, 300),
+                                               (2000, 14, 4, 7, 130)])
+def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
+                                         precision):
+    """K6 (3xTF32 at "high", fp32 FMA at "highest") against its plain
+    version: a ragged T with GB = 12, the ensemble's GB = 40 over three
+    lane tiles, and GB = 28 (not a multiple of 8) over two."""
     Xt = (torch.rand((N_pre * B + 1, T), generator=gen, device="cuda")
           < 0.3).float()
     om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")
-    k = group_gram_blocks_cuda(Xt, om, B, G)
+    k = group_gram_blocks_cuda(Xt, om, B, G, precision=precision)
     p = group_gram_blocks_plain(Xt, om, B, G)
     assert k.shape == p.shape == (N_pre // G, G * B * (G * B + 1) // 2,
                                   lanes)
     assert _rel(k, p) <= 1e-5
-    assert torch.equal(k, group_gram_blocks_cuda(Xt, om, B, G))
+    assert torch.equal(k, group_gram_blocks_cuda(Xt, om, B, G,
+                                                 precision=precision))
     with pytest.raises(ValueError):
-        group_gram_blocks_cuda(Xt, om.double(), B, G)
+        group_gram_blocks_cuda(Xt, om.double(), B, G, precision=precision)
+
+
+def test_group_gram_error_against_float64(gen):
+    """At config 5's shapes and inputs for one group (GB = 40, T = 2e4,
+    4000 lanes, spikes at rate 0.35), K6's 3xTF32 Gram is no further from a
+    float64 Gram than 2x the fp32 plain version; the fp32 body (one
+    accumulator over all of T) is printed beside it."""
+    T, B, G, lanes = 20_000, 4, 10, 4000
+    Xt = _design(gen, G, T, rate=0.35)
+    om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")
+    p, q = pair_index(G * B, "cuda")
+    plain = group_gram_blocks_plain(Xt, om, B, G)[0]
+    errs = {}
+    for prec in ("high", "highest"):
+        k = group_gram_blocks_cuda(Xt, om, B, G, precision=prec)[0]
+        errs[prec], errs["plain"] = _f64_errors(k, plain, Xt[:G * B], om,
+                                                p, q)
+    print(errs)
+    assert errs["high"] <= 2 * errs["plain"], errs
+
+
+def test_highest_sweep_launches_k6_not_k2(gen):
+    """precision="highest" runs the staged loop on K6's fp32 body at any T;
+    K2 is never launched."""
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
+    Y = SparseBernoulliGLM(16, seed=1, device="cuda").generate(2000,
+                                                                keep=False)
+    m = SparseBernoulliGLM(16, seed=2, group=4, precision="highest",
+                           device="cuda")
+    m.add_data(Y)
+    _build.reset_launches()
+    m.fit(n_samples=3)
+    assert weights.LAST_SS_PATH == "staged"
+    assert _build.LAUNCHES == {"pg_devroye": 3, "ss_group_pass": 0,
+                               "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
+                               "crt_sample": 0, "group_gram": 3}
+    assert np.isfinite(m.log_likelihood())
 
 
 def test_staged_path_launches_k6_not_k2(gen):

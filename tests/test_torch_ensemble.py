@@ -79,7 +79,7 @@ def test_stacked_update_equals_per_chain_updates(path):
                               torch.randn((lanes,), generator=gen))
     A_all, w_all, u_all, _ = tw.resample_spike_slab_tspace(
         None, Xt, omega, kappa, psi, w, hyp, B, group=G, noise=noise,
-        path=path)
+        path=path, precision="high")
     for c in range(C):
         sl = slice(c * N, (c + 1) * N)
         A_c, w_c, u_c, _ = tw.resample_spike_slab_tspace(
@@ -88,7 +88,8 @@ def test_stacked_update_equals_per_chain_updates(path):
             tw.EdgeHypers(*(x[..., sl] if x.ndim == 1 else x[:, sl]
                             for x in hyp)), B, group=G,
             noise=tw.SpikeSlabNoise(noise.u_a[..., sl], noise.eps[:, :, sl],
-                                    noise.bias[sl]), path=path)
+                                    noise.bias[sl]), path=path,
+            precision="high")
         np.testing.assert_array_equal(A_all[:, sl].numpy(), A_c.numpy())
         np.testing.assert_allclose(w_all[:, sl].numpy(), w_c.numpy(),
                                    rtol=0, atol=1e-4)

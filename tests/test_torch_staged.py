@@ -100,7 +100,8 @@ def test_staged_and_fused_loops_agree_on_one_noise():
     p = _problem(2)
     noise = _jax_noise(jax.random.key(7))
     outs = {path: tw.resample_spike_slab_tspace(
-        None, *_port_args(p), B, group=G, noise=noise, path=path)
+        None, *_port_args(p), B, group=G, noise=noise, path=path,
+        precision="high")
         for path in ("staged", "fused")}
     (A_s, w_s, u_s, s_s), (A_f, w_f, u_f, s_f) = outs["staged"], outs["fused"]
     np.testing.assert_array_equal(A_s.numpy(), A_f.numpy())
@@ -120,7 +121,8 @@ def test_staged_and_fused_loops_give_one_chain_on_one_seed():
         w, As = w0, []
         for _ in range(3):
             A, w, u, _ = tw.resample_spike_slab_tspace(
-                gen, Xt, omega, kappa, psi, w, hyp, B, group=G, path=path)
+                gen, Xt, omega, kappa, psi, w, hyp, B, group=G, path=path,
+                precision="high")
             psi = (kappa - u) / omega
             As.append(A)
         chains[path] = (torch.stack(As), w)
@@ -132,7 +134,9 @@ def test_staged_and_fused_loops_give_one_chain_on_one_seed():
 
 
 def _jax_rule(N_pre, B_, lanes, T_, group=None):
-    """The JAX single-device dispatcher's choice, backend tests left out."""
+    """The JAX single-device dispatcher's choice at precision "high" (its
+    fused kernel also takes "default" and "sr", which the port does not
+    run), backend tests left out."""
     plan = jw._fused_plan(N_pre, B_, -(-lanes // 128) * 128, 512, group=group)
     fused = (plan is not None and (plan[0] * B_) % 8 == 0 and B_ <= 8
              and T_ >= 384)
@@ -144,23 +148,28 @@ def test_ss_path_matches_jax_dispatch(N_pre):
     for chains in (1, 2, 4, 8):
         for T_ in (200, 383, 384, 20_000):
             lanes = chains * N_pre
-            assert tw.ss_path(N_pre, 4, lanes, T_) == _jax_rule(
+            assert tw.ss_path(N_pre, 4, lanes, T_,
+                              precision="high") == _jax_rule(
                 N_pre, 4, lanes, T_), (N_pre, lanes, T_)
             assert tw._fused_plan(N_pre, 4, -(-lanes // 128) * 128, 512) == \
                 jw._fused_plan(N_pre, 4, -(-lanes // 128) * 128, 512)
-    assert tw.ss_path(N_pre, 4, N_pre, 20_000, group=5) == _jax_rule(
+    assert tw.ss_path(N_pre, 4, N_pre, 20_000, group=5,
+                      precision="high") == _jax_rule(
         N_pre, 4, N_pre, 20_000, group=5)
 
 
 def test_ss_path_landmarks():
-    assert tw.ss_path(500, 4, 8 * 500, 20_000) == "staged"   # config 5
+    hi = dict(precision="high")
+    assert tw.ss_path(500, 4, 8 * 500, 20_000, **hi) == "staged"  # config 5
     assert tw._fused_plan(500, 4, 4096, 512) is None
-    assert tw.ss_path(200, 4, 200, 100_000) == "fused"        # flagship
+    assert tw.ss_path(200, 4, 200, 100_000, **hi) == "fused"      # flagship
     assert tw._fused_plan(200, 4, 256, 512) == (8, 1024)
-    assert tw.ss_path(200, 4, 200, 383) == "staged"           # short T
-    assert tw.ss_path(200, 4, 200, 20_000, jg_given=True) == "staged"
-    assert tw.ss_path(200, 9, 200, 20_000) == "staged"        # B > 8
-    assert tw.ss_path(10, 4, 10, 3000, group=5) == "staged"   # GB % 8 != 0
+    assert tw.ss_path(200, 4, 200, 100_000) == "staged"     # "highest"
+    assert tw.ss_path(200, 4, 200, 383, **hi) == "staged"         # short T
+    assert tw.ss_path(200, 4, 200, 20_000, jg_given=True,
+                      **hi) == "staged"
+    assert tw.ss_path(200, 9, 200, 20_000, **hi) == "staged"      # B > 8
+    assert tw.ss_path(10, 4, 10, 3000, group=5, **hi) == "staged"  # GB % 8
 
 
 def test_given_gram_runs_the_staged_loop():
@@ -177,4 +186,4 @@ def test_given_gram_runs_the_staged_loop():
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="staged"):
         tw.resample_spike_slab_tspace(None, *args, B, group=G, noise=noise,
-                                      Jg=Jg, path="fused")
+                                      Jg=Jg, path="fused", precision="high")
