@@ -7,34 +7,41 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
   0. Pre-flight: CUDA must be present (else exit 2). Prints the card's name
      and power limit and builds the kernels from ``pyglm_tpu_torch/csrc``
      (one nvcc per source, in parallel).
-  1. Kernels: each hand-written kernel against its plain PyTorch version on
-     the card, with the device time of each (CUDA events around a run of
-     calls), of its plain version and, where one PyTorch call computes the
-     same function, of that call: at
-     the flagships' shapes (N=200, T=100k, B=4, G=8) K1-K3 (K2's Gram in
-     3xTF32 on the tensor cores, timed at g = 0 and at a middle group),
-     then the NB kernels K4 (gamma-series PG) and K5 (CRT counts); at the
-     8-chain latent-distance ensemble's shapes (P=2001, T=20k, 4000 lanes,
-     G=10) K6 (group Gram) at precision "high" (3xTF32) and "highest"
-     (fp32 FMA), plus a small ragged shape. K2's and K6's Grams and their
-     plain versions are also held against a float64 Gram.
+  1. Kernels: each hand-written kernel body against its plain PyTorch
+     version on the card, with the device time of each (CUDA events around
+     a run of calls), of its plain version and, where one PyTorch call
+     computes the same function, of that call: at the flagships' shapes
+     (N=200, T=100k, B=4, G=8) K1-K3 (K2's Gram in 3xTF32 on the tensor
+     cores, timed at g = 0 and at a middle group; then in one bf16 pass
+     ("default") and on a stochastically rounded Z ("sr", on the same
+     rounding words as its plain version)), K2's SR Gram at a small shape
+     (unbiased over 256 seeds), then the NB kernels K4 (gamma-series PG)
+     and K5 (CRT counts); at the 8-chain latent-distance ensemble's shapes (P=2001,
+     T=20k, 4000 lanes, G=10) K6 (group Gram) at precision "high"
+     (3xTF32), "highest" (fp32 FMA) and "default" (bf16), plus a small
+     ragged shape. K2's and K6's Grams and their plain versions are also
+     held against a float64 Gram of their operands.
   2. Slices, each run with the launch counts set to 0 just before and read
      just after: a ground-truth SparseBernoulliGLM(200, B=4, L=10)
      generates T=100k bins and a fresh model fits them (2 warm-up + 5 timed
      sweeps), then the same data at precision="highest" (the staged loop
-     with K6's fp32 body, no K2); the same for SparseNegativeBinomialGLM
+     with K6's fp32 body, no K2), "default" and "sr" (the fused loop on
+     K2's bf16 and SR Grams); the same for SparseNegativeBinomialGLM
      (max_y=16, counts
      capped at 15), followed by one NB dispersion update without the count
      table, which runs K5; then the acceptance suite's config 5
      (latent-distance prior, N=500, T=20k) through fit_ensemble with 8
      lane-stacked chains, a short collect="samples" run and a timed
-     collect="mean" run on the staged loop (K6 + K3). Then: the staged and
+     collect="mean" run on the staged loop (K6 + K3), and 5 stacked sweeps
+     at precision="default" (K6's bf16 body). Then: the staged and
      the fused loop on one update at the ensemble's width with the same
      noise; small models on the card held against the same models on the
-     CPU (Bernoulli and NB on the fused loop, 2 stacked chains on the staged
-     loop at both precisions): same state, same PG draws and noise, same
-     result; and the
-     latent-distance HMC on the card against the CPU with the same noise.
+     CPU (Bernoulli at "high", "default" and "sr" and NB on the fused
+     loop, 2 stacked chains on the staged loop at "high" and "highest"):
+     same state, same PG draws and noise, same result; the latent-distance
+     HMC on the card against the CPU with the same noise; and the chains of
+     benchmarks/sr_parity.py (N=8, T=1500, 150 + 400 sweeps) at "default"
+     and "sr" against a "high" chain.
 
 Any failed check exits 1 and prints no result line. On success the last
 three lines are the card's name and power limit (as nvidia-smi prints
@@ -67,6 +74,9 @@ KS_P_MIN = 1e-3          # two-sample KS gate, per c
 REL_TOL = 1e-4           # K2, small slice: max |card - plain| / max |plain|
 W_ATOL = 1e-4            # K3: weights
 GRAM_REL_TOL = 1e-5      # K6: fp32 sums over 2e4 terms in another order
+# K2 "sr" against its plain version on the same rounding words: exact bf16
+# products, fp32 sums in another order (another seed's words differ by more).
+SR_SAME_TOL = 1e-5
 # Acceptance config 5 (benchmarks/acceptance.py): latent-distance prior,
 # pooled ensemble of 8 lane-stacked chains.
 N5, T5, C5, G5 = 500, 20_000, 8, 10
@@ -75,6 +85,7 @@ C5_TRUTH_NET = dict(dim=2, mu_bias=-3.0)
 # TF32 on the tensor cores, HBM.
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
 # A 3xTF32 Gram may be at most this many times further from a float64 Gram
 # than the fp32 plain version (cuBLAS SGEMM on the materialised Z).
@@ -93,6 +104,13 @@ KERNELS = {
                    "pyglm_tpu/ops/pg_pallas.py:650"),
     "group_gram": ("pyglm_tpu_torch/csrc/group_gram.cu",
                    "pyglm_tpu/ops/gram_pallas.py:63"),
+    # The bf16 Gram bodies, each its own record (LAUNCHES key).
+    "ss_group_pass_bf16": ("pyglm_tpu_torch/csrc/ss_group_pass.cu",
+                           "pyglm_tpu/ops/ss_pallas.py:343"),
+    "ss_group_pass_sr": ("pyglm_tpu_torch/csrc/ss_group_pass.cu",
+                         "pyglm_tpu/ops/ss_pallas.py:346"),
+    "group_gram_bf16": ("pyglm_tpu_torch/csrc/group_gram.cu",
+                        "pyglm_tpu/ops/gram_pallas.py:47"),
 }
 # Fields every kernel's record must carry; library_ms may be null.
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -151,15 +169,29 @@ def event_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def bound(nbytes, flops, peak=FP32_FLOPS):
+def bound(nbytes, *work):
     """The least time the card could take: the larger of the bytes a call
     must move (each input read once, each output written once) over the
-    HBM rate and its operations over the peak of the arithmetic it uses
-    (fp32 by default; a 3xTF32 kernel passes 3x its operations over the
-    TF32 peak). (ms, bound_by)."""
-    tb, tf = nbytes / HBM_BYTES_S, flops / peak
+    HBM rate and its operations over the peak of the arithmetic they use,
+    summed over `work`, (operations, peak) pairs (a 3xTF32 product counts
+    3x its operations at the TF32 peak). (ms, bound_by)."""
+    tb, tf = nbytes / HBM_BYTES_S, sum(ops / peak for ops, peak in work)
     return {"bound_ms": 1e3 * max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations"}
+
+
+def bf16_matmul_ms(Z, om, reps):
+    """The library call of a bf16 Gram: cuBLAS on the materialised Z and
+    omega in bf16, with an fp32 output where torch.mm offers one
+    (``out_dtype``), else a bf16 output. (ms, output dtype)."""
+    import torch
+    a, b = Z.to(torch.bfloat16), om.to(torch.bfloat16)
+    try:
+        torch.mm(a[:16], b, out_dtype=torch.float32)
+        fn, out = (lambda: torch.mm(a, b, out_dtype=torch.float32)), "fp32"
+    except TypeError:
+        fn, out = (lambda: torch.mm(a, b)), "bf16"
+    return event_ms(fn, reps), out
 
 
 def phase_kernels(check, record):
@@ -171,8 +203,8 @@ def phase_kernels(check, record):
     from pyglm_tpu_torch.ops.polyagamma import (
         pg_devroye_plain, pg_mean, pg_var)
     from pyglm_tpu_torch.ops.ss_cuda import (
-        pair_index, ss_edge_scan_cuda, ss_edge_scan_plain, ss_group_pass_cuda,
-        ss_group_pass_plain)
+        pair_index, sr_round, sr_words, ss_edge_scan_cuda, ss_edge_scan_plain,
+        ss_group_pass_cuda, ss_group_pass_plain, to_bf16)
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -208,12 +240,14 @@ def phase_kernels(check, record):
     # proposal and its test), so the bytes set the bound.
     record["pg_devroye"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                                 library_ms=None,
-                                **bound(2 * 4 * T * N, 10 * T * N))
+                                **bound(2 * 4 * T * N,
+                                        (10 * T * N, FP32_FLOPS)))
     print(f"  K1 {ms:.3f} ms, plain {plain_ms:.3f} ms "
           f"(max_abs_err = largest |mean diff| over the five c)")
 
     # --- K2: one group pass at GB=32, T=100k, N=200 -----------------------
-    print("K2 ss_group_pass: group g=3 of 25, GB=32, 3xTF32 Gram", flush=True)
+    print("K2 ss_group_pass: group g=3 of 25, GB=32, 3xTF32 Gram; then "
+          "the bf16 and SR Grams", flush=True)
     GB = G * B
     Y = (torch.rand((T, N), generator=gen, device=dev) < 0.05).float()
     Xt = design_matrix(Y, cosine_basis(B, L)).T.contiguous()
@@ -237,6 +271,7 @@ def phase_kernels(check, record):
     check(e <= REL_TOL, f"K2 epilogue (scatter only) u: {e:.2e}")
     max_abs = max(float((a - b).abs().max())
                   for a, b in [(u_k, u_p), *zip(out_k, out_p)])
+    high_plain = out_p
     again = ss_group_pass_cuda(xp, xg, omega, u0.clone(), dw, True)
     check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
           "K2 repeats bit for bit")
@@ -256,17 +291,18 @@ def phase_kernels(check, record):
     plain_ms = event_ms(lambda: ss_group_pass_plain(xp, xg, omega, u_p, dw),
                          5)
     lib_ms = event_ms(lambda: torch.matmul(Z, omega), 10)
-    del Z
     npair = GB * (GB + 1) // 2
-    # xp, xg, omega, u in and out, dw; M0, packed Gram, sum omega out.
-    # FMAs: the Gram, the gather and the scatter, each as three TF32
-    # products at the tensor cores' peak (precision "high").
+    # xp, xg, omega, u in and out, dw; M0, packed Gram, sum omega out. The
+    # Gram's and the gather's FMAs as three TF32 products at the tensor
+    # cores' peak (precision "high"), the scatter's in fp32.
+    k2_bytes = 4 * (2 * GB * T + 3 * T * N + GB * N + (GB + npair + 1) * N)
+    m0_scatter = ((3 * 2 * T * N * GB, TF32_FLOPS),
+                  (2 * T * N * GB, FP32_FLOPS))
     record["ss_group_pass"].update(
         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         precision="high", ms_g0=ms_g0, host_ms=host_ms, f64_rel_err=e_k,
         plain_f64_rel_err=e_p,
-        **bound(4 * (2 * GB * T + 3 * T * N + GB * N + (GB + npair + 1) * N),
-                3 * 2 * T * N * (npair + 2 * GB), TF32_FLOPS))
+        **bound(k2_bytes, (3 * 2 * T * N * npair, TF32_FLOPS), *m0_scatter))
     rec = record["ss_group_pass"]
     print(f"  K2 {ms:.3f} ms per middle group, {ms_g0:.3f} at g = 0 (no "
           f"scatter); {host_ms:.3f} ms per synchronised call on the host "
@@ -274,9 +310,94 @@ def phase_kernels(check, record):
           f"matmul on the materialised Z) {lib_ms:.3f} ms; bound "
           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, 3xTF32)")
 
+    # --- K2 "default" and "sr" at the same group, on omega rounded to
+    # bf16 as the fused loop gives it (ss_pallas.py:409-413) --------------
+    om16 = to_bf16(omega)
+    u_k, u_p = u0.clone(), u0.clone()
+    out_k = ss_group_pass_cuda(xp, xg, om16, u_k, dw, True,
+                               precision="default")
+    out_p = ss_group_pass_plain(xp, xg, om16, u_p, dw, True,
+                                precision="default")
+    torch.cuda.synchronize()
+    errs = {"u": rel_err(u_k, u_p)}
+    for name, a, b in zip(("M0", "Jgg", "sum_omega"), out_k, out_p):
+        errs[name] = rel_err(a, b)
+    for name, e in errs.items():
+        check(e <= REL_TOL, f"K2 default {name}: max|diff|/max|plain| = "
+              f"{e:.2e}")
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in [(u_k, u_p), *zip(out_k, out_p)])
+    j64 = to_bf16(Z).double() @ om16.double()
+    e_k, e_p = rel_err(out_k[1].double(), j64), rel_err(out_p[1].double(), j64)
+    del j64
+    check(e_k <= F64_RATIO * e_p,
+          f"K2 Gram (bf16) vs a float64 Gram of the bf16 operands: "
+          f"{e_k:.2e}; the plain version: {e_p:.2e} (limit {F64_RATIO:g}x)")
+    record["ss_group_pass_bf16"].update(max_abs_err=max_abs, f64_rel_err=e_k,
+                                        plain_f64_rel_err=e_p)
+
+    # "sr" at the same group against its plain version on the kernel's own
+    # Philox words (sr_words repeats the draw); another seed's words differ.
+    sr_seed = (5, 6)
+    r16 = sr_words(*sr_seed, npair, T).to(dev)
+    u_k, u_p = u0.clone(), u0.clone()
+    out_k = ss_group_pass_cuda(xp, xg, om16, u_k, dw, True, precision="sr",
+                               sr_seed=sr_seed)
+    out_p = ss_group_pass_plain(xp, xg, om16, u_p, dw, True, precision="sr",
+                                r16=r16)
+    other = ss_group_pass_cuda(xp, xg, om16, u0.clone(), dw, precision="sr",
+                               sr_seed=(sr_seed[0] + 1, sr_seed[1]))[1]
+    torch.cuda.synchronize()
+    errs = {"u": rel_err(u_k, u_p)}
+    for name, a, b in zip(("M0", "Jgg", "sum_omega"), out_k, out_p):
+        errs[name] = rel_err(a, b)
+    for name, e in errs.items():
+        check(e <= SR_SAME_TOL, f"K2 sr {name} on the same words: "
+              f"max|diff|/max|plain| = {e:.2e} (limit {SR_SAME_TOL:.0e})")
+    e_other = rel_err(other, out_p[1])
+    check(e_other > SR_SAME_TOL, f"K2 sr Jgg on another seed's words: "
+          f"{e_other:.2e} (must exceed {SR_SAME_TOL:.0e})")
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in [(u_k, u_p), *zip(out_k, out_p)])
+    j64 = sr_round(Z, r16).double() @ om16.double()
+    e_k, e_p = rel_err(out_k[1].double(), j64), rel_err(out_p[1].double(), j64)
+    del j64, other
+    check(e_k <= F64_RATIO * e_p,
+          f"K2 Gram (sr) vs a float64 Gram of the same rounded operands: "
+          f"{e_k:.2e}; the plain version: {e_p:.2e} (limit {F64_RATIO:g}x)")
+    record["ss_group_pass_sr"].update(max_abs_err=max_abs, f64_rel_err=e_k,
+                                      plain_f64_rel_err=e_p)
+
+    times = {}
+    for prec in ("default", "sr", "sr", "default"):
+        times.setdefault(prec, []).append(event_ms(
+            lambda: ss_group_pass_cuda(xp, xg, om16, u_k, dw,
+                                       precision=prec, sr_seed=sr_seed), 20))
+    plain_ms = event_ms(lambda: ss_group_pass_plain(
+        xp, xg, om16, u_p, dw, precision="default"), 5)
+    plain_sr_ms = event_ms(lambda: ss_group_pass_plain(
+        xp, xg, om16, u_p, dw, precision="sr", r16=r16), 5)
+    del r16
+    lib_ms, lib_out = bf16_matmul_ms(to_bf16(Z), om16, 10)
+    del Z
+    # The bf16 Gram over the bf16 peak; M0 3xTF32 and the scatter fp32.
+    k2_bound = bound(k2_bytes, (2 * T * N * npair, BF16_FLOPS), *m0_scatter)
+    record["ss_group_pass_bf16"].update(
+        ms=min(times["default"]), plain_ms=plain_ms, library_ms=lib_ms,
+        library_out=lib_out, precision="default", **k2_bound)
+    record["ss_group_pass_sr"].update(
+        ms=min(times["sr"]), plain_ms=plain_sr_ms, library_ms=lib_ms,
+        library_out=lib_out, precision="sr", **k2_bound)
+    print(f"  K2 default {times['default']} ms, sr {times['sr']} ms per "
+          f"middle group (order default, sr, sr, default); plain "
+          f"{plain_ms:.3f} / {plain_sr_ms:.3f} ms; library (bf16 cuBLAS on "
+          f"the materialised bf16 Z, {lib_out} output) {lib_ms:.3f} ms; "
+          f"bound {k2_bound['bound_ms']:.3f} ms ({k2_bound['bound_by']})")
+    phase_k2_sr(check, record, gen)
+
     # --- K3: that group's edge scan, same injected noise -----------------
     print("K3 ss_edge_scan: G=8 edges x 200 lanes, B=4", flush=True)
-    m0, jgg = out_p[0], out_p[1]
+    m0, jgg = high_plain[0], high_plain[1]
     mu = torch.zeros((G, N, B), device=dev)
     lam = torch.eye(B, device=dev).expand(G, N, B, B).contiguous()
     lrho = torch.full((G, N), math.log(0.25 / 0.75), device=dev)
@@ -306,8 +427,71 @@ def phase_kernels(check, record):
         max_abs_err=max(werr, derr), ms=ms, plain_ms=plain_ms,
         library_ms=None,
         **bound(4 * N * (npair + 4 * GB + G * (B + B * B + 3 + B)),
-                G * N * (2 * B * GB + 6 * B * B + B ** 3)))
+                (G * N * (2 * B * GB + 6 * B * B + B ** 3), FP32_FLOPS)))
     print(f"  K3 {ms:.3f} ms, plain {plain_ms:.3f} ms per group")
+
+
+def phase_k2_sr(check, record, gen):
+    """K2's SR Gram at a small shape (GB=32, T=4096, 256 lanes, a design of
+    spikes and the cosine basis, bf16 omega): against its plain version on
+    the same words (sr_words repeats the kernel's Philox draw; exact
+    products, so only the sum order differs), unbiased over R launches
+    with different seeds, below the "default" Gram's error on average, and
+    repeatable for one seed."""
+    import torch
+    from pyglm_tpu_torch.ops.basis import cosine_basis, design_matrix
+    from pyglm_tpu_torch.ops.ss_cuda import (
+        pair_index, sr_words, ss_group_pass_cuda, ss_group_pass_plain,
+        to_bf16)
+
+    GB, Ts, Ns, R = 32, 4096, 256, 256
+    print(f"K2 sr: GB={GB}, T={Ts}, {Ns} lanes, {R} seeds", flush=True)
+    Y = (torch.rand((Ts, GB // B), generator=gen, device="cuda")
+         < 0.15).float()
+    X = design_matrix(Y, cosine_basis(B, L)).T.contiguous()[:GB]
+    om = to_bf16(0.05 + 0.2 * torch.rand((Ts, Ns), generator=gen,
+                                         device="cuda"))
+    u = torch.zeros((Ts, Ns), device="cuda")
+    npair = GB * (GB + 1) // 2
+
+    def sr(seed, offset=7):
+        return ss_group_pass_cuda(None, X, om, u, None, precision="sr",
+                                  sr_seed=(seed, offset))[1]
+    k = sr(99)
+    p = ss_group_pass_plain(None, X, om, u, None, precision="sr",
+                            r16=sr_words(99, 7, npair, Ts).cuda())[1]
+    e_same, e_other = rel_err(k, p), rel_err(sr(100), p)
+    check(e_same <= SR_SAME_TOL < e_other,
+          f"K2 sr vs plain on the same words: {e_same:.2e} (limit "
+          f"{SR_SAME_TOL:.0e}); on another seed's: {e_other:.2e}")
+    check(torch.equal(k, sr(99)), "K2 sr repeats for one seed")
+    pi, qi = pair_index(GB, "cuda")
+    ref = (X[pi] * X[qi]).double() @ om.double()
+    s1, s2 = torch.zeros_like(ref), torch.zeros_like(ref)
+    for r in range(R):
+        j = sr(1000 + r).double()
+        s1 += j
+        s2 += j * j
+    mean = s1 / R
+    se = ((s2 / R - mean ** 2).clamp_min(0) / (R - 1)).sqrt()
+    live = se > 0
+    z = float(((mean - ref).abs() / se)[live].max())
+    dead = float((mean - ref)[~live].abs().max()) if bool(
+        (~live).any()) else 0.0
+    dflt = ss_group_pass_cuda(None, X, om, u, None,
+                              precision="default")[1].double()
+    rms_sr = float((mean - ref).pow(2).mean().sqrt())
+    rms_one = float((k.double() - ref).pow(2).mean().sqrt())
+    rms_default = float((dflt - ref).pow(2).mean().sqrt())
+    check(z < 6.0 and dead <= 1e-6 * float(ref.abs().max()),
+          f"K2 sr unbiased: max |z| of the {R}-launch mean vs the float64 "
+          f"Gram = {z:.2f} over {int(live.sum())} cells (< 6)")
+    check(rms_sr < 0.5 * rms_default,
+          f"K2 sr RMS error: mean of {R} {rms_sr:.3e}, one launch "
+          f"{rms_one:.3e}; default {rms_default:.3e} (mean < 0.5x default)")
+    record["ss_group_pass_sr"].update(
+        small_max_abs_err=float((k - p).abs().max()), sr_max_z=z,
+        sr_rms_ratio=rms_sr / rms_default)
 
 
 def phase_kernels_nb(check, record):
@@ -360,7 +544,8 @@ def phase_kernels_nb(check, record):
     # b and psi in, omega out; at least ~10 fp32 operations per draw.
     record["pg_gamma_series"].update(max_abs_err=worst, ms=ms,
                                      plain_ms=plain_ms, library_ms=None,
-                                     **bound(3 * 4 * T * N, 10 * T * N))
+                                     **bound(3 * 4 * T * N,
+                                             (10 * T * N, FP32_FLOPS)))
     print(f"  K4 {ms:.3f} ms, plain {plain_ms:.3f} ms "
           f"(max_abs_err = largest |mean diff| over the grid)")
 
@@ -393,7 +578,8 @@ def phase_kernels_nb(check, record):
     # Bernoulli draws, ~3 operations each.
     record["crt_sample"].update(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(4 * (2 * T * N + N), 3 * float(yi.clamp(max=16).sum())))
+        **bound(4 * (2 * T * N + N),
+                (3 * float(yi.clamp(max=16).sum()), FP32_FLOPS)))
     print(f"  K5 {ms:.3f} ms, plain {plain_ms:.3f} ms "
           f"(max_abs_err = largest |mean diff| over the grid)")
 
@@ -500,6 +686,181 @@ def phase_highest(check, record, ctx):
     return {"highest_sweeps_per_s": 2 / dt}
 
 
+def phase_bf16_flagship(check, record, ctx, precision):
+    """The flagship's data at precision "default" or "sr" through fit():
+    the fused loop on K2's bf16 or SR Gram. 2 warm-up sweeps, then the
+    launch counts set to 0 and N_TIMED timed sweeps."""
+    import math
+    import torch
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.ops import _build
+
+    key = {"default": "ss_group_pass_bf16", "sr": "ss_group_pass_sr"}[
+        precision]
+    print(f"flagship at precision={precision!r}: N={N}, T={T}", flush=True)
+    model = SparseBernoulliGLM(N, B=B, L=L, seed=0, precision=precision,
+                               device="cuda")
+    model.add_data(ctx["flagship_Y"])
+    lls = [model.resample_model()["log_likelihood"]
+           for _ in range(N_WARMUP)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    fit = model.fit(n_samples=N_TIMED)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    lls += [float(x) for x in fit["lls"]]
+    n_groups = N // G
+    print(f"  {N_TIMED} timed sweeps: {dt:.3f} s = {N_TIMED / dt:.4f} "
+          f"sweeps/s; log-likelihood per sweep "
+          f"{[round(x, 1) for x in lls]}; edges {int(model.A.sum())}; "
+          f"launches {launches}; LAST_SS_PATH {weights.LAST_SS_PATH!r}")
+    check(weights.LAST_SS_PATH == "fused",
+          f"precision={precision!r} ran the fused loop")
+    check(launches[key] == N_TIMED * (n_groups + 1)
+          and launches["ss_edge_scan"] == N_TIMED * n_groups
+          and launches["pg_devroye"] == N_TIMED,
+          f"{key} {n_groups + 1} per sweep, K3 {n_groups}, K1 1")
+    others = [k for k in ("ss_group_pass", "ss_group_pass_bf16",
+                          "ss_group_pass_sr", "group_gram",
+                          "group_gram_bf16") if k != key and launches[k]]
+    check(not others, f"no other Gram body launched ({others})")
+    check(all(math.isfinite(x) for x in lls)
+          and math.isfinite(model.log_likelihood()), "log-likelihoods finite")
+    for name in KERNELS:
+        record[name]["launches"] += launches[name]
+    return {f"{precision}_sweeps_per_s": N_TIMED / dt}
+
+
+def phase_config5_default(check, record, ctx):
+    """Config 5 at precision "default" through fit_ensemble (8 stacked
+    chains, 1 burn-in + 4 sweeps, collect="mean"): the staged loop on K6's
+    bf16 body, no K2."""
+    import numpy as np
+    import torch
+    from pyglm_tpu_torch import NonlinearAutoregressiveModel
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.ops import _build
+
+    print(f"config 5 at precision='default': {C5} chains x {N5}", flush=True)
+    model = NonlinearAutoregressiveModel(
+        N5, B=B, L=L, observation="bernoulli", network="latent_distance",
+        spike_and_slab=True, seed=0, precision="default",
+        net_kwargs=dict(dim=2), device="cuda")
+    model.add_data(ctx["c5_Y"])
+    n_groups = N5 // model.group
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ens = model.fit_ensemble(n_chains=C5, n_burnin=1, n_samples=4,
+                             collect="mean")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    n_sw = 5
+    print(f"  {n_sw} stacked sweeps in {dt:.3f} s = {n_sw / dt:.4f} stacked "
+          f"sweeps/s = {C5 * n_sw / dt:.3f} chain-sweeps/s; launches "
+          f"{launches}; lls of the last sweep "
+          f"{[round(float(x), 1) for x in ens['lls'][:, -1]]}")
+    check(weights.LAST_SS_PATH == "staged", "config 5 ran the staged loop")
+    check(launches["group_gram_bf16"] == n_sw and launches["group_gram"] == 0,
+          f"K6's bf16 body once per stacked sweep "
+          f"({launches['group_gram_bf16']} for {n_sw}), its other bodies 0")
+    check(launches["ss_group_pass"] + launches["ss_group_pass_bf16"]
+          + launches["ss_group_pass_sr"] == 0, "K2 not launched")
+    check(launches["ss_edge_scan"] == n_sw * n_groups
+          and launches["pg_devroye"] == n_sw,
+          f"K3 {n_groups} and K1 once per stacked sweep")
+    check(np.isfinite(ens["lls"]).all() and np.isfinite(ens["rhat_ll"]),
+          "log-likelihoods and rhat_ll finite")
+    for name in KERNELS:
+        record[name]["launches"] += launches[name]
+    return {"c5_default_chain_sweeps_per_s": C5 * n_sw / dt}
+
+
+# The chain-level protocol of benchmarks/sr_parity.py: N=8, B=4 (GB=32, so
+# the fused loop runs), T=1500, 150 + 400 sweeps, posterior edge marginals
+# of each mode held within the protocol's 0.22 band of the "high" chain.
+# One chain per mode is too noisy for that band (two "high" chains of
+# different seeds differed by 0.29 on the CPU), so each mode runs PAR_C
+# lane-stacked chains (fit_ensemble) from seeds of its own and their pooled
+# marginals compare. The band is the outer limit; each edge's difference
+# must also lie within PAR_Z standard errors of the two pools (from the
+# spread of their chains): at the many edges that mix well that resolves a
+# bias far below the band. Without a bias the largest of 64 |z| lies
+# near 2.5-3; the control pair prints it.
+PAR_N, PAR_T, PAR_BURN, PAR_KEEP, PAR_C, PAR_BAND = 8, 1500, 150, 400, 16, 0.22
+PAR_Z = 5.0
+PAR_NET = dict(rho_init=0.35, learn_rho=False, mu_bias=-1.2, sigma_bias=0.4,
+               learn_weight_prior=False, sigma_w=0.8)
+
+
+def phase_chain_parity(check):
+    """benchmarks/sr_parity.py's chains on the card through fit_ensemble:
+    PAR_C pooled chains per mode ("high", "default", "sr"), each pool from
+    seeds of its own, and a second "high" pool as the Monte Carlo control.
+    Against the first "high" pool, the max posterior edge-marginal
+    difference of "default" and "sr" must lie in the 0.22 band, and every
+    edge's difference (the control's too) within PAR_Z standard errors of
+    the two pools' means. (The f64 NumPy oracle chain of that script waits
+    for a copy of the reference sampler in the port.)"""
+    import numpy as np
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.ops.basis import cosine_basis
+
+    print(f"chain parity: N={PAR_N}, T={PAR_T}, {PAR_C} stacked chains per "
+          f"mode, {PAR_BURN} + {PAR_KEEP} sweeps", flush=True)
+    basis = cosine_basis(B, L)
+    Y = SparseBernoulliGLM(PAR_N, basis=basis, seed=123, net_kwargs=PAR_NET,
+                           device="cuda").generate(PAR_T, keep=False)
+    marg, wmean, paths = {}, {}, {}
+    t0 = time.perf_counter()
+    for name, prec, s0 in (("high", "high", 1), ("default", "default", 201),
+                           ("sr", "sr", 301), ("high_control", "high", 101)):
+        m = SparseBernoulliGLM(PAR_N, basis=basis, seed=0,
+                               net_kwargs=PAR_NET, precision=prec,
+                               device="cuda")
+        m.add_data(Y)
+        out = m.fit_ensemble(n_chains=PAR_C, n_burnin=PAR_BURN,
+                             n_samples=PAR_KEEP,
+                             seeds=list(range(s0, s0 + PAR_C)),
+                             collect="mean")
+        marg[name] = out["A_mean"]                  # (PAR_C, N, N)
+        wmean[name] = out["Weff_mean_pooled"]
+        paths[name] = weights.LAST_SS_PATH
+    dt = time.perf_counter() - t0
+    others = ("default", "sr", "high_control")
+    ref = marg["high"]
+    diff, zmax = {}, {}
+    for k in others:
+        d = np.abs(marg[k].mean(0) - ref.mean(0))
+        # Standard error of the difference from the chains' spread, floored
+        # at one kept sweep of one chain (edges that no chain ever flips).
+        se = np.sqrt((marg[k].var(0, ddof=1) + ref.var(0, ddof=1)) / PAR_C
+                     + (1.0 / (PAR_C * PAR_KEEP)) ** 2)
+        diff[k], zmax[k] = float(d.max()), float((d / se).max())
+    wdiff = {k: float(np.abs(wmean[k] - wmean["high"]).max()) for k in others}
+    print(f"  4 pools in {dt:.1f} s; max edge-marginal diff vs the 'high' "
+          f"pool: {diff}; max |z| over the edges: {zmax}; max weight-mean "
+          f"diff: {wdiff}; mean edge probability "
+          f"{ {k: round(float(v.mean()), 4) for k, v in marg.items()} }; "
+          f"loops {paths}")
+    check(all(v == "fused" for v in paths.values()),
+          "every pool ran the fused loop")
+    check(diff["default"] <= PAR_BAND and diff["sr"] <= PAR_BAND,
+          f"default {diff['default']:.3f} and sr {diff['sr']:.3f} within "
+          f"{PAR_BAND} of the 'high' pool (control pair "
+          f"{diff['high_control']:.3f})")
+    check(all(z < PAR_Z for z in zmax.values()),
+          f"every edge within {PAR_Z:g} standard errors of the 'high' pool: "
+          f"max |z| default {zmax['default']:.2f}, sr {zmax['sr']:.2f}, "
+          f"control {zmax['high_control']:.2f}")
+    return {"parity_max_edge_diff": diff, "parity_max_z": zmax,
+            "parity_s": dt}
+
+
 def phase_nb_slice(check, record):
     """The NB flagship (benchmarks/common.py) through the user entry points,
     and the launch counts of that run; then one dispersion update without
@@ -590,10 +951,12 @@ def phase_nb_slice(check, record):
     return {"nb_sweeps_per_s": N_TIMED / dt, "nb_generate_s": gen_s}
 
 
-def phase_small_parity(check, nb=False):
+def phase_small_parity(check, nb=False, precision="high"):
     """One spike-and-slab update on the card (K2 + K3) and on the CPU
-    (plain) from the same state (r included for NB), PG draws and noise.
-    The PG draws come from the card: K1 for Bernoulli, K4 for NB."""
+    (plain) from the same state (r included for NB), PG draws and noise,
+    at `precision` (at "sr" the same rounding seeds, so both devices round
+    Z by the same words). The PG draws come from the card: K1 for
+    Bernoulli, K4 for NB."""
     import numpy as np
     import torch
     from pyglm_tpu_torch import SparseBernoulliGLM, SparseNegativeBinomialGLM
@@ -604,7 +967,7 @@ def phase_small_parity(check, nb=False):
 
     n, t, g = 20, 5000, 4
     print(f"small {'NB' if nb else 'Bernoulli'} slice: card vs CPU, N={n}, "
-          f"T={t}, G={g}", flush=True)
+          f"T={t}, G={g}, precision={precision!r}", flush=True)
     if nb:
         cls, kw = SparseNegativeBinomialGLM, dict(obs_kwargs=NB_OBS)
         truth = cls(n, seed=3, net_kwargs=NB_TRUTH_NET | dict(
@@ -648,15 +1011,17 @@ def phase_small_parity(check, nb=False):
     ng = n // g
     noise = SpikeSlabNoise(torch.rand((ng, g, n), generator=gen),
                            torch.randn((ng, g, n, 4), generator=gen),
-                           torch.randn((n,), generator=gen))
-    noise_c = SpikeSlabNoise(*(x.cuda() for x in noise))
+                           torch.randn((n,), generator=gen),
+                           torch.randint(0, 2 ** 62, (ng, 2), generator=gen))
+    noise_c = noise._replace(u_a=noise.u_a.cuda(), eps=noise.eps.cuda(),
+                             bias=noise.bias.cuda())
     out_c = resample_spike_slab_tspace(
         None, mc.datas[0].Xt, omega_c, kappa_c, psi_c, w_c,
-        hyp_c, 4, group=g, noise=noise_c, precision="high")
+        hyp_c, 4, group=g, noise=noise_c, precision=precision)
     omega_h = omega_c.cpu()
     out_h = resample_spike_slab_tspace(
         None, mh.datas[0].Xt, omega_h, kappa_h, psi_h, w_h,
-        hyp_h, 4, group=g, noise=noise, precision="high")
+        hyp_h, 4, group=g, noise=noise, precision=precision)
     check(weights.LAST_SS_PATH == "fused", "small update ran the fused loop")
     n_diff = int((out_c[0].cpu() != out_h[0]).sum())
     check(n_diff == 0, f"A identical ({n_diff} of {n * n} differ)")
@@ -686,12 +1051,14 @@ def phase_small_parity(check, nb=False):
 
 def phase_kernel_gram(check, record):
     """K6 against its plain version at the 8-chain config-5 ensemble's
-    shapes, and at a small ragged shape."""
+    shapes, each body ("high" 3xTF32, "highest" fp32 FMA, "default" bf16)
+    also against a float64 Gram of its operands, and at a small ragged
+    shape."""
     import torch
     from pyglm_tpu_torch.ops.basis import design_matrix, cosine_basis
     from pyglm_tpu_torch.ops.gram_cuda import (
         group_gram_blocks_cuda, group_gram_blocks_plain)
-    from pyglm_tpu_torch.ops.ss_cuda import pair_index
+    from pyglm_tpu_torch.ops.ss_cuda import pair_index, to_bf16
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(5150)
@@ -703,74 +1070,91 @@ def phase_kernel_gram(check, record):
     Xt = design_matrix(Y, cosine_basis(B, L)).T.contiguous()
     del Y
     omega = 0.05 + 0.2 * torch.rand((T5, lanes), generator=gen, device=dev)
-    p = group_gram_blocks_plain(Xt, omega, B, G5)
     p_idx, q_idx = pair_index(GB, dev)
-    om64 = omega.double()
-    f64 = {}
-    for prec in ("high", "highest"):
+    f64, f64_plain, max_abs = {}, {}, {}
+    for prec in ("high", "highest", "default"):
+        p = group_gram_blocks_plain(Xt, omega, B, G5, precision=prec)
         k = group_gram_blocks_cuda(Xt, omega, B, G5, precision=prec)
         torch.cuda.synchronize()
         err = rel_err(k, p)
-        check(err <= GRAM_REL_TOL, f"K6 {prec} at config 5: max|diff|/"
-              f"max|plain| = {err:.2e} (limit {GRAM_REL_TOL:.0e})")
+        tol = REL_TOL if prec == "default" else GRAM_REL_TOL
+        check(err <= tol, f"K6 {prec} at config 5: max|diff|/"
+              f"max|plain| = {err:.2e} (limit {tol:.0e})")
         check(torch.equal(k, group_gram_blocks_cuda(Xt, omega, B, G5,
                                                     precision=prec)),
               f"K6 {prec} repeats bit for bit")
-        if prec == "high":
-            max_abs = float((k - p).abs().max())
-        # Groups 0 and Ng - 1 against a float64 Gram.
+        max_abs[prec] = float((k - p).abs().max())
+        # Groups 0 and Ng - 1 against a float64 Gram of the body's operands.
+        om64 = (to_bf16(omega) if prec == "default" else omega).double()
         for g in (0, Ng - 1):
             xg = Xt[g * GB:(g + 1) * GB]
-            j64 = (xg[p_idx].double() * xg[q_idx].double()) @ om64
+            Z = xg[p_idx] * xg[q_idx]
+            j64 = (to_bf16(Z) if prec == "default" else Z).double() @ om64
             f64[prec] = max(f64.get(prec, 0.0), rel_err(k[g].double(), j64))
-            f64["plain"] = max(f64.get("plain", 0.0),
-                               rel_err(p[g].double(), j64))
-            del j64
-        del k
-    del p, om64
-    for prec in ("high", "highest"):
+            f64_plain[prec] = max(f64_plain.get(prec, 0.0),
+                                  rel_err(p[g].double(), j64))
+            del j64, Z
+        del k, p, om64
         print(f"  K6 {prec} vs a float64 Gram (groups 0 and {Ng - 1}): "
-              f"{f64[prec]:.2e}; the fp32 plain version: {f64['plain']:.2e}")
-    check(f64["high"] <= F64_RATIO * f64["plain"],
-          f"K6 high within {F64_RATIO:g}x the plain version's float64 error")
+              f"{f64[prec]:.2e}; its plain version: {f64_plain[prec]:.2e}")
+        check(f64[prec] <= F64_RATIO * f64_plain[prec],
+              f"K6 {prec} within {F64_RATIO:g}x its plain version's float64 "
+              f"error")
     Xs = (torch.rand((6 * B + 1, 3001), generator=gen, device=dev)
           < 0.3).float()
     oms = 0.05 + 0.2 * torch.rand((3001, 70), generator=gen, device=dev)
-    for prec in ("high", "highest"):
+    for prec in ("high", "highest", "default"):
         e2 = rel_err(group_gram_blocks_cuda(Xs, oms, B, 3, precision=prec),
-                     group_gram_blocks_plain(Xs, oms, B, 3))
+                     group_gram_blocks_plain(Xs, oms, B, 3, precision=prec))
         check(e2 <= GRAM_REL_TOL,
               f"K6 {prec} at T=3001, GB=12, 70 lanes: {e2:.2e}")
     times = {}
-    for prec in ("high", "highest", "highest", "high"):
+    for prec in ("high", "highest", "default", "default", "highest",
+                 "high"):
         times.setdefault(prec, []).append(event_ms(
             lambda: group_gram_blocks_cuda(Xt, omega, B, G5, precision=prec),
             3))
-    ms, ms_fp32 = min(times["high"]), min(times["highest"])
+    ms, ms_fp32, ms_bf16 = (min(times[p]) for p in
+                            ("high", "highest", "default"))
     plain_ms = event_ms(lambda: group_gram_blocks_plain(Xt, omega, B, G5),
                          3)
+    plain_bf16_ms = event_ms(lambda: group_gram_blocks_plain(
+        Xt, omega, B, G5, precision="default"), 3)
     Z = Xt[:GB][p_idx] * Xt[:GB][q_idx]
     lib_ms = Ng * event_ms(lambda: torch.matmul(Z, omega), 5)
+    lib_bf16_ms, lib_out = bf16_matmul_ms(Z, omega, 5)
+    lib_bf16_ms *= Ng
     del Z
     # The design rows and omega in, the packed Gram out; Ng*npair*lanes*T
-    # FMAs, as three TF32 products at "high", fp32 FMAs at "highest".
+    # FMAs, as three TF32 products at "high", fp32 FMAs at "highest", one
+    # bf16 product at "default".
     nbytes = 4 * (Ng * GB * T5 + T5 * lanes + Ng * npair * lanes)
     flops = 2.0 * Ng * npair * lanes * T5
-    fp32 = bound(nbytes, flops)
+    fp32 = bound(nbytes, (flops, FP32_FLOPS))
     record["group_gram"].update(
-        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        precision="high", highest_ms=ms_fp32,
+        max_abs_err=max_abs["high"], ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, precision="high", highest_ms=ms_fp32,
         highest_bound_ms=fp32["bound_ms"], f64_rel_err=f64["high"],
-        highest_f64_rel_err=f64["highest"], plain_f64_rel_err=f64["plain"],
-        **bound(nbytes, 3 * flops, TF32_FLOPS))
-    rec = record["group_gram"]
-    print(f"  K6 high {times['high']} ms, highest {times['highest']} ms "
-          f"(order high, highest, highest, high); plain {plain_ms:.2f} ms, "
-          f"library (fp32 matmul on the materialised Z, x {Ng} groups) "
-          f"{lib_ms:.2f} ms; bound {rec['bound_ms']:.2f} ms "
-          f"({rec['bound_by']}, 3xTF32), {fp32['bound_ms']:.2f} ms (fp32); "
-          f"{flops / ms / 1e9:.1f} TFLOP/s of fp32 work at high, "
-          f"{flops / ms_fp32 / 1e9:.1f} at highest")
+        highest_f64_rel_err=f64["highest"],
+        plain_f64_rel_err=f64_plain["high"],
+        **bound(nbytes, (3 * flops, TF32_FLOPS)))
+    record["group_gram_bf16"].update(
+        max_abs_err=max_abs["default"], ms=ms_bf16, plain_ms=plain_bf16_ms,
+        library_ms=lib_bf16_ms, library_out=lib_out, precision="default",
+        f64_rel_err=f64["default"], plain_f64_rel_err=f64_plain["default"],
+        **bound(nbytes, (flops, BF16_FLOPS)))
+    rec, rec16 = record["group_gram"], record["group_gram_bf16"]
+    print(f"  K6 high {times['high']} ms, highest {times['highest']} ms, "
+          f"default {times['default']} ms (order high, highest, default, "
+          f"default, highest, high); plain {plain_ms:.2f} ms (fp32), "
+          f"{plain_bf16_ms:.2f} ms (bf16); library (fp32 matmul on the "
+          f"materialised Z, x {Ng} groups) {lib_ms:.2f} ms, (bf16 cuBLAS, "
+          f"{lib_out} output) {lib_bf16_ms:.2f} ms; bound "
+          f"{rec['bound_ms']:.2f} ms ({rec['bound_by']}, 3xTF32), "
+          f"{fp32['bound_ms']:.2f} ms (fp32), {rec16['bound_ms']:.2f} ms "
+          f"({rec16['bound_by']}, bf16); {flops / ms / 1e9:.1f} TFLOP/s of "
+          f"fp32 work at high, {flops / ms_fp32 / 1e9:.1f} at highest, "
+          f"{flops / ms_bf16 / 1e9:.1f} at default")
 
 
 def phase_config5(check, record, ctx):
@@ -797,6 +1181,7 @@ def phase_config5(check, record, ctx):
     gen_s = time.perf_counter() - t0
     print(f"  generate: {gen_s:.2f} s, rate {Y.mean():.4f} spikes/bin, "
           f"{int(truth.A.sum())} true edges")
+    ctx["c5_Y"] = Y
     model = NonlinearAutoregressiveModel(N5, seed=0, precision="high",
                                          net_kwargs=dict(dim=2), **kw)
     t0 = time.perf_counter()
@@ -978,7 +1363,7 @@ def phase_small_staged_parity(check):
     out_h = weights.resample_spike_slab_tspace(
         None, mh.datas[0].Xt, omega_c.cpu(), kappa_h, psi_h, w_h, hyp_h, B,
         noise=noise)
-    noise_c = weights.SpikeSlabNoise(*(x.cuda() for x in noise))
+    noise_c = weights.SpikeSlabNoise(*(x.cuda() for x in noise[:3]))
     for prec in ("highest", "high"):          # K6's fp32 and 3xTF32 bodies
         _build.reset_launches()
         out_c = weights.resample_spike_slab_tspace(
@@ -1065,7 +1450,7 @@ def main() -> int:
     build_s = _build.build(force=True)
     print(f"kernels built in {build_s:.2f} s -> {_build.LIB_PATH}")
     for line in _build.LOG_PATH.read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "entry function" in line:
             print(f"  ptxas: {line.strip()}")
     _build.library()
 
@@ -1080,13 +1465,22 @@ def main() -> int:
                   lambda: phase_kernel_gram(check, record),
                   lambda: summary.update(phase_slice(check, record, ctx)),
                   lambda: summary.update(phase_highest(check, record, ctx)),
+                  lambda: summary.update(phase_bf16_flagship(
+                      check, record, ctx, "default")),
+                  lambda: summary.update(phase_bf16_flagship(
+                      check, record, ctx, "sr")),
                   lambda: summary.update(phase_nb_slice(check, record)),
                   lambda: summary.update(phase_config5(check, record, ctx)),
+                  lambda: summary.update(phase_config5_default(
+                      check, record, ctx)),
                   lambda: summary.update(phase_staged_vs_fused(check, ctx)),
                   lambda: phase_small_parity(check),
                   lambda: phase_small_parity(check, nb=True),
+                  lambda: phase_small_parity(check, precision="default"),
+                  lambda: phase_small_parity(check, precision="sr"),
                   lambda: phase_small_staged_parity(check),
-                  lambda: phase_hmc_parity(check)):
+                  lambda: phase_hmc_parity(check),
+                  lambda: summary.update(phase_chain_parity(check))):
         try:
             phase()
         except Exception:                      # recorded; the run fails

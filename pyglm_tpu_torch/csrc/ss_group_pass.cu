@@ -9,27 +9,37 @@
 //
 // Replaces the streaming part of pyglm_tpu/ops/ss_pallas.py::_make_kernel
 // (resample_spike_slab_fused) and, with the same arithmetic, the per-group
-// mesh kernel ss_pallas.py::_make_group_pass_kernel (ss_group_pass_pallas).
-// The TPU kernel walks its grid in order and carries M0/Jgg in VMEM scratch
-// from one time chunk to the next. Hopper blocks run in no order, so the
-// time axis is split across blocks (split-K): each block owns a t-range and
-// writes its partial sums to a scratch buffer that the wrapper allocated;
-// reduce_splits_kernel sums the partials in a fixed order, so results
-// repeat from run to run. No atomics.
+// mesh kernel ss_pallas.py::_make_group_pass_kernel (ss_group_pass_pallas),
+// in all three of their Gram modes. The TPU kernel walks its grid in order
+// and carries M0/Jgg in VMEM scratch from one time chunk to the next. Hopper
+// blocks run in no order, so the time axis is split across blocks
+// (split-K): each block owns a t-range and writes its partial sums to a
+// scratch buffer that the wrapper allocated; reduce_splits_kernel sums the
+// partials in a fixed order, so results repeat from run to run. No atomics.
 //
-// K2 runs only at precision "high" (the JAX package's fused kernel runs its
-// Gram, M0 and scatter in bf16x3 there). Bound on the H100: the Gram,
-// GB(GB+1)/2 * N * T FMAs per group (1.06e10 at GB=32, N=200, T=1e5), as
-// three TF32 tensor-core products each, over 495 TFLOP/s. Three kernels:
+// The Gram's mode is the caller's precision, as the TPU kernel's `gram`:
+// "high" 3xTF32 (bf16x3 there), "default" one bf16 pass (gram == "bf16",
+// :343-345), "sr" one bf16 pass on a stochastically rounded Z (gram ==
+// "sr", :346-347, with the rounding of _sr16), all on the tile loop of
+// gram_tc.cuh. M0 stays 3xTF32 and the scatter fp32 in every mode, as the
+// TPU kernel keeps them f32-grade (_mm3); at "default" and "sr" the caller
+// passes omega already rounded to bf16 (ss_pallas.py:409-413). Three
+// kernels:
 //   - scatter_kernel: u -= omega (X_p^T dW) and sum_t omega in fp32 FMA (u
 //     carries the residual across all groups, so its update stays fp32);
 //     one thread per postsyn lane with dW in registers, u and omega
 //     streamed through shared memory by cp.async; memory-bound, in place;
 //   - gram_tc_kernel (gram_tc.cuh, the tile loop shared with K6), twice:
 //     the packed Gram of omega (Z = X_p X_q formed in shared memory, never
-//     stored) and M0 = X_g u (Z = X_g), 3xTF32 on the tensor cores.
+//     stored) and M0 = X_g u (Z = X_g).
 // The Gram needs only omega, so it runs on the caller's stream beside the
 // scatter and then M0 on a side stream.
+//
+// Bound on the H100: at "high" the Gram, GB(GB+1)/2 * N * T FMAs per group
+// (1.06e10 at GB=32, N=200, T=1e5), as three TF32 tensor-core products each,
+// over 495 TFLOP/s. At "default" and "sr" the Gram's one bf16 pass over 989
+// TFLOP/s is ~0.02 ms, and the call turns bound by its bytes (u read and
+// written by the scatter and read by M0, omega read twice: ~0.1 ms).
 
 #include <cuda_runtime.h>
 
@@ -41,7 +51,8 @@ constexpr int kLanes = 128;  // scatter: one thread per postsyn lane
 constexpr int kCh = 16;      // time steps per chunk
 constexpr int kMaxGB = 64;
 constexpr int kMaxDevices = 16;
-// 3xTF32 stages per fold (128 steps), as in K6 (group_gram.cu).
+// Tile-loop stages per fold (128 steps) in every mode, as in K6
+// (group_gram.cu).
 constexpr int kFold = 4;
 
 template <int R>
@@ -141,21 +152,24 @@ scatter_kernel(const float* __restrict__ xp, const float* __restrict__ om,
   if (want_sumom && lane_ok) part[(size_t)blockIdx.x * N + n] = sum_om;
 }
 
-// One 3xTF32 tile loop per block over its split of T: the packed Gram
-// X_g diag(B) X_g^T (pairs = 1, B = omega) or X_g B (pairs = 0, B = u),
-// as (n_split, n_rows, N) partials.
+// One tile loop per block over its split of T, in mode kMode: the packed
+// Gram X_g diag(B) X_g^T (pairs = 1, B = omega) or X_g B (pairs = 0,
+// B = u), as (n_split, n_rows, N) partials.
+template <int kMode>
 __global__ void __launch_bounds__(gram_tc::kThreads, 2)
 gram_tc_kernel(const float* __restrict__ xg, const float* __restrict__ b,
                float* __restrict__ part, int T, int N, int GB, int pairs,
-               int n_rows, int rows_per_split, int vec_x, int vec_b) {
+               int n_rows, int rows_per_split, int vec_x, int vec_b,
+               unsigned long long seed, unsigned long long offset) {
   extern __shared__ __align__(16) float smem[];
   const int split = blockIdx.x;
   const int t_begin = split * rows_per_split;
   const int t_end = min(T, t_begin + rows_per_split);
-  gram_tc::gram_tile(xg, T, GB, pairs, b, N, t_begin, t_end,
-                     blockIdx.y * gram_tc::kNT, blockIdx.z * gram_tc::kMT,
-                     n_rows, vec_x, vec_b, kFold,
-                     part + (size_t)split * n_rows * N, smem);
+  gram_tc::gram_tile<kMode>(xg, T, GB, pairs, b, N, t_begin, t_end,
+                            blockIdx.y * gram_tc::kNT,
+                            blockIdx.z * gram_tc::kMT, n_rows, vec_x, vec_b,
+                            kFold, seed, offset,
+                            part + (size_t)split * n_rows * N, smem);
 }
 
 // out[i] = sum over splits of part[split, i], in split order, compensated
@@ -199,10 +213,13 @@ cudaError_t launch_scatter(const float* xp, const float* om, float* u,
                               want_sumom, s);
 }
 
+template <int kMode>
 cudaError_t launch_tc(const float* xg, const float* b, float* part, int T,
-                      int N, int GB, int pairs, int n_split, cudaStream_t s) {
+                      int N, int GB, int pairs, int n_split,
+                      unsigned long long seed, unsigned long long offset,
+                      cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gram_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gram_tc_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       gram_tc::smem_floats(gram_tc::kMaxGB) * (int)sizeof(float));
   if (attr != cudaSuccess) return attr;
   const int n_rows = pairs ? GB * (GB + 1) / 2 : GB;
@@ -210,12 +227,32 @@ cudaError_t launch_tc(const float* xg, const float* b, float* part, int T,
   rows = (rows + gram_tc::kKT - 1) / gram_tc::kKT * gram_tc::kKT;
   const int vec_x = T % 4 == 0 && (size_t)xg % 16 == 0;
   const int vec_b = N % 4 == 0 && (size_t)b % 16 == 0;
-  gram_tc_kernel<<<dim3(n_split, (N + gram_tc::kNT - 1) / gram_tc::kNT,
-                        (n_rows + gram_tc::kMT - 1) / gram_tc::kMT),
-                   gram_tc::kThreads,
-                   gram_tc::smem_floats(GB) * (int)sizeof(float), s>>>(
-      xg, b, part, T, N, GB, pairs, n_rows, rows, vec_x, vec_b);
+  gram_tc_kernel<kMode>
+      <<<dim3(n_split, (N + gram_tc::kNT - 1) / gram_tc::kNT,
+              (n_rows + gram_tc::kMT - 1) / gram_tc::kMT),
+         gram_tc::kThreads, gram_tc::smem_floats(GB) * (int)sizeof(float),
+         s>>>(xg, b, part, T, N, GB, pairs, n_rows, rows, vec_x, vec_b, seed,
+              offset);
   return cudaGetLastError();
+}
+
+// The packed Gram of omega in the caller's mode.
+cudaError_t launch_gram(const float* xg, const float* om, float* part, int T,
+                        int N, int GB, int n_split, int gram,
+                        unsigned long long seed, unsigned long long offset,
+                        cudaStream_t s) {
+  switch (gram) {
+    case gram_tc::kTf32x3:
+      return launch_tc<gram_tc::kTf32x3>(xg, om, part, T, N, GB, 1, n_split,
+                                         0, 0, s);
+    case gram_tc::kBf16:
+      return launch_tc<gram_tc::kBf16>(xg, om, part, T, N, GB, 1, n_split,
+                                       0, 0, s);
+    case gram_tc::kSr:
+      return launch_tc<gram_tc::kSr>(xg, om, part, T, N, GB, 1, n_split,
+                                     seed, offset, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t reduce(const float* part, float* out, int n_split,
@@ -259,16 +296,20 @@ cudaError_t side_for_current_device(Side** out) {
 // part_g (n_split, GB(GB+1)/2, N), part_m (n_split_m, GB, N) and part_s
 // (n_split_s, N). out: (GB + npair + 1, N) with rows [M0; packed Jgg;
 // sum_t omega]; the last row is written only when want_sumom is set, and
-// nothing is written to out when xg is null (the epilogue).
+// nothing is written to out when xg is null (the epilogue). gram: the
+// Gram's mode (gram_tc::Mode: 0 "high", 1 "default", 2 "sr"); seed and
+// offset select the Philox words of "sr"'s rounding.
 extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
                                     const float* om, float* u,
                                     const float* dw, float* part_g,
                                     float* part_m, float* part_s, float* out,
                                     int T, int N, int GB, int n_split,
                                     int n_split_m, int n_split_s,
-                                    int want_sumom, void* stream) {
+                                    int want_sumom, int gram,
+                                    unsigned long long seed,
+                                    unsigned long long offset, void* stream) {
   if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || n_split < 1 ||
-      n_split_m < 1 || n_split_s < 1)
+      n_split_m < 1 || n_split_s < 1 || gram < 0 || gram > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int npair = GB * (GB + 1) / 2;
@@ -293,11 +334,12 @@ extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
                             GB, n_split_s, want_sumom, sd->stream)) !=
           cudaSuccess)
     return (int)err;
-  if ((err = launch_tc(xg, u, part_m, T, N, GB, 0, n_split_m, sd->stream)) !=
+  if ((err = launch_tc<gram_tc::kTf32x3>(xg, u, part_m, T, N, GB, 0,
+                                         n_split_m, 0, 0, sd->stream)) !=
           cudaSuccess ||
       (err = cudaEventRecord(sd->join, sd->stream)) != cudaSuccess ||
-      (err = launch_tc(xg, om, part_g, T, N, GB, 1, n_split, s)) !=
-          cudaSuccess ||
+      (err = launch_gram(xg, om, part_g, T, N, GB, n_split, gram, seed,
+                         offset, s)) != cudaSuccess ||
       (err = cudaStreamWaitEvent(s, sd->join, 0)) != cudaSuccess)
     return (int)err;
 

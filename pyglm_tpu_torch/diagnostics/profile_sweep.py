@@ -1,7 +1,7 @@
 """Where the time of one sweep goes on the card.
 
     python -m pyglm_tpu_torch.diagnostics.profile_sweep [flagship|ensemble]
-        [--precision high|highest]
+        [--precision default|sr|high|highest]
 
 ``flagship``: SparseBernoulliGLM(200, B=4, L=10) on synthetic spikes at rate
 0.15, T=100k, 3 warm-up sweeps, 20 timed sweeps, then 5 traced sweeps (it
@@ -128,7 +128,7 @@ def ensemble(precision):
                                              psi, None)
     ss_ms = _wall(lambda: resample_spike_slab_tspace(
         gens.device, d.Xt, omega, kappa, psi, w, hyp, B, group=m.group,
-        precision=precision), 3)
+        precision=precision, host_generator=gens.host), 3)
     k6_ms = _wall(lambda: group_gram_blocks(d.Xt, omega, B, m.group,
                                             precision=precision), 3)
     st1 = box[0]
@@ -143,7 +143,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config", nargs="*", choices=["flagship", "ensemble"])
     ap.add_argument("--precision", default="high",
-                    choices=["high", "highest"])
+                    choices=["default", "sr", "high", "highest"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_sweep: needs a CUDA device")

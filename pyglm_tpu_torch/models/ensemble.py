@@ -135,7 +135,7 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
         omega, kappa = obs.omega_kappa(gens.host, Y_lane, psi, aux_lane)
         A_lane, w_lane, u, _ = resample_spike_slab_tspace(
             gens.device, Xt, omega, kappa, psi, w_lane, hyp, B, group=group,
-            precision=precision)
+            precision=precision, host_generator=gens.host)
         psi = (kappa - u) / omega
         del omega, kappa, u
 

@@ -51,12 +51,24 @@ class NonlinearAutoregressiveModel:
         port runs 'bernoulli', 'binomial' and 'negative_binomial' with
         'erdos_renyi' or 'latent_distance' and spike_and_slab=True.
       seed: seed of this model's generators.
-      precision: 'high' (default): the spike-and-slab Gram runs on the
-        card's tensor cores as 3xTF32 (fp32-grade, as the JAX package's
-        bf16x3), by the fused loop K2 + K3 where the JAX dispatcher picks
-        it (the flagship) and else the staged loop K6 + K3. 'highest': the
-        staged loop with K6's fp32 FMA body, never K2. 'default' and 'sr'
-        (bf16) raise NotImplementedError. On the CPU both run in fp32.
+      precision: the accuracy of the spike-and-slab Gram, as in the JAX
+        package. The loop is the fused K2 + K3 where the JAX dispatcher
+        picks it (the flagship) and else the staged K6 + K3.
+        'high' (default): on the card the Gram runs 3xTF32 on the tensor
+        cores (fp32-grade, as the JAX package's bf16x3): K2's Gram, or K6's
+        "high" body. 'default': one bf16 pass on the tensor cores (Z and
+        omega rounded to nearest even, fp32 sums): K2's bf16 Gram on omega
+        rounded to bf16 once for the whole fused update (u0, the scatter,
+        sum omega; the bias draw keeps the fp32 omega), or K6's bf16 body;
+        the fastest, with ~1e-3 relative error in the Gram. 'sr': in the
+        fused loop K2's bf16 pass on a stochastically rounded Z (unbiased;
+        its Philox seeds come from the host generator), and in the staged
+        loop the 'high' Gram, as the JAX package runs it. 'highest': the
+        staged loop with K6's fp32 FMA body, never K2. On the CPU the plain
+        versions round as the card does at 'default' and 'sr' (the same
+        words at 'sr'), and 'high' and 'highest' run in fp32. The psi and
+        log-likelihood GEMMs, M0 and K2's scatter stay fp32-grade at every
+        mode.
       group: presyn neurons per spike-and-slab group (default: the divisor
         of N nearest 8 with group*B % 8 == 0, i.e. 8 at N = 200, B = 4).
       device: where the data, the state and the kernels live: the card

@@ -48,7 +48,8 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
       1. psi = Xf w;  (omega, kappa) from the family: PG(1, psi) by K1 for
          Bernoulli, PG(y + r, psi) by K4 for NB
       2. (A, W, bias) by the collapsed spike-and-slab update at
-         `precision` (models/weights.py: K2 + K3 or K6 + K3)
+         `precision` (models/weights.py: K2 + K3 or K6 + K3); "sr" draws
+         K2's rounding seeds from the host generator
       3. observation aux, then the network hyperparameters given (A, W)
     Returns (new_state, {"log_likelihood", "n_edges"}), both 0-d tensors,
     plus "hmc_accept" when the network state carries one.
@@ -78,7 +79,7 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
         omega, kappa = obs.omega_kappa(gens.host, Y, psi, state.aux)
         A, w_full, u, _ = resample_spike_slab_tspace(
             gens.device, Xt, omega, kappa, psi, w_full, hyp, B, group=group,
-            precision=precision)
+            precision=precision, host_generator=gens.host)
         # psi under the NEW weights, recovered without a second matmul.
         psi = (kappa - u) / omega
         W, b = unpack_weights(w_full, N, B)

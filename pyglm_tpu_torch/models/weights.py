@@ -21,8 +21,8 @@ float rounding:
   package's staged path (``_tspace_impl``).
 
 :func:`ss_path` picks the loop where the JAX package's single-device
-dispatcher picks it: the fused loop only at precision "high". The bias draw
-follows either.
+dispatcher picks it: the fused loop at precision "default", "sr" and
+"high", never at "highest". The bias draw follows either.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from pyglm_tpu_torch.ops.gram_cuda import (
     group_gram_blocks_cuda, group_gram_blocks_plain,
 )
 from pyglm_tpu_torch.ops.ss_cuda import (
-    _MAX_B, ss_edge_scan, ss_group_pass, unpack_gram,
+    _MAX_B, ss_edge_scan, ss_group_pass, to_bf16, unpack_gram,
 )
 from pyglm_tpu_torch.utils.utils import logistic
 
@@ -57,10 +57,14 @@ class EdgeHypers(NamedTuple):
 class SpikeSlabNoise(NamedTuple):
     """The random numbers of one spike-and-slab update, for callers that
     must reproduce a reference chain: per group g and edge i,
-    ``a = u_a < p`` and ``w = mu_p + Lp^{-T} eps``; then the bias normal."""
+    ``a = u_a < p`` and ``w = mu_p + Lp^{-T} eps``; then the bias normal.
+    At precision "sr" on the fused loop, `sr` holds each group's (seed,
+    offset) of K2's rounding words (``ops/ss_cuda.py::sr_words``); when it
+    is None they are drawn from the update's host generator."""
     u_a: torch.Tensor         # (Ng, G, N)
     eps: torch.Tensor         # (Ng, G, N, B)
     bias: torch.Tensor        # (N,)
+    sr: torch.Tensor | None = None    # (Ng, 2) int64
 
 
 def pack_weights(A, W, b):
@@ -167,19 +171,17 @@ def _fused_plan(N_pre: int, B: int, npad: int, t_chunk: int,
     return None
 
 
-# Precision modes the port runs. On the card "high" takes the 3xTF32
-# tensor-core Gram (K2 in the fused loop, K6's "high" body in the staged
-# loop) and "highest" the staged loop on K6's fp32 FMA body; the bf16
-# modes "default" and "sr" are not ported.
-PRECISIONS = ("high", "highest")
+# Precision modes, as in the JAX package. The spike-and-slab Gram on the
+# card: "high" 3xTF32 (K2 in the fused loop, K6's "high" body in the staged
+# loop); "default" one bf16 pass (K2's bf16 Gram, K6's bf16 body); "sr" one
+# bf16 pass on a stochastically rounded Z in the fused loop (K2) and, as in
+# the JAX package, the "high" Gram in the staged loop; "highest" the staged
+# loop on K6's fp32 FMA body.
+PRECISIONS = ("default", "sr", "high", "highest")
 
 
 def check_precision(precision: str) -> None:
-    """Raise for a precision mode the port does not run."""
-    if precision in ("default", "sr"):
-        raise NotImplementedError(
-            f"precision={precision!r} (the bf16 Gram modes) is not ported to "
-            f"pyglm_tpu_torch yet (ROADMAP.md Queue A, item 7b)")
+    """Raise for an unknown precision mode."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision={precision!r}: one of {PRECISIONS}")
 
@@ -195,7 +197,7 @@ def ss_path(N_pre: int, B: int, lanes: int, T: int, group: int | None = None,
     package. Which loop is faster at wide lanes is measured in PERF.md."""
     check_precision(precision)
     plan = _fused_plan(N_pre, B, -(-lanes // 128) * 128, 512, group=group)
-    if (precision != "high" or jg_given or T < 384 or B > _MAX_B
+    if (precision == "highest" or jg_given or T < 384 or B > _MAX_B
             or plan is None or (plan[0] * B) % 8):
         return "staged"
     return "fused"
@@ -203,18 +205,22 @@ def ss_path(N_pre: int, B: int, lanes: int, T: int, group: int | None = None,
 
 def group_gram_blocks(Xt, omega, B: int, G: int, packed: bool = True,
                       fast: bool = False, precision: str = "highest"):
-    """Every group's omega-weighted Gram: kernel K6 for CUDA tensors (its
-    3xTF32 tensor-core body at precision "high", its fp32 FMA body at
-    "highest"), its plain version for CPU tensors. Xt (P, T) with the bias
-    row last. Returns the packed (Ng, GB(GB+1)/2, N), or with
-    ``packed=False`` the JAX package's (Ng, N, GB, GB)."""
-    if fast:
-        check_precision("default")
+    """Every group's omega-weighted Gram: kernel K6 for CUDA tensors, its
+    plain version for CPU tensors. The body, as the JAX package picks its
+    Pallas body: ``fast=True`` or precision "default" the single bf16 pass
+    (``_gram_kernel_fast``), "high" and "sr" 3xTF32 (``_gram_kernel_f32``;
+    the JAX package's "sr" takes it too), "highest" fp32 FMA (its f32 XLA
+    Gram); on the CPU the bf16 body is the plain bf16 Gram and the others
+    fp32. Xt (P, T) with the bias row last. Returns the packed
+    (Ng, GB(GB+1)/2, N), or with ``packed=False`` the JAX package's
+    (Ng, N, GB, GB)."""
     check_precision(precision)
+    body = ("default" if fast or precision == "default" else
+            "highest" if precision == "highest" else "high")
     if omega.is_cuda:
-        Jg = group_gram_blocks_cuda(Xt, omega, B, G, precision=precision)
+        Jg = group_gram_blocks_cuda(Xt, omega, B, G, precision=body)
     elif omega.device.type == "cpu":
-        Jg = group_gram_blocks_plain(Xt, omega, B, G)
+        Jg = group_gram_blocks_plain(Xt, omega, B, G, precision=body)
     else:
         raise ValueError(f"group_gram_blocks: unsupported device "
                          f"{omega.device}")
@@ -231,17 +237,34 @@ def _draw_group_noise(generator, noise, g, G, N, B, dev):
             torch.randn((G, N, B), generator=generator, device=dev))
 
 
-def _fused_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise):
-    """Ng x (K2 + K3) and K2's epilogue; updates u, w and A in place and
-    returns sum_t omega."""
+def _sr_seeds(host_generator, noise, Ng):
+    """The (Ng, 2) (seed, offset) pairs of K2's "sr" rounding words, one
+    per group: ``noise.sr`` if given, else one draw from the host
+    generator."""
+    if noise is not None and noise.sr is not None:
+        return noise.sr.tolist()
+    if host_generator is None:
+        raise ValueError("precision='sr' on the fused loop draws K2's "
+                         "rounding seeds: pass host_generator or noise.sr")
+    return torch.randint(0, 2 ** 62, (Ng, 2),
+                         generator=host_generator).tolist()
+
+
+def _fused_loop(generator, host_generator, Xt, omega, u, w, hyp, A, G, B,
+                noise, precision):
+    """Ng x (K2 + K3) and K2's epilogue, K2's Gram at `precision`; updates
+    u, w and A in place and returns sum_t omega."""
     T, N = omega.shape
     GB, Ng = G * B, A.shape[0] // G
+    sr = _sr_seeds(host_generator, noise, Ng) if precision == "sr" else None
     dW = sum_om = None
     for g in range(Ng + 1):
         xp = Xt[(g - 1) * GB: g * GB] if g > 0 else None
         xg = Xt[g * GB:(g + 1) * GB] if g < Ng else None
+        sr_seed = tuple(sr[g]) if sr is not None and xg is not None else (0, 0)
         m0, jgg, s = ss_group_pass(xp, xg, omega, u, dW,
-                                   want_sum_omega=(g == 0))
+                                   want_sum_omega=(g == 0),
+                                   precision=precision, sr_seed=sr_seed)
         if g == 0:
             sum_om = s
         if g == Ng:
@@ -279,7 +302,8 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
                                group: int | None = None,
                                noise: SpikeSlabNoise | None = None,
                                path: str | None = None, Jg=None,
-                               precision: str = "highest"):
+                               precision: str = "highest",
+                               host_generator: torch.Generator | None = None):
     """Collapsed spike-and-slab for all neurons in residual (T-) space.
 
     Args:
@@ -292,9 +316,22 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
       path: "fused" or "staged" to force a loop (default :func:`ss_path`).
       Jg: every group's packed Gram (:func:`group_gram_blocks`), to run the
         staged loop on it instead of forming it.
-      precision: "high" (3xTF32 Gram on the card; the fused loop where
-        :func:`ss_path` picks it) or "highest" (the staged loop on K6's
-        fp32 body; a forced "fused" raises). Both are fp32 on the CPU.
+      precision: the Gram's mode, as in the JAX package. "high": 3xTF32
+        on the card (K2 in the fused loop where :func:`ss_path` picks it,
+        else K6's "high" body). "default": one bf16 pass (K2's bf16 Gram,
+        K6's bf16 body). "sr": in the fused loop K2's bf16 pass on a
+        stochastically rounded Z; in the staged loop the "high" Gram, as
+        the JAX package runs it (the launch counts show which ran).
+        "highest": the staged loop on K6's fp32 body (a forced "fused"
+        raises). In the fused loop at "default" and "sr", omega is rounded
+        to bf16 once and that value feeds u0, every K2 call and sum_omega,
+        while the bias scatter takes the float32 omega, as the JAX fused
+        kernel does (``weights.py:709-715``). On the CPU the plain versions
+        repeat each mode's rounding; "high" and "highest" are fp32 there.
+      host_generator: a CPU generator that draws, in one (Ng, 2) draw, the
+        (seed, offset) of each K2 call's rounding words at "sr" in the
+        fused loop (unless ``noise.sr`` is given); no other mode draws
+        from it.
 
     Returns (A (N_pre, N), w_full (P, N), u (T, N), sum_omega (N,)); psi
     under the new weights is (kappa - u) / omega. The loop run is recorded
@@ -315,14 +352,16 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
                                           and path != "staged"):
         raise ValueError(f"path={path!r}: 'fused' or 'staged' (a given Jg "
                          f"runs the staged loop)")
-    if path == "fused" and precision != "high":
-        raise ValueError(f"path='fused' runs K2's 3xTF32 Gram, which is "
-                         f"precision='high'; precision={precision!r} runs "
-                         f"the staged loop")
+    if path == "fused" and precision == "highest":
+        raise ValueError("path='fused' runs K2, whose Gram is not fp32; "
+                         "precision='highest' runs the staged loop")
     LAST_SS_PATH = path
     dev = omega.device
 
-    u = kappa - omega * psi
+    # The fused loop's omega at the bf16 modes (ss_pallas.py:409-413).
+    om_k = (to_bf16(omega) if path == "fused"
+            and precision in ("default", "sr") else omega)
+    u = kappa - om_k * psi
     w = w_full.clone()
     hyp = hyp._replace(mu=hyp.mu.contiguous(), Lam=hyp.Lam.contiguous(),
                        logit_rho=hyp.logit_rho.contiguous())
@@ -331,7 +370,8 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
         sum_om = _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B,
                               noise, precision, Jg)
     else:
-        sum_om = _fused_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise)
+        sum_om = _fused_loop(generator, host_generator, Xt, om_k, u, w, hyp,
+                             A, G, B, noise, precision)
 
     # Bias column (always active): X_bias = ones.
     b_old = w[P - 1].clone()

@@ -36,7 +36,7 @@ _ULL = ctypes.c_ulonglong
 _ENTRY_POINTS = {
     "pg_devroye_launch": [_P, _P, _LL, _ULL, _ULL, _P],
     "ss_group_pass_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _ULL, _ULL, _P],
     "ss_edge_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _P],
     "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _P],
@@ -44,10 +44,13 @@ _ENTRY_POINTS = {
     "group_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
-# Kernel launches per wrapper. Each wrapper adds one where it launches its
-# kernel and nowhere else; reset_launches() sets every count to 0.
-LAUNCHES = {"pg_devroye": 0, "ss_group_pass": 0, "ss_edge_scan": 0,
-            "pg_gamma_series": 0, "crt_sample": 0, "group_gram": 0}
+# Kernel launches per wrapper, and per Gram mode for K2 and K6 (the bf16
+# bodies count under their own keys, so a run shows which body ran). Each
+# wrapper adds one where it launches its kernel and nowhere else;
+# reset_launches() sets every count to 0.
+LAUNCHES = {"pg_devroye": 0, "ss_group_pass": 0, "ss_group_pass_bf16": 0,
+            "ss_group_pass_sr": 0, "ss_edge_scan": 0, "pg_gamma_series": 0,
+            "crt_sample": 0, "group_gram": 0, "group_gram_bf16": 0}
 
 
 def reset_launches() -> None:

@@ -2,11 +2,12 @@
 blocks of every presyn group in one launch, with its plain PyTorch version.
 
 It replaces ``pyglm_tpu/ops/gram_pallas.py::group_gram_blocks_pallas_t``
-(f32 body ``_gram_kernel_f32``, bf16x3 on the TPU), which the JAX
-package's staged spike-and-slab path runs once per sweep before its group
-loop at precision "high". At "high" the kernel runs 3xTF32 on the tensor
-cores; at "highest" (where the JAX package takes its f32 XLA Gram) an fp32
-FMA body.
+with both its bodies, which the JAX package's staged spike-and-slab path
+runs once per sweep before its group loop: ``_gram_kernel_f32`` (bf16x3 on
+the TPU) at precision "high" and "sr", ``_gram_kernel_fast`` (one bf16
+pass) at "default". The kernel's bodies: "high" 3xTF32 on the tensor cores,
+"default" one bf16 pass on the tensor cores (Z and omega rounded to nearest
+even), "highest" (where the JAX package takes its f32 XLA Gram) fp32 FMA.
 
 Layouts (float32, contiguous):
   Xt    (P, T)    transposed design; group g is rows [g GB, (g + 1) GB)
@@ -22,7 +23,14 @@ from __future__ import annotations
 import torch
 
 from pyglm_tpu_torch.ops import _build
-from pyglm_tpu_torch.ops.ss_cuda import _MAX_GB, _check_cuda_f32, pair_index
+from pyglm_tpu_torch.ops.ss_cuda import (
+    _MAX_GB, _check_cuda_f32, pair_index, to_bf16,
+)
+
+# K6's bodies (csrc/group_gram.cu::group_gram_launch) and their counters.
+_BODIES = {"highest": 0, "high": 1, "default": 2}
+_K6_KEYS = {"highest": "group_gram", "high": "group_gram",
+            "default": "group_gram_bf16"}
 
 
 def _n_groups(Xt, B: int, G: int) -> int:
@@ -33,26 +41,36 @@ def _n_groups(Xt, B: int, G: int) -> int:
     return n_pre // G
 
 
-def group_gram_blocks_plain(Xt, omega, B: int, G: int) -> torch.Tensor:
+def _check_body(precision: str) -> None:
+    if precision not in _BODIES:
+        raise ValueError(f"group_gram: precision={precision!r}, one of "
+                         f"{tuple(_BODIES)}")
+
+
+def group_gram_blocks_plain(Xt, omega, B: int, G: int,
+                            precision: str = "highest") -> torch.Tensor:
     """Plain version of K6: per group, (xg[p] * xg[q]) @ omega over the
-    pairs p <= q. Returns the packed (Ng, GB(GB+1)/2, N)."""
+    pairs p <= q, in fp32 at "high" and "highest" and on Z and omega
+    rounded to bf16 at "default" (exact products, fp32 sums). Returns the
+    packed (Ng, GB(GB+1)/2, N)."""
+    _check_body(precision)
     Ng, GB = _n_groups(Xt, B, G), G * B
     p, q = pair_index(GB, Xt.device)
     out = omega.new_empty((Ng, p.numel(), omega.shape[1]))
+    om = to_bf16(omega) if precision == "default" else omega
     for g in range(Ng):
         xg = Xt[g * GB:(g + 1) * GB]
-        out[g] = (xg[p] * xg[q]) @ omega
+        Z = xg[p] * xg[q]
+        out[g] = (to_bf16(Z) if precision == "default" else Z) @ om
     return out
 
 
 def group_gram_blocks_cuda(Xt, omega, B: int, G: int,
                            precision: str = "highest") -> torch.Tensor:
     """K6 on the card; same contract as :func:`group_gram_blocks_plain`.
-    ``precision="high"`` runs the 3xTF32 tensor-core body, "highest" the
-    fp32 FMA body."""
-    if precision not in ("high", "highest"):
-        raise ValueError(f"group_gram: precision={precision!r}, need 'high' "
-                         f"or 'highest'")
+    ``precision="high"`` runs the 3xTF32 tensor-core body, "default" the
+    bf16 tensor-core body, "highest" the fp32 FMA body."""
+    _check_body(precision)
     T, N = omega.shape
     Ng, GB = _n_groups(Xt, B, G), G * B
     if not 1 <= GB <= _MAX_GB:
@@ -65,7 +83,7 @@ def group_gram_blocks_cuda(Xt, omega, B: int, G: int,
     with torch.cuda.device(omega.device):
         err = lib.group_gram_launch(
             Xt.data_ptr(), omega.data_ptr(), out.data_ptr(), T, N, GB, Ng,
-            int(precision == "high"), torch.cuda.current_stream().cuda_stream)
+            _BODIES[precision], torch.cuda.current_stream().cuda_stream)
     _build.check(err, "group_gram")
-    _build.LAUNCHES["group_gram"] += 1
+    _build.LAUNCHES[_K6_KEYS[precision]] += 1
     return out

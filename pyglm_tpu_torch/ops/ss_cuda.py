@@ -15,11 +15,20 @@ Layouts (postsyn lanes n last, float32, contiguous):
                             row-major over p <= q (``torch.triu_indices``)
   mu (G, N, B), lam (G, N, B, B), lrho (G, N), u_a (G, N), eps (G, N, B)
 
+K2's Gram runs in the mode of the caller's precision, as the TPU kernel's
+`gram` (``ss_pallas.py:343-349``): "high" 3xTF32, "default" one bf16 pass
+(Z and omega rounded to nearest even), "sr" one bf16 pass on a
+stochastically rounded Z. The words of "sr"'s rounding come from a Philox
+stream selected by a (seed, offset) pair per call, on the card in the
+kernel and on the CPU from :func:`sr_words`, which repeats the kernel's
+draw, so both devices round Z alike for one pair.
+
 Dispatch: :func:`ss_group_pass` and :func:`ss_edge_scan` launch the kernel
 for CUDA tensors and take the plain version for CPU tensors only.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pyglm_tpu_torch.ops import _build
@@ -44,21 +53,92 @@ def unpack_gram(jgg: torch.Tensor, GB: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The bf16 rounding of the Gram modes "default" and "sr"
+# ---------------------------------------------------------------------------
+
+# K2's Gram modes (csrc/gram_tc.cuh::Mode) and their launch counters.
+_GRAM_MODES = {"high": 0, "default": 1, "sr": 2}
+_K2_KEYS = {"high": "ss_group_pass", "default": "ss_group_pass_bf16",
+            "sr": "ss_group_pass_sr"}
+
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def philox4x32(c, k):
+    """Philox4x32-10 over numpy arrays: c a 4-tuple of counter words, k a
+    2-tuple of key words (each an array of 32-bit values, broadcast
+    together); returns the 4 output words as uint64 arrays (the generator
+    of csrc/gram_tc.cuh::philox)."""
+    c = [np.asarray(x, np.uint64) for x in np.broadcast_arrays(*c)]
+    k0, k1 = (np.asarray(x, np.uint64) for x in k)
+    for _ in range(10):
+        p0 = np.uint64(0xD2511F53) * c[0]
+        p1 = np.uint64(0xCD9E8D57) * c[2]
+        c = [(p1 >> np.uint64(32)) ^ c[1] ^ k0, p1 & _M32,
+             (p0 >> np.uint64(32)) ^ c[3] ^ k1, p0 & _M32]
+        k0 = (k0 + np.uint64(0x9E3779B9)) & _M32
+        k1 = (k1 + np.uint64(0xBB67AE85)) & _M32
+    return c
+
+
+def sr_words(seed: int, offset: int, rows: int, T: int) -> torch.Tensor:
+    """The (rows, T) int32 words in [0, 2^16) with which K2 rounds
+    Z[pr, t] at "sr" for this (seed, offset): word t % 8 of the Philox draw
+    with counter (t // 8, pr, offset) and key seed (the low 16 bits of each
+    output word first)."""
+    t8 = np.arange(-(-T // 8), dtype=np.uint64)[None, :]
+    pr = np.arange(rows, dtype=np.uint64)[:, None]
+    off, sd = np.uint64(offset), np.uint64(seed)
+    out = philox4x32((t8, pr, off & _M32, off >> np.uint64(32)),
+                     (sd & _M32, sd >> np.uint64(32)))
+    words = np.stack([w for x in out for w in (x & np.uint64(0xFFFF),
+                                               x >> np.uint64(16))], axis=-1)
+    return torch.from_numpy(
+        words.reshape(rows, -1)[:, :T].astype(np.int32))
+
+
+def sr_round(x: torch.Tensor, r16: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding of float32 x to bf16 by the words r16 in
+    [0, 2^16) (``ss_pallas.py::_sr16``): (bits(x) + r16) & 0xFFFF0000, so
+    each value lands on one of its two bf16 neighbours, E[sr(x)] = x over
+    uniform words, and bf16 values pass through. Returns float32."""
+    return ((x.view(torch.int32) + r16) & -65536).view(torch.float32)
+
+
+def to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+# ---------------------------------------------------------------------------
 # K2: scatter + gather + within-group Gram
 # ---------------------------------------------------------------------------
 
-def ss_group_pass_plain(xp, xg, omega, u, dw, want_sum_omega=False):
+def ss_group_pass_plain(xp, xg, omega, u, dw, want_sum_omega=False,
+                        precision="high", r16=None):
     """Plain version of K2. Updates u in place,
     u -= omega * (xp^T dw) when xp is given, and returns
     (M0 = xg u, packed Jgg, sum_t omega or None); (None, None, None) when
-    xg is None (the epilogue)."""
+    xg is None (the epilogue). The Gram at `precision`: "high" fp32,
+    "default" bf16(Z) bf16(omega), "sr" sr_round(Z, r16) bf16(omega) with
+    r16 the (GB(GB+1)/2, T) words of the rounding; products of bf16 values
+    are exact in fp32, so only the order of the sums differs from K2."""
     if xp is not None:
         u -= omega * (xp.T @ dw)
     if xg is None:
         return None, None, None
     m0 = xg @ u
     p, q = pair_index(xg.shape[0], xg.device)
-    jgg = (xg[p] * xg[q]) @ omega
+    Z = xg[p] * xg[q]
+    if precision == "high":
+        jgg = Z @ omega
+    elif precision == "default":
+        jgg = to_bf16(Z) @ to_bf16(omega)
+    elif precision == "sr":
+        jgg = sr_round(Z, r16) @ to_bf16(omega)
+    else:
+        raise ValueError(f"ss_group_pass: precision={precision!r}, one of "
+                         f"{tuple(_GRAM_MODES)}")
     return m0, jgg, (omega.sum(0) if want_sum_omega else None)
 
 
@@ -101,10 +181,20 @@ def _n_split_scatter(T: int) -> int:
     return max(1, min(1024, -(-T // 256)))
 
 
-def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False):
+def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
+                       precision="high", sr_seed=(0, 0)):
     """K2 on the card; same contract as :func:`ss_group_pass_plain`. The
-    Gram and M0 run 3xTF32 on the tensor cores (precision "high"); the
-    scatter and sum_t omega in fp32."""
+    Gram runs in `precision`'s mode on the tensor cores ("sr" rounds Z by
+    the Philox words of ``sr_seed`` = (seed, offset), those of
+    :func:`sr_words`); M0 runs 3xTF32 and the scatter and sum_t omega fp32
+    in every mode."""
+    if precision not in _GRAM_MODES:
+        raise ValueError(f"ss_group_pass: precision={precision!r}, one of "
+                         f"{tuple(_GRAM_MODES)}")
+    seed, offset = sr_seed
+    if not (0 <= seed < 2 ** 64 and 0 <= offset < 2 ** 64):
+        raise ValueError("sr_seed: seed and offset must fit in 64 unsigned "
+                         "bits")
     T, N = omega.shape
     ref = xg if xg is not None else xp
     if ref is None:
@@ -139,22 +229,31 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False):
             ptr(xg), ptr(xp), omega.data_ptr(), u.data_ptr(),
             ptr(dw) if xp is not None else None, ptr(part_g), ptr(part_m),
             ptr(part_s), ptr(out), T, N, GB, n_split, n_split_m, n_split_s,
-            int(want_sum_omega), torch.cuda.current_stream().cuda_stream)
+            int(want_sum_omega), _GRAM_MODES[precision], seed, offset,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ss_group_pass")
-    _build.LAUNCHES["ss_group_pass"] += 1
+    _build.LAUNCHES[_K2_KEYS[precision]] += 1
     if xg is None:
         return None, None, None
     return (out[:GB], out[GB:GB + npair],
             out[GB + npair] if want_sum_omega else None)
 
 
-def ss_group_pass(xp, xg, omega, u, dw, want_sum_omega=False):
-    """K2 for CUDA tensors, its plain version for CPU tensors."""
+def ss_group_pass(xp, xg, omega, u, dw, want_sum_omega=False,
+                  precision="high", sr_seed=(0, 0)):
+    """K2 for CUDA tensors, its plain version for CPU tensors; at "sr" both
+    round Z by the words of ``sr_seed`` = (seed, offset)."""
     if omega.is_cuda:
-        return ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega)
+        return ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega,
+                                  precision, sr_seed)
     if omega.device.type != "cpu":
         raise ValueError(f"ss_group_pass: unsupported device {omega.device}")
-    return ss_group_pass_plain(xp, xg, omega, u, dw, want_sum_omega)
+    r16 = None
+    if precision == "sr" and xg is not None:
+        GB = xg.shape[0]
+        r16 = sr_words(*sr_seed, GB * (GB + 1) // 2, omega.shape[0])
+    return ss_group_pass_plain(xp, xg, omega, u, dw, want_sum_omega,
+                               precision, r16)
 
 
 # ---------------------------------------------------------------------------

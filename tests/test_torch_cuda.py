@@ -20,8 +20,8 @@ from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
 from pyglm_tpu_torch.ops.polyagamma import (
     pg_devroye_plain, pg_gamma_series_plain, pg_mean, pg_var)
 from pyglm_tpu_torch.ops.ss_cuda import (
-    pair_index, ss_edge_scan_cuda, ss_edge_scan_plain, ss_group_pass_cuda,
-    ss_group_pass_plain)
+    pair_index, sr_words, ss_edge_scan_cuda, ss_edge_scan_plain,
+    ss_group_pass_cuda, ss_group_pass_plain, to_bf16)
 
 pytestmark = pytest.mark.cuda
 
@@ -111,20 +111,110 @@ def _design(gen, n_pre, T, B=4, rate=0.15):
     return design_matrix(Y, cosine_basis(B, 10)).T.contiguous()
 
 
-def test_group_pass_gram_error_against_float64(gen):
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_group_pass_gram_error_against_float64(gen, precision):
     """At the flagship's shapes and inputs (GB = 32, T = 1e5, 200 lanes, a
     design of spikes at rate 0.15 and the cosine basis, PG-like omega), K2's
-    3xTF32 Gram is no further from a float64 Gram than 2x the fp32 plain
-    version (cuBLAS SGEMM on the materialised Z)."""
+    Gram is no further from a float64 Gram of the same operands (rounded to
+    bf16 at "default") than 2x the plain version (cuBLAS SGEMM on the
+    materialised Z)."""
     GB, Tn, N = 32, 100_000, 200
     X = _design(gen, GB // 4, Tn)[:GB]
     om = 0.05 + 0.2 * torch.rand((Tn, N), generator=gen, device="cuda")
     u = torch.randn((Tn, N), generator=gen, device="cuda")
-    _, jk, _ = ss_group_pass_cuda(None, X, om, u.clone(), None)
-    _, jp, _ = ss_group_pass_plain(None, X, om, u.clone(), None)
+    _, jk, _ = ss_group_pass_cuda(None, X, om, u.clone(), None,
+                                  precision=precision)
+    _, jp, _ = ss_group_pass_plain(None, X, om, u.clone(), None,
+                                   precision=precision)
     p, q = pair_index(GB, "cuda")
-    ek, ep = _f64_errors(jk, jp, X, om, p, q)
+    if precision == "default":
+        j64 = to_bf16(X[p] * X[q]).double() @ to_bf16(om).double()
+        ek, ep = _rel(jk.double(), j64), _rel(jp.double(), j64)
+    else:
+        ek, ep = _f64_errors(jk, jp, X, om, p, q)
     assert ek <= 2 * ep, (ek, ep)
+
+
+def _float_design(gen, GB, Tn):
+    """Design rows of continuous values, so that Z = X_p X_q is rarely a
+    bf16 value and the rounding of the bf16 modes shows."""
+    return torch.rand((GB, Tn), generator=gen, device="cuda") * (
+        torch.rand((GB, Tn), generator=gen, device="cuda") < 0.5)
+
+
+@pytest.mark.parametrize("N", [70, 200])
+@pytest.mark.parametrize("GB", [8, 12, 32, 40])
+@pytest.mark.parametrize("precision", ["default", "sr"])
+def test_group_pass_bf16_modes_match_plain(gen, precision, GB, N):
+    """K2's bf16 and SR Grams against their plain versions on the same
+    rounding words (sr_words repeats the kernel's Philox draw): the products
+    of bf16 values are exact, so only the order of the fp32 sums differs
+    (1e-5). At "sr" the words of another seed give another Gram (> 1e-5),
+    so the first agreement shows that the words are the same."""
+    Tn = 3001
+    X = _float_design(gen, 2 * GB, Tn)
+    om = 0.05 + 0.2 * torch.rand((Tn, N), generator=gen, device="cuda")
+    u = torch.randn((Tn, N), generator=gen, device="cuda")
+    dw = 0.1 * torch.randn((GB, N), generator=gen, device="cuda")
+    seed, offset = 12345, 678
+    r16 = (sr_words(seed, offset, GB * (GB + 1) // 2, Tn).cuda()
+           if precision == "sr" else None)
+    uk, up = u.clone(), u.clone()
+    out_k = ss_group_pass_cuda(X[:GB], X[GB:], om, uk, dw, True,
+                               precision=precision, sr_seed=(seed, offset))
+    out_p = ss_group_pass_plain(X[:GB], X[GB:], om, up, dw, True,
+                                precision=precision, r16=r16)
+    assert _rel(uk, up) <= 1e-5
+    for a, b in zip(out_k, out_p):
+        assert _rel(a, b) <= 1e-5
+    if precision == "sr":
+        other = ss_group_pass_cuda(None, X[GB:], om, u.clone(), None,
+                                   precision="sr",
+                                   sr_seed=(seed + 1, offset))[1]
+        assert _rel(other, out_p[1]) > 1e-5
+        again = ss_group_pass_cuda(None, X[GB:], om, u.clone(), None,
+                                   precision="sr", sr_seed=(seed, offset))[1]
+        assert torch.equal(again, out_k[1])
+
+
+def test_group_pass_sr_unbiased_over_launches(gen):
+    """K2's SR Gram over R = 256 launches with different seeds (GB = 32,
+    T = 4096, 256 lanes): the per-cell mean minus the float64 Gram of the
+    fp32 Z and the bf16 omega has max |z| < 6, its RMS error is below half
+    that of the "default" Gram (expected ~0.09x: one SR launch errs ~1.4x
+    the RNE Gram, and 256 launches cut that 16x), and a seed repeats."""
+    GB, Tn, N, R = 32, 4096, 256, 256
+    X = _float_design(gen, GB, Tn)
+    om = to_bf16(0.05 + 0.2 * torch.rand((Tn, N), generator=gen,
+                                         device="cuda"))
+    u = torch.zeros((Tn, N), device="cuda")
+    p, q = pair_index(GB, "cuda")
+    ref = (X[p] * X[q]).double() @ om.double()
+    s1 = torch.zeros_like(ref)
+    s2 = torch.zeros_like(ref)
+    for r in range(R):
+        j = ss_group_pass_cuda(None, X, om, u, None, precision="sr",
+                               sr_seed=(1000 + r, 7))[1].double()
+        s1 += j
+        s2 += j * j
+    mean = s1 / R
+    se = ((s2 / R - mean ** 2).clamp_min(0) * R / (R - 1) / R).sqrt()
+    live = se > 0
+    z = ((mean - ref).abs() / se)[live]
+    assert float(z.max()) < 6.0, float(z.max())
+    if bool((~live).any()):        # cells whose Z needs no rounding
+        assert float((mean - ref)[~live].abs().max()) <= 1e-6 * float(
+            ref.abs().max())
+    dflt = ss_group_pass_cuda(None, X, om, u, None,
+                              precision="default")[1].double()
+    rms_sr = float((mean - ref).pow(2).mean().sqrt())
+    rms_default = float((dflt - ref).pow(2).mean().sqrt())
+    assert rms_sr < 0.5 * rms_default, (rms_sr, rms_default)
+    a = ss_group_pass_cuda(None, X, om, u, None, precision="sr",
+                           sr_seed=(3, 4))[1]
+    b = ss_group_pass_cuda(None, X, om, u, None, precision="sr",
+                           sr_seed=(3, 4))[1]
+    assert torch.equal(a, b)
 
 
 def test_group_pass_rejects_wide_groups(gen):
@@ -168,9 +258,32 @@ def test_sweep_on_card_launches_each_kernel(gen):
     _build.reset_launches()
     m.fit(n_samples=3)
     assert _build.LAUNCHES == {"pg_devroye": 3, "ss_group_pass": 3 * 5,
+                               "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
-                               "crt_sample": 0, "group_gram": 0}
+                               "crt_sample": 0, "group_gram": 0,
+                               "group_gram_bf16": 0}
     assert np.isfinite(m.log_likelihood())
+
+
+@pytest.mark.parametrize("precision,key", [("default", "ss_group_pass_bf16"),
+                                           ("sr", "ss_group_pass_sr")])
+def test_bf16_mode_sweep_launches_its_k2_body(gen, precision, key):
+    """A flagship-shaped sweep at "default" / "sr" runs the fused loop on
+    K2's bf16 / SR Gram (Ng + 1 calls per sweep) and no other Gram body."""
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
+    Y = SparseBernoulliGLM(16, seed=1, device="cuda").generate(2000,
+                                                                keep=False)
+    m = SparseBernoulliGLM(16, seed=2, group=4, precision=precision,
+                           device="cuda")
+    m.add_data(Y)
+    _build.reset_launches()
+    out = m.fit(n_samples=3)
+    assert weights.LAST_SS_PATH == "fused"
+    want = {k: 0 for k in _build.LAUNCHES}
+    want.update(pg_devroye=3, ss_edge_scan=3 * 4, **{key: 3 * 5})
+    assert _build.LAUNCHES == want
+    assert np.isfinite(out["lls"]).all() and np.isfinite(m.log_likelihood())
 
 
 @pytest.mark.parametrize("b,c", [(0.3, 1.0), (2.5, 0.0), (4.5, 1.0),
@@ -263,8 +376,10 @@ def test_nb_sweep_on_card_launches_k4_k2_k3(gen):
     _build.reset_launches()
     m.fit(n_samples=3)
     assert _build.LAUNCHES == {"pg_devroye": 0, "ss_group_pass": 3 * 5,
+                               "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 3,
-                               "crt_sample": 0, "group_gram": 0}
+                               "crt_sample": 0, "group_gram": 0,
+                               "group_gram_bf16": 0}
     assert np.isfinite(m.log_likelihood())
     r = m.state.aux["r"]
     assert r.is_cuda and torch.all(r > 0)
@@ -294,20 +409,22 @@ def test_binomial_sweep_on_card_dispatch(gen, n_trials, kernel):
     assert np.isfinite(m.log_likelihood())
 
 
-@pytest.mark.parametrize("precision", ["high", "highest"])
+@pytest.mark.parametrize("precision", ["high", "highest", "default"])
 @pytest.mark.parametrize("T,N_pre,B,G,lanes", [(3001, 12, 4, 3, 70),
                                                (20_000, 20, 4, 10, 300),
                                                (2000, 14, 4, 7, 130)])
 def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
                                          precision):
-    """K6 (3xTF32 at "high", fp32 FMA at "highest") against its plain
-    version: a ragged T with GB = 12, the ensemble's GB = 40 over three
-    lane tiles, and GB = 28 (not a multiple of 8) over two."""
-    Xt = (torch.rand((N_pre * B + 1, T), generator=gen, device="cuda")
-          < 0.3).float()
+    """K6 (3xTF32 at "high", fp32 FMA at "highest", one bf16 pass at
+    "default") against its plain version: a ragged T with GB = 12, the
+    ensemble's GB = 40 over three lane tiles, and GB = 28 (not a multiple
+    of 8) over two. The design holds continuous values, so the bf16
+    rounding of Z shows."""
+    Xt = torch.rand((N_pre * B + 1, T), generator=gen, device="cuda") * (
+        torch.rand((N_pre * B + 1, T), generator=gen, device="cuda") < 0.3)
     om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")
     k = group_gram_blocks_cuda(Xt, om, B, G, precision=precision)
-    p = group_gram_blocks_plain(Xt, om, B, G)
+    p = group_gram_blocks_plain(Xt, om, B, G, precision=precision)
     assert k.shape == p.shape == (N_pre // G, G * B * (G * B + 1) // 2,
                                   lanes)
     assert _rel(k, p) <= 1e-5
@@ -319,21 +436,27 @@ def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
 
 def test_group_gram_error_against_float64(gen):
     """At config 5's shapes and inputs for one group (GB = 40, T = 2e4,
-    4000 lanes, spikes at rate 0.35), K6's 3xTF32 Gram is no further from a
-    float64 Gram than 2x the fp32 plain version; the fp32 body (one
-    accumulator over all of T) is printed beside it."""
+    4000 lanes, spikes at rate 0.35), each K6 body is no further from a
+    float64 Gram of its operands (rounded to bf16 at "default") than 2x its
+    plain version: "high" (3xTF32), "highest" (fp32 FMA, folded every 512
+    steps) and "default" (one bf16 pass)."""
     T, B, G, lanes = 20_000, 4, 10, 4000
     Xt = _design(gen, G, T, rate=0.35)
     om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")
     p, q = pair_index(G * B, "cuda")
-    plain = group_gram_blocks_plain(Xt, om, B, G)[0]
+    X = Xt[:G * B]
     errs = {}
-    for prec in ("high", "highest"):
+    for prec in ("high", "highest", "default"):
         k = group_gram_blocks_cuda(Xt, om, B, G, precision=prec)[0]
-        errs[prec], errs["plain"] = _f64_errors(k, plain, Xt[:G * B], om,
-                                                p, q)
+        plain = group_gram_blocks_plain(Xt, om, B, G, precision=prec)[0]
+        if prec == "default":
+            j64 = to_bf16(X[p] * X[q]).double() @ to_bf16(om).double()
+            errs[prec] = (_rel(k.double(), j64), _rel(plain.double(), j64))
+        else:
+            errs[prec] = _f64_errors(k, plain, X, om, p, q)
     print(errs)
-    assert errs["high"] <= 2 * errs["plain"], errs
+    for prec, (ek, ep) in errs.items():
+        assert ek <= 2 * ep, (prec, errs)
 
 
 def test_highest_sweep_launches_k6_not_k2(gen):
@@ -350,8 +473,33 @@ def test_highest_sweep_launches_k6_not_k2(gen):
     m.fit(n_samples=3)
     assert weights.LAST_SS_PATH == "staged"
     assert _build.LAUNCHES == {"pg_devroye": 3, "ss_group_pass": 0,
+                               "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
-                               "crt_sample": 0, "group_gram": 3}
+                               "crt_sample": 0, "group_gram": 3,
+                               "group_gram_bf16": 0}
+    assert np.isfinite(m.log_likelihood())
+
+
+@pytest.mark.parametrize("precision,key", [("default", "group_gram_bf16"),
+                                           ("sr", "group_gram"),
+                                           ("high", "group_gram")])
+def test_staged_path_runs_the_k6_body_of_its_precision(gen, precision, key):
+    """T < 384 routes the sweep to the staged loop: K6's bf16 body at
+    "default", its "high" body at "sr" (as the JAX package runs it) and at
+    "high"; K2 never."""
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
+    Y = SparseBernoulliGLM(16, seed=1, device="cuda").generate(300,
+                                                                keep=False)
+    m = SparseBernoulliGLM(16, seed=2, group=4, precision=precision,
+                           device="cuda")
+    m.add_data(Y)
+    _build.reset_launches()
+    m.fit(n_samples=3)
+    assert weights.LAST_SS_PATH == "staged"
+    want = {k: 0 for k in _build.LAUNCHES}
+    want.update(pg_devroye=3, ss_edge_scan=3 * 4, **{key: 3})
+    assert _build.LAUNCHES == want
     assert np.isfinite(m.log_likelihood())
 
 
@@ -368,8 +516,10 @@ def test_staged_path_launches_k6_not_k2(gen):
     m.fit(n_samples=3)
     assert weights.LAST_SS_PATH == "staged"
     assert _build.LAUNCHES == {"pg_devroye": 3, "ss_group_pass": 0,
+                               "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
-                               "crt_sample": 0, "group_gram": 3}
+                               "crt_sample": 0, "group_gram": 3,
+                               "group_gram_bf16": 0}
     assert np.isfinite(m.log_likelihood())
 
 

@@ -126,8 +126,7 @@ def test_posterior_agrees_with_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(precision="default"), dict(precision="sr"),
-    dict(observation="negative_binomial", precision="default"),
+    dict(observation="negative_binomial", network="sbm"),
     dict(observation="gaussian"),
     dict(observation="binomial", network="sbm"), dict(network="dense"),
     dict(network="sbm"), dict(network="latent_distance", spike_and_slab=False),

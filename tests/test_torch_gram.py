@@ -71,8 +71,13 @@ def test_dispatch_plain_on_cpu_and_rejections():
     torch.testing.assert_close(tw.group_gram_blocks(Xt, om, B, G),
                                gram_cuda.group_gram_blocks_plain(Xt, om, B, G),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="7b"):
-        tw.group_gram_blocks(Xt, om, B, G, fast=True)
+    bf16 = gram_cuda.group_gram_blocks_plain(Xt, om, B, G,
+                                             precision="default")
+    for kw in (dict(fast=True), dict(precision="default")):
+        torch.testing.assert_close(tw.group_gram_blocks(Xt, om, B, G, **kw),
+                                   bf16, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        gram_cuda.group_gram_blocks_plain(Xt, om, B, G, precision="sr")
     with pytest.raises(ValueError):
         gram_cuda.group_gram_blocks_cuda(Xt, om, B, G)
     with pytest.raises(ValueError):

@@ -3,18 +3,22 @@ the CPU.
 
 The JAX package runs its fused spike-and-slab kernel only at "default",
 "sr" and "high" (``_tspace_impl``); "highest" takes the staged path with the
-f32 XLA Gram. The port runs "high" and "highest" and threads the model's
-precision down to the loop choice, so "highest" never runs K2 (whose Gram
-is 3xTF32 on the card).
+f32 XLA Gram, and "sr" on the staged path takes the "high" Gram. The port
+runs all four and threads the model's precision down to the loop choice,
+so "highest" never runs K2 (whose Gram is not fp32 on the card).
 
-- ss_path over both precisions and a grid, against the JAX rule.
+- ss_path over the four precisions and a grid, against the JAX rule.
 - A model's sweep (and fit_ensemble) at "highest" runs the staged loop, at
-  "high" on a flagship-shaped problem the fused one.
-- The update at each precision against JAX's update at the same precision
-  with JAX's noise injected: A identical, w atol 1e-4, u atol 1e-3 (float32
-  sums over T in another order, as tests/test_torch_spike_slab.py).
-- A forced fused loop under "highest" raises; the bf16 modes raise and name
-  ROADMAP item 7b.
+  "default", "sr" and "high" on a flagship-shaped problem the fused one.
+- The update at "high" and "highest" against JAX's update at the same
+  precision with JAX's noise injected: A identical, w atol 1e-4, u atol
+  1e-3 (float32 sums over T in another order, as
+  tests/test_torch_spike_slab.py). The bf16 modes are held against JAX in
+  tests/test_torch_bf16.py.
+- "sr" on the staged loop is the "high" update; only "sr" on the fused loop
+  draws from the host generator (K2's rounding seeds), so the other modes'
+  chains draw the numbers they drew before the bf16 modes existed.
+- A forced fused loop under "highest" raises.
 """
 import numpy as np
 import jax
@@ -41,7 +45,7 @@ def _jax_rule(N_pre, B_, lanes, T_, precision):
     return "fused" if fused else "staged"
 
 
-@pytest.mark.parametrize("precision", ["high", "highest"])
+@pytest.mark.parametrize("precision", ["high", "highest", "default", "sr"])
 @pytest.mark.parametrize("N_pre", [27, 100, 200, 500])
 def test_ss_path_matches_jax_dispatch_per_precision(N_pre, precision):
     for chains in (1, 2, 4, 8):
@@ -121,18 +125,20 @@ def test_update_matches_jax_at_each_precision(precision, seed):
                                atol=1e-3)
 
 
-def _model(precision, seed=0):
+def _model(precision, seed=0, T_=1000):
     truth = pyglm_tpu_torch.SparseBernoulliGLM(
         16, seed=7, device="cpu",
         net_kwargs=dict(rho_init=0.2, learn_rho=False, mu_bias=-1.5))
     m = pyglm_tpu_torch.SparseBernoulliGLM(16, seed=seed, group=4,
                                            precision=precision, device="cpu")
-    m.add_data(truth.generate(1000, keep=False))
+    m.add_data(truth.generate(T_, keep=False))
     return m
 
 
 @pytest.mark.parametrize("precision,path", [("high", "fused"),
-                                            ("highest", "staged")])
+                                            ("highest", "staged"),
+                                            ("default", "fused"),
+                                            ("sr", "fused")])
 def test_model_sweep_runs_the_loop_of_its_precision(precision, path):
     m = _model(precision)
     assert m.precision == precision
@@ -142,12 +148,78 @@ def test_model_sweep_runs_the_loop_of_its_precision(precision, path):
 
 
 @pytest.mark.parametrize("precision,path", [("high", "fused"),
-                                            ("highest", "staged")])
+                                            ("highest", "staged"),
+                                            ("default", "fused"),
+                                            ("sr", "fused")])
 def test_fit_ensemble_runs_the_loop_of_its_precision(precision, path):
     out = _model(precision).fit_ensemble(n_chains=2, n_samples=4,
                                          collect="mean")
     assert tw.LAST_SS_PATH == path
     assert np.isfinite(out["lls"]).all()
+
+
+def test_staged_ensemble_at_the_bf16_modes():
+    """T < 384 routes fit_ensemble to the staged loop: at "default" on the
+    bf16 Gram (another chain than "high"'s), at "sr" on the "high" Gram
+    with no draw from the host generator (the same chain as "high")."""
+    runs = {}
+    for precision in ("high", "default", "sr"):
+        runs[precision] = _model(precision, seed=1, T_=300).fit_ensemble(
+            n_chains=2, n_samples=4)
+        assert tw.LAST_SS_PATH == "staged"
+        assert np.isfinite(runs[precision]["lls"]).all()
+    for k in ("A", "W", "bias", "lls"):
+        np.testing.assert_array_equal(runs["sr"][k], runs["high"][k])
+    assert not np.array_equal(runs["default"]["W"], runs["high"]["W"])
+
+
+def _update_args(seed):
+    p = _problem(seed)
+    return (_t(p["Xf"].T), _t(p["omega"]), _t(p["kappa"]), _t(p["psi"]),
+            _t(p["w_full"]),
+            tw.EdgeHypers(**{k: _t(v) for k, v in p["hyp"].items()}))
+
+
+def test_sr_staged_update_is_the_high_update():
+    args = _update_args(3)
+    noise = _jax_noise(jax.random.key(3))
+    sr = tw.resample_spike_slab_tspace(None, *args, B, group=G, noise=noise,
+                                       path="staged", precision="sr")
+    high = tw.resample_spike_slab_tspace(None, *args, B, group=G,
+                                         noise=noise, path="staged",
+                                         precision="high")
+    for a, b in zip(sr, high):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ["default", "sr", "high", "highest"])
+def test_host_generator_drawn_only_at_sr(precision):
+    """Only "sr" on the fused loop draws from the host generator (one
+    (Ng, 2) draw of the K2 calls' (seed, offset) pairs); its seeds then
+    equal noise.sr drawn from the same generator, so the update repeats."""
+    args = _update_args(4)
+    noise = _jax_noise(jax.random.key(4))
+    host = torch.Generator().manual_seed(11)
+    state = host.get_state()
+    out = tw.resample_spike_slab_tspace(None, *args, B, group=G, noise=noise,
+                                        precision=precision,
+                                        host_generator=host)
+    assert tw.LAST_SS_PATH == ("staged" if precision == "highest"
+                               else "fused")
+    if precision != "sr":
+        assert torch.equal(host.get_state(), state)
+        return
+    assert not torch.equal(host.get_state(), state)
+    again = torch.Generator().manual_seed(11)
+    seeds = torch.randint(0, 2 ** 62, (NG, 2), generator=again)
+    ref = tw.resample_spike_slab_tspace(None, *args, B, group=G,
+                                        noise=noise._replace(sr=seeds),
+                                        precision="sr")
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="host_generator"):
+        tw.resample_spike_slab_tspace(None, *args, B, group=G, noise=noise,
+                                      precision="sr")
 
 
 def test_high_and_highest_give_one_chain_on_the_cpu():
@@ -173,20 +245,11 @@ def test_forced_fused_loop_under_highest_raises():
     assert tw.LAST_SS_PATH == "staged"
 
 
-@pytest.mark.parametrize("precision", ["default", "sr"])
-def test_bf16_modes_raise_and_name_7b(precision):
-    with pytest.raises(NotImplementedError, match="7b"):
-        tw.ss_path(200, 4, 200, 100_000, precision=precision)
-    Xt, om = torch.ones((9, 300)), torch.ones((300, 3))
-    with pytest.raises(NotImplementedError, match="7b"):
-        tw.group_gram_blocks(Xt, om, 4, 2, precision=precision)
-    with pytest.raises(NotImplementedError, match="7b"):
-        pyglm_tpu_torch.SparseBernoulliGLM(8, precision=precision,
-                                           device="cpu")
-
-
 def test_unknown_precision_raises():
     with pytest.raises(ValueError):
         tw.ss_path(200, 4, 200, 100_000, precision="fp16")
     with pytest.raises(ValueError):
         pyglm_tpu_torch.SparseBernoulliGLM(8, precision="fp16", device="cpu")
+    with pytest.raises(ValueError):
+        tw.group_gram_blocks(torch.ones((9, 300)), torch.ones((300, 3)), 4,
+                             2, precision="fp16")

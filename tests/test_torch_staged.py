@@ -134,9 +134,9 @@ def test_staged_and_fused_loops_give_one_chain_on_one_seed():
 
 
 def _jax_rule(N_pre, B_, lanes, T_, group=None):
-    """The JAX single-device dispatcher's choice at precision "high" (its
-    fused kernel also takes "default" and "sr", which the port does not
-    run), backend tests left out."""
+    """The JAX single-device dispatcher's choice at precision "high" (the
+    bf16 modes are held in tests/test_torch_precision.py), backend tests
+    left out."""
     plan = jw._fused_plan(N_pre, B_, -(-lanes // 128) * 128, 512, group=group)
     fused = (plan is not None and (plan[0] * B_) % 8 == 0 and B_ <= 8
              and T_ >= 384)
