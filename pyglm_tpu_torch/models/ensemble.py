@@ -28,6 +28,7 @@ from pyglm_tpu_torch.models.sweep import (
 from pyglm_tpu_torch.models.weights import (
     EdgeHypers, pack_weights, resample_spike_slab_tspace, unpack_weights,
 )
+from pyglm_tpu_torch.utils.utils import fp32_matmul
 
 _SWEEP_SALT = 0xC8A1
 
@@ -117,6 +118,7 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
             "pyglm_tpu_torch yet (ROADMAP.md Queue A, item 8)")
     batched_net = isinstance(network, LatentDistanceConfig)
 
+    @fp32_matmul()
     def sweep(gens: Generators, st: GLMState, datas):
         chains = unstack_states(st, C)
         w_lane, hyp = lane_inputs(network, chains)

@@ -16,7 +16,7 @@ from pyglm_tpu_torch.models.weights import (
     pack_weights, resample_spike_slab_tspace, unpack_weights,
 )
 from pyglm_tpu_torch.ops.linalg import chol_small, solve_lower_t_small
-from pyglm_tpu_torch.utils.utils import logistic
+from pyglm_tpu_torch.utils.utils import fp32_matmul, logistic
 
 
 class GLMData(NamedTuple):
@@ -62,6 +62,7 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
             "the dense (spike_and_slab=False) sweep is not ported to "
             "pyglm_tpu_torch yet (ROADMAP.md Queue A, item 8)")
 
+    @fp32_matmul()
     def sweep(gens: Generators, state: GLMState, datas):
         w_full = pack_weights(state.A, state.W, state.b)
         dev = w_full.device
@@ -95,6 +96,7 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
 
 
 def make_log_likelihood(obs, N: int, B: int):
+    @fp32_matmul()
     def log_likelihood(state: GLMState, data: GLMData):
         psi = data.Xf @ pack_weights(state.A, state.W, state.b)
         return obs.log_likelihood_sum(data.Y, psi, state.aux)
@@ -109,6 +111,7 @@ def make_generator(obs, N: int, B: int):
     that needs no host sync. ``uniforms`` (T, N), if given, replaces a
     Bernoulli family's uniforms (for reproducing a reference run)."""
 
+    @fp32_matmul()
     def generate(generator: torch.Generator, state: GLMState, basis, T: int,
                  uniforms=None):
         dev = state.b.device

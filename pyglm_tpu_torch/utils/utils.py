@@ -6,6 +6,8 @@ arrays, exactly as the JAX package does.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -64,4 +66,36 @@ def require_device(device) -> torch.device:
             "pyglm_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Run cuBLAS float32 matmuls and einsums in full float32 inside the
+    block, whatever the caller set (``allow_tf32``, ``fp32_precision`` or
+    ``set_float32_matmul_precision``), and restore the caller's setting on
+    exit, also after an exception. The JAX package pins each GEMM's
+    precision per call; PyTorch reads a process-wide flag. Usable as a
+    decorator.
+
+    The caller's setting is read through the API it was set by: newer
+    PyTorch raises when the legacy getter reads a value set through the
+    per-backend ``fp32_precision``."""
+    matmul = torch.backends.cuda.matmul
+    try:
+        saved = torch.get_float32_matmul_precision()
+    except RuntimeError:          # set through matmul.fp32_precision
+        saved = None
+    if saved is None:
+        prev = matmul.fp32_precision
+        matmul.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            matmul.fp32_precision = prev
+    else:
+        torch.set_float32_matmul_precision("highest")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(saved)
 

@@ -523,6 +523,36 @@ def test_staged_path_launches_k6_not_k2(gen):
     assert np.isfinite(m.log_likelihood())
 
 
+@pytest.mark.parametrize("T,path", [(300, "staged"), (2000, "fused")])
+def test_update_unchanged_with_tf32_on_globally(gen, T, path):
+    """The sweep pins its float32 GEMMs (psi = Xf w, the staged loop's M0
+    and scatter, the priors' einsums) to full float32 whatever the caller
+    set: with TF32 switched on globally, a sweep at "high" from the same
+    state and generators gives A identical and W, b equal to the sweep with
+    it off, on the staged (T = 300) and on the fused loop, and leaves the
+    caller's flag on."""
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.models.ensemble import chain_generators
+    Y = SparseBernoulliGLM(20, seed=1, device="cuda").generate(T, keep=False)
+    m = SparseBernoulliGLM(20, seed=2, group=4, device="cuda")
+    m.add_data(Y)
+    outs = []
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            st, _ = m._sweep(chain_generators(9, "cuda"), m.state,
+                             tuple(m.datas))
+            assert weights.LAST_SS_PATH == path
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32
+            outs.append(st)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    off, on = outs
+    assert torch.equal(off.A, on.A)
+    assert torch.equal(off.W, on.W) and torch.equal(off.b, on.b)
+
+
 def test_latent_distance_hmc_on_card_matches_cpu(gen):
     """One batched LD resample (C = 2 chains, N = 50) on the card and on
     the CPU with the same injected noise: the same accepts, L and gamma
