@@ -18,13 +18,15 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      (unbiased over 256 seeds), then the NB kernels K4 (gamma-series PG)
      and K5 (CRT counts); at the 8-chain latent-distance ensemble's shapes (P=2001,
      T=20k, 4000 lanes, G=10) K6 (group Gram) at precision "high"
-     (3xTF32), "highest" (fp32 FMA) and "default" (bf16), plus a small
-     ragged shape. K2's and K6's Grams and their plain versions are also
+     (3xTF32), "highest" (fp32 FMA) and "default" (one bf16 pass on wgmma
+     over a bf16 omega stream), plus a small ragged shape. K2's and K6's Grams and their plain versions are also
      held against a float64 Gram of their operands.
   2. Slices, each run with the launch counts set to 0 just before and read
      just after: a ground-truth SparseBernoulliGLM(200, B=4, L=10)
      generates T=100k bins and a fresh model fits them (2 warm-up + 5 timed
-     sweeps), then the same data at precision="highest" (the staged loop
+     sweeps) and one update at "high" with TF32 switched on globally
+     (unchanged: the sweep pins its GEMMs), then the same data at
+     precision="highest" (the staged loop
      with K6's fp32 body, no K2), "default" and "sr" (the fused loop on
      K2's bf16 and SR Grams); the same for SparseNegativeBinomialGLM
      (max_y=16, counts
@@ -33,7 +35,7 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      (latent-distance prior, N=500, T=20k) through fit_ensemble with 8
      lane-stacked chains, a short collect="samples" run and a timed
      collect="mean" run on the staged loop (K6 + K3), and 5 stacked sweeps
-     at precision="default" (K6's bf16 body). Then: the staged and
+     at precision="default" (K6's bf16 wgmma body). Then: the staged and
      the fused loop on one update at the ensemble's width with the same
      noise; small models on the card held against the same models on the
      CPU (Bernoulli at "high", "default" and "sr" and NB on the fused
@@ -649,6 +651,22 @@ def phase_slice(check, record, ctx):
     for name in KERNELS:
         record[name]["launches"] += launches[name]
     ctx["flagship_Y"] = Y
+    # One update at "high" from the same state and generators with TF32
+    # switched on globally (here only): the sweep pins its float32 GEMMs
+    # (utils.fp32_matmul), so A, W and b must be those of TF32 off.
+    from pyglm_tpu_torch.models.ensemble import chain_generators
+    outs = []
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            outs.append(model._sweep(chain_generators(11, "cuda"),
+                                     model.state, tuple(model.datas))[0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(all(torch.equal(getattr(outs[0], k), getattr(outs[1], k))
+              for k in ("A", "W", "b")),
+          "the flagship update at 'high' is unchanged with TF32 switched on "
+          "globally")
     return {"sweeps_per_s": N_TIMED / dt, "generate_s": gen_s}
 
 
@@ -1057,11 +1075,21 @@ def phase_kernel_gram(check, record):
     import torch
     from pyglm_tpu_torch.ops.basis import design_matrix, cosine_basis
     from pyglm_tpu_torch.ops.gram_cuda import (
-        group_gram_blocks_cuda, group_gram_blocks_plain)
+        PAIR_TILE, group_gram_blocks_cuda, group_gram_blocks_plain,
+        wgmma_probe)
     from pyglm_tpu_torch.ops.ss_cuda import pair_index, to_bf16
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(5150)
+    # The "default" body's wgmma layouts on known tiles (small integers, so
+    # every sum is exact).
+    a16 = torch.randint(-3, 4, (64, 64), generator=gen, device=dev).to(
+        torch.bfloat16)
+    b16 = torch.randint(-3, 4, (PAIR_TILE, 64), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    check(torch.equal(wgmma_probe(a16, b16), a16.float().T @ b16.float().T),
+          "wgmma probe (m64n208k16, A lane-major, B K-major, 128-byte "
+          "swizzle) equals torch.mm")
     lanes, GB = C5 * N5, G5 * B
     Ng, npair = N5 // G5, GB * (GB + 1) // 2
     print(f"K6 group_gram: Xt ({N5 * B + 1}, {T5}), omega ({T5}, {lanes}), "

@@ -25,10 +25,14 @@
 //     row or lane skipped, the fp32 accumulators folded every 128 steps
 //     into a second fp32 sum (two-level, so no accumulator sums 2e4 terms).
 //     Bound: 3 x 2 x 3.3e12 FLOP at config 5 over the 495 TFLOP/s TF32 peak.
-//   - "default": group_gram_tc_kernel<kBf16>, the same loop with Z and
-//     omega rounded to bf16 in registers and one bf16 mma.sync per fragment
-//     pair (_gram_kernel_fast rounds both inside the kernel too). Bound: 2 x
-//     3.3e12 FLOP over the 989 TFLOP/s bf16 peak, ~6.7 ms.
+//   - "default": group_gram_wgmma_kernel, one bf16 pass on wgmma
+//     (gram_wgmma.cuh): omega rounded once to a bf16 stream by the caller,
+//     Z = X_p X_q rounded to bf16 as it is formed, a tile of 208 pair rows
+//     x 128 lanes per block (_gram_kernel_fast rounds both operands inside
+//     the kernel). Bound: 2 x 3.3e12 FLOP over the 989 TFLOP/s bf16 peak,
+//     6.63 ms. Its grid runs the (pair tile, group) fastest and the lane
+//     tile slowest, so the ~132 resident blocks share one lane tile's
+//     omega slab in L2.
 //   - "highest": group_gram_kernel, fp32 FMA on the CUDA cores (the JAX
 //     package's "highest" takes its f32 XLA Gram, which sums per 512-step
 //     chunk in a lax.scan). 128 pair rows x 128 lanes over 256 threads, each
@@ -39,13 +43,14 @@
 //     512 steps the registers are folded by Fast2Sum into a second fp32 sum
 //     kept in shared memory (so 2e4 terms are never summed in one fp32
 //     accumulator). Bound: 6.6e12 FLOP over the 67 TFLOP/s fp32 peak.
-// The grid is ~11k-21k blocks at the 8-chain ensemble (Ng = 50, GB = 40,
+// The grid is 6.4k-21k blocks at the 8-chain ensemble (Ng = 50, GB = 40,
 // 4000 lanes, T = 2e4), so there is no split of the time axis. The ragged T
 // edge is masked in the loads (X and omega read as 0 past T).
 
 #include <cuda_runtime.h>
 
 #include "gram_tc.cuh"
+#include "gram_wgmma.cuh"
 
 namespace {
 
@@ -187,8 +192,7 @@ group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
   }
 }
 
-// "high" (kTf32x3) and "default" (kBf16) on the tensor cores, one tile of
-// one group per block.
+// "high" (kTf32x3) on the tensor cores, one tile of one group per block.
 template <int kMode>
 __global__ void __launch_bounds__(gram_tc::kThreads, 2)
 group_gram_tc_kernel(const float* __restrict__ xt, const float* __restrict__ om,
@@ -220,12 +224,70 @@ cudaError_t launch_tc(const float* xt, const float* om, float* out, int T,
   return cudaGetLastError();
 }
 
+// "default": one bf16 pass on wgmma; block (pair tile, group, lane tile).
+__global__ void __launch_bounds__(gram_wgmma::kThreads, 1)
+group_gram_wgmma_kernel(const float* __restrict__ xt,
+                        const uint16_t* __restrict__ om16,
+                        const uint16_t* __restrict__ pq,
+                        float* __restrict__ out, int T, int N, int N8, int GB,
+                        int vec_x) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const int g = blockIdx.y, npair = GB * (GB + 1) / 2;
+  const int row0 = blockIdx.x * gram_wgmma::kNP;
+  gram_wgmma::gram_tile(xt + (size_t)g * GB * T, T, GB, vec_x, om16, N8, N,
+                        0, T, blockIdx.z * gram_wgmma::kLT, pq + row0,
+                        min(gram_wgmma::kNP, npair - row0),
+                        out + ((size_t)g * npair + row0) * N, N, smem_raw);
+}
+
+// One warpgroup, one k-loop of 4 wgmma k-steps through the same layouts,
+// descriptors and accumulator map as gram_tile: d (64, kNP) = a^T b^T for a
+// (64 steps, 64 lanes) and b (kNP rows, 64 steps), bf16, row-major.
+__global__ void __launch_bounds__(128)
+wgmma_probe_kernel(const uint16_t* __restrict__ a,
+                   const uint16_t* __restrict__ b, float* __restrict__ d) {
+  using namespace gram_wgmma;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  uint8_t* as = smem_raw + ((1024u - (raw & 1023u)) & 1023u);
+  uint8_t* bs = as + kOmSlab;
+  const int tid = threadIdx.x;
+  for (int c = tid; c < 64 * 8; c += 128)
+    *reinterpret_cast<uint4*>(as + sw128(c / 8, c % 8)) =
+        *reinterpret_cast<const uint4*>(a + c * 8);
+  for (int c = tid; c < kNP * 8; c += 128)
+    *reinterpret_cast<uint4*>(bs + sw128(c / 8, c % 8)) =
+        *reinterpret_cast<const uint4*>(b + c * 8);
+  fence_proxy_async();
+  __syncthreads();
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
+  const uint32_t as_a = (uint32_t)__cvta_generic_to_shared(as);
+  const uint32_t bs_a = (uint32_t)__cvta_generic_to_shared(bs);
+  fence_acc(acc);
+  mma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKS / 16; ++kk)
+    mma(acc, desc_a(as_a, kk), desc_b(bs_a, kk));
+  mma_commit();
+  mma_wait<0>();
+  fence_acc(acc);
+  const int w = tid / 32, l = tid % 32;
+#pragma unroll
+  for (int j = 0; j < kNP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      d[(16 * w + l / 4 + 8 * (e >> 1)) * kNP + 8 * j + 2 * (l % 4) +
+        (e & 1)] = acc[4 * j + e];
+}
+
 }  // namespace
 
 // xt: (>= Ng GB, T) design rows, group g in rows [g GB, (g + 1) GB);
 // om: (T, N); out: (Ng, GB(GB+1)/2, N), every element written. body: 0 the
-// fp32 FMA body ("highest"), 1 the 3xTF32 body ("high"), 2 the bf16 body
-// ("default").
+// fp32 FMA body ("highest"), 1 the 3xTF32 body ("high"); the bf16 body
+// ("default") is group_gram_bf16_launch.
 extern "C" int group_gram_launch(const float* xt, const float* om, float* out,
                                  int T, int N, int GB, int Ng, int body,
                                  void* stream) {
@@ -246,8 +308,46 @@ extern "C" int group_gram_launch(const float* xt, const float* om, float* out,
     }
     case 1:
       return (int)launch_tc<gram_tc::kTf32x3>(xt, om, out, T, N, GB, Ng, s);
-    case 2:
-      return (int)launch_tc<gram_tc::kBf16>(xt, om, out, T, N, GB, Ng, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The "default" body. xt as above; om16: (T, N8) omega rounded to bf16,
+// N8 = N rounded up to a multiple of 8, lanes past N zero; pq: ntile x kNP
+// pair-table entries p | q << 8 (0xFFFF past the last pair row), row-major
+// over p <= q; out: (Ng, GB(GB+1)/2, N), every element written.
+extern "C" int group_gram_bf16_launch(const float* xt, const void* om16,
+                                      const void* pq, float* out, int T,
+                                      int N, int N8, int GB, int Ng,
+                                      int ntile, void* stream) {
+  using gram_wgmma::kNP;
+  const int npair = GB * (GB + 1) / 2;
+  if (GB < 1 || GB > gram_wgmma::kMaxGB || T < 1 || N < 1 || N8 < N ||
+      N8 % 8 != 0 || (size_t)om16 % 16 != 0 || Ng < 1 || Ng > 65535 ||
+      ntile < 1 || (ntile - 1) * kNP >= npair || ntile * kNP < npair ||
+      (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT > 65535)
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      group_gram_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gram_wgmma::smem_bytes(gram_wgmma::kMaxGB));
+  if (attr != cudaSuccess) return (int)attr;
+  const int vec_x = T % 4 == 0 && (size_t)xt % 16 == 0;
+  dim3 grid(ntile, Ng, (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT);
+  group_gram_wgmma_kernel<<<grid, gram_wgmma::kThreads,
+                            gram_wgmma::smem_bytes(GB),
+                            (cudaStream_t)stream>>>(
+      xt, (const uint16_t*)om16, (const uint16_t*)pq, out, T, N, N8, GB,
+      vec_x);
+  return (int)cudaGetLastError();
+}
+
+// The wgmma layout probe: d (64, 208) fp32 = a^T b^T, a (64, 64) and b
+// (208, 64) bf16, row-major.
+extern "C" int wgmma_probe_launch(const void* a, const void* b, float* d,
+                                  void* stream) {
+  wgmma_probe_kernel<<<1, 128,
+                       1024 + gram_wgmma::kOmSlab + gram_wgmma::kZBuf,
+                       (cudaStream_t)stream>>>(
+      (const uint16_t*)a, (const uint16_t*)b, d);
+  return (int)cudaGetLastError();
 }

@@ -6,8 +6,9 @@ with both its bodies, which the JAX package's staged spike-and-slab path
 runs once per sweep before its group loop: ``_gram_kernel_f32`` (bf16x3 on
 the TPU) at precision "high" and "sr", ``_gram_kernel_fast`` (one bf16
 pass) at "default". The kernel's bodies: "high" 3xTF32 on the tensor cores,
-"default" one bf16 pass on the tensor cores (Z and omega rounded to nearest
-even), "highest" (where the JAX package takes its f32 XLA Gram) fp32 FMA.
+"default" one bf16 pass on wgmma (omega rounded once to a bf16 stream, Z
+rounded to nearest even as it is formed, tiles of 208 pair rows), "highest"
+(where the JAX package takes its f32 XLA Gram) fp32 FMA.
 
 Layouts (float32, contiguous):
   Xt    (P, T)    transposed design; group g is rows [g GB, (g + 1) GB)
@@ -20,6 +21,8 @@ the kernel, CPU tensors take :func:`group_gram_blocks_plain`.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from pyglm_tpu_torch.ops import _build
@@ -27,8 +30,12 @@ from pyglm_tpu_torch.ops.ss_cuda import (
     _MAX_GB, _check_cuda_f32, pair_index, to_bf16,
 )
 
-# K6's bodies (csrc/group_gram.cu::group_gram_launch) and their counters.
-_BODIES = {"highest": 0, "high": 1, "default": 2}
+# K6's bodies (csrc/group_gram.cu: group_gram_launch's "highest" 0 and
+# "high" 1, group_gram_bf16_launch) and their counters.
+_BODIES = {"highest": 0, "high": 1, "default": None}
+# Pair rows per tile of the "default" body (csrc/gram_wgmma.cuh kNP).
+PAIR_TILE = 208
+_NO_PAIR = -1                      # 0xFFFF as int16: a row past the last pair
 _K6_KEYS = {"highest": "group_gram", "high": "group_gram",
             "default": "group_gram_bf16"}
 
@@ -45,6 +52,39 @@ def _check_body(precision: str) -> None:
     if precision not in _BODIES:
         raise ValueError(f"group_gram: precision={precision!r}, one of "
                          f"{tuple(_BODIES)}")
+
+
+def pair_tile_plan(GB: int, device=None) -> torch.Tensor:
+    """The pair table of the "default" body: the packed pair rows of a
+    group of GB design rows (``pair_index``, row-major over p <= q) in
+    tiles of PAIR_TILE rows, as int16 entries p | q << 8, the last tile
+    padded with -1 (no pair). Shape (n_tiles * PAIR_TILE,); block x of the
+    kernel's grid takes entries [x PAIR_TILE, (x + 1) PAIR_TILE)."""
+    p, q = pair_index(GB, device)
+    n_tiles = -(-p.numel() // PAIR_TILE)
+    table = torch.full((n_tiles * PAIR_TILE,), _NO_PAIR, dtype=torch.int16,
+                       device=device)
+    table[:p.numel()] = (p | (q << 8)).to(torch.int16)
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_table(GB: int, device: torch.device) -> torch.Tensor:
+    return pair_tile_plan(GB, device)
+
+
+def omega_bf16_stream(omega: torch.Tensor) -> torch.Tensor:
+    """omega rounded once to bf16 (to nearest even, the values of
+    ``to_bf16``), as the (T, N8) torch.bfloat16 operand of the "default"
+    body: N8 = N rounded up to a multiple of 8, the pad lanes zero, so that
+    every row starts on a 16-byte boundary."""
+    T, N = omega.shape
+    N8 = -(-N // 8) * 8
+    if N8 == N:
+        return omega.to(torch.bfloat16).contiguous()
+    out = omega.new_zeros((T, N8), dtype=torch.bfloat16)
+    out[:, :N] = omega
+    return out
 
 
 def group_gram_blocks_plain(Xt, omega, B: int, G: int,
@@ -69,7 +109,8 @@ def group_gram_blocks_cuda(Xt, omega, B: int, G: int,
                            precision: str = "highest") -> torch.Tensor:
     """K6 on the card; same contract as :func:`group_gram_blocks_plain`.
     ``precision="high"`` runs the 3xTF32 tensor-core body, "default" the
-    bf16 tensor-core body, "highest" the fp32 FMA body."""
+    bf16 wgmma body (on :func:`omega_bf16_stream`, made here), "highest"
+    the fp32 FMA body."""
     _check_body(precision)
     T, N = omega.shape
     Ng, GB = _n_groups(Xt, B, G), G * B
@@ -81,9 +122,39 @@ def group_gram_blocks_cuda(Xt, omega, B: int, G: int,
                       device=omega.device)
     lib = _build.library()
     with torch.cuda.device(omega.device):
-        err = lib.group_gram_launch(
-            Xt.data_ptr(), omega.data_ptr(), out.data_ptr(), T, N, GB, Ng,
-            _BODIES[precision], torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if precision == "default":
+            om16 = omega_bf16_stream(omega)
+            pq = _pair_table(GB, omega.device)
+            err = lib.group_gram_bf16_launch(
+                Xt.data_ptr(), om16.data_ptr(), pq.data_ptr(),
+                out.data_ptr(), T, N, om16.shape[1], GB, Ng,
+                pq.numel() // PAIR_TILE, stream)
+        else:
+            err = lib.group_gram_launch(
+                Xt.data_ptr(), omega.data_ptr(), out.data_ptr(), T, N, GB,
+                Ng, _BODIES[precision], stream)
     _build.check(err, "group_gram")
     _build.LAUNCHES[_K6_KEYS[precision]] += 1
     return out
+
+
+def wgmma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One warpgroup's k-loop (4 wgmma k-steps) through the "default"
+    body's shared-memory layouts, descriptors and accumulator map: a (64
+    steps, 64 lanes) and b (PAIR_TILE rows, 64 steps), contiguous bf16 on
+    the card; returns a^T b^T, (64, PAIR_TILE) float32. A check of the
+    tile machinery on known tiles, not a kernel of any path."""
+    if (a.shape != (64, 64) or b.shape != (PAIR_TILE, 64)
+            or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or not (a.is_cuda and b.is_cuda and a.is_contiguous()
+                    and b.is_contiguous())):
+        raise ValueError("wgmma_probe: need contiguous bf16 CUDA tensors "
+                         f"(64, 64) and ({PAIR_TILE}, 64)")
+    d = torch.empty((64, PAIR_TILE), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _build.library().wgmma_probe_launch(
+            a.data_ptr(), b.data_ptr(), d.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "wgmma_probe")
+    return d

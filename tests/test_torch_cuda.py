@@ -412,14 +412,20 @@ def test_binomial_sweep_on_card_dispatch(gen, n_trials, kernel):
 @pytest.mark.parametrize("precision", ["high", "highest", "default"])
 @pytest.mark.parametrize("T,N_pre,B,G,lanes", [(3001, 12, 4, 3, 70),
                                                (20_000, 20, 4, 10, 300),
-                                               (2000, 14, 4, 7, 130)])
+                                               (2000, 14, 4, 7, 130),
+                                               (2000, 32, 4, 16, 300),
+                                               (1000, 3, 4, 1, 200),
+                                               (40, 12, 4, 3, 130),
+                                               (3001, 8, 4, 4, 4001)])
 def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
                                          precision):
-    """K6 (3xTF32 at "high", fp32 FMA at "highest", one bf16 pass at
-    "default") against its plain version: a ragged T with GB = 12, the
-    ensemble's GB = 40 over three lane tiles, and GB = 28 (not a multiple
-    of 8) over two. The design holds continuous values, so the bf16
-    rounding of Z shows."""
+    """K6 (3xTF32 at "high", fp32 FMA at "highest", one bf16 pass on wgmma
+    at "default") against its plain version: a ragged T with GB = 12, the
+    ensemble's GB = 40 over three lane tiles, GB = 28 (not a multiple of
+    8) over two; GB = 64 (2080 pairs, ten pair tiles of the "default"
+    body), GB = 4 (one partial tile), T = 40 (less than one 64-step
+    stage), and 4001 lanes (ragged against both 8 and 128). The design
+    holds continuous values, so the bf16 rounding of Z shows."""
     Xt = torch.rand((N_pre * B + 1, T), generator=gen, device="cuda") * (
         torch.rand((N_pre * B + 1, T), generator=gen, device="cuda") < 0.3)
     om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")
@@ -432,6 +438,21 @@ def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
                                                  precision=precision))
     with pytest.raises(ValueError):
         group_gram_blocks_cuda(Xt, om.double(), B, G, precision=precision)
+
+
+def test_wgmma_probe_matches_torch_mm(gen):
+    """The "default" body's wgmma tile machinery on known tiles: one
+    warpgroup, 4 k-steps of m64n208k16 on a lane-major (transposed) A and
+    a K-major B in the 128-byte-swizzled layouts, against torch.mm. Small
+    integers make every sum exact, so the result must be equal."""
+    from pyglm_tpu_torch.ops.gram_cuda import PAIR_TILE, wgmma_probe
+    for _ in range(3):
+        a = torch.randint(-3, 4, (64, 64), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        b = torch.randint(-3, 4, (PAIR_TILE, 64), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        d = wgmma_probe(a, b)
+        assert torch.equal(d, a.float().T @ b.float().T)
 
 
 def test_group_gram_error_against_float64(gen):
