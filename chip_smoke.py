@@ -1088,7 +1088,7 @@ def phase_kernel_gram(check, record):
     b16 = torch.randint(-3, 4, (PAIR_TILE, 64), generator=gen,
                         device=dev).to(torch.bfloat16)
     check(torch.equal(wgmma_probe(a16, b16), a16.float().T @ b16.float().T),
-          "wgmma probe (m64n208k16, A lane-major, B K-major, 128-byte "
+          "wgmma probe (m64n168k16, A lane-major, B K-major, 128-byte "
           "swizzle) equals torch.mm")
     lanes, GB = C5 * N5, G5 * B
     Ng, npair = N5 // G5, GB * (GB + 1) // 2

@@ -18,29 +18,35 @@
 // What the design does about reuse and traffic:
 //   - Orientation: the lanes are wgmma's M (64 per warpgroup, two
 //     warpgroups per block) and the pair rows its N, so one omega tile
-//     feeds a whole pair tile of kNP = 208 rows: GB = 40's 820 pairs are 4
-//     tiles (13 of 64 rows in the mma.sync loop), GB = 64's 2080 exactly 10.
+//     feeds a whole pair tile of kNP = 168 rows: GB = 40's 820 pairs are 5
+//     tiles (840 rows, 2.4% padding; 13 tiles of 64 in the mma.sync loop).
 //     A (omega) is read lane-major (wgmma's transpose bit), B (Z) K-major.
+//     kNP = 168 keeps the two fp32 sums (2 x 84 registers per thread) and
+//     the rest under the 255-register limit without spills at one block
+//     per SM; 208 (4 tiles) spilled 692 bytes and ran 16% slower.
 //   - omega streams as bf16 (half the bytes of the fp32 stream), by
 //     cp.async 16-byte copies into the 128-byte-swizzled layout the wgmma
 //     descriptor names, in a ring of kStages stages of kKS = 64 steps; the
 //     design rows stream as fp32 (Z needs the fp32 products), 16-byte
 //     copies where rows are 16-byte aligned, 4-byte copies otherwise; both
 //     zero-filled past T and past the last lane.
-//   - Z = X_p X_q is formed by the whole block, one 16-byte chunk (8 steps
-//     of one pair row) per thread and pass, straight into the swizzled
-//     K-major B tile, while the tensor cores run the previous stage's
-//     products (wgmma is asynchronous): double-buffered, one __syncthreads
-//     per stage.
+//   - Z = X_p X_q is formed by the whole block straight into the swizzled
+//     K-major B tile, double-buffered, while the tensor cores run this
+//     stage's products (wgmma is asynchronous). Each thread forms one
+//     16-byte chunk (8 steps) of a run of consecutive pair rows, which
+//     mostly share p: X_p's chunk stays in registers and only X_q is read
+//     from shared memory per row (the build, not the tensor cores, set the
+//     pace of a first body that read both per chunk). The barrier of a
+//     stage and the next copies are issued while the products run; the
+//     products are waited for only before the fold.
 //   - The caller orders its grid so that the blocks resident together
 //     share one lane tile's omega slab (5 MB at T = 2e4, which L2 holds):
 //     omega leaves HBM about once, and L2 sends each SM ~0.3 of the bytes
 //     per product of the 64-row mma.sync tile.
 //   - The tensor cores truncate as they accumulate, so the fp32
 //     accumulators are folded every kFold stages (128 steps) into a second
-//     fp32 sum by Fast2Sum, as in gram_tc.cuh: 2 x 104 accumulator
-//     registers per thread. No split of T and no atomics: results repeat
-//     bit for bit.
+//     fp32 sum by Fast2Sum, as in gram_tc.cuh. No split of T and no
+//     atomics: results repeat bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,15 +54,17 @@
 
 namespace gram_wgmma {
 
-constexpr int kNP = 208;        // pair rows per tile: wgmma's N
+constexpr int kNP = 168;        // pair rows per tile: wgmma's N
 constexpr int kLT = 128;        // lanes per tile: 2 warpgroups x wgmma's M
 constexpr int kKS = 64;         // time steps per stage: one 128-byte line
-constexpr int kStages = 4;      // ring depth: stages s + 1 .. s + 3 in flight
+constexpr int kStages = 5;      // ring depth: stages s + 1 .. s + 4 in flight
 constexpr int kThreads = 256;
 constexpr int kFold = 2;        // stages per fold (128 steps)
 constexpr int kMaxGB = 64;
 constexpr int kAcc = kNP / 2;   // fp32 accumulators per thread (64 x kNP / 128)
 constexpr uint16_t kNoPair = 0xFFFF;   // pair-table entry past the last row
+// Z rows per thread group of 8 (one chunk each) in the build.
+constexpr int kZRows = (kNP + kThreads / 8 - 1) / (kThreads / 8);
 
 // Shared memory, in bytes; the omega and Z tiles sit on 1024-byte
 // boundaries (the period of the 128-byte swizzle).
@@ -67,8 +75,7 @@ __host__ __device__ constexpr int x_stage_bytes(int GB) {
   return GB * kKS * 4;
 }
 __host__ __device__ constexpr int smem_bytes(int GB) {
-  return 1024 + kStages * kOmStage + 2 * kZBuf + kStages * x_stage_bytes(GB) +
-         kNP * 2;
+  return 1024 + kStages * kOmStage + 2 * kZBuf + kStages * x_stage_bytes(GB);
 }
 
 // Byte offset of 16-byte chunk c (0..7) of 128-byte line r in a tile laid
@@ -127,26 +134,25 @@ __device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
 #define GW_R16(i) GW_R4(i), GW_R4(i + 4), GW_R4(i + 8), GW_R4(i + 12)
 
 // d += A^T B for one k-step: A a 16 x 64 lane-major omega tile (transposed
-// by the hardware), B a 16-step x 208-row K-major Z tile; d is the 64 x 208
+// by the hardware), B a 16-step x 168-row K-major Z tile; d is the 64 x 168
 // fp32 accumulator of the warpgroup. Thread (warp w, lane l) holds rows
 // 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1): d[4 j + e] at row
 // + 8 (e / 2), column + (e % 2).
 __device__ __forceinline__ void mma(float (&d)[kAcc], uint64_t da,
                                     uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %106, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %86, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n168k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
       "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
       "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
       "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "
       "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
-      "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, "
-      "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103}, "
-      "%104, %105, p, 1, 1, 1, 0;\n}\n"
+      "%78, %79, %80, %81, %82, %83}, "
+      "%84, %85, p, 1, 1, 1, 0;\n}\n"
       : GW_R16(0), GW_R16(16), GW_R16(32), GW_R16(48), GW_R16(64),
-        GW_R16(80), GW_R4(96), GW_R4(100)
+        GW_R4(80)
       : "l"(da), "l"(db), "r"(1));
 }
 
@@ -180,35 +186,20 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return d;
 }
 
-// 16-byte chunk c (steps 8 c .. 8 c + 7) of pair row n of Z, from the
-// stage's design rows xs (kKS floats per row): X_p X_q in fp32, rounded to
-// bf16, stored into the swizzled K-major tile zb. e = p | q << 8, or
-// kNoPair for a row past the last pair (stored as 0). Chunks 4..7 load
-// their upper half first, so the 8 threads of a quarter warp (one row, c =
-// 0..7) read distinct banks.
-__device__ __forceinline__ void z_chunk(const float* xs, uint8_t* zb, int n,
-                                       int c, uint16_t e) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (e != kNoPair) {
-    const int h0 = (c & 4) ? 4 : 0, h1 = 4 - h0;
-    const float* xp = xs + (e & 0xFF) * kKS + 8 * c;
-    const float* xq = xs + (e >> 8) * kKS + 8 * c;
-    const float4 p0 = *reinterpret_cast<const float4*>(xp + h0);
-    const float4 q0 = *reinterpret_cast<const float4*>(xq + h0);
-    const float4 p1 = *reinterpret_cast<const float4*>(xp + h1);
-    const float4 q1 = *reinterpret_cast<const float4*>(xq + h1);
-    const float4 lo = h0 == 0 ? p0 : p1, lq = h0 == 0 ? q0 : q1;
-    const float4 hi = h0 == 0 ? p1 : p0, hq = h0 == 0 ? q1 : q0;
-    v = make_uint4(bf16x2(lo.x * lq.x, lo.y * lq.y),
-                   bf16x2(lo.z * lq.z, lo.w * lq.w),
-                   bf16x2(hi.x * hq.x, hi.y * hq.y),
-                   bf16x2(hi.z * hq.z, hi.w * hq.w));
-  }
-  *reinterpret_cast<uint4*>(zb + sw128(n, c)) = v;
+// The 8 floats at row + 0 .. 7 (16-byte aligned) as (lo, hi). h0 = 4 loads
+// the upper half first: the 8 threads of a quarter warp reading chunks c =
+// 0..7 of one design row (h0 = 4 for c >= 4) then hit distinct banks.
+__device__ __forceinline__ void load8(const float* row, int h0, float4& lo,
+                                      float4& hi) {
+  const float4 u = *reinterpret_cast<const float4*>(row + h0);
+  const float4 w = *reinterpret_cast<const float4*>(row + (4 - h0));
+  lo = h0 ? w : u;
+  hi = h0 ? u : w;
 }
 
 // One block tile (kThreads threads): C[pr, n] for the tile's pair rows
-// (pq: kNP entries p | q << 8, kNoPair past the last row; npr valid rows)
+// (pq: kNP entries p | q << 8, row-major over p <= q, kNoPair past the last
+// row; npr valid rows)
 // and lanes n in [lane0, lane0 + kLT), over t in [t_begin, t_end).
 //   x: the group's GB design rows (fp32), row stride ldx; vec_x: rows and
 //      base 16-byte aligned and t_begin a multiple of 4.
@@ -226,13 +217,22 @@ __device__ __forceinline__ void gram_tile(
   uint8_t* oms = smem;                                // [kStages][2][64][128B]
   uint8_t* zs = oms + kStages * kOmStage;             // [2][kNP][128B]
   float* xs = reinterpret_cast<float*>(zs + 2 * kZBuf);   // [kStages][GB][kKS]
-  uint16_t* pqs = reinterpret_cast<uint16_t*>(xs + kStages * GB * kKS);
   const uint32_t oms_a = (uint32_t)__cvta_generic_to_shared(oms);
   const uint32_t zs_a = (uint32_t)__cvta_generic_to_shared(zs);
   const int tid = threadIdx.x, wg = tid / 128;
   const int nst = t_end > t_begin ? (t_end - t_begin + kKS - 1) / kKS : 0;
 
-  for (int i = tid; i < kNP; i += kThreads) pqs[i] = pq[i];
+  // Z build: thread (zg, zc) forms chunk zc (steps 8 zc .. 8 zc + 7) of
+  // the pair rows zg kZRows .. zg kZRows + kZRows - 1, walking (p, q) in
+  // the packed order from the row's table entry.
+  const int zc = tid % 8, zg = tid / 8, zn0 = zg * kZRows;
+  const int zh0 = (zc & 4) ? 4 : 0;
+  int zp0 = 0, zq0 = 0;
+  if (zn0 < npr) {
+    const uint16_t e = pq[zn0];
+    zp0 = e & 0xFF;
+    zq0 = e >> 8;
+  }
 
   auto load_stage = [&](int s) {
     const int t0 = t_begin + s * kKS, slot = s % kStages;
@@ -263,12 +263,29 @@ __device__ __forceinline__ void gram_tile(
   };
 
   auto build_z = [&](int s) {
-    const float* xsrc = xs + (s % kStages) * GB * kKS;
+    const float* xsrc = xs + (s % kStages) * GB * kKS + 8 * zc;
     uint8_t* zb = zs + (s & 1) * kZBuf;
+    int p = zp0, q = zq0, pc = -1;
+    float4 a0, a1;
 #pragma unroll
-    for (int j = 0; j < (kNP * 8 + kThreads - 1) / kThreads; ++j) {
-      const int c = tid + kThreads * j;
-      if (c < kNP * 8) z_chunk(xsrc, zb, c / 8, c % 8, pqs[c / 8]);
+    for (int i = 0; i < kZRows; ++i) {
+      const int n = zn0 + i;
+      if (n >= kNP) break;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (n < npr) {
+        if (p != pc) {
+          load8(xsrc + p * kKS, zh0, a0, a1);
+          pc = p;
+        }
+        float4 b0, b1;
+        load8(xsrc + q * kKS, zh0, b0, b1);
+        v = make_uint4(bf16x2(a0.x * b0.x, a0.y * b0.y),
+                       bf16x2(a0.z * b0.z, a0.w * b0.w),
+                       bf16x2(a1.x * b1.x, a1.y * b1.y),
+                       bf16x2(a1.z * b1.z, a1.w * b1.w));
+        if (++q == GB) q = ++p;
+      }
+      *reinterpret_cast<uint4*>(zb + sw128(n, zc)) = v;
     }
   };
 
@@ -276,14 +293,14 @@ __device__ __forceinline__ void gram_tile(
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = sum[i] = 0.0f;
 
-  // Prologue: stages 0 .. kStages - 1 in flight; Z of stage 0 formed once
+  // Prologue: stages 0 .. kStages - 2 in flight; Z of stage 0 formed once
   // stages 0 and 1 have landed.
 #pragma unroll
-  for (int s = 0; s < kStages; ++s) {
+  for (int s = 0; s < kStages - 1; ++s) {
     if (s < nst) load_stage(s);
     cp_async_commit();
   }
-  cp_async_wait<kStages - 2>();
+  cp_async_wait<kStages - 3>();
   __syncthreads();
   if (nst > 0) build_z(0);
   fence_proxy_async();
@@ -292,7 +309,8 @@ __device__ __forceinline__ void gram_tile(
   const uint32_t slab_a = oms_a + wg * kOmSlab;
   for (int s = 0; s < nst; ++s) {
     // Z of stage s is formed, omega of stage s and the design rows of
-    // stage s + 1 have landed, all visible to the tensor cores.
+    // stage s + 1 have landed, all visible to the tensor cores; the
+    // products of stage s - 1 are done.
     const uint32_t a = slab_a + (s % kStages) * kOmStage;
     const uint32_t b = zs_a + (s & 1) * kZBuf;
     fence_acc(acc);
@@ -300,8 +318,16 @@ __device__ __forceinline__ void gram_tile(
 #pragma unroll
     for (int kk = 0; kk < kKS / 16; ++kk) mma(acc, desc_a(a, kk), desc_b(b, kk));
     mma_commit();
-    // Z of the next stage while the tensor cores run this one's products.
+    // While the tensor cores run stage s: Z of stage s + 1 (into the
+    // buffer stage s - 1 read), then stage s + 2 landed (this thread's
+    // copies), the barrier, and the copies of stage s + kStages - 1 into
+    // the slot of stage s - 1.
     if (s + 1 < nst) build_z(s + 1);
+    cp_async_wait<kStages - 4>();
+    fence_proxy_async();
+    __syncthreads();
+    if (s + kStages - 1 < nst) load_stage(s + kStages - 1);
+    cp_async_commit();
     mma_wait<0>();
     fence_acc(acc);
     if ((s + 1) % kFold == 0) {
@@ -315,13 +341,6 @@ __device__ __forceinline__ void gram_tile(
         acc[i] = v - (t - u);
       }
     }
-    // Stage s + 2 has landed (this thread's copies); every warp is done
-    // with omega of stage s and the design rows of stage s + 1.
-    cp_async_wait<kStages - 3>();
-    fence_proxy_async();
-    __syncthreads();
-    if (s + kStages < nst) load_stage(s + kStages);
-    cp_async_commit();
   }
   cp_async_wait<0>();
 

@@ -27,7 +27,7 @@
 //     Bound: 3 x 2 x 3.3e12 FLOP at config 5 over the 495 TFLOP/s TF32 peak.
 //   - "default": group_gram_wgmma_kernel, one bf16 pass on wgmma
 //     (gram_wgmma.cuh): omega rounded once to a bf16 stream by the caller,
-//     Z = X_p X_q rounded to bf16 as it is formed, a tile of 208 pair rows
+//     Z = X_p X_q rounded to bf16 as it is formed, a tile of 168 pair rows
 //     x 128 lanes per block (_gram_kernel_fast rounds both operands inside
 //     the kernel). Bound: 2 x 3.3e12 FLOP over the 989 TFLOP/s bf16 peak,
 //     6.63 ms. Its grid runs the (pair tile, group) fastest and the lane
@@ -341,8 +341,8 @@ extern "C" int group_gram_bf16_launch(const float* xt, const void* om16,
   return (int)cudaGetLastError();
 }
 
-// The wgmma layout probe: d (64, 208) fp32 = a^T b^T, a (64, 64) and b
-// (208, 64) bf16, row-major.
+// The wgmma layout probe: d (64, 168) fp32 = a^T b^T, a (64, 64) and b
+// (168, 64) bf16, row-major.
 extern "C" int wgmma_probe_launch(const void* a, const void* b, float* d,
                                   void* stream) {
   wgmma_probe_kernel<<<1, 128,

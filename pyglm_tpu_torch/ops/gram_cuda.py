@@ -7,7 +7,7 @@ runs once per sweep before its group loop: ``_gram_kernel_f32`` (bf16x3 on
 the TPU) at precision "high" and "sr", ``_gram_kernel_fast`` (one bf16
 pass) at "default". The kernel's bodies: "high" 3xTF32 on the tensor cores,
 "default" one bf16 pass on wgmma (omega rounded once to a bf16 stream, Z
-rounded to nearest even as it is formed, tiles of 208 pair rows), "highest"
+rounded to nearest even as it is formed, tiles of 168 pair rows), "highest"
 (where the JAX package takes its f32 XLA Gram) fp32 FMA.
 
 Layouts (float32, contiguous):
@@ -34,7 +34,7 @@ from pyglm_tpu_torch.ops.ss_cuda import (
 # "high" 1, group_gram_bf16_launch) and their counters.
 _BODIES = {"highest": 0, "high": 1, "default": None}
 # Pair rows per tile of the "default" body (csrc/gram_wgmma.cuh kNP).
-PAIR_TILE = 208
+PAIR_TILE = 168
 _NO_PAIR = -1                      # 0xFFFF as int16: a row past the last pair
 _K6_KEYS = {"highest": "group_gram", "high": "group_gram",
             "default": "group_gram_bf16"}

@@ -422,7 +422,7 @@ def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
     """K6 (3xTF32 at "high", fp32 FMA at "highest", one bf16 pass on wgmma
     at "default") against its plain version: a ragged T with GB = 12, the
     ensemble's GB = 40 over three lane tiles, GB = 28 (not a multiple of
-    8) over two; GB = 64 (2080 pairs, ten pair tiles of the "default"
+    8) over two; GB = 64 (2080 pairs, 13 pair tiles of the "default"
     body), GB = 4 (one partial tile), T = 40 (less than one 64-step
     stage), and 4001 lanes (ragged against both 8 and 128). The design
     holds continuous values, so the bf16 rounding of Z shows."""
@@ -442,7 +442,7 @@ def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
 
 def test_wgmma_probe_matches_torch_mm(gen):
     """The "default" body's wgmma tile machinery on known tiles: one
-    warpgroup, 4 k-steps of m64n208k16 on a lane-major (transposed) A and
+    warpgroup, 4 k-steps of m64n168k16 on a lane-major (transposed) A and
     a K-major B in the 128-byte-swizzled layouts, against torch.mm. Small
     integers make every sum exact, so the result must be equal."""
     from pyglm_tpu_torch.ops.gram_cuda import PAIR_TILE, wgmma_probe
