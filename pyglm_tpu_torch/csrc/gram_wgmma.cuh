@@ -44,9 +44,11 @@
 //     omega leaves HBM about once, and L2 sends each SM ~0.3 of the bytes
 //     per product of the 64-row mma.sync tile.
 //   - The tensor cores truncate as they accumulate, so the fp32
-//     accumulators are folded every kFold stages (128 steps) into a second
-//     fp32 sum by Fast2Sum, as in gram_tc.cuh. No split of T and no
-//     atomics: results repeat bit for bit.
+//     accumulators are folded every kFold stages (256 steps) into a second
+//     fp32 sum by Fast2Sum, as in gram_tc.cuh: 3.0e-7 from a float64 Gram
+//     at config 5 (1.8e-7 folded every 128 steps, 6% slower; the plain
+//     version 5.7e-7). No split of T and no atomics: results repeat bit for
+//     bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,7 +61,7 @@ constexpr int kLT = 128;        // lanes per tile: 2 warpgroups x wgmma's M
 constexpr int kKS = 64;         // time steps per stage: one 128-byte line
 constexpr int kStages = 5;      // ring depth: stages s + 1 .. s + 4 in flight
 constexpr int kThreads = 256;
-constexpr int kFold = 2;        // stages per fold (128 steps)
+constexpr int kFold = 4;        // stages per fold (256 steps)
 constexpr int kMaxGB = 64;
 constexpr int kAcc = kNP / 2;   // fp32 accumulators per thread (64 x kNP / 128)
 constexpr uint16_t kNoPair = 0xFFFF;   // pair-table entry past the last row
@@ -267,7 +269,7 @@ __device__ __forceinline__ void gram_tile(
     uint8_t* zb = zs + (s & 1) * kZBuf;
     int p = zp0, q = zq0, pc = -1;
     float4 a0, a1;
-#pragma unroll
+#pragma unroll 1
     for (int i = 0; i < kZRows; ++i) {
       const int n = zn0 + i;
       if (n >= kNP) break;
