@@ -2,7 +2,7 @@
 // one thread block computes, for one tile of packed pair rows and 128
 // postsyn lanes,
 //
-//   C[pr, n] = sum_{0 <= t < T} bf16(X[p, t] X[q, t]) bf16(om[t, n])
+//   C[pr, n] = sum_{t_begin <= t < t_end} bf16(X[p, t] X[q, t]) bf16(om[t, n])
 //
 // over the pair rows pr -> (p, q) of a group's GB design rows: the product
 // formed in fp32 from the fp32 design and rounded to nearest even, omega
@@ -18,34 +18,31 @@
 // What the design does about reuse and traffic:
 //   - Orientation: the lanes are wgmma's M (64 per warpgroup, two
 //     warpgroups per block) and the pair rows its N, so one omega tile
-//     feeds a whole pair tile of up to kNP = 168 rows (13 tiles of 64 in
-//     the mma.sync loop at GB = 40). A (omega) is read lane-major (wgmma's
-//     transpose bit), B (Z) K-major. kNP = 168 keeps the two fp32 sums (2 x
-//     84 registers per thread) and the rest near the 255-register limit at
-//     one block per SM; 208 spilled 692 bytes and ran 16% slower.
-//   - A cluster of kCluster = 2 blocks takes two pair tiles of one group at
-//     one lane tile: each block asks the TMA for half of every stage (one
-//     64-lane omega slab, half the design rows) and the copy lands in both
-//     blocks' shared memory (multicast), so each block draws half the bytes
-//     of a stage from L2. Stages of kKS = 64 steps sit in a ring of kStages,
-//     each with a "full" mbarrier (the copies' bytes) and an "empty" one
-//     (both blocks done with it). The group's pairs are split into an even
-//     number of tiles of equal size (6 of ~137 rows at GB = 40).
-//   - omega streams as bf16 (half the bytes of the fp32 stream) in the
-//     128-byte-swizzled layout the wgmma descriptor names; the design rows
-//     stream as fp32 (Z needs the fp32 products). The TMA fills zeros past
-//     T and past the last lane.
+//     feeds a whole pair tile of kNP = 168 rows: GB = 40's 820 pairs are 5
+//     tiles (840 rows, 2.4% padding; 13 tiles of 64 in the mma.sync loop).
+//     A (omega) is read lane-major (wgmma's transpose bit), B (Z) K-major.
+//     kNP = 168 keeps the two fp32 sums (2 x 84 registers per thread) and
+//     the rest under the 255-register limit without spills at one block
+//     per SM; 208 (4 tiles) spilled 692 bytes and ran 16% slower.
+//   - omega streams as bf16 (half the bytes of the fp32 stream), by
+//     cp.async 16-byte copies into the 128-byte-swizzled layout the wgmma
+//     descriptor names, in a ring of kStages stages of kKS = 64 steps; the
+//     design rows stream as fp32 (Z needs the fp32 products), 16-byte
+//     copies where rows are 16-byte aligned, 4-byte copies otherwise; both
+//     zero-filled past T and past the last lane.
 //   - Z = X_p X_q is formed by the whole block straight into the swizzled
 //     K-major B tile, double-buffered, while the tensor cores run this
 //     stage's products (wgmma is asynchronous). Each thread forms one
 //     16-byte chunk (8 steps) of a run of consecutive pair rows, which
 //     mostly share p: X_p's chunk stays in registers and only X_q is read
-//     from shared memory per row. The barrier of a stage and the next
-//     copies are issued while the products run; the products are waited
-//     for only before the fold.
+//     from shared memory per row (the build, not the tensor cores, set the
+//     pace of a first body that read both per chunk). The barrier of a
+//     stage and the next copies are issued while the products run; the
+//     products are waited for only before the fold.
 //   - The caller orders its grid so that the blocks resident together
 //     share one lane tile's omega slab (5 MB at T = 2e4, which L2 holds):
-//     omega leaves HBM about once.
+//     omega leaves HBM about once, and L2 sends each SM ~0.3 of the bytes
+//     per product of the 64-row mma.sync tile.
 //   - The tensor cores truncate as they accumulate, so the fp32
 //     accumulators are folded every kFold stages (256 steps) into a second
 //     fp32 sum by Fast2Sum, as in gram_tc.cuh: 3.0e-7 from a float64 Gram
@@ -54,7 +51,6 @@
 //     bit.
 #pragma once
 
-#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,7 +61,6 @@ constexpr int kLT = 128;        // lanes per tile: 2 warpgroups x wgmma's M
 constexpr int kKS = 64;         // time steps per stage: one 128-byte line
 constexpr int kStages = 5;      // ring depth: stages s + 1 .. s + 4 in flight
 constexpr int kThreads = 256;
-constexpr int kCluster = 2;     // blocks sharing each stage's copies
 constexpr int kFold = 4;        // stages per fold (256 steps)
 constexpr int kMaxGB = 64;
 constexpr int kAcc = kNP / 2;   // fp32 accumulators per thread (64 x kNP / 128)
@@ -74,7 +69,7 @@ constexpr uint16_t kNoPair = 0xFFFF;   // pair-table entry past the last row
 constexpr int kZRows = (kNP + kThreads / 8 - 1) / (kThreads / 8);
 
 // Shared memory, in bytes; the omega and Z tiles sit on 1024-byte
-// boundaries (the period of the 128-byte swizzle), the barriers last.
+// boundaries (the period of the 128-byte swizzle).
 constexpr int kOmSlab = kKS * 128;            // 64 lanes x 64 steps, bf16
 constexpr int kOmStage = 2 * kOmSlab;         // 128 lanes
 constexpr int kZBuf = kNP * 128;              // kNP rows x 64 steps, bf16
@@ -82,11 +77,8 @@ __host__ __device__ constexpr int x_stage_bytes(int GB) {
   return GB * kKS * 4;
 }
 __host__ __device__ constexpr int smem_bytes(int GB) {
-  return 1024 + kStages * kOmStage + 2 * kZBuf + kStages * x_stage_bytes(GB) +
-         2 * kStages * 8;
+  return 1024 + kStages * kOmStage + 2 * kZBuf + kStages * x_stage_bytes(GB);
 }
-// Design rows the block of cluster rank 0 copies (rank 1 the rest).
-__host__ __device__ constexpr int x_rows0(int GB) { return (GB + 1) / 2; }
 
 // Byte offset of 16-byte chunk c (0..7) of 128-byte line r in a tile laid
 // out with the 128-byte swizzle: chunk c of line r sits at c ^ (r % 8).
@@ -128,8 +120,8 @@ template <int N>
 __device__ __forceinline__ void mma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// Thread writes to shared memory (the Z build) become visible to the
-// tensor cores' reads (the async proxy).
+// Thread writes to shared memory (the Z build, cp.async) become visible to
+// the tensor cores' reads (the async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -169,69 +161,24 @@ __device__ __forceinline__ void mma(float (&d)[kAcc], uint64_t da,
 #undef GW_R16
 #undef GW_R4
 
-// mbarriers, the cluster and the TMA.
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
 }
-// This thread's arrival, and bytes more for the phase to wait for.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
 }
-// Waits for the phase of the given parity to complete.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
-// An arrival on the barrier at the same offset in the block of cluster
-// rank cta (this block's own included).
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    uint32_t cta) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(bar), "r"(cta));
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-          remote)
-      : "memory");
-}
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-// A 2-D box of the tensor map at (c0, c1) (innermost first) into dst of
-// every block of the cluster named in mask, each block's barrier at bar
-// counting its bytes.
-__device__ __forceinline__ void tma_load_multicast(uint32_t dst,
-                                                   const CUtensorMap* map,
-                                                   uint32_t bar, int c0,
-                                                   int c1, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "h"(mask)
-      : "memory");
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // lo and hi rounded to bf16 (to nearest even), packed: lo in the low half.
@@ -252,30 +199,21 @@ __device__ __forceinline__ void load8(const float* row, int h0, float4& lo,
   hi = h0 ? u : w;
 }
 
-// The tensor maps of one launch (built by the host, passed as
-// __grid_constant__ kernel parameters):
-//   om: omega as bf16, dims (ldo lanes, T), box 64 lanes x kKS steps, the
-//       128-byte swizzle; lanes past ldo and steps past T read as zero.
-//   x0, x1: the design rows (fp32), dims (T, rows), boxes kKS steps x
-//       x_rows0(GB) and x GB - x_rows0(GB) rows, no swizzle; steps past T
-//       read as zero.
-struct Maps {
-  const CUtensorMap* om;
-  const CUtensorMap* x0;
-  const CUtensorMap* x1;
-};
-
-// One block tile (kThreads threads, in a cluster of kCluster): C[pr, n]
-// for the tile's pair rows (pq: kNP entries p | q << 8, row-major over
-// p <= q, kNoPair past the last row; npr valid rows) and lanes n in
-// [lane0, lane0 + kLT), over t in [0, T). Both blocks of the cluster take
-// the same design rows (xrow0 .. xrow0 + GB - 1 of the maps) and lanes.
+// One block tile (kThreads threads): C[pr, n] for the tile's pair rows
+// (pq: kNP entries p | q << 8, row-major over p <= q, kNoPair past the last
+// row; npr valid rows)
+// and lanes n in [lane0, lane0 + kLT), over t in [t_begin, t_end).
+//   x: the group's GB design rows (fp32), row stride ldx; vec_x: rows and
+//      base 16-byte aligned and t_begin a multiple of 4.
+//   om: omega as bf16 bits, (T, ldo) with ldo a multiple of 8 and lanes
+//      past N zero (or past ldo, zero-filled here).
 //   out: row pr at out + pr * ldc; lanes >= N are not written.
 //   smem: smem_bytes(GB) bytes of dynamic shared memory.
 __device__ __forceinline__ void gram_tile(
-    const Maps& maps, int xrow0, int GB, int T, int N, int lane0,
-    const uint16_t* __restrict__ pq, int npr, float* __restrict__ out,
-    size_t ldc, uint8_t* smem_raw) {
+    const float* __restrict__ x, int ldx, int GB, bool vec_x,
+    const uint16_t* __restrict__ om, int ldo, int N, int t_begin, int t_end,
+    int lane0, const uint16_t* __restrict__ pq, int npr,
+    float* __restrict__ out, size_t ldc, uint8_t* smem_raw) {
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   uint8_t* smem = smem_raw + ((1024u - (raw & 1023u)) & 1023u);
   uint8_t* oms = smem;                                // [kStages][2][64][128B]
@@ -283,34 +221,8 @@ __device__ __forceinline__ void gram_tile(
   float* xs = reinterpret_cast<float*>(zs + 2 * kZBuf);   // [kStages][GB][kKS]
   const uint32_t oms_a = (uint32_t)__cvta_generic_to_shared(oms);
   const uint32_t zs_a = (uint32_t)__cvta_generic_to_shared(zs);
-  const uint32_t xs_a = (uint32_t)__cvta_generic_to_shared(xs);
-  // full[j], empty[j]: 8 bytes each, after the design rows.
-  const uint32_t full_a = xs_a + kStages * x_stage_bytes(GB);
-  const uint32_t empty_a = full_a + kStages * 8;
   const int tid = threadIdx.x, wg = tid / 128;
-  const uint32_t rank = cluster_rank();
-  const int nst = (T + kKS - 1) / kKS;
-  const int xr0 = x_rows0(GB);
-  const uint32_t stage_tx = kOmStage + x_stage_bytes(GB);
-
-  // Thread 0: this block's half of stage s (omega slab `rank`, its design
-  // rows) into slot s % kStages of both blocks.
-  auto load_stage = [&](int s) {
-    const int slot = s % kStages, t0 = s * kKS;
-    const uint32_t full = full_a + slot * 8;
-    mbar_expect_tx(full, stage_tx);
-    tma_load_multicast(oms_a + slot * kOmStage + rank * kOmSlab, maps.om,
-                       full, lane0 + 64 * rank, t0, 0x3);
-    const uint32_t xd = xs_a + slot * x_stage_bytes(GB);
-    if (rank == 0)
-      tma_load_multicast(xd, maps.x0, full, t0, xrow0, 0x3);
-    else if (GB > xr0)
-      tma_load_multicast(xd + xr0 * kKS * 4, maps.x1, full, t0, xrow0 + xr0,
-                         0x3);
-  };
-  auto wait_full = [&](int s) {
-    mbar_wait(full_a + (s % kStages) * 8, (uint32_t)(s / kStages) & 1u);
-  };
+  const int nst = t_end > t_begin ? (t_end - t_begin + kKS - 1) / kKS : 0;
 
   // Z build: thread (zg, zc) forms chunk zc (steps 8 zc .. 8 zc + 7) of
   // the pair rows zg kZRows .. zg kZRows + kZRows - 1, walking (p, q) in
@@ -323,6 +235,34 @@ __device__ __forceinline__ void gram_tile(
     zp0 = e & 0xFF;
     zq0 = e >> 8;
   }
+
+  auto load_stage = [&](int s) {
+    const int t0 = t_begin + s * kKS, slot = s % kStages;
+    uint8_t* od = oms + slot * kOmStage;
+#pragma unroll
+    for (int j = 0; j < kOmStage / 16 / kThreads; ++j) {
+      const int c = tid + kThreads * j;
+      const int slab = c / 512, k = (c % 512) / 8, ch = c % 8;
+      const int t = t0 + k, n = lane0 + 64 * slab + 8 * ch;
+      const bool ok = t < t_end && n < ldo;
+      cp_async16(od + slab * kOmSlab + sw128(k, ch),
+                 ok ? om + (size_t)t * ldo + n : om, ok);
+    }
+    float* xd = xs + slot * GB * kKS;
+    if (vec_x) {
+      for (int c = tid; c < GB * kKS / 4; c += kThreads) {
+        const int r = c / (kKS / 4), k = (c % (kKS / 4)) * 4, t = t0 + k;
+        const bool ok = t < t_end;
+        cp_async16(xd + r * kKS + k, ok ? x + (size_t)r * ldx + t : x, ok);
+      }
+    } else {
+      for (int e = tid; e < GB * kKS; e += kThreads) {
+        const int r = e / kKS, t = t0 + e % kKS;
+        const bool ok = t < t_end;
+        cp_async4(xd + e, ok ? x + (size_t)r * ldx + t : x, ok);
+      }
+    }
+  };
 
   auto build_z = [&](int s) {
     const float* xsrc = xs + (s % kStages) * GB * kKS + 8 * zc;
@@ -355,24 +295,16 @@ __device__ __forceinline__ void gram_tile(
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = sum[i] = 0.0f;
 
-  // The barriers of both blocks exist before any copy or arrival reaches
-  // them; then stages 0 .. kStages - 2 in flight, and Z of stage 0 formed
-  // once stages 0 and 1 have landed.
-  if (tid == 0) {
-    for (int j = 0; j < kStages; ++j) {
-      mbar_init(full_a + j * 8, 1);
-      mbar_init(empty_a + j * 8, kCluster);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  // Prologue: stages 0 .. kStages - 2 in flight; Z of stage 0 formed once
+  // stages 0 and 1 have landed.
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nst) load_stage(s);
+    cp_async_commit();
   }
-  __syncwarp();
-  cluster_sync();
-  if (tid == 0)
-    for (int s = 0; s < kStages - 1 && s < nst; ++s) load_stage(s);
-  __syncwarp();
-  wait_full(0);
-  if (nst > 1) wait_full(1);
-  build_z(0);
+  cp_async_wait<kStages - 3>();
+  __syncthreads();
+  if (nst > 0) build_z(0);
   fence_proxy_async();
   __syncthreads();
 
@@ -389,24 +321,15 @@ __device__ __forceinline__ void gram_tile(
     for (int kk = 0; kk < kKS / 16; ++kk) mma(acc, desc_a(a, kk), desc_b(b, kk));
     mma_commit();
     // While the tensor cores run stage s: Z of stage s + 1 (into the
-    // buffer stage s - 1 read), then stage s + 2 landed, the barrier; then
-    // thread 0 releases stage s - 1's slot in both blocks and, once both
-    // have released it, asks for stage s + kStages - 1 there.
+    // buffer stage s - 1 read), then stage s + 2 landed (this thread's
+    // copies), the barrier, and the copies of stage s + kStages - 1 into
+    // the slot of stage s - 1.
     if (s + 1 < nst) build_z(s + 1);
-    if (s + 2 < nst) wait_full(s + 2);
+    cp_async_wait<kStages - 4>();
     fence_proxy_async();
     __syncthreads();
-    if (tid == 0) {
-      const int sn = s + kStages - 1;
-      const uint32_t empty = empty_a + (sn % kStages) * 8;
-      if (s > 0)
-        for (uint32_t c = 0; c < kCluster; ++c) mbar_arrive_cluster(empty, c);
-      if (sn < nst) {
-        if (sn >= kStages) mbar_wait(empty, (uint32_t)(sn / kStages - 1) & 1u);
-        load_stage(sn);
-      }
-    }
-    __syncwarp();
+    if (s + kStages - 1 < nst) load_stage(s + kStages - 1);
+    cp_async_commit();
     mma_wait<0>();
     fence_acc(acc);
     if ((s + 1) % kFold == 0) {
@@ -421,9 +344,7 @@ __device__ __forceinline__ void gram_tile(
       }
     }
   }
-  // No block leaves while the other's copies or arrivals may still reach
-  // its shared memory.
-  cluster_sync();
+  cp_async_wait<0>();
 
   const int t128 = tid % 128, w = t128 / 32, l = t128 % 32;
   const int m = lane0 + 64 * wg + 16 * w + l / 4;

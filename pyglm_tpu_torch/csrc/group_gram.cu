@@ -27,9 +27,8 @@
 //     Bound: 3 x 2 x 3.3e12 FLOP at config 5 over the 495 TFLOP/s TF32 peak.
 //   - "default": group_gram_wgmma_kernel, one bf16 pass on wgmma
 //     (gram_wgmma.cuh): omega rounded once to a bf16 stream by the caller,
-//     Z = X_p X_q rounded to bf16 as it is formed, a tile of up to 168 pair
-//     rows x 128 lanes per block, clusters of two pair tiles sharing each
-//     stage's TMA copies (_gram_kernel_fast rounds both operands inside
+//     Z = X_p X_q rounded to bf16 as it is formed, a tile of 168 pair rows
+//     x 128 lanes per block (_gram_kernel_fast rounds both operands inside
 //     the kernel). Bound: 2 x 3.3e12 FLOP over the 989 TFLOP/s bf16 peak,
 //     6.63 ms. Its grid runs the (pair tile, group) fastest and the lane
 //     tile slowest, so the ~132 resident blocks share one lane tile's
@@ -225,66 +224,20 @@ cudaError_t launch_tc(const float* xt, const float* om, float* out, int T,
   return cudaGetLastError();
 }
 
-// "default": one bf16 pass on wgmma; block (pair tile, group, lane tile),
-// clusters of kCluster pair tiles of one group and lane tile. Pair tile x
-// takes the packed rows [x npair / ntile, (x + 1) npair / ntile), its
-// entries of the pair table at pq + x kNP.
-__global__ void __cluster_dims__(gram_wgmma::kCluster, 1, 1)
-    __launch_bounds__(gram_wgmma::kThreads, 1)
-    group_gram_wgmma_kernel(const __grid_constant__ CUtensorMap tm_om,
-                            const __grid_constant__ CUtensorMap tm_x0,
-                            const __grid_constant__ CUtensorMap tm_x1,
-                            const uint16_t* __restrict__ pq,
-                            float* __restrict__ out, int T, int N, int GB,
-                            int ntile) {
+// "default": one bf16 pass on wgmma; block (pair tile, group, lane tile).
+__global__ void __launch_bounds__(gram_wgmma::kThreads, 1)
+group_gram_wgmma_kernel(const float* __restrict__ xt,
+                        const uint16_t* __restrict__ om16,
+                        const uint16_t* __restrict__ pq,
+                        float* __restrict__ out, int T, int N, int N8, int GB,
+                        int vec_x) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  const int g = blockIdx.y, x = blockIdx.x, npair = GB * (GB + 1) / 2;
-  const int row0 = x * npair / ntile, row1 = (x + 1) * npair / ntile;
-  const gram_wgmma::Maps maps{&tm_om, &tm_x0, &tm_x1};
-  gram_wgmma::gram_tile(maps, g * GB, GB, T, N, blockIdx.z * gram_wgmma::kLT,
-                        pq + x * gram_wgmma::kNP, row1 - row0,
+  const int g = blockIdx.y, npair = GB * (GB + 1) / 2;
+  const int row0 = blockIdx.x * gram_wgmma::kNP;
+  gram_wgmma::gram_tile(xt + (size_t)g * GB * T, T, GB, vec_x, om16, N8, N,
+                        0, T, blockIdx.z * gram_wgmma::kLT, pq + row0,
+                        min(gram_wgmma::kNP, npair - row0),
                         out + ((size_t)g * npair + row0) * N, N, smem_raw);
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (so the
-// library links against nothing more than the runtime); null if missing.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                                  cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 2-D tensor map of (d1 rows of d0 elements, rows `stride` bytes apart),
-// copied in boxes of b1 rows x b0 elements; reads past the edges give 0.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-              uint64_t d0, uint64_t d1, uint64_t stride, uint32_t b0,
-              uint32_t b1, CUtensorMapSwizzle swizzle) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {d0, d1}, strides[1] = {stride};
-  const cuuint32_t box[2] = {b0, b1}, elem[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // One warpgroup, one k-loop of 4 wgmma k-steps through the same layouts,
@@ -359,44 +312,32 @@ extern "C" int group_gram_launch(const float* xt, const float* om, float* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// The "default" body. xt as above, rows ldx floats apart (ldx >= T, a
-// multiple of 4; xt 16-byte aligned); om16: (T, N8) omega rounded to
-// bf16, N8 = N rounded up to a multiple of 8, lanes past N zero; pq: ntile
-// x kNP pair-table entries p | q << 8 (0xFFFF past the tile's last row),
-// tile x holding the packed rows [x npair / ntile, (x + 1) npair / ntile);
-// ntile a multiple of kCluster; out: (Ng, GB(GB+1)/2, N), every element
-// written.
-extern "C" int group_gram_bf16_launch(const float* xt, int ldx,
-                                      const void* om16, const void* pq,
-                                      float* out, int T, int N, int N8, int GB,
-                                      int Ng, int ntile, void* stream) {
-  namespace gw = gram_wgmma;
+// The "default" body. xt as above; om16: (T, N8) omega rounded to bf16,
+// N8 = N rounded up to a multiple of 8, lanes past N zero; pq: ntile x kNP
+// pair-table entries p | q << 8 (0xFFFF past the last pair row), row-major
+// over p <= q; out: (Ng, GB(GB+1)/2, N), every element written.
+extern "C" int group_gram_bf16_launch(const float* xt, const void* om16,
+                                      const void* pq, float* out, int T,
+                                      int N, int N8, int GB, int Ng,
+                                      int ntile, void* stream) {
+  using gram_wgmma::kNP;
   const int npair = GB * (GB + 1) / 2;
-  if (GB < 1 || GB > gw::kMaxGB || T < 1 || N < 1 || N8 < N || N8 % 8 != 0 ||
-      ldx < T || ldx % 4 != 0 || (size_t)xt % 16 != 0 ||
-      (size_t)om16 % 16 != 0 || Ng < 1 || Ng > 65535 || ntile < gw::kCluster ||
-      ntile % gw::kCluster != 0 || (npair + ntile - 1) / ntile > gw::kNP ||
-      (N + gw::kLT - 1) / gw::kLT > 65535)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap m_om, m_x0, m_x1;
-  const int xr0 = gw::x_rows0(GB);
-  if (!make_map(&m_om, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, om16, N8, T,
-                (uint64_t)N8 * 2, 64, gw::kKS, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&m_x0, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, xt, T,
-                (uint64_t)Ng * GB, (uint64_t)ldx * 4, gw::kKS, xr0,
-                CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !make_map(&m_x1, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, xt, T,
-                (uint64_t)Ng * GB, (uint64_t)ldx * 4, gw::kKS,
-                GB > xr0 ? GB - xr0 : 1, CU_TENSOR_MAP_SWIZZLE_NONE))
+  if (GB < 1 || GB > gram_wgmma::kMaxGB || T < 1 || N < 1 || N8 < N ||
+      N8 % 8 != 0 || (size_t)om16 % 16 != 0 || Ng < 1 || Ng > 65535 ||
+      ntile < 1 || (ntile - 1) * kNP >= npair || ntile * kNP < npair ||
+      (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT > 65535)
     return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
       group_gram_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      gw::smem_bytes(gw::kMaxGB));
+      gram_wgmma::smem_bytes(gram_wgmma::kMaxGB));
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid(ntile, Ng, (N + gw::kLT - 1) / gw::kLT);
-  group_gram_wgmma_kernel<<<grid, gw::kThreads, gw::smem_bytes(GB),
+  const int vec_x = T % 4 == 0 && (size_t)xt % 16 == 0;
+  dim3 grid(ntile, Ng, (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT);
+  group_gram_wgmma_kernel<<<grid, gram_wgmma::kThreads,
+                            gram_wgmma::smem_bytes(GB),
                             (cudaStream_t)stream>>>(
-      m_om, m_x0, m_x1, (const uint16_t*)pq, out, T, N, GB, ntile);
+      xt, (const uint16_t*)om16, (const uint16_t*)pq, out, T, N, N8, GB,
+      vec_x);
   return (int)cudaGetLastError();
 }
 

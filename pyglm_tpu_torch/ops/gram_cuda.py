@@ -7,9 +7,8 @@ runs once per sweep before its group loop: ``_gram_kernel_f32`` (bf16x3 on
 the TPU) at precision "high" and "sr", ``_gram_kernel_fast`` (one bf16
 pass) at "default". The kernel's bodies: "high" 3xTF32 on the tensor cores,
 "default" one bf16 pass on wgmma (omega rounded once to a bf16 stream, Z
-rounded to nearest even as it is formed, tiles of up to 168 pair rows in
-clusters of two that share each stage's TMA copies), "highest" (where the
-JAX package takes its f32 XLA Gram) fp32 FMA.
+rounded to nearest even as it is formed, tiles of 168 pair rows), "highest"
+(where the JAX package takes its f32 XLA Gram) fp32 FMA.
 
 Layouts (float32, contiguous):
   Xt    (P, T)    transposed design; group g is rows [g GB, (g + 1) GB)
@@ -36,7 +35,6 @@ from pyglm_tpu_torch.ops.ss_cuda import (
 _BODIES = {"highest": 0, "high": 1, "default": None}
 # Pair rows per tile of the "default" body (csrc/gram_wgmma.cuh kNP).
 PAIR_TILE = 168
-_CLUSTER = 2                       # pair tiles per cluster (kCluster)
 _NO_PAIR = -1                      # 0xFFFF as int16: a row past the last pair
 _K6_KEYS = {"highest": "group_gram", "high": "group_gram",
             "default": "group_gram_bf16"}
@@ -58,23 +56,16 @@ def _check_body(precision: str) -> None:
 
 def pair_tile_plan(GB: int, device=None) -> torch.Tensor:
     """The pair table of the "default" body: the packed pair rows of a
-    group of GB design rows (``pair_index``, row-major over p <= q) split
-    into an even number of tiles (the kernel's clusters take two) of at
-    most PAIR_TILE rows each, as equal as can be: tile x holds the rows
-    [x npair // n_tiles, (x + 1) npair // n_tiles), as int16 entries
-    p | q << 8 padded with -1 (no pair) to PAIR_TILE. Shape (n_tiles *
-    PAIR_TILE,); block x of the kernel's grid takes entries
-    [x PAIR_TILE, (x + 1) PAIR_TILE)."""
+    group of GB design rows (``pair_index``, row-major over p <= q) in
+    tiles of PAIR_TILE rows, as int16 entries p | q << 8, the last tile
+    padded with -1 (no pair). Shape (n_tiles * PAIR_TILE,); block x of the
+    kernel's grid takes entries [x PAIR_TILE, (x + 1) PAIR_TILE)."""
     p, q = pair_index(GB, device)
-    npair = p.numel()
-    n_tiles = _CLUSTER * -(-npair // (_CLUSTER * PAIR_TILE))
-    table = torch.full((n_tiles, PAIR_TILE), _NO_PAIR, dtype=torch.int16,
+    n_tiles = -(-p.numel() // PAIR_TILE)
+    table = torch.full((n_tiles * PAIR_TILE,), _NO_PAIR, dtype=torch.int16,
                        device=device)
-    entries = (p | (q << 8)).to(torch.int16)
-    for x in range(n_tiles):
-        r0, r1 = x * npair // n_tiles, (x + 1) * npair // n_tiles
-        table[x, :r1 - r0] = entries[r0:r1]
-    return table.reshape(-1)
+    table[:p.numel()] = (p | (q << 8)).to(torch.int16)
+    return table
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,18 +84,6 @@ def omega_bf16_stream(omega: torch.Tensor) -> torch.Tensor:
         return omega.to(torch.bfloat16).contiguous()
     out = omega.new_zeros((T, N8), dtype=torch.bfloat16)
     out[:, :N] = omega
-    return out
-
-
-def _tma_rows(Xt: torch.Tensor) -> torch.Tensor:
-    """Xt with rows 16 bytes apart and 16-byte aligned, as the TMA copies
-    them: Xt itself when T is a multiple of 4, else a copy with each row
-    padded to a multiple of 4 steps (the pad never read)."""
-    T = Xt.shape[1]
-    if T % 4 == 0 and Xt.data_ptr() % 16 == 0:
-        return Xt
-    out = Xt.new_empty((Xt.shape[0], -(-T // 4) * 4))
-    out[:, :T] = Xt
     return out
 
 
@@ -147,9 +126,8 @@ def group_gram_blocks_cuda(Xt, omega, B: int, G: int,
         if precision == "default":
             om16 = omega_bf16_stream(omega)
             pq = _pair_table(GB, omega.device)
-            xt = _tma_rows(Xt)
             err = lib.group_gram_bf16_launch(
-                xt.data_ptr(), xt.stride(0), om16.data_ptr(), pq.data_ptr(),
+                Xt.data_ptr(), om16.data_ptr(), pq.data_ptr(),
                 out.data_ptr(), T, N, om16.shape[1], GB, Ng,
                 pq.numel() // PAIR_TILE, stream)
         else:

@@ -422,9 +422,9 @@ def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
     """K6 (3xTF32 at "high", fp32 FMA at "highest", one bf16 pass on wgmma
     at "default") against its plain version: a ragged T with GB = 12, the
     ensemble's GB = 40 over three lane tiles, GB = 28 (not a multiple of
-    8) over two; GB = 64 (2080 pairs, 14 pair tiles of the "default"
-    body in 7 clusters), GB = 4 (two tiles of 5 rows), T = 40 (less than
-    one 64-step stage), and 4001 lanes (ragged against both 8 and 128). The design
+    8) over two; GB = 64 (2080 pairs, 13 pair tiles of the "default"
+    body), GB = 4 (one partial tile), T = 40 (less than one 64-step
+    stage), and 4001 lanes (ragged against both 8 and 128). The design
     holds continuous values, so the bf16 rounding of Z shows."""
     Xt = torch.rand((N_pre * B + 1, T), generator=gen, device="cuda") * (
         torch.rand((N_pre * B + 1, T), generator=gen, device="cuda") < 0.3)

@@ -6,11 +6,9 @@ card (tests/test_torch_cuda.py).
 - omega_bf16_stream: (T, N8) torch.bfloat16, N8 = N rounded up to a
   multiple of 8 (16-byte rows), the pad lanes zero, the first N lanes equal
   to ``to_bf16(omega)`` (round to nearest even) bit for bit.
-- pair_tile_plan: for every GB in 1..64, an even number of tiles of at
-  most PAIR_TILE rows, equal to within one row, cover every packed pair
-  row (``pair_index``, row-major over p <= q) exactly once, in order, each
-  tile's padding after its last row.
-- _tma_rows: the design rows 16 bytes apart for the TMA, values unchanged.
+- pair_tile_plan: for every GB in 1..64, the tiles of PAIR_TILE rows cover
+  every packed pair row (``pair_index``, row-major over p <= q) exactly
+  once, in order, with the padding only past the last pair.
 """
 import numpy as np
 import pytest
@@ -49,41 +47,19 @@ def test_pair_tile_plan_covers_each_pair_once(GB):
     npair = GB * (GB + 1) // 2
     n_tiles = table.numel() // PAIR_TILE
     assert table.dtype == torch.int16 and table.numel() % PAIR_TILE == 0
-    # An even number of tiles (clusters of two), as few as PAIR_TILE allows.
-    assert n_tiles % 2 == 0 and n_tiles == 2 * -(-npair // (2 * PAIR_TILE))
-    e = (table.to(torch.int32) & 0xFFFF).reshape(n_tiles, PAIR_TILE)
-    rows = []
-    for x in range(n_tiles):
-        # The kernel's bounds of tile x; the tile's entries are those rows
-        # in order, then padding only.
-        r0, r1 = x * npair // n_tiles, (x + 1) * npair // n_tiles
-        assert 0 <= r1 - r0 <= PAIR_TILE
-        assert bool((e[x, :r1 - r0] != 0xFFFF).all())
-        assert bool((e[x, r1 - r0:] == 0xFFFF).all())
-        rows.append(e[x, :r1 - r0])
-    sizes = [r.numel() for r in rows]
-    assert max(sizes) - min(sizes) <= 1
-    v = torch.cat(rows)
-    assert v.numel() == npair
-    tp, tq = v & 0xFF, v >> 8
+    assert n_tiles == -(-npair // PAIR_TILE)
+    e = table.to(torch.int32) & 0xFFFF
+    valid = e != 0xFFFF
+    # The valid entries are the first npair: the padding lies in the last
+    # tile only, after the last pair.
+    assert int(valid.sum()) == npair and bool(valid[:npair].all())
+    assert (n_tiles - 1) * PAIR_TILE < npair
+    tp, tq = e[:npair] & 0xFF, e[:npair] >> 8
     assert torch.equal(tp, p.to(torch.int32)) and torch.equal(tq, q.to(
         torch.int32))
     assert bool((tp <= tq).all()) and int(tq.max()) < GB
     # Each (p, q) once: pairs decode to distinct packed rows.
     assert len(set(zip(tp.tolist(), tq.tolist()))) == npair
-
-
-@pytest.mark.parametrize("T", [40, 3001, 3002, 3003, 20_000])
-def test_tma_rows(T):
-    """The design rows as the TMA copies them: 16 bytes apart, the values
-    unchanged; the same tensor when T is a multiple of 4."""
-    rng = np.random.default_rng(T)
-    Xt = torch.from_numpy(rng.random((9, T)).astype(np.float32))
-    x = gram_cuda._tma_rows(Xt)
-    assert x.stride(0) % 4 == 0 and x.stride(0) >= T and x.stride(1) == 1
-    assert x.data_ptr() % 16 == 0
-    assert torch.equal(x[:, :T], Xt)
-    assert (x is Xt) == (T % 4 == 0)
 
 
 def test_default_body_rejects_cpu_tensors():
