@@ -22,7 +22,7 @@
 //     tiles (840 rows, 2.4% padding; 13 tiles of 64 in the mma.sync loop).
 //     A (omega) is read lane-major (wgmma's transpose bit), B (Z) K-major.
 //     kNP = 168 keeps the two fp32 sums (2 x 84 registers per thread) and
-//     the rest under the 255-register limit without spills at one block
+//     the rest at the 255-register limit (252 bytes spilled) at one block
 //     per SM; 208 (4 tiles) spilled 692 bytes and ran 16% slower.
 //   - omega streams as bf16 (half the bytes of the fp32 stream), by
 //     cp.async 16-byte copies into the 128-byte-swizzled layout the wgmma
@@ -43,6 +43,12 @@
 //     share one lane tile's omega slab (5 MB at T = 2e4, which L2 holds):
 //     omega leaves HBM about once, and L2 sends each SM ~0.3 of the bytes
 //     per product of the 64-row mma.sync tile.
+//   - What sets the pace (H100, config 5, 35.4 ms): the copies and barriers
+//     alone take 14.3 ms (~26 KB per stage from L2 into each SM, ~4.6 TB/s
+//     in all), the products raise that to 18.6 ms, and the Z build, formed
+//     anew for each of the 32 lane tiles, adds the rest. A cluster of two
+//     pair tiles sharing each stage's copies (TMA multicast) halved the L2
+//     bytes and ran 47.0 ms, so the copies stay on cp.async.
 //   - The tensor cores truncate as they accumulate, so the fp32
 //     accumulators are folded every kFold stages (256 steps) into a second
 //     fp32 sum by Fast2Sum, as in gram_tc.cuh: 3.0e-7 from a float64 Gram
@@ -64,7 +70,6 @@ constexpr int kThreads = 256;
 constexpr int kFold = 4;        // stages per fold (256 steps)
 constexpr int kMaxGB = 64;
 constexpr int kAcc = kNP / 2;   // fp32 accumulators per thread (64 x kNP / 128)
-constexpr uint16_t kNoPair = 0xFFFF;   // pair-table entry past the last row
 // Z rows per thread group of 8 (one chunk each) in the build.
 constexpr int kZRows = (kNP + kThreads / 8 - 1) / (kThreads / 8);
 
@@ -200,9 +205,9 @@ __device__ __forceinline__ void load8(const float* row, int h0, float4& lo,
 }
 
 // One block tile (kThreads threads): C[pr, n] for the tile's pair rows
-// (pq: kNP entries p | q << 8, row-major over p <= q, kNoPair past the last
-// row; npr valid rows)
-// and lanes n in [lane0, lane0 + kLT), over t in [t_begin, t_end).
+// (pq: kNP entries p | q << 8, row-major over p <= q, the first npr
+// valid; those past them are never read) and lanes n in [lane0, lane0 +
+// kLT), over t in [t_begin, t_end).
 //   x: the group's GB design rows (fp32), row stride ldx; vec_x: rows and
 //      base 16-byte aligned and t_begin a multiple of 4.
 //   om: omega as bf16 bits, (T, ldo) with ldo a multiple of 8 and lanes

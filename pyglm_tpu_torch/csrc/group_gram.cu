@@ -43,7 +43,7 @@
 //     512 steps the registers are folded by Fast2Sum into a second fp32 sum
 //     kept in shared memory (so 2e4 terms are never summed in one fp32
 //     accumulator). Bound: 6.6e12 FLOP over the 67 TFLOP/s fp32 peak.
-// The grid is 6.4k-21k blocks at the 8-chain ensemble (Ng = 50, GB = 40,
+// The grid is 8k-21k blocks at the 8-chain ensemble (Ng = 50, GB = 40,
 // 4000 lanes, T = 2e4), so there is no split of the time axis. The ragged T
 // edge is masked in the loads (X and omega read as 0 past T).
 
