@@ -23,7 +23,7 @@
 //     A (omega) is read lane-major (wgmma's transpose bit), B (Z) K-major.
 //     kNP = 168 keeps the two fp32 sums (2 x 84 registers per thread) and
 //     the rest at the 255-register limit (252 bytes spilled) at one block
-//     per SM; 208 (4 tiles) spilled 692 bytes and ran 16% slower.
+//     per SM; a first body with 208 rows (4 tiles) spilled 692 bytes.
 //   - omega streams as bf16 (half the bytes of the fp32 stream), by
 //     cp.async 16-byte copies into the 128-byte-swizzled layout the wgmma
 //     descriptor names, in a ring of kStages stages of kKS = 64 steps; the
@@ -43,18 +43,18 @@
 //     share one lane tile's omega slab (5 MB at T = 2e4, which L2 holds):
 //     omega leaves HBM about once, and L2 sends each SM ~0.3 of the bytes
 //     per product of the 64-row mma.sync tile.
-//   - What sets the pace (H100, config 5, 35.4 ms): the copies and barriers
-//     alone take 14.3 ms (~26 KB per stage from L2 into each SM, ~4.6 TB/s
-//     in all), the products raise that to 18.6 ms, and the Z build, formed
-//     anew for each of the 32 lane tiles, adds the rest. A cluster of two
-//     pair tiles sharing each stage's copies (TMA multicast) halved the L2
-//     bytes and ran 47.0 ms, so the copies stay on cp.async.
+//   - What sets the pace (H100, config 5, 35.4 ms; time_group_gram.py
+//     --cut): the copies and barriers alone take 14.2 ms (~26 KB per stage
+//     from L2 into each SM, ~4.7 TB/s in all), the products raise that to
+//     18.3 ms, and the Z build, formed anew for each of the 32 lane tiles,
+//     to 35.4 ms, with or without the products. A cluster of two pair
+//     tiles sharing each stage's copies (TMA multicast) halved the L2 bytes
+//     and ran 47.0 ms, so the copies stay on cp.async.
 //   - The tensor cores truncate as they accumulate, so the fp32
 //     accumulators are folded every kFold stages (256 steps) into a second
 //     fp32 sum by Fast2Sum, as in gram_tc.cuh: 3.0e-7 from a float64 Gram
-//     at config 5 (1.8e-7 folded every 128 steps, 6% slower; the plain
-//     version 5.7e-7). No split of T and no atomics: results repeat bit for
-//     bit.
+//     at config 5 (1.8e-7 folded every 128 steps; the plain version
+//     5.7e-7). No split of T and no atomics: results repeat bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
