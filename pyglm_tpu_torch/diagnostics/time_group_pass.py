@@ -1,34 +1,98 @@
 """Device time of kernel K2 (one spike-and-slab group pass) at the
-flagship's shapes, for the package of a given checkout.
+flagship's shapes, for the package of a given checkout, whole and its
+Gram kernel alone.
 
     python pyglm_tpu_torch/diagnostics/time_group_pass.py [ROOT]
+        [--precision high|default|sr] [--cut PART]...
 
 ROOT (default: the checkout holding this file) is put first on sys.path, so
 an older checkout's package can be timed on the same card in the same
 command, e.g. in the order older, this, this, older. It builds that
 package's kernels, then times ``ss_group_pass_cuda`` on group g = 3 of 25
-(GB = 32, T = 1e5, N = 200; a middle group: scatter, gather and Gram) with
-CUDA events around 20 calls, five times, and prints the times and their
-median with the card's name and power limit. Needs a CUDA card.
+(GB = 32, T = 1e5, N = 200; a middle group: scatter, gather and Gram) at
+``--precision`` ("high" by default; at "default" and "sr" omega holds
+bf16 values, as the fused loop gives it, and the bf16 omega stream is made
+once beforehand where the package's K2 takes one): CUDA events around 20
+calls, five times, and the median; then each kernel's own device time per
+call over 20 traced calls (torch.profiler), the Gram's named apart ("high"
+runs the Gram and M0 on one kernel, so its line holds both). ``--cut
+build`` drops the Z build from the main loop of ``csrc/gram_wgmma.cuh``
+(the bf16 and SR Gram body), ``--cut products`` its wgmma products, as
+``time_group_gram.py`` does: the cut copy of the package goes to
+ROOT/build/gram_cut_<parts>/ and its results are wrong by design, so only
+its time is read. Prints the wgmma kernels' registers and spills and the
+card's name and power limit. Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
+import inspect
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from time_group_gram import _CUTS, _cut_copy  # noqa: E402
+
+
+def _wgmma_resources(log: Path) -> str:
+    """Registers and spills of each wgmma kernel in the nvcc log."""
+    lines, out = log.read_text().splitlines(), []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "wgmma_kernel" in line:
+            name = line.split("'")[1]
+            out.append(f"{name}: " + " | ".join(
+                x.strip() for x in lines[i + 2:i + 4]))
+    return "; ".join(out) or "no wgmma kernel"
+
+
+def _kernel_ms(fn, reps):
+    """{kernel name: device ms per call} over `reps` traced calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0 and ev.device_type.name == "CUDA":
+            out[ev.key] = out.get(ev.key, 0.0) + us / 1e3 / reps
+    return out
+
+
+def _is_gram(name: str, precision: str) -> bool:
+    """Whether kernel `name` is K2's Gram at `precision`: the wgmma body,
+    or (older checkouts) the mma.sync tile loop's instantiation of the
+    mode; at "high" the 3xTF32 tile loop, which also runs M0."""
+    if precision == "high":
+        return "gram_tc_kernel" in name
+    mode = {"default": 1, "sr": 2}[precision]
+    return "wgmma" in name or f"gram_tc_kernel<{mode}>" in name
+
 
 def main() -> None:
-    root = (sys.argv[1] if len(sys.argv) > 1
-            else str(Path(__file__).resolve().parents[2]))
-    sys.path.insert(0, root)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root", nargs="?",
+                    default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--precision", default="high",
+                    choices=["high", "default", "sr"])
+    ap.add_argument("--cut", action="append", default=[],
+                    choices=sorted(_CUTS))
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    pkg_root = _cut_copy(root, args.cut) if args.cut else root
+    sys.path.insert(0, str(pkg_root))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("time_group_pass: needs a CUDA device")
-    from pyglm_tpu_torch.ops import _build
+    from pyglm_tpu_torch.ops import _build, ss_cuda
     from pyglm_tpu_torch.ops.basis import cosine_basis, design_matrix
-    from pyglm_tpu_torch.ops.ss_cuda import ss_group_pass_cuda
     _build.build(force=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     T, N, GB = 100_000, 200, 32
@@ -38,23 +102,42 @@ def main() -> None:
     omega = 0.05 + 0.2 * torch.rand((T, N), generator=gen, device="cuda")
     u = 0.5 * torch.randn((T, N), generator=gen, device="cuda")
     dw = 0.1 * torch.randn((GB, N), generator=gen, device="cuda")
+    kw = dict(precision=args.precision)
+    if args.precision != "high":
+        omega = ss_cuda.to_bf16(omega)
+        if "om16" in inspect.signature(ss_cuda.ss_group_pass_cuda).parameters:
+            kw["om16"] = ss_cuda.omega_bf16_stream(omega)
+    if args.precision == "sr":
+        kw["sr_seed"] = (5, 6)
+
+    def call():
+        ss_cuda.ss_group_pass_cuda(xp, xg, omega, u, dw, **kw)
 
     def run(reps=20):
-        ss_group_pass_cuda(xp, xg, omega, u, dw)
+        call()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
         for _ in range(reps):
-            ss_group_pass_cuda(xp, xg, omega, u, dw)
+            call()
         t1.record()
         t1.synchronize()
         return t0.elapsed_time(t1) / reps
 
     times = [run() for _ in range(5)]
+    kernels = _kernel_ms(call, 20)
+    gram = sum(v for k, v in kernels.items() if _is_gram(k, args.precision))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    print(f"{root}: K2 ms per middle group {[round(t, 4) for t in times]}, "
-          f"median {statistics.median(times):.4f} ({card})")
+    label = f"{root} {args.precision}" + "".join(
+        f" --cut {c}" for c in args.cut)
+    print(f"{label}: K2 ms per middle group {[round(t, 4) for t in times]}, "
+          f"median {statistics.median(times):.4f}; Gram kernel "
+          f"{gram:.4f} ms{' (with M0)' if args.precision == 'high' else ''}"
+          f" ({card})", flush=True)
+    for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]):
+        print(f"  {v:8.4f} ms  {k[:100]}")
+    print(f"  {_wgmma_resources(_build.LOG_PATH)}", flush=True)
 
 
 if __name__ == "__main__":
