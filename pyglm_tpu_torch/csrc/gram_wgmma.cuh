@@ -193,6 +193,31 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return d;
 }
 
+// Philox4x32-10 (Salmon et al. 2011, the generator of curand's Philox
+// states): four 32-bit words from counter c and key k.
+__device__ __forceinline__ uint4 philox(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += 0x9E3779B9u;
+    k.y += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// lo and hi rounded stochastically to bf16 by the low and the high 16 bits
+// of r, packed: each x becomes bits (bits(x) + r16) & 0xFFFF0000
+// (ss_pallas.py::_sr16), one of its two bf16 neighbours (x itself when x is
+// a bf16 value), the upper one with probability proportional to x's
+// distance from the lower; E over uniform words is x.
+__device__ __forceinline__ uint32_t sr_bf16x2(float lo, float hi,
+                                              uint32_t r) {
+  return __byte_perm(__float_as_uint(lo) + (r & 0xFFFFu),
+                     __float_as_uint(hi) + (r >> 16), 0x7632);
+}
+
 // The 8 floats at row + 0 .. 7 (16-byte aligned) as (lo, hi). h0 = 4 loads
 // the upper half first: the 8 threads of a quarter warp reading chunks c =
 // 0..7 of one design row (h0 = 4 for c >= 4) then hit distinct banks.
@@ -214,11 +239,17 @@ __device__ __forceinline__ void load8(const float* row, int h0, float4& lo,
 //      past N zero (or past ldo, zero-filled here).
 //   out: row pr at out + pr * ldc; lanes >= N are not written.
 //   smem: smem_bytes(GB) bytes of dynamic shared memory.
+//   kSr: Z rounded stochastically (sr_bf16x2) instead of to nearest even,
+//      by the Philox draw with counter (t / 8, row0 + pr, offset) and key
+//      seed (row0: the group's packed row of the tile's first entry;
+//      t_begin a multiple of 8).
+template <bool kSr = false>
 __device__ __forceinline__ void gram_tile(
     const float* __restrict__ x, int ldx, int GB, bool vec_x,
     const uint16_t* __restrict__ om, int ldo, int N, int t_begin, int t_end,
     int lane0, const uint16_t* __restrict__ pq, int npr,
-    float* __restrict__ out, size_t ldc, uint8_t* smem_raw) {
+    float* __restrict__ out, size_t ldc, uint8_t* smem_raw, int row0 = 0,
+    unsigned long long seed = 0, unsigned long long offset = 0) {
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   uint8_t* smem = smem_raw + ((1024u - (raw & 1023u)) & 1023u);
   uint8_t* oms = smem;                                // [kStages][2][64][128B]
@@ -269,6 +300,7 @@ __device__ __forceinline__ void gram_tile(
     }
   };
 
+  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
   auto build_z = [&](int s) {
     const float* xsrc = xs + (s % kStages) * GB * kKS + 8 * zc;
     uint8_t* zb = zs + (s & 1) * kZBuf;
@@ -286,10 +318,24 @@ __device__ __forceinline__ void gram_tile(
         }
         float4 b0, b1;
         load8(xsrc + q * kKS, zh0, b0, b1);
-        v = make_uint4(bf16x2(a0.x * b0.x, a0.y * b0.y),
-                       bf16x2(a0.z * b0.z, a0.w * b0.w),
-                       bf16x2(a1.x * b1.x, a1.y * b1.y),
-                       bf16x2(a1.z * b1.z, a1.w * b1.w));
+        if constexpr (kSr) {
+          // The chunk's 8 steps are one Philox draw: step 2 i + h rounds by
+          // half h of word i.
+          const uint4 r = philox(
+              make_uint4((uint32_t)((t_begin + s * kKS) >> 3) + zc,
+                         (uint32_t)(row0 + n), (uint32_t)offset,
+                         (uint32_t)(offset >> 32)),
+              key);
+          v = make_uint4(sr_bf16x2(a0.x * b0.x, a0.y * b0.y, r.x),
+                         sr_bf16x2(a0.z * b0.z, a0.w * b0.w, r.y),
+                         sr_bf16x2(a1.x * b1.x, a1.y * b1.y, r.z),
+                         sr_bf16x2(a1.z * b1.z, a1.w * b1.w, r.w));
+        } else {
+          v = make_uint4(bf16x2(a0.x * b0.x, a0.y * b0.y),
+                         bf16x2(a0.z * b0.z, a0.w * b0.w),
+                         bf16x2(a1.x * b1.x, a1.y * b1.y),
+                         bf16x2(a1.z * b1.z, a1.w * b1.w));
+        }
         if (++q == GB) q = ++p;
       }
       *reinterpret_cast<uint4*>(zb + sw128(n, zc)) = v;

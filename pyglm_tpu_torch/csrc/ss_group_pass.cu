@@ -44,6 +44,7 @@
 #include <cuda_runtime.h>
 
 #include "gram_tc.cuh"
+#include "gram_wgmma.cuh"
 
 namespace {
 
@@ -172,6 +173,31 @@ gram_tc_kernel(const float* __restrict__ xg, const float* __restrict__ b,
                             part + (size_t)split * n_rows * N, smem);
 }
 
+// The bf16 Gram ("default") or the SR Gram ("sr", kSr) of omega on wgmma
+// (gram_wgmma.cuh): block (split, pair tile, lane tile) forms its tile's
+// partial over its split of T, rows_per_split steps (a multiple of the
+// 64-step stage) from split * rows_per_split, at part[split].
+template <bool kSr>
+__global__ void __launch_bounds__(gram_wgmma::kThreads, 1)
+group_pass_wgmma_kernel(const float* __restrict__ xg,
+                        const uint16_t* __restrict__ om16,
+                        const uint16_t* __restrict__ pq,
+                        float* __restrict__ part, int T, int N, int N8,
+                        int GB, int rows_per_split, int vec_x,
+                        unsigned long long seed, unsigned long long offset) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const int npair = GB * (GB + 1) / 2, split = blockIdx.x;
+  const int row0 = blockIdx.y * gram_wgmma::kNP;
+  const int t_begin = split * rows_per_split;
+  const int t_end = min(T, t_begin + rows_per_split);
+  gram_wgmma::gram_tile<kSr>(
+      xg, T, GB, vec_x, om16, N8, N, t_begin, t_end,
+      blockIdx.z * gram_wgmma::kLT, pq + row0,
+      min(gram_wgmma::kNP, npair - row0),
+      part + ((size_t)split * npair + row0) * N, N, smem_raw, row0, seed,
+      offset);
+}
+
 // out[i] = sum over splits of part[split, i], in split order, compensated
 // (each add's rounding error, recovered by TwoSum, is carried to the end).
 __global__ void reduce_splits_kernel(const float* __restrict__ part,
@@ -236,19 +262,42 @@ cudaError_t launch_tc(const float* xg, const float* b, float* part, int T,
   return cudaGetLastError();
 }
 
-// The packed Gram of omega in the caller's mode.
-cudaError_t launch_gram(const float* xg, const float* om, float* part, int T,
-                        int N, int GB, int n_split, int gram,
-                        unsigned long long seed, unsigned long long offset,
-                        cudaStream_t s) {
+template <bool kSr>
+cudaError_t launch_wgmma(const float* xg, const uint16_t* om16,
+                         const uint16_t* pq, float* part, int T, int N,
+                         int N8, int GB, int n_split, int ntile,
+                         unsigned long long seed, unsigned long long offset,
+                         cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      group_pass_wgmma_kernel<kSr>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gram_wgmma::smem_bytes(gram_wgmma::kMaxGB));
+  if (attr != cudaSuccess) return attr;
+  int rows = (T + n_split - 1) / n_split;
+  rows = (rows + gram_wgmma::kKS - 1) / gram_wgmma::kKS * gram_wgmma::kKS;
+  const int vec_x = T % 4 == 0 && (size_t)xg % 16 == 0;
+  group_pass_wgmma_kernel<kSr>
+      <<<dim3(n_split, ntile, (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT),
+         gram_wgmma::kThreads, gram_wgmma::smem_bytes(GB), s>>>(
+          xg, om16, pq, part, T, N, N8, GB, rows, vec_x, seed, offset);
+  return cudaGetLastError();
+}
+
+// The packed Gram of omega in the caller's mode: om (fp32) at "high", om16
+// (bf16) and the pair table pq at "default" and "sr".
+cudaError_t launch_gram(const float* xg, const float* om,
+                        const uint16_t* om16, const uint16_t* pq, float* part,
+                        int T, int N, int N8, int GB, int n_split, int ntile,
+                        int gram, unsigned long long seed,
+                        unsigned long long offset, cudaStream_t s) {
   switch (gram) {
-    case gram_tc::kTf32x3:
+    case 0:
       return launch_tc<gram_tc::kTf32x3>(xg, om, part, T, N, GB, 1, n_split,
                                          0, 0, s);
-    case gram_tc::kBf16:
-      return launch_tc<gram_tc::kBf16>(xg, om, part, T, N, GB, 1, n_split,
-                                       0, 0, s);
-    case gram_tc::kSr:
+    case 1:
+      return launch_wgmma<false>(xg, om16, pq, part, T, N, N8, GB, n_split,
+                                 ntile, 0, 0, s);
+    case 2:
       return launch_tc<gram_tc::kSr>(xg, om, part, T, N, GB, 1, n_split,
                                      seed, offset, s);
   }
@@ -292,27 +341,38 @@ cudaError_t side_for_current_device(Side** out) {
 }  // namespace
 
 // xg, xp: (GB, T) design rows of groups g and g-1 (null when absent);
-// om: (T, N); u: (T, N) updated in place; dw: (GB, N) or null. Scratch:
-// part_g (n_split, GB(GB+1)/2, N), part_m (n_split_m, GB, N) and part_s
-// (n_split_s, N). out: (GB + npair + 1, N) with rows [M0; packed Jgg;
-// sum_t omega]; the last row is written only when want_sumom is set, and
-// nothing is written to out when xg is null (the epilogue). gram: the
-// Gram's mode (gram_tc::Mode: 0 "high", 1 "default", 2 "sr"); seed and
-// offset select the Philox words of "sr"'s rounding.
+// om: (T, N); u: (T, N) updated in place; dw: (GB, N) or null. At
+// "default" and "sr" (gram 1, 2) with xg given: om16, omega rounded to
+// bf16, (T, N8) with N8 >= N a multiple of 8 and lanes past N zero; pq,
+// ntile x kNP pair-table entries p | q << 8 (0xFFFF past the last pair
+// row), row-major over p <= q. Scratch: part_g (n_split, GB(GB+1)/2, N),
+// part_m (n_split_m, GB, N) and part_s (n_split_s, N). out: (GB + npair +
+// 1, N) with rows [M0; packed Jgg; sum_t omega]; the last row is written
+// only when want_sumom is set, and nothing is written to out when xg is
+// null (the epilogue). gram: the Gram's mode (0 "high", 1 "default", 2
+// "sr"); seed and offset select the Philox words of "sr"'s rounding.
 extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
-                                    const float* om, float* u,
+                                    const float* om, const void* om16,
+                                    const void* pq, float* u,
                                     const float* dw, float* part_g,
                                     float* part_m, float* part_s, float* out,
-                                    int T, int N, int GB, int n_split,
-                                    int n_split_m, int n_split_s,
+                                    int T, int N, int N8, int GB, int n_split,
+                                    int n_split_m, int n_split_s, int ntile,
                                     int want_sumom, int gram,
                                     unsigned long long seed,
                                     unsigned long long offset, void* stream) {
+  const int npair = GB * (GB + 1) / 2;
   if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || n_split < 1 ||
       n_split_m < 1 || n_split_s < 1 || gram < 0 || gram > 2)
     return (int)cudaErrorInvalidValue;
+  if (gram != 0 && xg != nullptr &&
+      (om16 == nullptr || (size_t)om16 % 16 != 0 || pq == nullptr ||
+       N8 < N || N8 % 8 != 0 || ntile < 1 ||
+       (ntile - 1) * gram_wgmma::kNP >= npair ||
+       ntile * gram_wgmma::kNP < npair || n_split > 65535 ||
+       (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT > 65535))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int npair = GB * (GB + 1) / 2;
   const bool scatter = xp != nullptr && dw != nullptr;
   want_sumom = want_sumom && xg != nullptr;
   if (xg == nullptr)      // the epilogue: the scatter alone
@@ -338,8 +398,9 @@ extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
                                          n_split_m, 0, 0, sd->stream)) !=
           cudaSuccess ||
       (err = cudaEventRecord(sd->join, sd->stream)) != cudaSuccess ||
-      (err = launch_gram(xg, om, part_g, T, N, GB, n_split, gram, seed,
-                         offset, s)) != cudaSuccess ||
+      (err = launch_gram(xg, om, (const uint16_t*)om16,
+                         (const uint16_t*)pq, part_g, T, N, N8, GB, n_split,
+                         ntile, gram, seed, offset, s)) != cudaSuccess ||
       (err = cudaStreamWaitEvent(s, sd->join, 0)) != cudaSuccess)
     return (int)err;
 

@@ -37,7 +37,8 @@ from pyglm_tpu_torch.ops.gram_cuda import (
     group_gram_blocks_cuda, group_gram_blocks_plain,
 )
 from pyglm_tpu_torch.ops.ss_cuda import (
-    _MAX_B, ss_edge_scan, ss_group_pass, to_bf16, unpack_gram,
+    _MAX_B, omega_bf16_stream, ss_edge_scan, ss_group_pass, to_bf16,
+    unpack_gram,
 )
 from pyglm_tpu_torch.utils.utils import logistic
 
@@ -253,10 +254,13 @@ def _sr_seeds(host_generator, noise, Ng):
 def _fused_loop(generator, host_generator, Xt, omega, u, w, hyp, A, G, B,
                 noise, precision):
     """Ng x (K2 + K3) and K2's epilogue, K2's Gram at `precision`; updates
-    u, w and A in place and returns sum_t omega."""
+    u, w and A in place and returns sum_t omega. At "default" and "sr" the
+    Grams read one bf16 stream of omega (omega holds bf16 values there),
+    made here once for the update's Ng K2 calls."""
     T, N = omega.shape
     GB, Ng = G * B, A.shape[0] // G
     sr = _sr_seeds(host_generator, noise, Ng) if precision == "sr" else None
+    om16 = omega_bf16_stream(omega) if precision != "high" else None
     dW = sum_om = None
     for g in range(Ng + 1):
         xp = Xt[(g - 1) * GB: g * GB] if g > 0 else None
@@ -264,7 +268,8 @@ def _fused_loop(generator, host_generator, Xt, omega, u, w, hyp, A, G, B,
         sr_seed = tuple(sr[g]) if sr is not None and xg is not None else (0, 0)
         m0, jgg, s = ss_group_pass(xp, xg, omega, u, dW,
                                    want_sum_omega=(g == 0),
-                                   precision=precision, sr_seed=sr_seed)
+                                   precision=precision, sr_seed=sr_seed,
+                                   om16=om16)
         if g == 0:
             sum_om = s
         if g == Ng:

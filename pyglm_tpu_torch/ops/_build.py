@@ -35,8 +35,9 @@ _ULL = ctypes.c_ulonglong
 # C entry points: name -> argument types. Each returns cudaGetLastError().
 _ENTRY_POINTS = {
     "pg_devroye_launch": [_P, _P, _LL, _ULL, _ULL, _P],
-    "ss_group_pass_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _ULL, _ULL, _P],
+    "ss_group_pass_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _ULL, _ULL, _P],
     "ss_edge_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _P],
     "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _P],

@@ -21,21 +21,17 @@ the kernel, CPU tensors take :func:`group_gram_blocks_plain`.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from pyglm_tpu_torch.ops import _build
-from pyglm_tpu_torch.ops.ss_cuda import (
-    _MAX_GB, _check_cuda_f32, pair_index, to_bf16,
+from pyglm_tpu_torch.ops.ss_cuda import (  # noqa: F401 (re-exported)
+    _MAX_GB, PAIR_TILE, _check_cuda_f32, _pair_table, omega_bf16_stream,
+    pair_index, pair_tile_plan, to_bf16,
 )
 
 # K6's bodies (csrc/group_gram.cu: group_gram_launch's "highest" 0 and
 # "high" 1, group_gram_bf16_launch) and their counters.
 _BODIES = {"highest": 0, "high": 1, "default": None}
-# Pair rows per tile of the "default" body (csrc/gram_wgmma.cuh kNP).
-PAIR_TILE = 168
-_NO_PAIR = -1                      # 0xFFFF as int16: a row past the last pair
 _K6_KEYS = {"highest": "group_gram", "high": "group_gram",
             "default": "group_gram_bf16"}
 
@@ -52,39 +48,6 @@ def _check_body(precision: str) -> None:
     if precision not in _BODIES:
         raise ValueError(f"group_gram: precision={precision!r}, one of "
                          f"{tuple(_BODIES)}")
-
-
-def pair_tile_plan(GB: int, device=None) -> torch.Tensor:
-    """The pair table of the "default" body: the packed pair rows of a
-    group of GB design rows (``pair_index``, row-major over p <= q) in
-    tiles of PAIR_TILE rows, as int16 entries p | q << 8, the last tile
-    padded with -1 (no pair). Shape (n_tiles * PAIR_TILE,); block x of the
-    kernel's grid takes entries [x PAIR_TILE, (x + 1) PAIR_TILE)."""
-    p, q = pair_index(GB, device)
-    n_tiles = -(-p.numel() // PAIR_TILE)
-    table = torch.full((n_tiles * PAIR_TILE,), _NO_PAIR, dtype=torch.int16,
-                       device=device)
-    table[:p.numel()] = (p | (q << 8)).to(torch.int16)
-    return table
-
-
-@functools.lru_cache(maxsize=None)
-def _pair_table(GB: int, device: torch.device) -> torch.Tensor:
-    return pair_tile_plan(GB, device)
-
-
-def omega_bf16_stream(omega: torch.Tensor) -> torch.Tensor:
-    """omega rounded once to bf16 (to nearest even, the values of
-    ``to_bf16``), as the (T, N8) torch.bfloat16 operand of the "default"
-    body: N8 = N rounded up to a multiple of 8, the pad lanes zero, so that
-    every row starts on a 16-byte boundary."""
-    T, N = omega.shape
-    N8 = -(-N // 8) * 8
-    if N8 == N:
-        return omega.to(torch.bfloat16).contiguous()
-    out = omega.new_zeros((T, N8), dtype=torch.bfloat16)
-    out[:, :N] = omega
-    return out
 
 
 def group_gram_blocks_plain(Xt, omega, B: int, G: int,

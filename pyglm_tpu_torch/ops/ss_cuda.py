@@ -16,10 +16,13 @@ Layouts (postsyn lanes n last, float32, contiguous):
   mu (G, N, B), lam (G, N, B, B), lrho (G, N), u_a (G, N), eps (G, N, B)
 
 K2's Gram runs in the mode of the caller's precision, as the TPU kernel's
-`gram` (``ss_pallas.py:343-349``): "high" 3xTF32, "default" one bf16 pass
-(Z and omega rounded to nearest even), "sr" one bf16 pass on a
-stochastically rounded Z. The words of "sr"'s rounding come from a Philox
-stream selected by a (seed, offset) pair per call, on the card in the
+`gram` (``ss_pallas.py:343-349``): "high" 3xTF32 (``csrc/gram_tc.cuh``),
+"default" one bf16 pass (Z and omega rounded to nearest even), "sr" one
+bf16 pass on a stochastically rounded Z, both on wgmma
+(``csrc/gram_wgmma.cuh``) over a bf16 omega stream (:func:`omega_bf16_stream`,
+made once per update by the fused loop) with T split as
+:func:`gram_split_plan` says. The words of "sr"'s rounding come from a
+Philox stream selected by a (seed, offset) pair per call, on the card in the
 kernel and on the CPU from :func:`sr_words`, which repeats the kernel's
 draw, so both devices round Z alike for one pair.
 
@@ -27,6 +30,8 @@ Dispatch: :func:`ss_group_pass` and :func:`ss_edge_scan` launch the kernel
 for CUDA tensors and take the plain version for CPU tensors only.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -56,7 +61,8 @@ def unpack_gram(jgg: torch.Tensor, GB: int) -> torch.Tensor:
 # The bf16 rounding of the Gram modes "default" and "sr"
 # ---------------------------------------------------------------------------
 
-# K2's Gram modes (csrc/gram_tc.cuh::Mode) and their launch counters.
+# K2's Gram modes (the `gram` argument of ss_group_pass_launch) and their
+# launch counters.
 _GRAM_MODES = {"high": 0, "default": 1, "sr": 2}
 _K2_KEYS = {"high": "ss_group_pass", "default": "ss_group_pass_bf16",
             "sr": "ss_group_pass_sr"}
@@ -68,7 +74,7 @@ def philox4x32(c, k):
     """Philox4x32-10 over numpy arrays: c a 4-tuple of counter words, k a
     2-tuple of key words (each an array of 32-bit values, broadcast
     together); returns the 4 output words as uint64 arrays (the generator
-    of csrc/gram_tc.cuh::philox)."""
+    of csrc/gram_wgmma.cuh::philox)."""
     c = [np.asarray(x, np.uint64) for x in np.broadcast_arrays(*c)]
     k0, k1 = (np.asarray(x, np.uint64) for x in k)
     for _ in range(10):
@@ -108,6 +114,70 @@ def sr_round(x: torch.Tensor, r16: torch.Tensor) -> torch.Tensor:
 def to_bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bf16 (to nearest even), as float32."""
     return x.to(torch.bfloat16).float()
+
+
+def omega_bf16_stream(omega: torch.Tensor) -> torch.Tensor:
+    """omega rounded once to bf16 (to nearest even, the values of
+    ``to_bf16``), as the (T, N8) torch.bfloat16 operand of the wgmma Gram
+    bodies (K2's "default" and "sr", K6's "default"): N8 = N rounded up to a
+    multiple of 8, the pad lanes zero, so that every row starts on a 16-byte
+    boundary."""
+    T, N = omega.shape
+    N8 = -(-N // 8) * 8
+    if N8 == N:
+        return omega.to(torch.bfloat16).contiguous()
+    out = omega.new_zeros((T, N8), dtype=torch.bfloat16)
+    out[:, :N] = omega
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The tiles of the wgmma Gram body (csrc/gram_wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+PAIR_TILE = 168        # pair rows per tile (gram_wgmma.cuh kNP)
+LANE_TILE = 128        # postsyn lanes per tile (kLT)
+STAGE_STEPS = 64       # time steps per stage (kKS)
+_NO_PAIR = -1          # 0xFFFF as int16: a row past the last pair
+_H100_SMS = 132
+
+
+def pair_tile_plan(GB: int, device=None) -> torch.Tensor:
+    """The pair table of the wgmma body: the packed pair rows of a group of
+    GB design rows (``pair_index``, row-major over p <= q) in tiles of
+    PAIR_TILE rows, as int16 entries p | q << 8, the last tile padded with
+    -1 (no pair). Shape (n_tiles * PAIR_TILE,); a block of pair tile x takes
+    entries [x PAIR_TILE, (x + 1) PAIR_TILE)."""
+    p, q = pair_index(GB, device)
+    n_tiles = -(-p.numel() // PAIR_TILE)
+    table = torch.full((n_tiles * PAIR_TILE,), _NO_PAIR, dtype=torch.int16,
+                       device=device)
+    table[:p.numel()] = (p | (q << 8)).to(torch.int16)
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_table(GB: int, device: torch.device) -> torch.Tensor:
+    return pair_tile_plan(GB, device)
+
+
+def gram_split_plan(T: int, N: int, GB: int,
+                    n_sm: int = _H100_SMS) -> tuple[int, int]:
+    """(n_split, steps per split) of K2's wgmma Gram: split s takes the
+    steps [s steps, min(T, (s + 1) steps)), steps a multiple of the
+    64-step stage, so that every split starts on a stage and on an 8-step
+    Philox chunk, and no split is empty. The grid is n_split x (pair tiles
+    x lane tiles) blocks at one block per SM: as many splits as fill one
+    wave of `n_sm` SMs with whole splits, but at least 8 stages per split
+    and partials (n_split x npair x N float32) at most a quarter of the
+    bf16 omega stream's bytes. At the flagship group (GB = 32, N = 200,
+    T = 1e5: 4 x 2 tiles) 16 splits of 6272 steps, 128 blocks."""
+    npair = GB * (GB + 1) // 2
+    tiles = -(-npair // PAIR_TILE) * -(-N // LANE_TILE)
+    stages = -(-T // STAGE_STEPS)
+    n_split = max(1, min(n_sm // tiles, stages // 8, T // (8 * npair)))
+    steps = -(-stages // n_split) * STAGE_STEPS
+    return -(-T // steps), steps
 
 
 # ---------------------------------------------------------------------------
@@ -157,8 +227,9 @@ _K2_BLOCKS = 1152
 
 
 def _n_split(T: int, N: int, GB: int) -> int:
-    """Time splits of K2's Gram: about _K2_BLOCKS blocks in all (~4.4 waves
-    of 2 blocks on each of the H100's 132 SMs; 58 and 114 splits measured
+    """Time splits of K2's 3xTF32 Gram: about _K2_BLOCKS blocks in all
+    (~4.4 waves of 2 blocks on each of the H100's 132 SMs; 58 and 114 splits
+    measured
     slower at the flagship), at least 256 time steps per split and at most
     128 splits. At the flagship (T = 1e5, N = 200, GB = 32: 2 lane x 9 row
     tiles) that is 64 splits; at 4000 lanes and GB = 40 (32 x 13 tiles) 3,
@@ -181,13 +252,27 @@ def _n_split_scatter(T: int) -> int:
     return max(1, min(1024, -(-T // 256)))
 
 
+def _check_om16(om16, omega):
+    """The bf16 omega operand must be ``omega_bf16_stream(omega)``'s
+    layout: contiguous (T, N8) torch.bfloat16 on omega's device."""
+    T, N = omega.shape
+    N8 = -(-N // 8) * 8
+    if (om16.dtype != torch.bfloat16 or tuple(om16.shape) != (T, N8)
+            or not om16.is_contiguous() or om16.device != omega.device):
+        raise ValueError(f"om16: need a contiguous ({T}, {N8}) bfloat16 "
+                         f"tensor on {omega.device} (omega_bf16_stream), got "
+                         f"{om16.dtype} {tuple(om16.shape)} on {om16.device}")
+
+
 def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
-                       precision="high", sr_seed=(0, 0)):
+                       precision="high", sr_seed=(0, 0), om16=None):
     """K2 on the card; same contract as :func:`ss_group_pass_plain`. The
-    Gram runs in `precision`'s mode on the tensor cores ("sr" rounds Z by
-    the Philox words of ``sr_seed`` = (seed, offset), those of
-    :func:`sr_words`); M0 runs 3xTF32 and the scatter and sum_t omega fp32
-    in every mode."""
+    Gram runs in `precision`'s mode: "high" 3xTF32 on the mma.sync tile
+    loop; "default" and "sr" one bf16 pass on wgmma over `om16`, omega's
+    bf16 stream (:func:`omega_bf16_stream`; made here when not given), "sr"
+    rounding Z by the Philox words of ``sr_seed`` = (seed, offset), those of
+    :func:`sr_words`. M0 runs 3xTF32 and the scatter and sum_t omega fp32
+    (on the float32 omega) in every mode."""
     if precision not in _GRAM_MODES:
         raise ValueError(f"ss_group_pass: precision={precision!r}, one of "
                          f"{tuple(_GRAM_MODES)}")
@@ -210,9 +295,22 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
         _check_cuda_f32("xp", xp, (GB, T))
         _check_cuda_f32("dw", dw, (GB, N))
     npair = GB * (GB + 1) // 2
-    n_split = _n_split(T, N, GB)
-    n_split_m, n_split_s = _n_split_m0(T, N, GB), _n_split_scatter(T)
     dev = omega.device
+    # The wgmma body's operands: omega's bf16 stream and the pair table.
+    om16_p = pq_p = None
+    N8, ntile = N, 0
+    if precision != "high" and xg is not None:
+        if om16 is None:
+            om16 = omega_bf16_stream(omega)
+        _check_om16(om16, omega)
+        pq = _pair_table(GB, dev)
+        om16_p, pq_p = om16.data_ptr(), pq.data_ptr()
+        N8, ntile = om16.shape[1], pq.numel() // PAIR_TILE
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        n_split = gram_split_plan(T, N, GB, n_sm)[0]
+    else:
+        n_split = _n_split(T, N, GB)
+    n_split_m, n_split_s = _n_split_m0(T, N, GB), _n_split_scatter(T)
     part_g = part_m = part_s = out = None
     if xg is not None:
         f32 = dict(dtype=torch.float32, device=dev)
@@ -226,10 +324,11 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.ss_group_pass_launch(
-            ptr(xg), ptr(xp), omega.data_ptr(), u.data_ptr(),
+            ptr(xg), ptr(xp), omega.data_ptr(), om16_p, pq_p, u.data_ptr(),
             ptr(dw) if xp is not None else None, ptr(part_g), ptr(part_m),
-            ptr(part_s), ptr(out), T, N, GB, n_split, n_split_m, n_split_s,
-            int(want_sum_omega), _GRAM_MODES[precision], seed, offset,
+            ptr(part_s), ptr(out), T, N, N8, GB, n_split, n_split_m,
+            n_split_s, ntile, int(want_sum_omega), _GRAM_MODES[precision],
+            seed, offset,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ss_group_pass")
     _build.LAUNCHES[_K2_KEYS[precision]] += 1
@@ -240,12 +339,17 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
 
 
 def ss_group_pass(xp, xg, omega, u, dw, want_sum_omega=False,
-                  precision="high", sr_seed=(0, 0)):
+                  precision="high", sr_seed=(0, 0), om16=None):
     """K2 for CUDA tensors, its plain version for CPU tensors; at "sr" both
-    round Z by the words of ``sr_seed`` = (seed, offset)."""
+    round Z by the words of ``sr_seed`` = (seed, offset). `om16`, omega's
+    bf16 stream (:func:`omega_bf16_stream`), is checked on either device
+    when given and read only by the card's bf16 and SR Gram bodies; the
+    plain version rounds omega itself."""
+    if om16 is not None:
+        _check_om16(om16, omega)
     if omega.is_cuda:
         return ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega,
-                                  precision, sr_seed)
+                                  precision, sr_seed, om16)
     if omega.device.type != "cpu":
         raise ValueError(f"ss_group_pass: unsupported device {omega.device}")
     r16 = None
