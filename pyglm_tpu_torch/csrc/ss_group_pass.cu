@@ -298,8 +298,8 @@ cudaError_t launch_gram(const float* xg, const float* om,
       return launch_wgmma<false>(xg, om16, pq, part, T, N, N8, GB, n_split,
                                  ntile, 0, 0, s);
     case 2:
-      return launch_tc<gram_tc::kSr>(xg, om, part, T, N, GB, 1, n_split,
-                                     seed, offset, s);
+      return launch_wgmma<true>(xg, om16, pq, part, T, N, N8, GB, n_split,
+                                ntile, seed, offset, s);
   }
   return cudaErrorInvalidValue;
 }
