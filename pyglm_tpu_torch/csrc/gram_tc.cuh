@@ -7,33 +7,19 @@
 // p <= q, of one group's GB design rows and B = omega (the Gram), or
 // Z = X and B = u (K2's gather M0 = X_g u); kMT rows by kNT postsyn lanes.
 //
-// Arithmetic, one of three modes (the template parameter of gram_tile):
-//   - kTf32x3 (precision "high"): each operand x is split as hi = tf32(x)
-//     (rounded to nearest, as cvt.rna) and lo = x - hi (which the tensor
-//     cores read as TF32), and every product is a.b ~ a_lo b_hi + a_hi b_lo
-//     + a_hi b_hi: three mma.sync.m16n8k8 TF32 products accumulated in
-//     fp32, small terms first. That is ~fp32 accuracy; the JAX package's
-//     "high" is the same trick in bf16x3 on the TPU's matrix unit.
-//   - kBf16 (precision "default"): Z and B rounded to bf16 (to nearest
-//     even) as the fragments are loaded, packed two per register, and one
-//     mma.sync.m16n8k16 bf16 product per fragment pair: the single bf16
-//     pass of the TPU kernels (ss_pallas.py gram == "bf16",
-//     gram_pallas.py::_gram_kernel_fast). Products of bf16 values are exact
-//     in fp32, so only the rounding of the operands and the order of the
-//     sums differ from an fp32 Gram.
-//   - kSr (precision "sr"): as kBf16, but Z is rounded stochastically when
-//     it is formed, (bits(Z) + r16) & 0xFFFF0000 with r16 uniform on
-//     [0, 2^16) (ss_pallas.py::_sr16), so E[sr(Z)] = Z. r16 comes from a
-//     Philox4x32-10 keyed on the caller's seed, with counter (t / 8, pr,
-//     offset): one draw gives the words of 8 time steps, and every lane
-//     tile and time split rounds Z[pr, t] the same way, as the TPU rounds
-//     Z once per chunk for all lanes (ops/ss_cuda.py::sr_words repeats it).
-// In every mode the tensor cores add into their fp32 accumulator with
-// truncation (a one-sided error that grows with the number of adds: 7.6e-5
-// relative over T = 2e4 on the H100), so the accumulator is folded into a
-// second fp32 sum every `fold` stages, chosen by the caller, by a Fast2Sum
-// whose rounding error seeds the next chunk: the truncated chains stay
-// short and the folds add almost no error.
+// Arithmetic (precision "high"): each operand x is split as hi = tf32(x)
+// (rounded to nearest, as cvt.rna) and lo = x - hi (which the tensor cores
+// read as TF32), and every product is a.b ~ a_lo b_hi + a_hi b_lo + a_hi
+// b_hi: three mma.sync.m16n8k8 TF32 products accumulated in fp32, small
+// terms first. That is ~fp32 accuracy; the JAX package's "high" is the
+// same trick in bf16x3 on the TPU's matrix unit. (The bf16 and SR Grams of
+// "default" and "sr" run on wgmma, gram_wgmma.cuh.) The tensor cores add
+// into their fp32 accumulator with truncation (a one-sided error that
+// grows with the number of adds: 7.6e-5 relative over T = 2e4 on the
+// H100), so the accumulator is folded into a second fp32 sum every `fold`
+// stages, chosen by the caller, by a Fast2Sum whose rounding error seeds
+// the next chunk: the truncated chains stay short and the folds add almost
+// no error.
 //
 // Data movement: a ring of kStages shared-memory stages, each kKT time steps
 // of the GB design rows and of a (kKT, kNT) omega tile, filled by cp.async
@@ -43,17 +29,14 @@
 // double-buffered shared tile (never in device memory), after the block's
 // products of the previous stage, so it overlaps slower warps' products.
 // The warps read their A fragments from it and their B fragments from the
-// omega stage, one k-step ahead of the products, and split them (or round
-// them to bf16) in registers. One __syncthreads() per stage.
+// omega stage, one k-step ahead of the products, and split them in
+// registers. One __syncthreads() per stage.
 //
 // What bounds it on the H100: mma.sync TF32 peaks near 310 TFLOP/s (about
 // 65% of the card's dense TF32 peak of 495), so 3xTF32 is bounded near 100
 // TFLOP/s of fp32 work (diagnostics/mma_peak.py); beside it the loads,
 // the split, the Z build and the barrier, which do not overlap the products
-// well (PERF.md). The bf16 modes make a sixth of those tensor-core
-// instructions (one m16n8k16 for two k-steps of three m16n8k8), at about
-// twice the rate (fp16/bf16 mma.sync ~620 TFLOP/s), so the loads, the Z
-// build (with kSr's Philox) and the barrier set their pace.
+// well (PERF.md).
 // Tiles: 64 pair rows x 128 lanes over 8 warps (2 along rows x 4 along
 // lanes), each warp 2 x 4 fragments of 16 x 8 (its lane fragments dealt
 // round robin, see gram_tile); a warp skips the fragments
@@ -67,9 +50,6 @@
 #include <stdint.h>
 
 namespace gram_tc {
-
-// Arithmetic modes of gram_tile (see the head of this file).
-enum Mode : int { kTf32x3 = 0, kBf16 = 1, kSr = 2 };
 
 constexpr int kMT = 64;          // rows of Z per block tile
 constexpr int kNT = 128;         // postsyn lanes per block tile
@@ -132,56 +112,6 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b for one 16 x 8 x 16 bf16 fragment product, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// lo and hi rounded to bf16 (to nearest even), packed: lo in the low half.
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-// Philox4x32-10 (Salmon et al. 2011, the generator of curand's Philox
-// states): four 32-bit words from counter c and key k.
-__device__ __forceinline__ uint4 philox(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// Stochastic rounding of x to bf16 by the 16-bit word r: the result is one
-// of x's two bf16 neighbours (x itself when x is a bf16 value), the upper
-// one with probability proportional to x's distance from the lower.
-__device__ __forceinline__ float sr16(float x, uint32_t r) {
-  return __uint_as_float((__float_as_uint(x) + (r & 0xFFFFu)) & 0xFFFF0000u);
-}
-
-// The 2 x 4 bf16 products of one 16-step k-step (kBf16, kSr).
-template <bool kFull>
-__device__ __forceinline__ void products_bf16(float (&acc)[2][4][4],
-                                              const uint32_t (&a)[2][4],
-                                              const uint32_t (&b)[4][2],
-                                              int mf, int nf) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (kFull || (i < mf && j < nf)) mma_bf16(acc[i][j], a[i], b[j]);
-}
-
 // The 3 x (2 x 4) products of one k-step, small terms first. kFull: all
 // of the warp's fragments hold valid rows and lanes, so no test is made
 // (tests between the products would keep the compiler from interleaving
@@ -216,15 +146,11 @@ __device__ __forceinline__ void products(float (&acc)[2][4][4],
 // loop with another B operand: K2's gather M0 = X_g u.
 // vec_x / vec_o: the rows of x / om (and their base) are 16-byte aligned.
 // fold: stages between folds of the tensor-core accumulators into the
-// second fp32 sum. seed, offset: the Philox key and counter words of kSr's
-// rounding (unused otherwise); kSr takes pairs = true and t_begin a
-// multiple of 8. smem: smem_floats(GB) floats of dynamic shared memory.
-template <int kMode>
+// second fp32 sum. smem: smem_floats(GB) floats of dynamic shared memory.
 __device__ __forceinline__ void gram_tile(
     const float* __restrict__ x, int ldx, int GB, bool pairs,
     const float* __restrict__ om, int N, int t_begin, int t_end, int lane0,
     int row0, int npair, bool vec_x, bool vec_o, int fold,
-    unsigned long long seed, unsigned long long offset,
     float* __restrict__ out, float* smem) {
   float* xs = smem;                                   // [kStages][GB][kKT]
   float* os = xs + kStages * GB * kKT;                // [kStages][kKT][kOS]
@@ -301,18 +227,9 @@ __device__ __forceinline__ void gram_tile(
     }
   };
 
-  // Z of stage s, formed once per block (kSr: rounded stochastically, the
-  // words of this thread's 8 steps from one Philox draw).
-  static_assert(kMode != kSr || kZE == 8, "one Philox draw per 8 steps");
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  // Z of stage s, formed once per block.
   auto build_z = [&](int s) {
     const float* xsrc = xs + (s % kStages) * GB * kKT;
-    uint4 r = make_uint4(0u, 0u, 0u, 0u);
-    if (kMode == kSr && zq >= 0)
-      r = philox(make_uint4((uint32_t)((t_begin + s * kKT + zk) >> 3),
-                            (uint32_t)(row0 + zr), (uint32_t)offset,
-                            (uint32_t)(offset >> 32)),
-                 key);
 #pragma unroll
     for (int h = 0; h < kZE; h += 4) {
       float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -322,11 +239,6 @@ __device__ __forceinline__ void gram_tile(
           const float4 b =
               *reinterpret_cast<const float4*>(xsrc + zq * kKT + zk + h);
           z = make_float4(z.x * b.x, z.y * b.y, z.z * b.z, z.w * b.w);
-          if (kMode == kSr) {
-            const uint32_t r0 = h == 0 ? r.x : r.z, r1 = h == 0 ? r.y : r.w;
-            z = make_float4(sr16(z.x, r0), sr16(z.y, r0 >> 16),
-                            sr16(z.z, r1), sr16(z.w, r1 >> 16));
-          }
         }
       }
       *reinterpret_cast<float4*>(zs + ((s & 1) * kMT + zr) * kZS + zk + h) =
@@ -380,52 +292,22 @@ __device__ __forceinline__ void gram_tile(
       const float* zb = zs + ((s & 1) * kMT + 32 * wm) * kZS;
       const float* ob = os + (s % kStages) * kKT * kOS + 8 * wn;
       load_frags(zb, ob, 0);
-      if constexpr (kMode == kBf16 || kMode == kSr) {
-        // A 16-step k-step from two 8-step raw fragments: the mma's k index
-        // 2 tig + e of each half stands for step tig + 4 e, in A and B alike
-        // (the sum over k is the same; the loads stay conflict-free).
 #pragma unroll
-        for (int kk = 0; kk < kKT; kk += 16) {
-          uint32_t a[2][4], b[4][2];
+      for (int kk = 0; kk < kKT; kk += 8) {
+        uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            a[i][0] = bf16x2(ar[i][0], ar[i][2]);
-            a[i][1] = bf16x2(ar[i][1], ar[i][3]);
-          }
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) b[j][0] = bf16x2(br[j][0], br[j][1]);
-          load_frags(zb, ob, kk + 8);
+          for (int e = 0; e < 4; ++e) split(ar[i][e], ah[i][e], al[i][e]);
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            a[i][2] = bf16x2(ar[i][0], ar[i][2]);
-            a[i][3] = bf16x2(ar[i][1], ar[i][3]);
-          }
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) b[j][1] = bf16x2(br[j][0], br[j][1]);
-          if (kk + 16 < kKT) load_frags(zb, ob, kk + 16);
-          if (full)
-            products_bf16<true>(acc, a, b, mf, nf);
-          else
-            products_bf16<false>(acc, a, b, mf, nf);
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < kKT; kk += 8) {
-          uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) split(ar[i][e], ah[i][e], al[i][e]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) split(br[j][e], bh[j][e], bl[j][e]);
-          if (kk + 8 < kKT) load_frags(zb, ob, kk + 8);
-          if (full)
-            products<true>(acc, ah, al, bh, bl, mf, nf);
-          else
-            products<false>(acc, ah, al, bh, bl, mf, nf);
-        }
+          for (int e = 0; e < 2; ++e) split(br[j][e], bh[j][e], bl[j][e]);
+        if (kk + 8 < kKT) load_frags(zb, ob, kk + 8);
+        if (full)
+          products<true>(acc, ah, al, bh, bl, mf, nf);
+        else
+          products<false>(acc, ah, al, bh, bl, mf, nf);
       }
     }
     // Z of the next stage, while slower warps still run their products.

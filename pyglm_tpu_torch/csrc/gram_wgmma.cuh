@@ -5,11 +5,14 @@
 //   C[pr, n] = sum_{t_begin <= t < t_end} bf16(X[p, t] X[q, t]) bf16(om[t, n])
 //
 // over the pair rows pr -> (p, q) of a group's GB design rows: the product
-// formed in fp32 from the fp32 design and rounded to nearest even, omega
-// read as bf16 (the caller rounds it once), the sums in fp32. K6's
-// "default" body (group_gram.cu) runs it; it replaces
+// formed in fp32 from the fp32 design and rounded to nearest even (or, with
+// kSr, stochastically by Philox words, as ss_pallas.py::_sr16), omega read
+// as bf16 (the caller rounds it once), the sums in fp32. K6's "default"
+// body (group_gram.cu) runs it over all of T, replacing
 // pyglm_tpu/ops/gram_pallas.py::_gram_kernel_fast (pallas_call at :143),
-// whose MXU takes bf16 omega and a bf16 Z the same way.
+// whose MXU takes bf16 omega and a bf16 Z the same way; K2's "default" and
+// "sr" Grams (ss_group_pass.cu) run it over splits of T, replacing the
+// gram == "bf16" and "sr" bodies of ss_pallas.py::_make_kernel (:343-347).
 //
 // Bound on the H100 at config 5 (Ng = 50 groups of GB = 40, 4000 lanes,
 // T = 2e4): 3.28e12 FMA, 6.63 ms at the 989 TFLOP/s bf16 peak; the bytes
@@ -54,7 +57,9 @@
 //     accumulators are folded every kFold stages (256 steps) into a second
 //     fp32 sum by Fast2Sum, as in gram_tc.cuh: 3.0e-7 from a float64 Gram
 //     at config 5 (1.8e-7 folded every 128 steps; the plain version
-//     5.7e-7). No split of T and no atomics: results repeat bit for bit.
+//     5.7e-7). No atomics: a tile's sums run in one order (K2's splits of
+//     T are summed in split order by its reduction), so results repeat bit
+//     for bit.
 #pragma once
 
 #include <cuda_runtime.h>

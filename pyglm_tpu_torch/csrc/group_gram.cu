@@ -19,7 +19,7 @@
 // of the TPU kernel's GB x GB block (820 pairs instead of 1600 at GB = 40).
 //
 // Three bodies, chosen by the caller's precision:
-//   - "high": group_gram_tc_kernel<kTf32x3>, 3xTF32 on the tensor cores with
+//   - "high": group_gram_tc_kernel, 3xTF32 on the tensor cores with
 //     the tile loop shared with K2 (gram_tc.cuh): cp.async ring, Z = X_p X_q
 //     formed once per stage in shared memory, fragments past the last pair
 //     row or lane skipped, the fp32 accumulators folded every 128 steps
@@ -192,25 +192,23 @@ group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
   }
 }
 
-// "high" (kTf32x3) on the tensor cores, one tile of one group per block.
-template <int kMode>
+// "high" (3xTF32) on the tensor cores, one tile of one group per block.
 __global__ void __launch_bounds__(gram_tc::kThreads, 2)
 group_gram_tc_kernel(const float* __restrict__ xt, const float* __restrict__ om,
                      float* __restrict__ out, int T, int N, int GB, int vec_x,
                      int vec_o) {
   extern __shared__ __align__(16) float smem[];
   const int g = blockIdx.z, npair = GB * (GB + 1) / 2;
-  gram_tc::gram_tile<kMode>(xt + (size_t)g * GB * T, T, GB, true, om, N, 0,
-                            T, blockIdx.x * gram_tc::kNT,
-                            blockIdx.y * gram_tc::kMT, npair, vec_x, vec_o,
-                            kFold, 0, 0, out + (size_t)g * npair * N, smem);
+  gram_tc::gram_tile(xt + (size_t)g * GB * T, T, GB, true, om, N, 0, T,
+                     blockIdx.x * gram_tc::kNT, blockIdx.y * gram_tc::kMT,
+                     npair, vec_x, vec_o, kFold, out + (size_t)g * npair * N,
+                     smem);
 }
 
-template <int kMode>
 cudaError_t launch_tc(const float* xt, const float* om, float* out, int T,
                       int N, int GB, int Ng, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      group_gram_tc_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      group_gram_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       gram_tc::smem_floats(gram_tc::kMaxGB) * (int)sizeof(float));
   if (attr != cudaSuccess) return attr;
   const int npair = GB * (GB + 1) / 2;
@@ -218,7 +216,7 @@ cudaError_t launch_tc(const float* xt, const float* om, float* out, int T,
   const int vec_o = N % 4 == 0 && (size_t)om % 16 == 0;
   dim3 grid((N + gram_tc::kNT - 1) / gram_tc::kNT,
             (npair + gram_tc::kMT - 1) / gram_tc::kMT, Ng);
-  group_gram_tc_kernel<kMode>
+  group_gram_tc_kernel
       <<<grid, gram_tc::kThreads, gram_tc::smem_floats(GB) * (int)sizeof(float),
          s>>>(xt, om, out, T, N, GB, vec_x, vec_o);
   return cudaGetLastError();
@@ -307,7 +305,7 @@ extern "C" int group_gram_launch(const float* xt, const float* om, float* out,
       return (int)cudaGetLastError();
     }
     case 1:
-      return (int)launch_tc<gram_tc::kTf32x3>(xt, om, out, T, N, GB, Ng, s);
+      return (int)launch_tc(xt, om, out, T, N, GB, Ng, s);
   }
   return (int)cudaErrorInvalidValue;
 }

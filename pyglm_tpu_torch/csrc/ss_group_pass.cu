@@ -18,28 +18,38 @@
 // partials in a fixed order, so results repeat from run to run. No atomics.
 //
 // The Gram's mode is the caller's precision, as the TPU kernel's `gram`:
-// "high" 3xTF32 (bf16x3 there), "default" one bf16 pass (gram == "bf16",
-// :343-345), "sr" one bf16 pass on a stochastically rounded Z (gram ==
-// "sr", :346-347, with the rounding of _sr16), all on the tile loop of
-// gram_tc.cuh. M0 stays 3xTF32 and the scatter fp32 in every mode, as the
-// TPU kernel keeps them f32-grade (_mm3); at "default" and "sr" the caller
-// passes omega already rounded to bf16 (ss_pallas.py:409-413). Three
-// kernels:
+// "high" 3xTF32 (bf16x3 there) on the mma.sync tile loop of gram_tc.cuh;
+// "default" one bf16 pass (gram == "bf16", :343-345) and "sr" one bf16
+// pass on a stochastically rounded Z (gram == "sr", :346-347, with the
+// rounding of _sr16), both on the wgmma tile of gram_wgmma.cuh over a bf16
+// omega stream that the caller rounds once per update (the TPU kernel
+// streams omega as bf16 there, ss_pallas.py:409-413). M0 stays 3xTF32 and
+// the scatter fp32 in every mode, as the TPU kernel keeps them f32-grade
+// (_mm3); at "default" and "sr" the caller's fp32 omega holds the same
+// bf16 values. Kernels:
 //   - scatter_kernel: u -= omega (X_p^T dW) and sum_t omega in fp32 FMA (u
 //     carries the residual across all groups, so its update stays fp32);
 //     one thread per postsyn lane with dW in registers, u and omega
 //     streamed through shared memory by cp.async; memory-bound, in place;
-//   - gram_tc_kernel (gram_tc.cuh, the tile loop shared with K6), twice:
-//     the packed Gram of omega (Z = X_p X_q formed in shared memory, never
-//     stored) and M0 = X_g u (Z = X_g).
+//   - gram_tc_kernel (gram_tc.cuh, the tile loop shared with K6's "high"
+//     body): M0 = X_g u (Z = X_g) in every mode, and the packed Gram of
+//     omega (Z = X_p X_q formed in shared memory, never stored) at "high";
+//   - group_pass_wgmma_kernel<kSr> (gram_wgmma.cuh, the tile of K6's
+//     "default" body): the packed Gram at "default" and "sr", a block per
+//     (split of T, tile of 168 pair rows, tile of 128 lanes). Its splits
+//     are whole 64-step stages, so every split starts on a stage and on an
+//     8-step Philox chunk (the SR words of (t / 8, pr) are the same for
+//     every tile and split), and as many as fill one wave at one block per
+//     SM (16 at the flagship group: 128 blocks of ~98 stages).
 // The Gram needs only omega, so it runs on the caller's stream beside the
 // scatter and then M0 on a side stream.
 //
 // Bound on the H100: at "high" the Gram, GB(GB+1)/2 * N * T FMAs per group
 // (1.06e10 at GB=32, N=200, T=1e5), as three TF32 tensor-core products each,
 // over 495 TFLOP/s. At "default" and "sr" the Gram's one bf16 pass over 989
-// TFLOP/s is ~0.02 ms, and the call turns bound by its bytes (u read and
-// written by the scatter and read by M0, omega read twice: ~0.1 ms).
+// TFLOP/s is ~0.021 ms, its bf16 omega 0.012 ms at 3.35 TB/s, and the call
+// turns bound by its bytes (u read and written by the scatter and read by
+// M0, omega read twice: ~0.1 ms).
 
 #include <cuda_runtime.h>
 
@@ -52,8 +62,7 @@ constexpr int kLanes = 128;  // scatter: one thread per postsyn lane
 constexpr int kCh = 16;      // time steps per chunk
 constexpr int kMaxGB = 64;
 constexpr int kMaxDevices = 16;
-// Tile-loop stages per fold (128 steps) in every mode, as in K6
-// (group_gram.cu).
+// 3xTF32 tile-loop stages per fold (128 steps), as in K6 (group_gram.cu).
 constexpr int kFold = 4;
 
 template <int R>
@@ -153,24 +162,21 @@ scatter_kernel(const float* __restrict__ xp, const float* __restrict__ om,
   if (want_sumom && lane_ok) part[(size_t)blockIdx.x * N + n] = sum_om;
 }
 
-// One tile loop per block over its split of T, in mode kMode: the packed
-// Gram X_g diag(B) X_g^T (pairs = 1, B = omega) or X_g B (pairs = 0,
-// B = u), as (n_split, n_rows, N) partials.
-template <int kMode>
+// One 3xTF32 tile loop per block over its split of T: the packed Gram
+// X_g diag(B) X_g^T (pairs = 1, B = omega) or X_g B (pairs = 0, B = u), as
+// (n_split, n_rows, N) partials.
 __global__ void __launch_bounds__(gram_tc::kThreads, 2)
 gram_tc_kernel(const float* __restrict__ xg, const float* __restrict__ b,
                float* __restrict__ part, int T, int N, int GB, int pairs,
-               int n_rows, int rows_per_split, int vec_x, int vec_b,
-               unsigned long long seed, unsigned long long offset) {
+               int n_rows, int rows_per_split, int vec_x, int vec_b) {
   extern __shared__ __align__(16) float smem[];
   const int split = blockIdx.x;
   const int t_begin = split * rows_per_split;
   const int t_end = min(T, t_begin + rows_per_split);
-  gram_tc::gram_tile<kMode>(xg, T, GB, pairs, b, N, t_begin, t_end,
-                            blockIdx.y * gram_tc::kNT,
-                            blockIdx.z * gram_tc::kMT, n_rows, vec_x, vec_b,
-                            kFold, seed, offset,
-                            part + (size_t)split * n_rows * N, smem);
+  gram_tc::gram_tile(xg, T, GB, pairs, b, N, t_begin, t_end,
+                     blockIdx.y * gram_tc::kNT, blockIdx.z * gram_tc::kMT,
+                     n_rows, vec_x, vec_b, kFold,
+                     part + (size_t)split * n_rows * N, smem);
 }
 
 // The bf16 Gram ("default") or the SR Gram ("sr", kSr) of omega on wgmma
@@ -239,13 +245,10 @@ cudaError_t launch_scatter(const float* xp, const float* om, float* u,
                               want_sumom, s);
 }
 
-template <int kMode>
 cudaError_t launch_tc(const float* xg, const float* b, float* part, int T,
-                      int N, int GB, int pairs, int n_split,
-                      unsigned long long seed, unsigned long long offset,
-                      cudaStream_t s) {
+                      int N, int GB, int pairs, int n_split, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gram_tc_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gram_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       gram_tc::smem_floats(gram_tc::kMaxGB) * (int)sizeof(float));
   if (attr != cudaSuccess) return attr;
   const int n_rows = pairs ? GB * (GB + 1) / 2 : GB;
@@ -253,12 +256,11 @@ cudaError_t launch_tc(const float* xg, const float* b, float* part, int T,
   rows = (rows + gram_tc::kKT - 1) / gram_tc::kKT * gram_tc::kKT;
   const int vec_x = T % 4 == 0 && (size_t)xg % 16 == 0;
   const int vec_b = N % 4 == 0 && (size_t)b % 16 == 0;
-  gram_tc_kernel<kMode>
+  gram_tc_kernel
       <<<dim3(n_split, (N + gram_tc::kNT - 1) / gram_tc::kNT,
               (n_rows + gram_tc::kMT - 1) / gram_tc::kMT),
          gram_tc::kThreads, gram_tc::smem_floats(GB) * (int)sizeof(float),
-         s>>>(xg, b, part, T, N, GB, pairs, n_rows, rows, vec_x, vec_b, seed,
-              offset);
+         s>>>(xg, b, part, T, N, GB, pairs, n_rows, rows, vec_x, vec_b);
   return cudaGetLastError();
 }
 
@@ -292,8 +294,7 @@ cudaError_t launch_gram(const float* xg, const float* om,
                         unsigned long long offset, cudaStream_t s) {
   switch (gram) {
     case 0:
-      return launch_tc<gram_tc::kTf32x3>(xg, om, part, T, N, GB, 1, n_split,
-                                         0, 0, s);
+      return launch_tc(xg, om, part, T, N, GB, 1, n_split, s);
     case 1:
       return launch_wgmma<false>(xg, om16, pq, part, T, N, N8, GB, n_split,
                                  ntile, 0, 0, s);
@@ -394,9 +395,8 @@ extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
                             GB, n_split_s, want_sumom, sd->stream)) !=
           cudaSuccess)
     return (int)err;
-  if ((err = launch_tc<gram_tc::kTf32x3>(xg, u, part_m, T, N, GB, 0,
-                                         n_split_m, 0, 0, sd->stream)) !=
-          cudaSuccess ||
+  if ((err = launch_tc(xg, u, part_m, T, N, GB, 0, n_split_m,
+                       sd->stream)) != cudaSuccess ||
       (err = cudaEventRecord(sd->join, sd->stream)) != cudaSuccess ||
       (err = launch_gram(xg, om, (const uint16_t*)om16,
                          (const uint16_t*)pq, part_g, T, N, N8, GB, n_split,
