@@ -107,9 +107,9 @@ KERNELS = {
     "group_gram": ("pyglm_tpu_torch/csrc/group_gram.cu",
                    "pyglm_tpu/ops/gram_pallas.py:63"),
     # The bf16 Gram bodies, each its own record (LAUNCHES key).
-    "ss_group_pass_bf16": ("pyglm_tpu_torch/csrc/ss_group_pass.cu",
+    "ss_group_pass_bf16": ("pyglm_tpu_torch/csrc/gram_wgmma.cuh",
                            "pyglm_tpu/ops/ss_pallas.py:343"),
-    "ss_group_pass_sr": ("pyglm_tpu_torch/csrc/ss_group_pass.cu",
+    "ss_group_pass_sr": ("pyglm_tpu_torch/csrc/gram_wgmma.cuh",
                          "pyglm_tpu/ops/ss_pallas.py:346"),
     "group_gram_bf16": ("pyglm_tpu_torch/csrc/group_gram.cu",
                         "pyglm_tpu/ops/gram_pallas.py:47"),
@@ -182,6 +182,24 @@ def bound(nbytes, *work):
             "bound_by": "bytes" if tb >= tf else "operations"}
 
 
+def kernel_ms(fn, reps, match):
+    """Device time per call of the kernels whose names hold `match`, over
+    `reps` calls traced by torch.profiler (after one untraced call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages()
+             if ev.device_type.name == "CUDA" and match in ev.key)
+    return us / 1e3 / reps
+
+
 def bf16_matmul_ms(Z, om, reps):
     """The library call of a bf16 Gram: cuBLAS on the materialised Z and
     omega in bf16, with an fp32 output where torch.mm offers one
@@ -205,8 +223,8 @@ def phase_kernels(check, record):
     from pyglm_tpu_torch.ops.polyagamma import (
         pg_devroye_plain, pg_mean, pg_var)
     from pyglm_tpu_torch.ops.ss_cuda import (
-        pair_index, sr_round, sr_words, ss_edge_scan_cuda, ss_edge_scan_plain,
-        ss_group_pass_cuda, ss_group_pass_plain, to_bf16)
+        omega_bf16_stream, pair_index, sr_round, sr_words, ss_edge_scan_cuda,
+        ss_edge_scan_plain, ss_group_pass_cuda, ss_group_pass_plain, to_bf16)
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -313,11 +331,14 @@ def phase_kernels(check, record):
           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, 3xTF32)")
 
     # --- K2 "default" and "sr" at the same group, on omega rounded to
-    # bf16 as the fused loop gives it (ss_pallas.py:409-413) --------------
+    # bf16 as the fused loop gives it (ss_pallas.py:409-413), with its bf16
+    # stream made once, as the fused loop makes it once per update (the
+    # Gram's wgmma body reads the stream; the scatter the fp32 omega) ------
     om16 = to_bf16(omega)
+    om_s = omega_bf16_stream(om16)
     u_k, u_p = u0.clone(), u0.clone()
     out_k = ss_group_pass_cuda(xp, xg, om16, u_k, dw, True,
-                               precision="default")
+                               precision="default", om16=om_s)
     out_p = ss_group_pass_plain(xp, xg, om16, u_p, dw, True,
                                 precision="default")
     torch.cuda.synchronize()
@@ -335,6 +356,11 @@ def phase_kernels(check, record):
     check(e_k <= F64_RATIO * e_p,
           f"K2 Gram (bf16) vs a float64 Gram of the bf16 operands: "
           f"{e_k:.2e}; the plain version: {e_p:.2e} (limit {F64_RATIO:g}x)")
+    again = ss_group_pass_cuda(xp, xg, om16, u0.clone(), dw, True,
+                               precision="default", om16=om_s)
+    check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+          "K2 default repeats bit for bit")
+    del again
     record["ss_group_pass_bf16"].update(max_abs_err=max_abs, f64_rel_err=e_k,
                                         plain_f64_rel_err=e_p)
 
@@ -344,11 +370,17 @@ def phase_kernels(check, record):
     r16 = sr_words(*sr_seed, npair, T).to(dev)
     u_k, u_p = u0.clone(), u0.clone()
     out_k = ss_group_pass_cuda(xp, xg, om16, u_k, dw, True, precision="sr",
-                               sr_seed=sr_seed)
+                               sr_seed=sr_seed, om16=om_s)
     out_p = ss_group_pass_plain(xp, xg, om16, u_p, dw, True, precision="sr",
                                 r16=r16)
     other = ss_group_pass_cuda(xp, xg, om16, u0.clone(), dw, precision="sr",
-                               sr_seed=(sr_seed[0] + 1, sr_seed[1]))[1]
+                               sr_seed=(sr_seed[0] + 1, sr_seed[1]),
+                               om16=om_s)[1]
+    again = ss_group_pass_cuda(xp, xg, om16, u0.clone(), dw, True,
+                               precision="sr", sr_seed=sr_seed, om16=om_s)
+    check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+          "K2 sr repeats bit for bit")
+    del again
     torch.cuda.synchronize()
     errs = {"u": rel_err(u_k, u_p)}
     for name, a, b in zip(("M0", "Jgg", "sum_omega"), out_k, out_p):
@@ -370,11 +402,18 @@ def phase_kernels(check, record):
     record["ss_group_pass_sr"].update(max_abs_err=max_abs, f64_rel_err=e_k,
                                       plain_f64_rel_err=e_p)
 
-    times = {}
+    times, gram_ms = {}, {}
     for prec in ("default", "sr", "sr", "default"):
         times.setdefault(prec, []).append(event_ms(
-            lambda: ss_group_pass_cuda(xp, xg, om16, u_k, dw,
-                                       precision=prec, sr_seed=sr_seed), 20))
+            lambda: ss_group_pass_cuda(xp, xg, om16, u_k, dw, precision=prec,
+                                       sr_seed=sr_seed, om16=om_s), 20))
+    for prec, inst in (("default", "<false>"), ("sr", "<true>")):
+        gram_ms[prec] = kernel_ms(
+            lambda: ss_group_pass_cuda(xp, xg, om16, u_k, dw, precision=prec,
+                                       sr_seed=sr_seed, om16=om_s), 20,
+            f"group_pass_wgmma_kernel{inst}")
+        check(gram_ms[prec] > 0,
+              f"K2 {prec}: the profiler saw its wgmma Gram kernel")
     plain_ms = event_ms(lambda: ss_group_pass_plain(
         xp, xg, om16, u_p, dw, precision="default"), 5)
     plain_sr_ms = event_ms(lambda: ss_group_pass_plain(
@@ -383,15 +422,22 @@ def phase_kernels(check, record):
     lib_ms, lib_out = bf16_matmul_ms(to_bf16(Z), om16, 10)
     del Z
     # The bf16 Gram over the bf16 peak; M0 3xTF32 and the scatter fp32.
+    # The Gram alone: X_g and the bf16 omega stream in, the packed Gram out.
     k2_bound = bound(k2_bytes, (2 * T * N * npair, BF16_FLOPS), *m0_scatter)
-    record["ss_group_pass_bf16"].update(
-        ms=min(times["default"]), plain_ms=plain_ms, library_ms=lib_ms,
-        library_out=lib_out, precision="default", **k2_bound)
-    record["ss_group_pass_sr"].update(
-        ms=min(times["sr"]), plain_ms=plain_sr_ms, library_ms=lib_ms,
-        library_out=lib_out, precision="sr", **k2_bound)
+    gram_bound = bound(4 * GB * T + 2 * om_s.numel() + 4 * npair * N,
+                       (2 * T * N * npair, BF16_FLOPS))
+    for key, prec, pms in (("ss_group_pass_bf16", "default", plain_ms),
+                           ("ss_group_pass_sr", "sr", plain_sr_ms)):
+        record[key].update(
+            ms=min(times[prec]), plain_ms=pms, library_ms=lib_ms,
+            library_out=lib_out, precision=prec, gram_ms=gram_ms[prec],
+            gram_bound_ms=gram_bound["bound_ms"],
+            gram_bound_by=gram_bound["bound_by"], **k2_bound)
     print(f"  K2 default {times['default']} ms, sr {times['sr']} ms per "
-          f"middle group (order default, sr, sr, default); plain "
+          f"middle group (order default, sr, sr, default); the Gram kernel "
+          f"alone {gram_ms['default']:.4f} / {gram_ms['sr']:.4f} ms "
+          f"(profiler; bound {gram_bound['bound_ms']:.4f} ms, "
+          f"{gram_bound['bound_by']}); plain "
           f"{plain_ms:.3f} / {plain_sr_ms:.3f} ms; library (bf16 cuBLAS on "
           f"the materialised bf16 Z, {lib_out} output) {lib_ms:.3f} ms; "
           f"bound {k2_bound['bound_ms']:.3f} ms ({k2_bound['bound_by']})")

@@ -13,7 +13,8 @@ and its results are wrong by design, so only its time is read: the time
 the remaining parts take. It builds the package's kernels (and prints the
 wgmma kernel's registers and spills), checks the whole body against its
 plain version, for bit-repeatability and against a float64 Gram of group
-0, then times ``group_gram_blocks_cuda(..., precision="default")`` on Xt
+0, prints a digest of its output (equal digests: equal outputs, bit for
+bit, e.g. across checkouts), then times ``group_gram_blocks_cuda(..., precision="default")`` on Xt
 (2001, 20000) and omega (20000, 4000), G = 10, B = 4 (50 groups of 40
 rows) with CUDA events around 5 calls, three times, and prints the times,
 their median and the rate with the card's name and power limit. Needs a
@@ -22,6 +23,7 @@ CUDA card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import shutil
 import statistics
 import subprocess
@@ -102,8 +104,9 @@ def main() -> None:
         def rel(a, b):
             return float((a - b).abs().max() / b.abs().max())
 
-        checks = (f"; vs plain {rel(k, plain):.2e}, repeats "
-                  f"{torch.equal(k, gram())}, vs float64 (group 0) "
+        digest = hashlib.sha256(k.cpu().numpy().tobytes()).hexdigest()
+        checks = (f"; sha256 {digest[:16]}, vs plain {rel(k, plain):.2e}, "
+                  f"repeats {torch.equal(k, gram())}, vs float64 (group 0) "
                   f"{rel(k[0].double(), j64):.2e} (plain "
                   f"{rel(plain[0].double(), j64):.2e})")
         del k, plain, j64

@@ -20,7 +20,7 @@ from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
 from pyglm_tpu_torch.ops.polyagamma import (
     pg_devroye_plain, pg_gamma_series_plain, pg_mean, pg_var)
 from pyglm_tpu_torch.ops.ss_cuda import (
-    pair_index, sr_words, ss_edge_scan_cuda, ss_edge_scan_plain,
+    pair_index, sr_round, sr_words, ss_edge_scan_cuda, ss_edge_scan_plain,
     ss_group_pass_cuda, ss_group_pass_plain, to_bf16)
 
 pytestmark = pytest.mark.cuda
@@ -111,27 +111,32 @@ def _design(gen, n_pre, T, B=4, rate=0.15):
     return design_matrix(Y, cosine_basis(B, 10)).T.contiguous()
 
 
-@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("precision", ["high", "default", "sr"])
 def test_group_pass_gram_error_against_float64(gen, precision):
     """At the flagship's shapes and inputs (GB = 32, T = 1e5, 200 lanes, a
     design of spikes at rate 0.15 and the cosine basis, PG-like omega), K2's
     Gram is no further from a float64 Gram of the same operands (rounded to
-    bf16 at "default") than 2x the plain version (cuBLAS SGEMM on the
-    materialised Z)."""
+    bf16 at "default", Z rounded by the kernel's own Philox words at "sr")
+    than 2x the plain version (cuBLAS SGEMM on the materialised Z)."""
     GB, Tn, N = 32, 100_000, 200
     X = _design(gen, GB // 4, Tn)[:GB]
     om = 0.05 + 0.2 * torch.rand((Tn, N), generator=gen, device="cuda")
     u = torch.randn((Tn, N), generator=gen, device="cuda")
-    _, jk, _ = ss_group_pass_cuda(None, X, om, u.clone(), None,
-                                  precision=precision)
-    _, jp, _ = ss_group_pass_plain(None, X, om, u.clone(), None,
-                                   precision=precision)
     p, q = pair_index(GB, "cuda")
-    if precision == "default":
-        j64 = to_bf16(X[p] * X[q]).double() @ to_bf16(om).double()
-        ek, ep = _rel(jk.double(), j64), _rel(jp.double(), j64)
-    else:
+    sr_seed = (77, 5)
+    r16 = (sr_words(*sr_seed, GB * (GB + 1) // 2, Tn).cuda()
+           if precision == "sr" else None)
+    _, jk, _ = ss_group_pass_cuda(None, X, om, u.clone(), None,
+                                  precision=precision, sr_seed=sr_seed)
+    _, jp, _ = ss_group_pass_plain(None, X, om, u.clone(), None,
+                                   precision=precision, r16=r16)
+    if precision == "high":
         ek, ep = _f64_errors(jk, jp, X, om, p, q)
+    else:
+        Z = X[p] * X[q]
+        Z = sr_round(Z, r16) if precision == "sr" else to_bf16(Z)
+        j64 = Z.double() @ to_bf16(om).double()
+        ek, ep = _rel(jk.double(), j64), _rel(jp.double(), j64)
     assert ek <= 2 * ep, (ek, ep)
 
 
@@ -175,6 +180,44 @@ def test_group_pass_bf16_modes_match_plain(gen, precision, GB, N):
         again = ss_group_pass_cuda(None, X[GB:], om, u.clone(), None,
                                    precision="sr", sr_seed=(seed, offset))[1]
         assert torch.equal(again, out_k[1])
+
+
+@pytest.mark.parametrize("lanes", [7, 70, 200, 257, 1000])
+@pytest.mark.parametrize("GB", [1, 4, 12, 32, 40, 64])
+@pytest.mark.parametrize("precision", ["default", "sr"])
+def test_group_pass_wgmma_matches_plain(gen, precision, GB, lanes):
+    """K2's wgmma Gram body at "default" and "sr" against its plain version
+    (on the same rounding words at "sr") at T = 40 (less than one 64-step
+    stage), 3001 and 4099 (ragged against the stage and, by the split plan,
+    several splits where the group is small): every pair tile (GB = 64 has
+    13), lanes ragged against 8 and 128; given the bf16 omega stream and
+    without it. Exact bf16 products, so only the fp32 sum order differs
+    (1e-5); another seed's words give another Gram; results repeat bit for
+    bit."""
+    from pyglm_tpu_torch.ops.ss_cuda import omega_bf16_stream
+    seed, offset = 4242, 17
+    npair = GB * (GB + 1) // 2
+    for Tn in (40, 3001, 4099):
+        X = _float_design(gen, GB, Tn)
+        om = to_bf16(0.05 + 0.2 * torch.rand((Tn, lanes), generator=gen,
+                                             device="cuda"))
+        u = torch.zeros((Tn, lanes), device="cuda")
+        r16 = (sr_words(seed, offset, npair, Tn).cuda()
+               if precision == "sr" else None)
+
+        def k2(sd=seed, om16=None):
+            return ss_group_pass_cuda(None, X, om, u, None,
+                                      precision=precision,
+                                      sr_seed=(sd, offset), om16=om16)[1]
+        jk = k2()
+        jp = ss_group_pass_plain(None, X, om, u, None, precision=precision,
+                                 r16=r16)[1]
+        assert jk.shape == (npair, lanes)
+        assert _rel(jk, jp) <= 1e-5, (Tn, _rel(jk, jp))
+        assert torch.equal(jk, k2()), Tn
+        assert torch.equal(jk, k2(om16=omega_bf16_stream(om))), Tn
+        if precision == "sr":
+            assert _rel(k2(seed + 1), jp) > 1e-5, Tn
 
 
 def test_group_pass_sr_unbiased_over_launches(gen):
