@@ -53,6 +53,13 @@
 //     to 35.4 ms, with or without the products. A cluster of two pair
 //     tiles sharing each stage's copies (TMA multicast) halved the L2 bytes
 //     and ran 47.0 ms, so the copies stay on cp.async.
+//   - K2 runs the tile at NP = 176 pair rows (GB = 32's 528 pairs in 3
+//     tiles), over splits of T that fill one wave of 132 blocks. At the
+//     flagship group (H100, time_group_pass.py) its Gram takes ~0.19 ms
+//     ("default") and ~0.26 ("sr", the Philox draws in the Z build), 0.11
+//     without the Z build: the build sets the pace here too. 168-row tiles
+//     (4 tiles, 128 blocks) ran 0.22 / 0.32 ms, 136-row tiles (4 tiles,
+//     32 B spilled against ~340) 0.19 / 0.27.
 //   - The tensor cores truncate as they accumulate, so the fp32
 //     accumulators are folded every kFold stages (256 steps) into a second
 //     fp32 sum by Fast2Sum, as in gram_tc.cuh: 3.0e-7 from a float64 Gram
@@ -67,7 +74,7 @@
 
 namespace gram_wgmma {
 
-constexpr int kNP = 168;        // pair rows per tile: wgmma's N
+constexpr int kNP = 168;        // pair rows per tile of K6's body: wgmma's N
 constexpr int kLT = 128;        // lanes per tile: 2 warpgroups x wgmma's M
 constexpr int kKS = 64;         // time steps per stage: one 128-byte line
 constexpr int kStages = 5;      // ring depth: stages s + 1 .. s + 4 in flight
@@ -75,8 +82,6 @@ constexpr int kThreads = 256;
 constexpr int kFold = 4;        // stages per fold (256 steps)
 constexpr int kMaxGB = 64;
 constexpr int kAcc = kNP / 2;   // fp32 accumulators per thread (64 x kNP / 128)
-// Z rows per thread group of 8 (one chunk each) in the build.
-constexpr int kZRows = (kNP + kThreads / 8 - 1) / (kThreads / 8);
 
 // Shared memory, in bytes; the omega and Z tiles sit on 1024-byte
 // boundaries (the period of the 128-byte swizzle).
@@ -86,8 +91,11 @@ constexpr int kZBuf = kNP * 128;              // kNP rows x 64 steps, bf16
 __host__ __device__ constexpr int x_stage_bytes(int GB) {
   return GB * kKS * 4;
 }
+// ... of a tile of NP pair rows.
+template <int NP = kNP>
 __host__ __device__ constexpr int smem_bytes(int GB) {
-  return 1024 + kStages * kOmStage + 2 * kZBuf + kStages * x_stage_bytes(GB);
+  return 1024 + kStages * kOmStage + 2 * NP * 128 +
+         kStages * x_stage_bytes(GB);
 }
 
 // Byte offset of 16-byte chunk c (0..7) of 128-byte line r in a tile laid
@@ -137,35 +145,56 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
+template <int A>
+__device__ __forceinline__ void fence_acc(float (&d)[A]) {
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < A; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define GW_R4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define GW_R16(i) GW_R4(i), GW_R4(i + 4), GW_R4(i + 8), GW_R4(i + 12)
 
 // d += A^T B for one k-step: A a 16 x 64 lane-major omega tile (transposed
-// by the hardware), B a 16-step x 168-row K-major Z tile; d is the 64 x 168
-// fp32 accumulator of the warpgroup. Thread (warp w, lane l) holds rows
-// 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1): d[4 j + e] at row
-// + 8 (e / 2), column + (e % 2).
-__device__ __forceinline__ void mma(float (&d)[kAcc], uint64_t da,
+// by the hardware), B a 16-step x NP-row K-major Z tile; d is the 64 x NP
+// fp32 accumulator of the warpgroup (A = NP / 2 per thread). Thread (warp
+// w, lane l) holds rows 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4)
+// (+ 1): d[4 j + e] at row + 8 (e / 2), column + (e % 2).
+template <int A>
+__device__ __forceinline__ void mma(float (&d)[A], uint64_t da,
                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %86, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n168k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
-      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
-      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "
-      "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
-      "%78, %79, %80, %81, %82, %83}, "
-      "%84, %85, p, 1, 1, 1, 0;\n}\n"
-      : GW_R16(0), GW_R16(16), GW_R16(32), GW_R16(48), GW_R16(64),
-        GW_R4(80)
-      : "l"(da), "l"(db), "r"(1));
+  static_assert(A == 84 || A == 88, "NP = 168 (K6) or 176 (K2)");
+  if constexpr (A == 88) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %90, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+        "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+        "%86, %87"
+        "}, %88, %89, p, 1, 1, 1, 0;\n}\n"
+        : GW_R16(0), GW_R16(16), GW_R16(32), GW_R16(48), GW_R16(64),
+          GW_R4(80), GW_R4(84)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %86, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n168k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+        "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+        "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "
+        "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
+        "%78, %79, %80, %81, %82, %83}, "
+        "%84, %85, p, 1, 1, 1, 0;\n}\n"
+        : GW_R16(0), GW_R16(16), GW_R16(32), GW_R16(48), GW_R16(64),
+          GW_R4(80)
+        : "l"(da), "l"(db), "r"(1));
+  }
 }
 
 #undef GW_R16
@@ -235,7 +264,7 @@ __device__ __forceinline__ void load8(const float* row, int h0, float4& lo,
 }
 
 // One block tile (kThreads threads): C[pr, n] for the tile's pair rows
-// (pq: kNP entries p | q << 8, row-major over p <= q, the first npr
+// (pq: NP entries p | q << 8, row-major over p <= q, the first npr
 // valid; those past them are never read) and lanes n in [lane0, lane0 +
 // kLT), over t in [t_begin, t_end).
 //   x: the group's GB design rows (fp32), row stride ldx; vec_x: rows and
@@ -243,12 +272,12 @@ __device__ __forceinline__ void load8(const float* row, int h0, float4& lo,
 //   om: omega as bf16 bits, (T, ldo) with ldo a multiple of 8 and lanes
 //      past N zero (or past ldo, zero-filled here).
 //   out: row pr at out + pr * ldc; lanes >= N are not written.
-//   smem: smem_bytes(GB) bytes of dynamic shared memory.
+//   smem: smem_bytes<NP>(GB) bytes of dynamic shared memory.
 //   kSr: Z rounded stochastically (sr_bf16x2) instead of to nearest even,
 //      by the Philox draw with counter (t / 8, row0 + pr, offset) and key
 //      seed (row0: the group's packed row of the tile's first entry;
 //      t_begin a multiple of 8).
-template <bool kSr = false>
+template <int NP = kNP, bool kSr = false>
 __device__ __forceinline__ void gram_tile(
     const float* __restrict__ x, int ldx, int GB, bool vec_x,
     const uint16_t* __restrict__ om, int ldo, int N, int t_begin, int t_end,
@@ -258,8 +287,12 @@ __device__ __forceinline__ void gram_tile(
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   uint8_t* smem = smem_raw + ((1024u - (raw & 1023u)) & 1023u);
   uint8_t* oms = smem;                                // [kStages][2][64][128B]
-  uint8_t* zs = oms + kStages * kOmStage;             // [2][kNP][128B]
-  float* xs = reinterpret_cast<float*>(zs + 2 * kZBuf);   // [kStages][GB][kKS]
+  constexpr int kA = NP / 2;                          // accumulators
+  constexpr int kZB = NP * 128;                       // one Z buffer
+  // Z rows per thread group of 8 (one chunk each) in the build.
+  constexpr int kZRows = (NP + kThreads / 8 - 1) / (kThreads / 8);
+  uint8_t* zs = oms + kStages * kOmStage;             // [2][NP][128B]
+  float* xs = reinterpret_cast<float*>(zs + 2 * kZB);     // [kStages][GB][kKS]
   const uint32_t oms_a = (uint32_t)__cvta_generic_to_shared(oms);
   const uint32_t zs_a = (uint32_t)__cvta_generic_to_shared(zs);
   const int tid = threadIdx.x, wg = tid / 128;
@@ -308,13 +341,13 @@ __device__ __forceinline__ void gram_tile(
   const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
   auto build_z = [&](int s) {
     const float* xsrc = xs + (s % kStages) * GB * kKS + 8 * zc;
-    uint8_t* zb = zs + (s & 1) * kZBuf;
+    uint8_t* zb = zs + (s & 1) * kZB;
     int p = zp0, q = zq0, pc = -1;
     float4 a0, a1;
 #pragma unroll 1
     for (int i = 0; i < kZRows; ++i) {
       const int n = zn0 + i;
-      if (n >= kNP) break;
+      if (n >= NP) break;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (n < npr) {
         if (p != pc) {
@@ -347,9 +380,9 @@ __device__ __forceinline__ void gram_tile(
     }
   };
 
-  float acc[kAcc], sum[kAcc];
+  float acc[kA], sum[kA];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = sum[i] = 0.0f;
+  for (int i = 0; i < kA; ++i) acc[i] = sum[i] = 0.0f;
 
   // Prologue: stages 0 .. kStages - 2 in flight; Z of stage 0 formed once
   // stages 0 and 1 have landed.
@@ -370,7 +403,7 @@ __device__ __forceinline__ void gram_tile(
     // stage s + 1 have landed, all visible to the tensor cores; the
     // products of stage s - 1 are done.
     const uint32_t a = slab_a + (s % kStages) * kOmStage;
-    const uint32_t b = zs_a + (s & 1) * kZBuf;
+    const uint32_t b = zs_a + (s & 1) * kZB;
     fence_acc(acc);
     mma_fence();
 #pragma unroll
@@ -393,7 +426,7 @@ __device__ __forceinline__ void gram_tile(
       // as for the Gram's nonnegative terms after the first fold): sum
       // takes t, and the rounding error e seeds the next chunk.
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) {
+      for (int i = 0; i < kA; ++i) {
         const float u = sum[i], v = acc[i], t = u + v;
         sum[i] = t;
         acc[i] = v - (t - u);
@@ -405,7 +438,7 @@ __device__ __forceinline__ void gram_tile(
   const int t128 = tid % 128, w = t128 / 32, l = t128 % 32;
   const int m = lane0 + 64 * wg + 16 * w + l / 4;
 #pragma unroll
-  for (int j = 0; j < kNP / 8; ++j)
+  for (int j = 0; j < NP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int pr = 8 * j + 2 * (l % 4) + (e & 1);

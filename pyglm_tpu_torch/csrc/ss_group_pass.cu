@@ -35,12 +35,15 @@
 //     body): M0 = X_g u (Z = X_g) in every mode, and the packed Gram of
 //     omega (Z = X_p X_q formed in shared memory, never stored) at "high";
 //   - group_pass_wgmma_kernel<kSr> (gram_wgmma.cuh, the tile of K6's
-//     "default" body): the packed Gram at "default" and "sr", a block per
-//     (split of T, tile of 168 pair rows, tile of 128 lanes). Its splits
-//     are whole 64-step stages, so every split starts on a stage and on an
-//     8-step Philox chunk (the SR words of (t / 8, pr) are the same for
-//     every tile and split), and as many as fill one wave at one block per
-//     SM (16 at the flagship group: 128 blocks of ~98 stages).
+//     "default" body at kK2NP = 176 pair rows): the packed Gram at
+//     "default" and "sr", a block per (split of T, tile of 176 pair rows,
+//     tile of 128 lanes). GB = 32's 528 pairs are 3 tiles with no padding
+//     (4 of K6's 168 rows hold 672, and the 4 x 2 tiles per split left
+//     room for 16 splits where 3 x 2 take 22: 132 blocks of ~72 stages
+//     instead of 128 of ~98). Its splits are whole 64-step stages, so every
+//     split starts on a stage and on an 8-step Philox chunk (the SR words
+//     of (t / 8, pr) are the same for every tile and split), and as many
+//     as fill one wave at one block per SM.
 // The Gram needs only omega, so it runs on the caller's stream beside the
 // scatter and then M0 on a side stream.
 //
@@ -62,6 +65,9 @@ constexpr int kLanes = 128;  // scatter: one thread per postsyn lane
 constexpr int kCh = 16;      // time steps per chunk
 constexpr int kMaxGB = 64;
 constexpr int kMaxDevices = 16;
+// Pair rows per tile of the wgmma Gram: GB = 32's 528 pairs are 3 tiles
+// (the flagship group; 2 x 176 fp32 sums per thread, 255 registers).
+constexpr int kK2NP = 176;
 // 3xTF32 tile-loop stages per fold (128 steps), as in K6 (group_gram.cu).
 constexpr int kFold = 4;
 
@@ -193,13 +199,13 @@ group_pass_wgmma_kernel(const float* __restrict__ xg,
                         unsigned long long seed, unsigned long long offset) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const int npair = GB * (GB + 1) / 2, split = blockIdx.x;
-  const int row0 = blockIdx.y * gram_wgmma::kNP;
+  const int row0 = blockIdx.y * kK2NP;
   const int t_begin = split * rows_per_split;
   const int t_end = min(T, t_begin + rows_per_split);
-  gram_wgmma::gram_tile<kSr>(
+  gram_wgmma::gram_tile<kK2NP, kSr>(
       xg, T, GB, vec_x, om16, N8, N, t_begin, t_end,
       blockIdx.z * gram_wgmma::kLT, pq + row0,
-      min(gram_wgmma::kNP, npair - row0),
+      min(kK2NP, npair - row0),
       part + ((size_t)split * npair + row0) * N, N, smem_raw, row0, seed,
       offset);
 }
@@ -273,14 +279,14 @@ cudaError_t launch_wgmma(const float* xg, const uint16_t* om16,
   static const cudaError_t attr = cudaFuncSetAttribute(
       group_pass_wgmma_kernel<kSr>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      gram_wgmma::smem_bytes(gram_wgmma::kMaxGB));
+      gram_wgmma::smem_bytes<kK2NP>(gram_wgmma::kMaxGB));
   if (attr != cudaSuccess) return attr;
   int rows = (T + n_split - 1) / n_split;
   rows = (rows + gram_wgmma::kKS - 1) / gram_wgmma::kKS * gram_wgmma::kKS;
   const int vec_x = T % 4 == 0 && (size_t)xg % 16 == 0;
   group_pass_wgmma_kernel<kSr>
       <<<dim3(n_split, ntile, (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT),
-         gram_wgmma::kThreads, gram_wgmma::smem_bytes(GB), s>>>(
+         gram_wgmma::kThreads, gram_wgmma::smem_bytes<kK2NP>(GB), s>>>(
           xg, om16, pq, part, T, N, N8, GB, rows, vec_x, seed, offset);
   return cudaGetLastError();
 }
@@ -369,8 +375,8 @@ extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
   if (gram != 0 && xg != nullptr &&
       (om16 == nullptr || (size_t)om16 % 16 != 0 || pq == nullptr ||
        N8 < N || N8 % 8 != 0 || ntile < 1 ||
-       (ntile - 1) * gram_wgmma::kNP >= npair ||
-       ntile * gram_wgmma::kNP < npair || n_split > 65535 ||
+       (ntile - 1) * kK2NP >= npair || ntile * kK2NP < npair ||
+       n_split > 65535 ||
        (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT > 65535))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -331,7 +331,8 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
         raises). In the fused loop at "default" and "sr", omega is rounded
         to bf16 once and that value feeds u0, every K2 call and sum_omega,
         while the bias scatter takes the float32 omega, as the JAX fused
-        kernel does (``weights.py:709-715``). On the CPU the plain versions
+        kernel does (``weights.py:709-715``); K2's Grams read it as one
+        bf16 stream made once per update. On the CPU the plain versions
         repeat each mode's rounding; "high" and "highest" are fp32 there.
       host_generator: a CPU generator that draws, in one (Ng, 2) draw, the
         (seed, offset) of each K2 call's rounding words at "sr" in the

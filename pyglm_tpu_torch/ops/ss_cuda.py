@@ -135,30 +135,33 @@ def omega_bf16_stream(omega: torch.Tensor) -> torch.Tensor:
 # The tiles of the wgmma Gram body (csrc/gram_wgmma.cuh)
 # ---------------------------------------------------------------------------
 
-PAIR_TILE = 168        # pair rows per tile (gram_wgmma.cuh kNP)
+PAIR_TILE = 168        # pair rows per tile of K6 (gram_wgmma.cuh kNP)
+K2_PAIR_TILE = 176     # ... of K2 (ss_group_pass.cu kK2NP)
 LANE_TILE = 128        # postsyn lanes per tile (kLT)
 STAGE_STEPS = 64       # time steps per stage (kKS)
 _NO_PAIR = -1          # 0xFFFF as int16: a row past the last pair
 _H100_SMS = 132
 
 
-def pair_tile_plan(GB: int, device=None) -> torch.Tensor:
+def pair_tile_plan(GB: int, device=None, tile: int = PAIR_TILE
+                   ) -> torch.Tensor:
     """The pair table of the wgmma body: the packed pair rows of a group of
     GB design rows (``pair_index``, row-major over p <= q) in tiles of
-    PAIR_TILE rows, as int16 entries p | q << 8, the last tile padded with
-    -1 (no pair). Shape (n_tiles * PAIR_TILE,); a block of pair tile x takes
-    entries [x PAIR_TILE, (x + 1) PAIR_TILE)."""
+    `tile` rows (PAIR_TILE for K6, K2_PAIR_TILE for K2), as int16 entries
+    p | q << 8, the last tile padded with -1 (no pair). Shape (n_tiles *
+    tile,); a block of pair tile x takes entries [x tile, (x + 1) tile)."""
     p, q = pair_index(GB, device)
-    n_tiles = -(-p.numel() // PAIR_TILE)
-    table = torch.full((n_tiles * PAIR_TILE,), _NO_PAIR, dtype=torch.int16,
+    n_tiles = -(-p.numel() // tile)
+    table = torch.full((n_tiles * tile,), _NO_PAIR, dtype=torch.int16,
                        device=device)
     table[:p.numel()] = (p | (q << 8)).to(torch.int16)
     return table
 
 
 @functools.lru_cache(maxsize=None)
-def _pair_table(GB: int, device: torch.device) -> torch.Tensor:
-    return pair_tile_plan(GB, device)
+def _pair_table(GB: int, device: torch.device,
+                tile: int = PAIR_TILE) -> torch.Tensor:
+    return pair_tile_plan(GB, device, tile)
 
 
 def gram_split_plan(T: int, N: int, GB: int,
@@ -171,9 +174,9 @@ def gram_split_plan(T: int, N: int, GB: int,
     wave of `n_sm` SMs with whole splits, but at least 8 stages per split
     and partials (n_split x npair x N float32) at most a quarter of the
     bf16 omega stream's bytes. At the flagship group (GB = 32, N = 200,
-    T = 1e5: 4 x 2 tiles) 16 splits of 6272 steps, 128 blocks."""
+    T = 1e5: 3 x 2 tiles) 22 splits of 4608 steps, 132 blocks."""
     npair = GB * (GB + 1) // 2
-    tiles = -(-npair // PAIR_TILE) * -(-N // LANE_TILE)
+    tiles = -(-npair // K2_PAIR_TILE) * -(-N // LANE_TILE)
     stages = -(-T // STAGE_STEPS)
     n_split = max(1, min(n_sm // tiles, stages // 8, T // (8 * npair)))
     steps = -(-stages // n_split) * STAGE_STEPS
@@ -303,9 +306,9 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
         if om16 is None:
             om16 = omega_bf16_stream(omega)
         _check_om16(om16, omega)
-        pq = _pair_table(GB, dev)
+        pq = _pair_table(GB, dev, K2_PAIR_TILE)
         om16_p, pq_p = om16.data_ptr(), pq.data_ptr()
-        N8, ntile = om16.shape[1], pq.numel() // PAIR_TILE
+        N8, ntile = om16.shape[1], pq.numel() // K2_PAIR_TILE
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         n_split = gram_split_plan(T, N, GB, n_sm)[0]
     else:

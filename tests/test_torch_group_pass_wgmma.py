@@ -3,6 +3,8 @@
 kernel itself is held against its plain version on the card
 (tests/test_torch_cuda.py).
 
+- pair_tile_plan at K2's tile width covers each packed pair once, for GB
+  1..64.
 - gram_split_plan: the splits of T start on multiples of the 64-step stage,
   cover [0, T) once with none empty, keep the grid within one wave of the
   card's SMs (or one split where the tiles alone exceed it), give each
@@ -21,8 +23,8 @@ import torch
 from pyglm_tpu_torch.models import weights as tw
 from pyglm_tpu_torch.ops import ss_cuda
 from pyglm_tpu_torch.ops.ss_cuda import (
-    LANE_TILE, PAIR_TILE, STAGE_STEPS, gram_split_plan, omega_bf16_stream,
-    ss_group_pass)
+    K2_PAIR_TILE, LANE_TILE, STAGE_STEPS, gram_split_plan, omega_bf16_stream,
+    pair_index, pair_tile_plan, ss_group_pass)
 
 torch.set_num_threads(1)
 
@@ -34,7 +36,7 @@ def test_gram_split_plan(T, N, GB):
     n_sm = 132
     n_split, steps = gram_split_plan(T, N, GB, n_sm)
     npair = GB * (GB + 1) // 2
-    tiles = -(-npair // PAIR_TILE) * -(-N // LANE_TILE)
+    tiles = -(-npair // K2_PAIR_TILE) * -(-N // LANE_TILE)
     assert n_split >= 1 and steps % STAGE_STEPS == 0
     bounds = [(s * steps, min(T, (s + 1) * steps)) for s in range(n_split)]
     assert all(b > a for a, b in bounds)                  # none empty
@@ -49,7 +51,22 @@ def test_gram_split_plan(T, N, GB):
         assert steps >= 8 * STAGE_STEPS
         assert 4 * n_split * npair * N <= T * (-(-N // 8) * 8) * 2 / 4
     if (T, N, GB) == (100_000, 200, 32):                  # the flagship
-        assert (n_split, steps) == (16, 6272)
+        assert n_split * tiles <= n_sm < (n_split + 1) * tiles
+
+
+@pytest.mark.parametrize("GB", range(1, 65))
+def test_k2_pair_tile_plan_covers_each_pair_once(GB):
+    """K2's pair table (tiles of K2_PAIR_TILE rows): every packed pair row
+    once, in order, the padding only past the last pair."""
+    table = pair_tile_plan(GB, tile=K2_PAIR_TILE)
+    p, q = pair_index(GB)
+    npair = p.numel()
+    assert table.dtype == torch.int16
+    assert table.numel() == -(-npair // K2_PAIR_TILE) * K2_PAIR_TILE
+    e = table.to(torch.int32) & 0xFFFF
+    assert bool((e[npair:] == 0xFFFF).all())
+    assert torch.equal(e[:npair] & 0xFF, p.to(torch.int32))
+    assert torch.equal(e[:npair] >> 8, q.to(torch.int32))
 
 
 def _k2_inputs(T=130, N=12, GB=8, seed=0):
