@@ -14,7 +14,8 @@ the remaining parts take. It builds the package's kernels (and prints the
 wgmma kernel's registers and spills), checks the whole body against its
 plain version, for bit-repeatability and against a float64 Gram of group
 0, prints a digest of its output (equal digests: equal outputs, bit for
-bit, e.g. across checkouts), then times ``group_gram_blocks_cuda(..., precision="default")`` on Xt
+bit, e.g. across checkouts), then times
+``group_gram_blocks_cuda(..., precision="default")`` on Xt
 (2001, 20000) and omega (20000, 4000), G = 10, B = 4 (50 groups of 40
 rows) with CUDA events around 5 calls, three times, and prints the times,
 their median and the rate with the card's name and power limit. Needs a

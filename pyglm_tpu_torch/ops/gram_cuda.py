@@ -24,9 +24,9 @@ from __future__ import annotations
 import torch
 
 from pyglm_tpu_torch.ops import _build
-from pyglm_tpu_torch.ops.ss_cuda import (  # noqa: F401 (re-exported)
+from pyglm_tpu_torch.ops.ss_cuda import (
     _MAX_GB, PAIR_TILE, _check_cuda_f32, _pair_table, omega_bf16_stream,
-    pair_index, pair_tile_plan, to_bf16,
+    pair_index, to_bf16,
 )
 
 # K6's bodies (csrc/group_gram.cu: group_gram_launch's "highest" 0 and

@@ -1,7 +1,8 @@
-"""The host-side pieces of K6's "default" body (ops/gram_cuda.py), on the
-CPU: the bf16 omega stream the kernel reads and the pair-tile plan its
-blocks take. The kernel itself is held against its plain version on the
-card (tests/test_torch_cuda.py).
+"""The host-side pieces of K6's "default" body (ops/gram_cuda.py, with the
+helpers it shares with K2 in ops/ss_cuda.py), on the CPU: the bf16 omega
+stream the kernel reads and the pair-tile plan its blocks take. The kernel
+itself is held against its plain version on the card
+(tests/test_torch_cuda.py).
 
 - omega_bf16_stream: (T, N8) torch.bfloat16, N8 = N rounded up to a
   multiple of 8 (16-byte rows), the pad lanes zero, the first N lanes equal
@@ -15,9 +16,8 @@ import pytest
 import torch
 
 from pyglm_tpu_torch.ops import gram_cuda
-from pyglm_tpu_torch.ops.gram_cuda import (
-    PAIR_TILE, omega_bf16_stream, pair_tile_plan)
-from pyglm_tpu_torch.ops.ss_cuda import pair_index, to_bf16
+from pyglm_tpu_torch.ops.ss_cuda import (
+    PAIR_TILE, omega_bf16_stream, pair_index, pair_tile_plan, to_bf16)
 
 torch.set_num_threads(1)
 
