@@ -232,11 +232,10 @@ _K2_BLOCKS = 1152
 def _n_split(T: int, N: int, GB: int) -> int:
     """Time splits of K2's 3xTF32 Gram: about _K2_BLOCKS blocks in all
     (~4.4 waves of 2 blocks on each of the H100's 132 SMs; 58 and 114 splits
-    measured
-    slower at the flagship), at least 256 time steps per split and at most
-    128 splits. At the flagship (T = 1e5, N = 200, GB = 32: 2 lane x 9 row
-    tiles) that is 64 splits; at 4000 lanes and GB = 40 (32 x 13 tiles) 3,
-    so the partials stay small."""
+    measured slower at the flagship), at least 256 time steps per split and
+    at most 128 splits. At the flagship (T = 1e5, N = 200, GB = 32: 2 lane
+    x 9 row tiles) that is 64 splits; at 4000 lanes and GB = 40 (32 x 13
+    tiles) 3, so the partials stay small."""
     tiles = (-(-N // _TC_LANES)) * (-(-(GB * (GB + 1) // 2) // _TC_ROWS))
     return max(1, min(128, -(-T // 256), -(-_K2_BLOCKS // tiles)))
 
