@@ -14,7 +14,9 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      (N=200, T=100k, B=4, G=8) K1-K3 (K2's Gram in 3xTF32 on the tensor
      cores, timed at g = 0 and at a middle group; then in one bf16 pass
      ("default") and on a stochastically rounded Z ("sr", on the same
-     rounding words as its plain version)), K2's SR Gram at a small shape
+     rounding words as its plain version), both on wgmma over the bf16
+     omega stream, the Gram kernel alone also timed by torch.profiler),
+     K2's SR Gram at a small shape
      (unbiased over 256 seeds), then the NB kernels K4 (gamma-series PG)
      and K5 (CRT counts); at the 8-chain latent-distance ensemble's shapes (P=2001,
      T=20k, 4000 lanes, G=10) K6 (group Gram) at precision "high"
