@@ -1,28 +1,43 @@
 // K1: exact Polya-Gamma PG(1, c) draws by Devroye's alternating-series
-// rejection sampler, one thread per element.
+// rejection sampler; each lane of a warp draws elements of the warp's chunk
+// one after another.
 //
 // Replaces the TPU kernel pyglm_tpu/ops/pg_pallas.py::_pg_kernel (launched
 // by _kernel_pass from pg_devroye_pallas) together with its straggler
 // finisher (_finish_by_extraction + _pg_draw_small). The TPU kernel runs a
 // fixed two proposal rounds per element and hands the ~1e-5 that fail to a
-// compacting finisher. Here each thread simply loops until it accepts; a
-// warp waits for its slowest lane, which at a per-round acceptance above
-// 0.99 costs a few rounds at most. After kMaxRounds rounds (probability
-// below 1e-300) the thread returns the conditional mean tanh(z)/z.
+// compacting finisher. Here each element is drawn until it accepts; after
+// kMaxRounds rounds (probability below 1e-300) it keeps the conditional
+// mean tanh(z)/z.
 //
-// Bound on the H100: transcendental throughput (log/exp/sqrt per round)
-// and warp divergence between the exponential and the truncated inverse-
-// Gaussian branch, not memory: 20M elements move 160 MB (about 50 us at
-// 3.35 TB/s) while every element evaluates tens of transcendentals. The
-// design keeps all state in registers, draws from a counter-based Philox
-// stream (curand_kernel.h, a header) so no generator state touches device
-// memory, and reads/writes each element once.
-//
-// Numerics kept from the TPU kernel: the mixture weight
-// q = 2 [e^{-z} Phi((zt-1)/sqrt t) + e^{z} Phi(-(zt+1)/sqrt t)] is formed in
-// log space in double precision (e^{z} Phi(-x) must not overflow), and the
-// clamps of the Michael-Schucany-Haas branch stay. The series test runs the
-// standard alternating loop, normalised by a_0.
+// Bound on the H100: instruction issue, not memory. 20M elements move 160
+// MB (48 us at 3.35 TB/s) while every element forms its mixture weight
+// (two erfc-family calls and an exp) and runs at least one proposal with
+// its transcendentals, and the lanes of a warp take different branches
+// (exponential tail, tilted Levy, Michael-Schucany-Haas), so a warp runs
+// each branch that one of its lanes takes. The inverse-Gaussian branch
+// takes most of the time (PERF.md: with every proposal from the tail the
+// kernel runs in a quarter of it): a lane needs ~1.3 proposal steps, but a
+// warp that waits each round for its slowest lane runs ~4 tries of both
+// inverse-Gaussian kinds. So a lane whose element accepts takes the next
+// element of its warp's chunk at once, and the chunk is served Levy
+// elements first, MSH ones after. The design keeps all state in registers,
+// reads and writes each element once, and cuts the work per element:
+//   - the mixture weight in fp32 (mixture_weight below, the formula of
+//     ops/polyagamma.py::mixture_weight): no f64, no log, one exp, erfcf
+//     and erfcxf;
+//   - the Levy branch's two tests merged into one (E2 marginalised, as the
+//     TPU kernel does): one log and one exp per try;
+//   - the Michael-Schucany-Haas chi^2_1 variates drawn in pairs from one
+//     Box-Muller radius (R^2 cos^2, R^2 sin^2 are independent chi^2_1);
+//   - the first series test U <= 1 - a_1/a_0 with a_1/a_0 = 3 exp(-4/x)
+//     (x <= t) or 3 exp(-pi^2 x): one exp, no log; the exact alternating
+//     loop runs only in the band S_1 < U <= S_2 (mass below 4e-8), so the
+//     law stays exact (the TPU kernel stops after the first term);
+//   - a counter-based Philox4x32-10 stream per element whose four words
+//     per call are all used, with no generator state in device memory.
+// Exhausting kMaxRounds truncated-inverse-Gaussian tries counts as a
+// rejected outer round, which leaves the law exact.
 
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
@@ -35,123 +50,223 @@ constexpr float kT = 0.64f;            // proposal truncation point t
 constexpr float kPi = 3.14159265358979f;
 constexpr int kMaxRounds = 1000;
 constexpr int kMaxSeries = 64;
+// Constants of the mixture weight (ops/polyagamma.py): t/2 and pi^2 t / 8
+// as float32 plus their rounding errors, e^{pi^2 t/8 - 1/(2t)}, 1/sqrt(t).
+constexpr float kHalfT = 0.32f;
+constexpr float kHalfTLo = 7.152557373046875e-09f;
+constexpr float kC1 = 0.78956835f;
+constexpr float kC1Lo = -1.2533060e-08f;
+constexpr float kC2 = 1.0083530f;
+constexpr float kRsqrtT = 1.25f;
+constexpr float kRsqrt2 = 0.70710678f;
 
-// log Phi(x) in double precision, finite far into the lower tail.
-__device__ double log_norm_cdf(double x) {
-  if (x < 0.0) {
-    // Phi(x) = erfc(-x / sqrt 2) / 2 = erfcx(-x / sqrt 2) e^{-x^2/2} / 2
-    return log(0.5 * erfcx(-x * M_SQRT1_2)) - 0.5 * x * x;
-  }
-  return log1p(-0.5 * erfc(x * M_SQRT1_2));
-}
-
-// log a_n(x) - log a_0(x): the series coefficient ratio on either branch.
-__device__ float log_coef_ratio(float x, int n) {
-  const float h = n + 0.5f;
-  if (x <= kT) {
-    return logf(2.0f * h) - 2.0f * (h * h - 0.25f) / x;
-  }
-  return logf(2.0f * h) - 0.5f * (h * h - 0.25f) * kPi * kPi * x;
-}
-
-__device__ float uniform_open(curandStatePhilox4_32_10_t* st) {
-  return curand_uniform(st);            // (0, 1]
-}
-
-__device__ float exponential(curandStatePhilox4_32_10_t* st) {
-  return -logf(uniform_open(st));
-}
-
-// One proposal from the truncated inverse Gaussian IG(1/z, 1) on (0, t).
-// Returns false when kMaxRounds inner rounds all reject; the caller then
-// treats the outer round as rejected, which leaves the law exact.
-__device__ bool trunc_inv_gauss(float z, curandStatePhilox4_32_10_t* st,
-                                float* out) {
-  if (z * kT < 1.0f) {
-    // Tilted Levy rejection.
-    for (int i = 0; i < kMaxRounds; ++i) {
-      const float e1 = exponential(st);
-      const float e2 = exponential(st);
-      if (e1 * e1 > 2.0f * e2 / kT) continue;
-      const float d = 1.0f + kT * e1;
-      const float x = kT / (d * d);
-      if (uniform_open(st) <= expf(-0.5f * z * z * x)) {
-        *out = x;
-        return true;
-      }
+// One Philox4x32-10 stream: key (seed), counter (block, element); each
+// call's four words are handed out in turn.
+struct Philox {
+  uint4 ctr, w;
+  uint2 key;
+  int left;
+  __device__ Philox(unsigned long long seed, unsigned long long elem,
+                    unsigned long long offset)
+      : ctr(make_uint4((uint32_t)offset, (uint32_t)(offset >> 32),
+                       (uint32_t)elem, (uint32_t)(elem >> 32))),
+        w(make_uint4(0, 0, 0, 0)),
+        key(make_uint2((uint32_t)seed, (uint32_t)(seed >> 32))),
+        left(0) {}
+  // U(0, 1], as curand_uniform maps a word.
+  __device__ float uniform() {
+    if (left == 0) {
+      w = curand_Philox4x32_10(ctr, key);
+      if (++ctr.x == 0) ++ctr.y;
+      left = 4;
     }
-    return false;
+    const uint32_t x = w.x;
+    w = make_uint4(w.y, w.z, w.w, 0);
+    --left;
+    return __uint2float_rn(x) * 2.3283064e-10f + 1.1641532e-10f;
+  }
+};
+
+// fl(a + b) and its rounding error (Knuth's TwoSum).
+__device__ __forceinline__ float two_sum(float a, float b, float* e) {
+  const float s = __fadd_rn(a, b), bb = __fsub_rn(s, a);
+  *e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+  return s;
+}
+
+// p / (p + q), the weight of the exponential branch, in fp32: the formula
+// and its error analysis are ops/polyagamma.py::mixture_weight's.
+__device__ float mixture_weight(float z) {
+  const float zz = __fmul_rn(z, z), zz_e = fmaf(z, z, -zz);
+  const float s = __fmul_rn(zz, kHalfT);
+  const float s_e = fmaf(zz, kHalfT, -s) + (zz * kHalfTLo + zz_e * kHalfT);
+  float d_e, e_e;
+  const float d = two_sum(kC1, -z, &d_e);
+  const float e = two_sum(s, d, &e_e);
+  e_e = e_e + (s_e + (d_e + kC1Lo));
+  const float a = (z * kT - 1.0f) * kRsqrtT;
+  const float b = (z * kT + 1.0f) * kRsqrtT;
+  const float phi = a < 0.0f ? 0.5f * erfcf(-a * kRsqrt2)
+                             : 1.0f - 0.5f * erfcf(a * kRsqrt2);
+  const float K = kPi * kPi / 8.0f + 0.5f * zz;
+  const float r = (2.0f / kPi) * K *
+                  (2.0f * phi * (expf(e) * (1.0f + e_e)) +
+                   kC2 * erfcxf(b * kRsqrt2));
+  return 1.0f / (1.0f + r);
+}
+
+// One try of a proposal from the truncated inverse Gaussian IG(1/z, 1) on
+// (0, t); true and *out on acceptance. `chi` carries the second chi^2_1 of
+// a Box-Muller pair to the next try (< 0: none).
+__device__ bool ig_try(float z, bool levy, float mu, Philox& rng, float& chi,
+                       float* out) {
+  if (levy) {
+    // Tilted Levy: X = t/(1 + t E1)^2, accepted w.p.
+    // P(E2 >= t E1^2/2) e^{-z^2 X/2} = e^{-(t E1^2 + z^2 X)/2}.
+    const float e1 = -logf(rng.uniform());
+    const float d = 1.0f + kT * e1;
+    *out = kT / (d * d);
+    return rng.uniform() <= expf(-0.5f * (kT * e1 * e1 + z * z * *out));
   }
   // Michael-Schucany-Haas, retried until X <= t.
-  const float mu = 1.0f / z;
-  for (int i = 0; i < kMaxRounds; ++i) {
-    const float n = curand_normal(st);
-    const float muy = mu * n * n;
-    float x = mu + 0.5f * mu * muy - 0.5f * mu * sqrtf(4.0f * muy + muy * muy);
-    x = fmaxf(x, 1e-30f);
-    if (uniform_open(st) > mu / (mu + x)) x = fminf(mu * mu / x, 1e30f);
-    if (x <= kT) {
-      *out = x;
-      return true;
+  float y = chi;
+  if (y < 0.0f) {
+    const float r2 = -2.0f * logf(rng.uniform());
+    float sn, cs;
+    sincospif(2.0f * rng.uniform(), &sn, &cs);
+    y = r2 * cs * cs;
+    chi = r2 * sn * sn;
+  } else {
+    chi = -1.0f;
+  }
+  const float muy = mu * y;
+  float x = mu + 0.5f * mu * muy -
+            0.5f * mu * sqrtf(4.0f * muy + muy * muy);
+  x = fmaxf(x, 1e-30f);
+  if (rng.uniform() > mu / (mu + x)) x = fminf(mu * mu / x, 1e30f);
+  *out = x;
+  return x <= kT;
+}
+
+// The alternating-series test of proposal x with U = u: accept iff u <=
+// S_n / a_0 at the first odd n where that holds, reject at the first even
+// n with u > S_n / a_0. a_n / a_0 = (2n + 1) exp(n (n + 1) w / 2) with
+// w = -4/x (x <= t) or -pi^2 x.
+__device__ bool series_accept(float x, float u) {
+  const float w1 = x <= kT ? -4.0f / x : -kPi * kPi * x;
+  const float a1 = 3.0f * expf(w1);
+  float s = 1.0f - a1;
+  if (u <= s) return true;
+  for (int n = 2; n <= kMaxSeries; ++n) {
+    const float term = (2 * n + 1) * expf(0.5f * (float)(n * (n + 1)) * w1);
+    if (n & 1) {
+      s -= term;
+      if (u <= s) return true;
+    } else {
+      s += term;
+      if (u > s) return false;
     }
   }
   return false;
 }
 
-__global__ void pg_devroye_kernel(const float* __restrict__ c,
-                                  float* __restrict__ out, long long n,
-                                  unsigned long long seed,
-                                  unsigned long long offset) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  curandStatePhilox4_32_10_t st;
-  curand_init(seed, (unsigned long long)i, offset, &st);
+// Each warp draws a chunk of 32 kPerLane consecutive elements. It first
+// orders the chunk by proposal kind: the elements whose inverse-Gaussian
+// proposal is the tilted Levy one (z t < 1) first, the Michael-Schucany-
+// Haas ones after them, so the lanes of a warp mostly run one kind's code.
+// A lane takes one step per iteration of the warp's loop: a new round's
+// branch draw with its exponential-tail proposal, or one inverse-Gaussian
+// try, and then the series test of a proposal that came out. A lane whose
+// element accepts (or exhausts kMaxRounds rounds) writes it and takes the
+// next element in that order at the next iteration, so the warp's lanes
+// stay busy until the chunk runs dry, instead of waiting each round for
+// the slowest lane's tries. Each element draws from its own Philox stream,
+// so its draw does not depend on the lane or the order that serve it.
+constexpr int kPerLane = 16;
+constexpr int kThreads = 256;
 
-  const float z = 0.5f * fabsf(c[i]);
-  // Mixture weight of the exponential branch, p / (p + q), in log space.
-  const double zd = z;
-  const double kd = kPi * (double)kPi / 8.0 + 0.5 * zd * zd;
-  const double logp = log(kPi / (2.0 * kd)) - kd * kT;
-  const double sqt = sqrt((double)kT);
-  const double l1 = -zd + log_norm_cdf((zd * kT - 1.0) / sqt);
-  const double l2 = zd + log_norm_cdf(-(zd * kT + 1.0) / sqt);
-  const double lq = M_LN2 + fmax(l1, l2) + log1p(exp(-fabs(l1 - l2)));
-  const double lm = fmax(logp, lq);
-  const float ratio_exp =
-      (float)exp(logp - (lm + log1p(exp(-fabs(logp - lq)))));
-  const float K = (float)kd;
+__global__ void __launch_bounds__(kThreads)
+pg_devroye_kernel(const float* __restrict__ c, float* __restrict__ out,
+                  long long n, unsigned long long seed,
+                  unsigned long long offset) {
+  __shared__ uint16_t order[kThreads / 32][32 * kPerLane];
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  const long long start =
+      ((blockIdx.x * (long long)kThreads + threadIdx.x) >> 5) * 32 * kPerLane;
+  const int cnt = (int)max(0LL, min(n - start, 32LL * kPerLane));
+  uint16_t* ord = order[threadIdx.x >> 5];
+  // Levy elements from the front of `ord`, MSH ones from the back.
+  int n_levy = 0, n_msh = 0;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int o = 32 * j + lane;
+    const bool valid = o < cnt;
+    const bool lv = valid && 0.5f * fabsf(c[start + o]) * kT < 1.0f;
+    const unsigned bl = __ballot_sync(0xffffffffu, lv);
+    const unsigned bm = __ballot_sync(0xffffffffu, valid && !lv);
+    if (lv) ord[n_levy + __popc(bl & below)] = (uint16_t)o;
+    if (valid && !lv) ord[cnt - 1 - n_msh - __popc(bm & below)] = (uint16_t)o;
+    n_levy += __popc(bl);
+    n_msh += __popc(bm);
+  }
+  __syncwarp();
 
-  const float zs = fmaxf(z, 1e-6f);
-  float result = z < 1e-6f ? 1.0f : tanhf(zs) / zs;   // fallback: E[J*]
-  for (int r = 0; r < kMaxRounds; ++r) {
-    float x;
-    if (uniform_open(&st) <= ratio_exp) {
-      x = kT + exponential(&st) / K;
-    } else if (!trunc_inv_gauss(z, &st, &x)) {
-      continue;
-    }
-    x = fmaxf(x, 1e-30f);
-    // Accept iff U <= S_n / a_0 for the first odd n with U <= S_n / a_0,
-    // reject at the first even n with U > S_n / a_0.
-    const float u = uniform_open(&st);
-    float s = 1.0f;
-    bool decided = false, accept = false;
-    for (int k = 1; k <= kMaxSeries && !decided; ++k) {
-      const float term = expf(log_coef_ratio(x, k));
-      if (k & 1) {
-        s -= term;
-        if (u <= s) { decided = true; accept = true; }
-      } else {
-        s += term;
-        if (u > s) { decided = true; }
+  Philox rng(seed, 0, offset);
+  long long i = 0;
+  int next = 0;
+  float z = 0.0f, ratio_exp = 0.0f, K = 0.0f, mu = 0.0f, chi = -1.0f;
+  bool levy = false, tail = false, fresh = false, active = false;
+  int rounds = 0, tries = 0;
+  for (;;) {
+    const unsigned idle = __ballot_sync(0xffffffffu, !active);
+    if (!active) {
+      const int pos = next + __popc(idle & below);
+      if (pos < cnt) {
+        i = start + ord[pos];
+        rng = Philox(seed, (unsigned long long)i, offset);
+        z = 0.5f * fabsf(c[i]);
+        ratio_exp = mixture_weight(z);
+        K = kPi * kPi / 8.0f + 0.5f * z * z;
+        levy = z * kT < 1.0f;
+        mu = 1.0f / fmaxf(z, 1e-30f);
+        chi = -1.0f;
+        rounds = 0;
+        fresh = active = true;
       }
     }
-    if (accept) {
-      result = x;
-      break;
+    next += __popc(idle);
+    if (!__any_sync(0xffffffffu, active)) break;
+    if (!active) continue;
+    if (fresh) {
+      const float u0 = rng.uniform();
+      tail = u0 <= ratio_exp;
+      fresh = false;
+      tries = 0;
+    }
+    float x;
+    bool have = true;
+    if (tail) {
+      x = kT - logf(rng.uniform()) / K;
+    } else {
+      have = ig_try(z, levy, mu, rng, chi, &x);
+      // kMaxRounds failed tries reject the round.
+      fresh = !have && ++tries == kMaxRounds;
+    }
+    if (have) {
+      if (series_accept(fmaxf(x, 1e-30f), rng.uniform())) {
+        out[i] = 0.25f * x;
+        active = false;
+        continue;
+      }
+      fresh = true;
+    }
+    if (fresh && ++rounds == kMaxRounds) {
+      const float zs = fmaxf(z, 1e-6f);                 // fallback: E[J*]
+      out[i] = 0.25f * (z < 1e-6f ? 1.0f : tanhf(zs) / zs);
+      active = false;
     }
   }
-  out[i] = 0.25f * result;
 }
 
 }  // namespace
@@ -160,9 +275,10 @@ extern "C" int pg_devroye_launch(const float* c, float* out, long long n,
                                  unsigned long long seed,
                                  unsigned long long offset, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  pg_devroye_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  const long long per_block = kThreads * (long long)kPerLane;
+  const long long blocks = (n + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  pg_devroye_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       c, out, n, seed, offset);
   return (int)cudaGetLastError();
 }

@@ -83,6 +83,66 @@ def _log_coef(x, n: int):
     return torch.where(x <= _TRUNC, logl, logr)
 
 
+def _fma_residual(a, b, p):
+    """fmaf(a, b, -p) for float32 a, b, p with p = fl(a b): the rounding
+    error of the product, exact (the product of two float32 values is
+    exact in float64, and so is its difference from p)."""
+    return (a.double() * b.double() - p.double()).float()
+
+
+def _two_sum(a, b):
+    """(s, e) with s = fl(a + b) and s + e = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+# Constants of the mixture weight: t/2 and pi^2 t / 8 as float32 values
+# plus the float32 rounding of their error, and e^{pi^2 t / 8 - 1/(2t)}.
+_HALF_T = torch.tensor(0.5 * _TRUNC, dtype=torch.float32)
+_HALF_T_LO = float(0.5 * _TRUNC - float(_HALF_T))
+_C1 = torch.tensor(_PI * _PI * _TRUNC / 8.0, dtype=torch.float32)
+_C1_LO = float(_PI * _PI * _TRUNC / 8.0 - float(_C1))
+_C2 = math.exp(_PI * _PI * _TRUNC / 8.0 - 1.0 / (2.0 * _TRUNC))
+
+
+def mixture_weight(z):
+    """Weight p / (p + q) of the exponential branch of Devroye's proposal
+    for J*(1, z), in float32 arithmetic (kernel K1 forms it alike):
+
+      p = pi/(2K) e^{-K t},  K = pi^2/8 + z^2/2,
+      q = 2 [e^{-z} Phi(a) + e^{z} Phi(-b)],  a, b = (z t -+ 1)/sqrt t.
+
+    With Phi(-b) = erfcx(b/sqrt 2) e^{-b^2/2} / 2, e^{z} Phi(-b) =
+    erfcx(b/sqrt 2) e^{-z^2 t/2 - 1/(2t)} / 2 never overflows, and
+    q/p = (2K/pi) [2 Phi(a) e^{E} + erfcx(b/sqrt 2) e^{pi^2 t/8 - 1/(2t)}]
+    with E = pi^2 t/8 + z^2 t/2 - z. E is carried as an unevaluated sum of
+    two float32 values (exact products by FMA residuals), since e^{E}
+    turns E's absolute error into a relative one. Within 1e-6 relative of
+    the float64 weight wherever that is a normal float32 (z up to ~18.5);
+    beyond, both are below 1.2e-38 (q/p overflows to inf: weight 0).
+    Phi(a) switches from erfc(-a/sqrt 2)/2 to 1 - erfc(a/sqrt 2)/2 at
+    a = 0, z = 1/t."""
+    z = torch.as_tensor(z, dtype=torch.float32)
+    zz = z * z
+    zz_e = _fma_residual(z, z, zz)
+    s = zz * _HALF_T
+    s_e = _fma_residual(zz, _HALF_T, s) + (zz * _HALF_T_LO + zz_e * _HALF_T)
+    d, d_e = _two_sum(torch.full_like(z, float(_C1)), -z)
+    e, e_e = _two_sum(s, d)
+    e_e = e_e + (s_e + (d_e + _C1_LO))
+    sqt = math.sqrt(_TRUNC)
+    a = (z * _TRUNC - 1.0) / sqt
+    b = (z * _TRUNC + 1.0) / sqt
+    r2 = 1.0 / math.sqrt(2.0)
+    phi = torch.where(a < 0, 0.5 * torch.special.erfc(-a * r2),
+                      1.0 - 0.5 * torch.special.erfc(a * r2))
+    K = _PI * _PI / 8.0 + 0.5 * zz
+    r = (2.0 / _PI) * K * (2.0 * phi * (torch.exp(e) * (1.0 + e_e))
+                           + _C2 * torch.special.erfcx(b * r2))
+    return 1.0 / (1.0 + r)
+
+
 def _exponential(shape, generator, device):
     u = torch.rand(shape, generator=generator, device=device)
     return -torch.log1p(-u)                 # u in [0, 1): 1 - u in (0, 1]
@@ -163,12 +223,7 @@ def pg_devroye_plain(c: torch.Tensor, generator: torch.Generator):
     dev = z.device
     t = _TRUNC
     K = _PI * _PI / 8.0 + 0.5 * z * z
-    logp = torch.log(_PI / (2.0 * K)) - K * t
-    sqt = math.sqrt(t)
-    logq = math.log(2.0) + torch.logaddexp(
-        -z + torch.special.log_ndtr((z * t - 1.0) / sqt),
-        z + torch.special.log_ndtr(-(z * t + 1.0) / sqt))
-    ratio_exp = torch.exp(logp - torch.logaddexp(logp, logq))
+    ratio_exp = mixture_weight(z)
 
     zsafe = torch.clamp(z, min=1e-6)
     X = torch.where(z < 1e-6, torch.ones_like(z), torch.tanh(zsafe) / zsafe)

@@ -1,7 +1,10 @@
 """pyglm_tpu_torch.ops.polyagamma: moments against the JAX package
 (rtol 1e-6), the plain exact sampler by two-sample KS test against the JAX
-sampler and against the native C++ oracle (n = 50k per c; gate p > 1e-3),
-and sample means within 4 standard errors of pg_mean."""
+sampler and against the native C++ oracle (n = 50k per c; gate p > 1e-3;
+c = 3.0 and 3.25 straddle the switch from the tilted Levy to the
+Michael-Schucany-Haas proposal at z t = 1, c = 3.125), sample means within
+4 standard errors of pg_mean, and the float32 mixture weight against a
+float64 one (1e-6 relative)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -13,7 +16,7 @@ from pyglm_tpu.ops import polyagamma as jp
 from pyglm_tpu_torch.ops import polyagamma as tp
 
 torch.set_num_threads(1)
-CS = [0.0, 0.5, 2.0, 8.0, 30.0]
+CS = [0.0, 0.5, 2.0, 3.0, 3.25, 8.0, 30.0]
 N_DRAWS = 50_000
 P_MIN = 1e-3
 
@@ -102,3 +105,40 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     from pyglm_tpu_torch.ops.pg_cuda import pg_devroye_cuda
     with pytest.raises(ValueError):
         pg_devroye_cuda(torch.zeros(4), 0, 0)
+
+
+def _weight64(z):
+    """p / (p + q) in float64 and log space, by torch.special.log_ndtr."""
+    z = z.double()
+    t = 0.64
+    K = np.pi ** 2 / 8.0 + 0.5 * z * z
+    logp = torch.log(np.pi / (2.0 * K)) - K * t
+    sqt = np.sqrt(t)
+    logq = np.log(2.0) + torch.logaddexp(
+        -z + torch.special.log_ndtr((z * t - 1.0) / sqt),
+        z + torch.special.log_ndtr(-(z * t + 1.0) / sqt))
+    return torch.exp(logp - torch.logaddexp(logp, logq))
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.5), (1.5, 1.625), (1.625, 8.0),
+                                   (8.0, 20.0), (20.0, 60.0)])
+def test_mixture_weight_float32_vs_float64(lo, hi):
+    """The float32 weight of the exponential branch (the formula K1 uses)
+    within 1e-6 relative of the float64 weight wherever that is a normal
+    float32; where it is not (z > ~18.5), both are below the smallest
+    normal float32. The band (1.5, 1.625) holds the switch of Phi(a) at z =
+    1/t = 1.5625, probed on both sides by the nearest float32 values."""
+    z = torch.linspace(lo, hi, 20001, dtype=torch.float32)
+    if lo <= 1.5625 <= hi:
+        sw = torch.full((1,), 1.5625)
+        z = torch.cat([z, torch.nextafter(sw, torch.zeros(1)), sw,
+                       torch.nextafter(sw, torch.full((1,), 2.0))])
+    w = tp.mixture_weight(z).double()
+    ref = _weight64(z)
+    tiny = float(torch.finfo(torch.float32).tiny)
+    normal = ref >= tiny
+    assert bool(torch.isfinite(w).all()) and bool((w >= 0).all())
+    rel = ((w - ref).abs() / ref)[normal]
+    assert rel.numel() == 0 or float(rel.max()) <= 1e-6, float(rel.max())
+    if (~normal).any():
+        assert float(w[~normal].max()) <= tiny * (1 + 1e-6)
