@@ -21,8 +21,11 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      and K5 (CRT counts); at the 8-chain latent-distance ensemble's shapes (P=2001,
      T=20k, 4000 lanes, G=10) K6 (group Gram) at precision "high"
      (3xTF32), "highest" (fp32 FMA) and "default" (one bf16 pass on wgmma
-     over a bf16 omega stream), plus a small ragged shape. K2's and K6's Grams and their plain versions are also
-     held against a float64 Gram of their operands.
+     over a bf16 omega stream), plus a small ragged shape, and K6's fp32
+     body also at the flagship's shape (Xt (801, 100000), omega (100000,
+     200), G=8: the staged loop's call at "highest"). K2's and K6's Grams
+     and their plain versions are also held against a float64 Gram of
+     their operands.
   2. Slices, each run with the launch counts set to 0 just before and read
      just after: a ground-truth SparseBernoulliGLM(200, B=4, L=10)
      generates T=100k bins and a fresh model fits them (2 warm-up + 5 timed
@@ -245,7 +248,9 @@ def phase_kernels(check, record):
     check(abs(var_ratio - 1.0) < 0.01,
           f"K1 spread vs pg_var: ratio = {var_ratio:.5f} (within 1%)")
     worst = 0.0
-    for c in (0.0, 0.5, 2.0, 8.0, 30.0):
+    # c = 3.0 and 3.25 straddle the switch from the tilted Levy to the
+    # Michael-Schucany-Haas proposal at z t = 1 (c = 3.125).
+    for c in (0.0, 0.5, 2.0, 3.0, 3.25, 8.0, 30.0):
         cv = torch.full((200_000,), c, device=dev)
         k = pg_devroye_cuda(cv, 7 + int(c * 10), 0)
         p = pg_devroye_plain(cv, gen)
@@ -256,16 +261,26 @@ def phase_kernels(check, record):
               f"K1 vs plain at c={c}: KS D={ks.statistic:.5f} "
               f"p={ks.pvalue:.4f}, |mean diff|={dmean:.2e}, "
               f"pg_mean={float(pg_mean(1.0, c)):.6f}")
+        se = math.sqrt(float(pg_var(1.0, c)) / cv.numel())
+        zc = (float(k.double().mean()) - float(pg_mean(1.0, c))) / se
+        check(abs(zc) < 5.0, f"K1 mean at c={c} vs pg_mean: {zc:.2f} "
+              "standard errors (|z| < 5)")
     ms = event_ms(lambda: pg_devroye_cuda(psi, 3, 0), 10)
     plain_ms = event_ms(lambda: pg_devroye_plain(psi, gen), 3)
+    # Config 5's draws: (T5, 8 chains x N5).
+    psi5 = -2.5 + 2.0 * torch.randn((T5, C5 * N5), generator=gen,
+                                    device=dev)
+    ms5 = event_ms(lambda: pg_devroye_cuda(psi5, 4, 0), 10)
+    del psi5
     # psi in, omega out; at least ~10 fp32 operations per draw (one
     # proposal and its test), so the bytes set the bound.
     record["pg_devroye"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                                library_ms=None,
+                                library_ms=None, config5_ms=ms5,
                                 **bound(2 * 4 * T * N,
                                         (10 * T * N, FP32_FLOPS)))
-    print(f"  K1 {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"(max_abs_err = largest |mean diff| over the five c)")
+    print(f"  K1 {ms:.3f} ms, plain {plain_ms:.3f} ms; at ({T5}, "
+          f"{C5 * N5}) {ms5:.3f} ms (max_abs_err = largest |mean diff| "
+          f"over the seven c)")
 
     # --- K2: one group pass at GB=32, T=100k, N=200 -----------------------
     print("K2 ss_group_pass: group g=3 of 25, GB=32, 3xTF32 Gram; then "
@@ -1233,6 +1248,78 @@ def phase_kernel_gram(check, record):
           f"{flops / ms_bf16 / 1e9:.1f} at default")
 
 
+def phase_kernel_gram_flagship(check, record):
+    """K6's fp32 body ("highest") at the flagship's main-path shape, the
+    staged loop's call at precision "highest": Xt (801, 100000), omega
+    (100000, 200), G = 8, B = 4 (25 groups of 32 rows). Against its plain
+    version, a float64 Gram of groups 0 and 24, itself, cuBLAS SGEMM on the
+    materialised Z (the library call) and its bound."""
+    import torch
+    from pyglm_tpu_torch.ops.basis import design_matrix, cosine_basis
+    from pyglm_tpu_torch.ops.gram_cuda import (
+        fp32_tile_plan, group_gram_blocks_cuda, group_gram_blocks_plain)
+    from pyglm_tpu_torch.ops.ss_cuda import pair_index
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(8080)
+    GB = G * B
+    Ng, npair = N // G, GB * (GB + 1) // 2
+    print(f"K6 group_gram at 'highest', the flagship's shape: Xt "
+          f"({N * B + 1}, {T}), omega ({T}, {N}), G={G}, B={B}; plan "
+          f"(ry, nx, splits, steps) {fp32_tile_plan(GB, N, T, Ng)}",
+          flush=True)
+    Y = (torch.rand((T, N), generator=gen, device=dev) < 0.05).float()
+    Xt = design_matrix(Y, cosine_basis(B, L)).T.contiguous()
+    del Y
+    omega = 0.05 + 0.2 * torch.rand((T, N), generator=gen, device=dev)
+
+    def gram():
+        return group_gram_blocks_cuda(Xt, omega, B, G, precision="highest")
+
+    k = gram()
+    plain = group_gram_blocks_plain(Xt, omega, B, G, precision="highest")
+    torch.cuda.synchronize()
+    err = rel_err(k, plain)
+    check(err <= GRAM_REL_TOL, f"K6 highest at the flagship: max|diff|/"
+          f"max|plain| = {err:.2e} (limit {GRAM_REL_TOL:.0e})")
+    check(torch.equal(k, gram()), "K6 highest at the flagship repeats bit "
+          "for bit")
+    p_idx, q_idx = pair_index(GB, dev)
+    f64 = f64_plain = 0.0
+    for g in (0, Ng - 1):
+        xg = Xt[g * GB:(g + 1) * GB]
+        j64 = (xg[p_idx] * xg[q_idx]).double() @ omega.double()
+        f64 = max(f64, rel_err(k[g].double(), j64))
+        f64_plain = max(f64_plain, rel_err(plain[g].double(), j64))
+        del j64
+    max_abs = float((k - plain).abs().max())
+    del k, plain
+    check(f64 <= F64_RATIO * f64_plain,
+          f"K6 highest at the flagship vs a float64 Gram (groups 0 and "
+          f"{Ng - 1}): {f64:.2e}, within {F64_RATIO:g}x its plain "
+          f"version's {f64_plain:.2e}")
+    ms = min(event_ms(gram, 5) for _ in range(2))
+    plain_ms = event_ms(lambda: group_gram_blocks_plain(
+        Xt, omega, B, G, precision="highest"), 3)
+    Z = Xt[:GB][p_idx] * Xt[:GB][q_idx]
+    lib_ms = Ng * event_ms(lambda: torch.matmul(Z, omega), 5)
+    del Z
+    nbytes = 4 * (Ng * GB * T + T * N + Ng * npair * N)
+    flops = 2.0 * Ng * npair * N * T
+    b = bound(nbytes, (flops, FP32_FLOPS))
+    record["group_gram"].update(
+        highest_flagship_ms=ms, highest_flagship_plain_ms=plain_ms,
+        highest_flagship_library_ms=lib_ms,
+        highest_flagship_bound_ms=b["bound_ms"],
+        highest_flagship_max_abs_err=max_abs,
+        highest_flagship_f64_rel_err=f64,
+        highest_flagship_plain_f64_rel_err=f64_plain)
+    print(f"  K6 highest at the flagship {ms:.3f} ms ({flops / ms / 1e9:.1f}"
+          f" TFLOP/s), plain {plain_ms:.3f} ms, cuBLAS SGEMM on the "
+          f"materialised Z x {Ng} groups {lib_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+
+
 def phase_config5(check, record, ctx):
     """Acceptance config 5 through the user entry points: a latent-distance
     truth model (N=500) generates T=20k bins; the fitted model runs
@@ -1539,6 +1626,7 @@ def main() -> int:
     for phase in (lambda: phase_kernels(check, record),
                   lambda: phase_kernels_nb(check, record),
                   lambda: phase_kernel_gram(check, record),
+                  lambda: phase_kernel_gram_flagship(check, record),
                   lambda: summary.update(phase_slice(check, record, ctx)),
                   lambda: summary.update(phase_highest(check, record, ctx)),
                   lambda: summary.update(phase_bf16_flagship(

@@ -345,4 +345,31 @@ __device__ __forceinline__ void gram_tile(
       }
 }
 
+// out[i] = sum over splits of part[split, i], in split order, compensated
+// (each add's rounding error, recovered by TwoSum, is carried to the end).
+static __global__ void reduce_splits_kernel(const float* __restrict__ part,
+                                            float* __restrict__ out,
+                                            int n_split, long long stride,
+                                            long long count) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float s = 0.0f, c = 0.0f;
+  for (int k = 0; k < n_split; ++k) {
+    const float b = part[k * stride + i], t = s + b, bb = t - s;
+    c += (s - (t - bb)) + (b - bb);
+    s = t;
+  }
+  out[i] = s + c;
+}
+
+// reduce_splits_kernel over `count` outputs, on stream s.
+static inline cudaError_t reduce_splits(const float* part, float* out,
+                                        int n_split, long long stride,
+                                        long long count, cudaStream_t s) {
+  const int threads = 256;
+  reduce_splits_kernel<<<(unsigned)((count + threads - 1) / threads), threads,
+                         0, s>>>(part, out, n_split, stride, count);
+  return cudaGetLastError();
+}
+
 }  // namespace gram_tc

@@ -13,10 +13,12 @@
 // _gram_kernel_fast (fast=True, precision "default"). The TPU kernel
 // carries a full GB x GB output block in VMEM across an ordered time-chunk
 // grid axis. Hopper blocks run in no order, so each block owns one (group,
-// pair-row tile, lane tile) and loops over all of T inside itself; nothing
-// is carried between blocks and no atomics are used, so results repeat
-// from run to run. Only the triangle p <= q is formed: half the products
-// of the TPU kernel's GB x GB block (820 pairs instead of 1600 at GB = 40).
+// pair-row tile, lane tile) and loops over all of T inside itself (the
+// fp32 body: over one range of T, the ranges summed in order by a second
+// pass); nothing is carried between blocks and no atomics are used, so
+// results repeat from run to run. Only the triangle p <= q is formed: half
+// the products of the TPU kernel's GB x GB block (820 pairs instead of 1600
+// at GB = 40).
 //
 // Three bodies, chosen by the caller's precision:
 //   - "high": group_gram_tc_kernel, 3xTF32 on the tensor cores with
@@ -35,17 +37,31 @@
 //     omega slab in L2.
 //   - "highest": group_gram_kernel, fp32 FMA on the CUDA cores (the JAX
 //     package's "highest" takes its f32 XLA Gram, which sums per 512-step
-//     chunk in a lax.scan). 128 pair rows x 128 lanes over 256 threads, each
-//     an 8 x 8 register micro-tile fed from shared memory by four float4
-//     loads per 64 FMAs; Z formed in shared memory; each step's global loads
-//     issued into registers during the previous step's product; a warp
-//     whose rows all lie past the last pair row skips the product. Every
-//     512 steps the registers are folded by Fast2Sum into a second fp32 sum
-//     kept in shared memory (so 2e4 terms are never summed in one fp32
-//     accumulator). Bound: 6.6e12 FLOP over the 67 TFLOP/s fp32 peak.
-// The grid is 8k-21k blocks at the 8-chain ensemble (Ng = 50, GB = 40,
-// 4000 lanes, T = 2e4), so there is no split of the time axis. The ragged T
-// edge is masked in the loads (X and omega read as 0 past T).
+//     chunk in a lax.scan). Bound: the fp32 FMA issue rate, 2 x 3.3e12
+//     FLOP at config 5 over the 67 TFLOP/s fp32 peak (97.9 ms), 5.3e11 at
+//     the flagship (7.9 ms). Each thread holds an 8 x 8 register
+//     micro-tile fed by four float4 shared loads per 64 FMAs; a block's
+//     tile, 8 RY pair rows x 8 NX lanes, is one of two compiled shapes
+//     (128 x 128, or 80 x 200 for the flagship's 200 lanes), and T may be
+//     split into ranges summed by a second pass, both chosen per call by
+//     ops/gram_cuda.py::fp32_tile_plan so that the grid fills whole waves
+//     of the card with little padding (the flagship: 7 tiles of 80 x 200
+//     per group, 3 splits, 525 blocks in 2 waves of 2 x 132; config 5:
+//     80 x 200, no split). Two blocks share an SM. Per 16-step stage one
+//     barrier: omega and the design rows arrive by cp.async one and two
+//     stages ahead, Z = X_p X_q of the next stage is built into the free
+//     one of 2 Z buffers before the current stage's products, and a warp
+//     whose rows all lie past the last pair row skips the products. Every
+//     512 steps the registers are folded by Fast2Sum into a second fp32
+//     sum in shared memory (so 2e4 terms are never summed in one fp32
+//     accumulator); without a split every output is summed in the same
+//     order as a plain loop over t with those folds. What sets its pace
+//     (PERF.md): the products loop itself (38 TFLOP/s with the Z build cut
+//     out at config 5), then the build (16%).
+// The "high" and "default" grids are 8k-21k blocks at the 8-chain ensemble
+// (Ng = 50, GB = 40, 4000 lanes, T = 2e4), so they do not split the time
+// axis. The ragged T edge is masked in the loads (X and omega read as 0
+// past T).
 
 #include <cuda_runtime.h>
 
@@ -54,142 +70,217 @@
 
 namespace {
 
-constexpr int kRT = 128;    // pair rows per tile
-constexpr int kNT = 128;    // postsyn lanes per tile
-constexpr int kKT = 16;     // time steps per shared-memory stage
-constexpr int kThreads = 256;
 constexpr int kMaxGB = 64;
 // Tile-loop stages per fold (128 steps; 48 truncated adds per chunk at
 // 3xTF32): 64 steps halve the Gram's error and cost ~10% more time
 // (PERF.md).
 constexpr int kFold = 4;
-// The fp32 body's stages per fold (512 steps, the JAX Gram's chunk), and
-// the shared memory of its second sum: 64 floats per thread.
-constexpr int kFoldFp32 = 512 / kKT;
-constexpr int kSumBytes = 64 * kThreads * (int)sizeof(float);
 
-__global__ void __launch_bounds__(kThreads, 2)
-group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
-                  float* __restrict__ out, int T, int N, int GB) {
-  __shared__ float xs[kMaxGB][kKT + 1];
-  __shared__ __align__(16) float as[kKT][kRT];
-  __shared__ __align__(16) float bs[kKT][kNT];
-  __shared__ int pidx[kRT], qidx[kRT];
-  extern __shared__ float sums[];    // [64][kThreads]: the second sums
+// The fp32 body ("highest"): time steps per shared-memory stage, stages per
+// fold (512 steps, the JAX Gram's chunk), and the most shared memory a
+// block may take so that two blocks share an SM. Its tiles are 8 RY pair
+// rows x 8 NX lanes on RY NX threads, one 8 x 8 register micro-tile each,
+// from a menu of compiled shapes (group_gram_fp32_launch).
+constexpr int kFS = 16;
+constexpr int kFoldStages = 512 / kFS;
+constexpr int kFMaxSmem = 115712;
 
-  const int tid = threadIdx.x;
-  const int lane0 = blockIdx.x * kNT;
-  const int tile = blockIdx.y;
-  const int g = blockIdx.z;
-  const int npair = GB * (GB + 1) / 2;
-  const float* xg = xt + (size_t)g * GB * T;
+// Shared memory of the fp32 body, in floats: 2 omega stages (kFS x 8 nx),
+// 2 Z stages (kFS x 8 ry), a ring of 3 design stages stored step-major
+// (kFS x (GB | 1): an odd row keeps the transposing copies and the Z build
+// free of bank conflicts) and the second sums (64 per thread).
+__host__ __device__ constexpr int fp32_smem_floats(int GB, int ry, int nx) {
+  return 2 * kFS * 8 * (nx + ry) + 3 * kFS * (GB | 1) + 64 * ry * nx;
+}
 
-  if (tid < kRT) {
-    // Row pr of the packed triangle -> (p, q), row-major over p <= q.
-    const int pr = tile * kRT + tid;
-    int p = -1, q = -1;
-    if (pr < npair) {
-      int rem = pr;
-      p = 0;
-      while (rem >= GB - p) {
-        rem -= GB - p;
-        ++p;
-      }
-      q = p + rem;
-    }
-    pidx[tid] = p;
-    qidx[tid] = q;
+// acc[i][j] += sum over the stage's kFS steps of Z[8 ty + i, k] omega[k, n_j]
+// with n_j = 4 tx + j (j < 4) or 4 NX + 4 tx + j - 4: `a` and `b` point at
+// the thread's first row and lane of the stage's Z (kFS x 8 RY) and omega
+// (kFS x 8 NX) tiles. Four float4 loads feed 64 FMAs.
+template <int RY, int NX>
+__device__ __forceinline__ void fp32_products(float (&acc)[8][8],
+                                              const float* a,
+                                              const float* b) {
+#pragma unroll
+  for (int k = 0; k < kFS; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + k * 8 * RY);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + k * 8 * RY + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + k * 8 * NX);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(b + k * 8 * NX + 4 * NX);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
-  __syncthreads();
+}
 
-  // micro-tile: rows 8ty .. 8ty+7, lanes 4tx.. and 64+4tx.. (the split keeps
-  // the float4 loads of a warp on distinct banks)
-  const int tx = tid % 16, ty = tid / 16;
-  const int ll = tid % kNT, lk = tid / kNT;    // staging: lane ll, steps lk + 2j
-  const int n_ld = lane0 + ll;
-  // Valid rows of this tile; ty pairs share a warp, so the test is uniform.
-  const int tile_rows = min(kRT, npair - tile * kRT);
-  const bool busy = 16 * (ty / 2) < tile_rows;
-  float acc[8][8] = {};
+// The fp32 body: block (pair tile, group, lane tile + n_lt x split) forms
+// the tile's sums over the split's steps [split steps, (split + 1) steps)
+// into dst + split * split_stride (the output itself when there is one
+// split, else a partial for gram_tc::reduce_splits). Per stage s, after one
+// barrier: the copies of omega's stage s + 1 (16-byte cp.async where vec_o)
+// and of the design rows' stage s + 2 (4-byte cp.async, transposed to
+// step-major) are issued, Z of stage s + 1 is built from its landed design
+// rows into the free Z buffer (each building thread keeps its pair row's
+// (p, q) in registers), and stage s's products run; the barrier of stage
+// s + 1 is the only one between them. The tile's shape is compiled in, so
+// every shared-memory address of the products and copies is an immediate
+// offset. Two blocks share an SM (at most 128 registers a thread), so one
+// block's build and copies overlap the other's products. Every kFoldStages
+// stages the registers are folded by Fast2Sum into a second fp32 sum in
+// shared memory (sum + acc = t + e exactly: sum takes t, e seeds the next
+// chunk).
+template <int RY, int NX>
+__global__ void __launch_bounds__(RY * NX, 2)
+group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
+                  float* __restrict__ dst, long long split_stride, int T,
+                  int N, int GB, int n_lt, int steps, int vec_o) {
+  constexpr int kTh = RY * NX, RT = 8 * RY, NT = 8 * NX;
+  constexpr int kZk = kTh / RT;           // build: threads per pair row
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, xp = GB | 1;
+  const int npair = GB * (GB + 1) / 2, row0 = blockIdx.x * RT;
+  const int g = blockIdx.y, lane0 = (blockIdx.z % n_lt) * NT;
+  const int split = blockIdx.z / n_lt;
+  const int t_begin = split * steps, t_end = min(T, t_begin + steps);
+  const int s_end = (t_end - t_begin + kFS - 1) / kFS;
+  float* bs = smem;                       // [2][kFS][NT]
+  float* as = bs + 2 * kFS * NT;          // [2][kFS][RT]
+  float* xs = as + 2 * kFS * RT;          // [3][kFS][xp]
+  float* sums = xs + 3 * kFS * xp;        // [64][kTh]
+  const float* xg = xt + (size_t)g * GB * T;
 #pragma unroll
-  for (int e = 0; e < 64; ++e) sums[e * kThreads + tid] = 0.0f;
+  for (int e = 0; e < 64; ++e) sums[e * kTh + tid] = 0.0f;
 
-  constexpr int kXPer = kMaxGB * kKT / kThreads;       // design values
-  constexpr int kBPer = kKT / (kThreads / kNT);        // (t, lane) values
-  float xr[kXPer], omr[kBPer];
-  auto prefetch = [&](int t0) {
-#pragma unroll
-    for (int j = 0; j < kXPer; ++j) {
-      const int i = tid + kThreads * j, r = i / kKT, t = t0 + i % kKT;
-      xr[j] = (i < GB * kKT && t < T) ? xg[(size_t)r * T + t] : 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < kBPer; ++j) {
-      const int t = t0 + lk + (kThreads / kNT) * j;
-      omr[j] = (t < T && n_ld < N) ? om[(size_t)t * N + n_ld] : 0.0f;
+  // The design rows of stage s into ring slot s % 3, omega's into s % 2.
+  auto load_x = [&](int s) {
+    const int t0 = t_begin + s * kFS;
+    float* xd = xs + (s % 3) * kFS * xp;
+    for (int i = tid; i < GB * kFS; i += kTh) {
+      const int p = i / kFS, k = i % kFS, t = t0 + k;
+      const bool ok = t < t_end;
+      gram_tc::cp_async4(xd + k * xp + p, ok ? xg + (size_t)p * T + t : xg,
+                         ok);
     }
   };
-  prefetch(0);
-
-  for (int t0 = 0, stage = 1; t0 < T; t0 += kKT, ++stage) {
+  auto load_om = [&](int s) {
+    const int t0 = t_begin + s * kFS;
+    float* bd = bs + (s & 1) * kFS * NT;
+    if (vec_o) {
 #pragma unroll
-    for (int j = 0; j < kXPer; ++j) {
-      const int i = tid + kThreads * j;
-      if (i < GB * kKT) xs[i / kKT][i % kKT] = xr[j];
-    }
-#pragma unroll
-    for (int j = 0; j < kBPer; ++j) bs[lk + (kThreads / kNT) * j][ll] = omr[j];
-    __syncthreads();
-    for (int i = tid; i < kKT * kRT; i += kThreads) {
-      const int k = i / kRT, r = i % kRT, p = pidx[r];
-      as[k][r] = p >= 0 ? xs[p][k] * xs[qidx[r]][k] : 0.0f;
-    }
-    __syncthreads();
-    if (t0 + kKT < T) prefetch(t0 + kKT);
-    if (busy) {
-#pragma unroll
-      for (int k = 0; k < kKT; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&as[k][8 * ty]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&as[k][8 * ty + 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&bs[k][4 * tx]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&bs[k][64 + 4 * tx]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int c = tid; c < kFS * NT / 4; c += kTh) {
+        const int k = c / (NT / 4), n = lane0 + 4 * (c % (NT / 4));
+        const bool ok = t0 + k < t_end && n < N;
+        gram_tc::cp_async16(bd + 4 * c, ok ? om + (size_t)(t0 + k) * N + n : om,
+                            ok);
       }
-      if (stage % kFoldFp32 == 0) {
-        // sum + acc = t + e exactly (Fast2Sum, as in gram_tc.cuh): sum
-        // takes t, and the rounding error e seeds the next chunk.
+    } else {
+      for (int c = tid; c < kFS * NT; c += kTh) {
+        const int k = c / NT, n = lane0 + c % NT;
+        const bool ok = t0 + k < t_end && n < N;
+        gram_tc::cp_async4(bd + c, ok ? om + (size_t)(t0 + k) * N + n : om,
+                           ok);
+      }
+    }
+  };
+  // Z of stage s into Z buffer s % 2: Z[k, r] = X[p_r, t] X[q_r, t], by the
+  // first kZk RT threads: thread (zk, zr) forms row zr at steps zk + j kZk.
+  const int zr = tid % RT, zk = tid / RT;
+  int zp = -1, zq = 0;
+  if (zk < kZk && row0 + zr < npair) {
+    // Row pr of the packed triangle -> (p, q), row-major over p <= q.
+    int rem = row0 + zr;
+    zp = 0;
+    while (rem >= GB - zp) rem -= GB - zp++;
+    zq = zp + rem;
+  }
+  auto fp32_build_z = [&](int s) {
+    if (zk >= kZk) return;
+    const float* xsrc = xs + (s % 3) * kFS * xp;
+    float* zd = as + (s & 1) * kFS * RT + zr;
+#pragma unroll
+    for (int j = 0; j < (kFS + kZk - 1) / kZk; ++j) {
+      const int k = zk + j * kZk;
+      if (k < kFS)
+        zd[k * RT] = zp >= 0 ? xsrc[k * xp + zp] * xsrc[k * xp + zq] : 0.0f;
+    }
+  };
+
+  const int tx = tid % NX, ty = tid / NX;
+  // A warp whose first row lies past the last pair row skips the products
+  // (every later thread of the warp has a later row).
+  const bool busy = 8 * ((tid & ~31) / NX) < npair - row0;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  load_x(0);
+  load_om(0);
+  if (1 < s_end) load_x(1);
+  gram_tc::cp_async_commit();
+  gram_tc::cp_async_wait<0>();
+  __syncthreads();
+  fp32_build_z(0);
+  for (int s = 0; s < s_end; ++s) {
+    gram_tc::cp_async_wait<0>();
+    __syncthreads();
+    if (s + 1 < s_end) load_om(s + 1);
+    if (s + 2 < s_end) load_x(s + 2);
+    gram_tc::cp_async_commit();
+    if (s + 1 < s_end) fp32_build_z(s + 1);
+    if (busy) {
+      fp32_products<RY, NX>(acc, as + (s & 1) * kFS * RT + 8 * ty,
+                            bs + (s & 1) * kFS * NT + 4 * tx);
+      if ((s + 1) % kFoldStages == 0) {
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            float* sp = sums + (8 * i + j) * kThreads + tid;
+            float* sp = sums + (8 * i + j) * kTh + tid;
             const float a = *sp, b = acc[i][j], t = a + b;
             *sp = t;
             acc[i][j] = b - (t - a);
           }
       }
     }
-    __syncthreads();
   }
 
-  float* obase = out + (size_t)g * npair * N;
+  float* o = dst + split * split_stride + (size_t)g * npair * N;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int pr = tile * kRT + 8 * ty + i;
+    const int pr = row0 + 8 * ty + i;
     if (pr >= npair) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int n = lane0 + (j < 4 ? 0 : 60) + 4 * tx + j;
+      const int n = lane0 + (j < 4 ? 4 * tx + j : 4 * NX + 4 * tx + j - 4);
       if (n < N)
-        obase[(size_t)pr * N + n] = sums[(8 * i + j) * kThreads + tid] +
-                                    acc[i][j];
+        o[(size_t)pr * N + n] = sums[(8 * i + j) * kTh + tid] + acc[i][j];
     }
   }
+}
+
+// Launch the fp32 body at tile (RY, NX); see group_gram_fp32_launch.
+template <int RY, int NX>
+cudaError_t launch_fp32(const float* xt, const float* om, float* dst,
+                        long long split_stride, int T, int N, int GB, int Ng,
+                        int n_split, int steps, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      group_gram_kernel<RY, NX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  const int npair = GB * (GB + 1) / 2;
+  const int n_lt = (N + 8 * NX - 1) / (8 * NX);
+  const int vec_o = N % 4 == 0 && (size_t)om % 16 == 0;
+  group_gram_kernel<RY, NX>
+      <<<dim3((npair + 8 * RY - 1) / (8 * RY), Ng, n_lt * n_split), RY * NX,
+         fp32_smem_floats(GB, RY, NX) * (int)sizeof(float), s>>>(
+          xt, om, dst, split_stride, T, N, GB, n_lt, steps, vec_o);
+  return cudaGetLastError();
 }
 
 // "high" (3xTF32) on the tensor cores, one tile of one group per block.
@@ -283,31 +374,49 @@ wgmma_probe_kernel(const uint16_t* __restrict__ a,
 }  // namespace
 
 // xt: (>= Ng GB, T) design rows, group g in rows [g GB, (g + 1) GB);
-// om: (T, N); out: (Ng, GB(GB+1)/2, N), every element written. body: 0 the
-// fp32 FMA body ("highest"), 1 the 3xTF32 body ("high"); the bf16 body
-// ("default") is group_gram_bf16_launch.
+// om: (T, N); out: (Ng, GB(GB+1)/2, N), every element written. The 3xTF32
+// body ("high"); the fp32 body ("highest") is group_gram_fp32_launch, the
+// bf16 body ("default") group_gram_bf16_launch.
 extern "C" int group_gram_launch(const float* xt, const float* om, float* out,
-                                 int T, int N, int GB, int Ng, int body,
-                                 void* stream) {
+                                 int T, int N, int GB, int Ng, void* stream) {
   if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || Ng < 1 || Ng > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  return (int)launch_tc(xt, om, out, T, N, GB, Ng, (cudaStream_t)stream);
+}
+
+// The "highest" body. xt, om and out as above; tile (8 ry pair rows) x (8 nx
+// lanes) on ry nx threads, one of the compiled shapes (16, 16) (128 x 128)
+// and (10, 25) (80 x 200); T split into n_split ranges of `steps` steps (a
+// multiple of 512, so folds fall on the same steps as without a split),
+// summed by a second pass from part ((n_split, Ng, GB(GB+1)/2, N) floats)
+// when n_split > 1 (ops/gram_cuda.py::fp32_tile_plan chooses).
+extern "C" int group_gram_fp32_launch(const float* xt, const float* om,
+                                      float* out, float* part, int T, int N,
+                                      int GB, int Ng, int ry, int nx,
+                                      int n_split, int steps, void* stream) {
   const int npair = GB * (GB + 1) / 2;
-  switch (body) {
-    case 0: {
-      static const cudaError_t attr = cudaFuncSetAttribute(
-          group_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kSumBytes);
-      if (attr != cudaSuccess) return (int)attr;
-      dim3 grid((N + kNT - 1) / kNT, (npair + kRT - 1) / kRT, Ng);
-      group_gram_kernel<<<grid, kThreads, kSumBytes, s>>>(xt, om, out, T, N,
-                                                          GB);
-      return (int)cudaGetLastError();
-    }
-    case 1:
-      return (int)launch_tc(xt, om, out, T, N, GB, Ng, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const int n_lt = (N + 8 * nx - 1) / (8 * nx);
+  if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || Ng < 1 || Ng > 65535 ||
+      n_split < 1 || steps < 1 || steps % (kFS * kFoldStages) != 0 ||
+      (long long)(n_split - 1) * steps >= T ||
+      (long long)n_split * steps < T || (n_split > 1 && part == nullptr) ||
+      (long long)n_lt * n_split > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long count = (long long)Ng * npair * N;
+  float* dst = n_split > 1 ? part : out;
+  cudaError_t err;
+  if (ry == 16 && nx == 16)
+    err = launch_fp32<16, 16>(xt, om, dst, count, T, N, GB, Ng, n_split,
+                              steps, s);
+  else if (ry == 10 && nx == 25)
+    err = launch_fp32<10, 25>(xt, om, dst, count, T, N, GB, Ng, n_split,
+                              steps, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err == cudaSuccess && n_split > 1)
+    err = gram_tc::reduce_splits(part, out, n_split, count, count, s);
+  return (int)err;
 }
 
 // The "default" body. xt as above; om16: (T, N8) omega rounded to bf16,

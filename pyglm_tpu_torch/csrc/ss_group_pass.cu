@@ -14,7 +14,7 @@
 // and carries M0/Jgg in VMEM scratch from one time chunk to the next. Hopper
 // blocks run in no order, so the time axis is split across blocks
 // (split-K): each block owns a t-range and writes its partial sums to a
-// scratch buffer that the wrapper allocated; reduce_splits_kernel sums the
+// scratch buffer that the wrapper allocated; gram_tc::reduce_splits sums the
 // partials in a fixed order, so results repeat from run to run. No atomics.
 //
 // The Gram's mode is the caller's precision, as the TPU kernel's `gram`:
@@ -210,22 +210,6 @@ group_pass_wgmma_kernel(const float* __restrict__ xg,
       offset);
 }
 
-// out[i] = sum over splits of part[split, i], in split order, compensated
-// (each add's rounding error, recovered by TwoSum, is carried to the end).
-__global__ void reduce_splits_kernel(const float* __restrict__ part,
-                                     float* __restrict__ out, int n_split,
-                                     long long stride, long long count) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.0f, c = 0.0f;
-  for (int k = 0; k < n_split; ++k) {
-    const float b = part[k * stride + i], t = s + b, bb = t - s;
-    c += (s - (t - bb)) + (b - bb);
-    s = t;
-  }
-  out[i] = s + c;
-}
-
 template <int R>
 cudaError_t launch_scatter_r(const float* xp, const float* om, float* u,
                              const float* dw, float* part, int T, int N,
@@ -309,14 +293,6 @@ cudaError_t launch_gram(const float* xg, const float* om,
                                 ntile, seed, offset, s);
   }
   return cudaErrorInvalidValue;
-}
-
-cudaError_t reduce(const float* part, float* out, int n_split,
-                   long long stride, long long count, cudaStream_t s) {
-  const int threads = 256;
-  reduce_splits_kernel<<<(unsigned)((count + threads - 1) / threads), threads,
-                         0, s>>>(part, out, n_split, stride, count);
-  return cudaGetLastError();
 }
 
 // A side stream and its fork/join events for each device, made at first use.
@@ -411,13 +387,15 @@ extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
     return (int)err;
 
   // out = [M0; Jgg; sum omega], each summed over its splits in order.
-  if ((err = reduce(part_m, out, n_split_m, (long long)GB * N,
-                    (long long)GB * N, s)) != cudaSuccess ||
-      (err = reduce(part_g, out + (size_t)GB * N, n_split,
-                    (long long)npair * N, (long long)npair * N, s)) !=
+  using gram_tc::reduce_splits;
+  if ((err = reduce_splits(part_m, out, n_split_m, (long long)GB * N,
+                           (long long)GB * N, s)) != cudaSuccess ||
+      (err = reduce_splits(part_g, out + (size_t)GB * N, n_split,
+                           (long long)npair * N, (long long)npair * N, s)) !=
           cudaSuccess)
     return (int)err;
   if (want_sumom)
-    err = reduce(part_s, out + (size_t)(GB + npair) * N, n_split_s, N, N, s);
+    err = reduce_splits(part_s, out + (size_t)(GB + npair) * N, n_split_s, N,
+                        N, s);
   return (int)err;
 }

@@ -38,8 +38,12 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("c", [0.0, 1.5, 12.0])
+@pytest.mark.parametrize("c", [0.0, 0.5, 1.5, 2.0, 3.0, 3.25, 8.0, 12.0,
+                               30.0])
 def test_pg_kernel_matches_plain_distribution(gen, c):
+    """K1 against its plain version (KS p > 1e-3) and pg_mean (5 standard
+    errors); c = 3.0 and 3.25 straddle the switch from the tilted Levy to
+    the Michael-Schucany-Haas proposal at c = 3.125."""
     from scipy.stats import ks_2samp
     cv = torch.full((100_000,), c, device="cuda")
     k = pg_devroye_cuda(cv, 11, 5)
@@ -521,6 +525,28 @@ def test_group_gram_error_against_float64(gen):
     print(errs)
     for prec, (ek, ep) in errs.items():
         assert ek <= 2 * ep, (prec, errs)
+
+
+def test_group_gram_highest_at_the_flagship_groups(gen):
+    """K6's fp32 body at the flagship's shape (GB = 32, T = 1e5, 200
+    lanes; two groups here), where its plan splits T in 3 and sums the
+    partials by a second pass: within 1e-5 of its plain version, no
+    further from a float64 Gram than 2x the plain version, bit-repeatable."""
+    from pyglm_tpu_torch.ops.gram_cuda import fp32_tile_plan
+    T, B, G, lanes = 100_000, 4, 8, 200
+    assert fp32_tile_plan(G * B, lanes, T, 2)[2] > 1
+    Xt = _design(gen, 2 * G, T)
+    om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")
+    k = group_gram_blocks_cuda(Xt, om, B, G, precision="highest")
+    plain = group_gram_blocks_plain(Xt, om, B, G, precision="highest")
+    assert _rel(k, plain) <= 1e-5
+    assert torch.equal(k, group_gram_blocks_cuda(Xt, om, B, G,
+                                                 precision="highest"))
+    p, q = pair_index(G * B, "cuda")
+    for g in range(2):
+        ek, ep = _f64_errors(k[g], plain[g], Xt[g * G * B:(g + 1) * G * B],
+                             om, p, q)
+        assert ek <= 2 * ep, (g, ek, ep)
 
 
 def test_highest_sweep_launches_k6_not_k2(gen):
