@@ -463,7 +463,8 @@ def test_binomial_sweep_on_card_dispatch(gen, n_trials, kernel):
                                                (2000, 32, 4, 16, 300),
                                                (1000, 3, 4, 1, 200),
                                                (40, 12, 4, 3, 130),
-                                               (3001, 8, 4, 4, 4001)])
+                                               (3001, 8, 4, 4, 4001),
+                                               (20_000, 20, 4, 10, 250)])
 def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
                                          precision):
     """K6 (3xTF32 at "high", fp32 FMA at "highest", one bf16 pass on wgmma
@@ -471,8 +472,10 @@ def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
     ensemble's GB = 40 over three lane tiles, GB = 28 (not a multiple of
     8) over two; GB = 64 (2080 pairs, 13 pair tiles of the "default"
     body), GB = 4 (one partial tile), T = 40 (less than one 64-step
-    stage), and 4001 lanes (ragged against both 8 and 128). The design
-    holds continuous values, so the bf16 rounding of Z shows."""
+    stage), 4001 lanes (ragged against both 8 and 128), and 250 lanes,
+    where the fp32 body takes its 128 x 128 tile (the other shapes take
+    80 x 200). The design holds continuous values, so the bf16 rounding of
+    Z shows."""
     Xt = torch.rand((N_pre * B + 1, T), generator=gen, device="cuda") * (
         torch.rand((N_pre * B + 1, T), generator=gen, device="cuda") < 0.3)
     om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")

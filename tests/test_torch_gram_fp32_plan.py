@@ -49,9 +49,12 @@ def test_plan_at_the_main_paths():
     """The flagship's "highest" call (25 groups of 528 pairs, 200 lanes, T
     = 1e5) fills 7 tiles of 80 x 200 per group and 3 splits: 525 blocks,
     2 waves of 2 x 132; config 5 (50 groups of 820 pairs, 4000 lanes, T =
-    2e4) needs no split."""
+    2e4) takes the same tile and no split; 128 or 250 lanes take the 128 x
+    128 tile."""
     assert _check_plan(32, 200, 100_000, 25) == (10, 25, 3, 33792)
-    assert _check_plan(40, 4000, 20_000, 50)[2] == 1
+    assert _check_plan(40, 4000, 20_000, 50)[:3] == (10, 25, 1)
+    assert _check_plan(40, 250, 20_000, 2)[:2] == (16, 16)
+    assert _check_plan(64, 128, 20_000, 25)[:2] == (16, 16)
 
 
 def _emulate(Xt, omega, B, G):
