@@ -12,7 +12,8 @@ older checkouts' packages can be timed on the same card in one command, in
 turns (older, this, this, older). ``--cut build`` drops the Z build from
 the body's main loop (``csrc/gram_wgmma.cuh`` at "default",
 ``csrc/group_gram.cu``'s fp32 body at "highest"), ``--cut products`` its
-products; the cut copy of the package goes to ROOT/build/gram_cut_<parts>/
+products, ``--cut lds`` (fp32 body) one of the four shared loads per step
+of its products (the second omega float4, read as the first); the cut copy of the package goes to ROOT/build/gram_cut_<parts>/
 and its results are wrong by design, so only its time is read: the time
 the remaining parts take. It builds the package's kernels (and prints the
 Gram kernels' registers and spills), checks the whole body against its
@@ -60,6 +61,11 @@ _CUTS = {
              "                            bs + (s & 1) * kFS * NT + 4 * tx);\n",
              ""),
         ],
+        "lds": [
+            ("    const float4 b1 =\n"
+             "        *reinterpret_cast<const float4*>(b + k * 8 * NX + 4 * NX);"
+             "\n", "    const float4 b1 = b0;\n"),
+        ],
     }),
 }
 _SHAPES = {  # T, N, B, G, lanes, spike rate
@@ -77,7 +83,7 @@ def _cut_copy(root: Path, precision: str, parts: list[str]) -> Path:
     path = dst / "pyglm_tpu_torch" / "csrc" / fname
     src = path.read_text()
     for part in parts:
-        for old, new in cuts[part]:
+        for old, new in cuts.get(part, ()):
             if old in src:
                 src = src.replace(old, new)
                 break
@@ -104,7 +110,7 @@ def main() -> None:
                     choices=("default", "high", "highest"))
     ap.add_argument("--shape", default="config5", choices=sorted(_SHAPES))
     ap.add_argument("--cut", action="append", default=[],
-                    choices=("build", "products"))
+                    choices=("build", "products", "lds"))
     args = ap.parse_args()
     prec = args.precision
     if args.cut and prec not in _CUTS:
