@@ -1257,7 +1257,7 @@ def phase_kernel_gram_flagship(check, record):
     import torch
     from pyglm_tpu_torch.ops.basis import design_matrix, cosine_basis
     from pyglm_tpu_torch.ops.gram_cuda import (
-        fp32_tile_plan, group_gram_blocks_cuda, group_gram_blocks_plain)
+        fp32_split_plan, group_gram_blocks_cuda, group_gram_blocks_plain)
     from pyglm_tpu_torch.ops.ss_cuda import pair_index
 
     dev = "cuda"
@@ -1266,7 +1266,7 @@ def phase_kernel_gram_flagship(check, record):
     Ng, npair = N // G, GB * (GB + 1) // 2
     print(f"K6 group_gram at 'highest', the flagship's shape: Xt "
           f"({N * B + 1}, {T}), omega ({T}, {N}), G={G}, B={B}; plan "
-          f"(ry, nx, splits, steps) {fp32_tile_plan(GB, N, T, Ng)}",
+          f"(splits, steps) {fp32_split_plan(GB, N, T, Ng)}",
           flush=True)
     Y = (torch.rand((T, N), generator=gen, device=dev) < 0.05).float()
     Xt = design_matrix(Y, cosine_basis(B, L)).T.contiguous()

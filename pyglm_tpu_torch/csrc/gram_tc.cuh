@@ -49,7 +49,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "copy_reduce.cuh"
+
 namespace gram_tc {
+
+using copy_reduce::cp_async16;
+using copy_reduce::cp_async4;
+using copy_reduce::cp_async_commit;
+using copy_reduce::cp_async_wait;
 
 constexpr int kMT = 64;          // rows of Z per block tile
 constexpr int kNT = 128;         // postsyn lanes per block tile
@@ -62,29 +69,6 @@ constexpr int kOS = kNT + 8;     // omega row stride: conflict-free B fragments
 
 __host__ __device__ constexpr int smem_floats(int GB) {
   return kStages * (GB * kKT + kKT * kOS) + 2 * kMT * kZS;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // x rounded to TF32, to nearest with ties away from zero: the result of
@@ -343,33 +327,6 @@ __device__ __forceinline__ void gram_tile(
         if (pr < npair && n < N)
           out[(size_t)pr * N + n] = sum[i][j][e] + acc[i][j][e];
       }
-}
-
-// out[i] = sum over splits of part[split, i], in split order, compensated
-// (each add's rounding error, recovered by TwoSum, is carried to the end).
-static __global__ void reduce_splits_kernel(const float* __restrict__ part,
-                                            float* __restrict__ out,
-                                            int n_split, long long stride,
-                                            long long count) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.0f, c = 0.0f;
-  for (int k = 0; k < n_split; ++k) {
-    const float b = part[k * stride + i], t = s + b, bb = t - s;
-    c += (s - (t - bb)) + (b - bb);
-    s = t;
-  }
-  out[i] = s + c;
-}
-
-// reduce_splits_kernel over `count` outputs, on stream s.
-static inline cudaError_t reduce_splits(const float* part, float* out,
-                                        int n_split, long long stride,
-                                        long long count, cudaStream_t s) {
-  const int threads = 256;
-  reduce_splits_kernel<<<(unsigned)((count + threads - 1) / threads), threads,
-                         0, s>>>(part, out, n_split, stride, count);
-  return cudaGetLastError();
 }
 
 }  // namespace gram_tc

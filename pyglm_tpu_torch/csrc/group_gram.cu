@@ -41,23 +41,21 @@
 //     FLOP at config 5 over the 67 TFLOP/s fp32 peak (97.9 ms), 5.3e11 at
 //     the flagship (7.9 ms). Each thread holds an 8 x 8 register
 //     micro-tile fed by four float4 shared loads per 64 FMAs; a block's
-//     tile, 8 RY pair rows x 8 NX lanes, is one of two compiled shapes
-//     (128 x 128, or 80 x 200 for the flagship's 200 lanes), and T may be
-//     split into ranges summed by a second pass, both chosen per call by
-//     ops/gram_cuda.py::fp32_tile_plan so that the grid fills whole waves
-//     of the card with little padding (the flagship: 7 tiles of 80 x 200
-//     per group, 3 splits, 525 blocks in 2 waves of 2 x 132; config 5:
-//     80 x 200, no split). Two blocks share an SM. Per 16-step stage one
-//     barrier: omega and the design rows arrive by cp.async one and two
-//     stages ahead, Z = X_p X_q of the next stage is built into the free
-//     one of 2 Z buffers before the current stage's products, and a warp
-//     whose rows all lie past the last pair row skips the products. Every
-//     512 steps the registers are folded by Fast2Sum into a second fp32
-//     sum in shared memory (so 2e4 terms are never summed in one fp32
-//     accumulator); without a split every output is summed in the same
-//     order as a plain loop over t with those folds. What sets its pace
-//     (PERF.md): the products loop itself (38 TFLOP/s with the Z build cut
-//     out at config 5), then the build (16%).
+//     tile is 80 pair rows x 200 lanes. A grid of less than one wave is
+//     filled by splitting T into ranges summed by a second pass, the
+//     split chosen per call by ops/gram_cuda.py::fp32_split_plan (the
+//     flagship: 7 tiles per group, 3 splits, 525 blocks in 2 waves of
+//     2 x 132; config 5: 11000 blocks, no split). Two blocks share an
+//     SM. Per 16-step stage one barrier: omega and the design rows arrive
+//     by cp.async one and two stages ahead, Z = X_p X_q of the next stage
+//     is built into the free one of 2 Z buffers before the current
+//     stage's products, and a warp whose rows all lie past the last pair
+//     row skips the products. Every 512 steps the registers are folded by
+//     Fast2Sum into a second fp32 sum in shared memory (so 2e4 terms are
+//     never summed in one fp32 accumulator); without a split every output
+//     is summed in the same order as a plain loop over t with those
+//     folds. What sets its pace (PERF.md): the products loop itself (38
+//     TFLOP/s with the Z build cut out at config 5), then the build (16%).
 // The "high" and "default" grids are 8k-21k blocks at the 8-chain ensemble
 // (Ng = 50, GB = 40, 4000 lanes, T = 2e4), so they do not split the time
 // axis. The ragged T edge is masked in the loads (X and omega read as 0
@@ -77,37 +75,37 @@ constexpr int kMaxGB = 64;
 constexpr int kFold = 4;
 
 // The fp32 body ("highest"): time steps per shared-memory stage, stages per
-// fold (512 steps, the JAX Gram's chunk), and the most shared memory a
-// block may take so that two blocks share an SM. Its tiles are 8 RY pair
-// rows x 8 NX lanes on RY NX threads, one 8 x 8 register micro-tile each,
-// from a menu of compiled shapes (group_gram_fp32_launch).
+// fold (512 steps, the JAX Gram's chunk), the most shared memory a block
+// may take so that two blocks share an SM, and its tile: 8 kRY pair rows x
+// 8 kNX lanes on kRY kNX threads, one 8 x 8 register micro-tile each
+// (80 x 200: the flagship's 200 lanes in one tile).
 constexpr int kFS = 16;
 constexpr int kFoldStages = 512 / kFS;
 constexpr int kFMaxSmem = 115712;
+constexpr int kRY = 10, kNX = 25;
 
-// Shared memory of the fp32 body, in floats: 2 omega stages (kFS x 8 nx),
-// 2 Z stages (kFS x 8 ry), a ring of 3 design stages stored step-major
+// Shared memory of the fp32 body, in floats: 2 omega stages (kFS x 8 kNX),
+// 2 Z stages (kFS x 8 kRY), a ring of 3 design stages stored step-major
 // (kFS x (GB | 1): an odd row keeps the transposing copies and the Z build
 // free of bank conflicts) and the second sums (64 per thread).
-__host__ __device__ constexpr int fp32_smem_floats(int GB, int ry, int nx) {
-  return 2 * kFS * 8 * (nx + ry) + 3 * kFS * (GB | 1) + 64 * ry * nx;
+__host__ __device__ constexpr int fp32_smem_floats(int GB) {
+  return 2 * kFS * 8 * (kNX + kRY) + 3 * kFS * (GB | 1) + 64 * kRY * kNX;
 }
 
 // acc[i][j] += sum over the stage's kFS steps of Z[8 ty + i, k] omega[k, n_j]
-// with n_j = 4 tx + j (j < 4) or 4 NX + 4 tx + j - 4: `a` and `b` point at
-// the thread's first row and lane of the stage's Z (kFS x 8 RY) and omega
-// (kFS x 8 NX) tiles. Four float4 loads feed 64 FMAs.
-template <int RY, int NX>
+// with n_j = 4 tx + j (j < 4) or 4 kNX + 4 tx + j - 4: `a` and `b` point
+// at the thread's first row and lane of the stage's Z (kFS x 8 kRY) and
+// omega (kFS x 8 kNX) tiles. Four float4 loads feed 64 FMAs.
 __device__ __forceinline__ void fp32_products(float (&acc)[8][8],
                                               const float* a,
                                               const float* b) {
 #pragma unroll
   for (int k = 0; k < kFS; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a + k * 8 * RY);
-    const float4 a1 = *reinterpret_cast<const float4*>(a + k * 8 * RY + 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(b + k * 8 * NX);
+    const float4 a0 = *reinterpret_cast<const float4*>(a + k * 8 * kRY);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + k * 8 * kRY + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + k * 8 * kNX);
     const float4 b1 =
-        *reinterpret_cast<const float4*>(b + k * 8 * NX + 4 * NX);
+        *reinterpret_cast<const float4*>(b + k * 8 * kNX + 4 * kNX);
     const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -120,25 +118,24 @@ __device__ __forceinline__ void fp32_products(float (&acc)[8][8],
 // The fp32 body: block (pair tile, group, lane tile + n_lt x split) forms
 // the tile's sums over the split's steps [split steps, (split + 1) steps)
 // into dst + split * split_stride (the output itself when there is one
-// split, else a partial for gram_tc::reduce_splits). Per stage s, after one
+// split, else a partial for copy_reduce::reduce_splits). Per stage s, after one
 // barrier: the copies of omega's stage s + 1 (16-byte cp.async where vec_o)
 // and of the design rows' stage s + 2 (4-byte cp.async, transposed to
 // step-major) are issued, Z of stage s + 1 is built from its landed design
 // rows into the free Z buffer (each building thread keeps its pair row's
 // (p, q) in registers), and stage s's products run; the barrier of stage
-// s + 1 is the only one between them. The tile's shape is compiled in, so
+// s + 1 is the only one between them. The tile's shape is a constant, so
 // every shared-memory address of the products and copies is an immediate
 // offset. Two blocks share an SM (at most 128 registers a thread), so one
 // block's build and copies overlap the other's products. Every kFoldStages
 // stages the registers are folded by Fast2Sum into a second fp32 sum in
 // shared memory (sum + acc = t + e exactly: sum takes t, e seeds the next
 // chunk).
-template <int RY, int NX>
-__global__ void __launch_bounds__(RY * NX, 2)
+__global__ void __launch_bounds__(kRY * kNX, 2)
 group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
                   float* __restrict__ dst, long long split_stride, int T,
                   int N, int GB, int n_lt, int steps, int vec_o) {
-  constexpr int kTh = RY * NX, RT = 8 * RY, NT = 8 * NX;
+  constexpr int kTh = kRY * kNX, RT = 8 * kRY, NT = 8 * kNX;
   constexpr int kZk = kTh / RT;           // build: threads per pair row
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, xp = GB | 1;
@@ -162,8 +159,8 @@ group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
     for (int i = tid; i < GB * kFS; i += kTh) {
       const int p = i / kFS, k = i % kFS, t = t0 + k;
       const bool ok = t < t_end;
-      gram_tc::cp_async4(xd + k * xp + p, ok ? xg + (size_t)p * T + t : xg,
-                         ok);
+      copy_reduce::cp_async4(xd + k * xp + p,
+                             ok ? xg + (size_t)p * T + t : xg, ok);
     }
   };
   auto load_om = [&](int s) {
@@ -174,15 +171,15 @@ group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
       for (int c = tid; c < kFS * NT / 4; c += kTh) {
         const int k = c / (NT / 4), n = lane0 + 4 * (c % (NT / 4));
         const bool ok = t0 + k < t_end && n < N;
-        gram_tc::cp_async16(bd + 4 * c, ok ? om + (size_t)(t0 + k) * N + n : om,
-                            ok);
+        copy_reduce::cp_async16(
+            bd + 4 * c, ok ? om + (size_t)(t0 + k) * N + n : om, ok);
       }
     } else {
       for (int c = tid; c < kFS * NT; c += kTh) {
         const int k = c / NT, n = lane0 + c % NT;
         const bool ok = t0 + k < t_end && n < N;
-        gram_tc::cp_async4(bd + c, ok ? om + (size_t)(t0 + k) * N + n : om,
-                           ok);
+        copy_reduce::cp_async4(bd + c,
+                               ok ? om + (size_t)(t0 + k) * N + n : om, ok);
       }
     }
   };
@@ -209,10 +206,10 @@ group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
     }
   };
 
-  const int tx = tid % NX, ty = tid / NX;
+  const int tx = tid % kNX, ty = tid / kNX;
   // A warp whose first row lies past the last pair row skips the products
   // (every later thread of the warp has a later row).
-  const bool busy = 8 * ((tid & ~31) / NX) < npair - row0;
+  const bool busy = 8 * ((tid & ~31) / kNX) < npair - row0;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -222,20 +219,20 @@ group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
   load_x(0);
   load_om(0);
   if (1 < s_end) load_x(1);
-  gram_tc::cp_async_commit();
-  gram_tc::cp_async_wait<0>();
+  copy_reduce::cp_async_commit();
+  copy_reduce::cp_async_wait<0>();
   __syncthreads();
   fp32_build_z(0);
   for (int s = 0; s < s_end; ++s) {
-    gram_tc::cp_async_wait<0>();
+    copy_reduce::cp_async_wait<0>();
     __syncthreads();
     if (s + 1 < s_end) load_om(s + 1);
     if (s + 2 < s_end) load_x(s + 2);
-    gram_tc::cp_async_commit();
+    copy_reduce::cp_async_commit();
     if (s + 1 < s_end) fp32_build_z(s + 1);
     if (busy) {
-      fp32_products<RY, NX>(acc, as + (s & 1) * kFS * RT + 8 * ty,
-                            bs + (s & 1) * kFS * NT + 4 * tx);
+      fp32_products(acc, as + (s & 1) * kFS * RT + 8 * ty,
+                    bs + (s & 1) * kFS * NT + 4 * tx);
       if ((s + 1) % kFoldStages == 0) {
 #pragma unroll
         for (int i = 0; i < 8; ++i)
@@ -257,29 +254,29 @@ group_gram_kernel(const float* __restrict__ xt, const float* __restrict__ om,
     if (pr >= npair) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int n = lane0 + (j < 4 ? 4 * tx + j : 4 * NX + 4 * tx + j - 4);
+      const int n = lane0 + (j < 4 ? 4 * tx + j : 4 * kNX + 4 * tx + j - 4);
       if (n < N)
         o[(size_t)pr * N + n] = sums[(8 * i + j) * kTh + tid] + acc[i][j];
     }
   }
 }
 
-// Launch the fp32 body at tile (RY, NX); see group_gram_fp32_launch.
-template <int RY, int NX>
+// Launch the fp32 body; see group_gram_fp32_launch.
 cudaError_t launch_fp32(const float* xt, const float* om, float* dst,
                         long long split_stride, int T, int N, int GB, int Ng,
                         int n_split, int steps, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      group_gram_kernel<RY, NX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      group_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kFMaxSmem);
   if (attr != cudaSuccess) return attr;
   const int npair = GB * (GB + 1) / 2;
-  const int n_lt = (N + 8 * NX - 1) / (8 * NX);
+  const int n_lt = (N + 8 * kNX - 1) / (8 * kNX);
   const int vec_o = N % 4 == 0 && (size_t)om % 16 == 0;
-  group_gram_kernel<RY, NX>
-      <<<dim3((npair + 8 * RY - 1) / (8 * RY), Ng, n_lt * n_split), RY * NX,
-         fp32_smem_floats(GB, RY, NX) * (int)sizeof(float), s>>>(
-          xt, om, dst, split_stride, T, N, GB, n_lt, steps, vec_o);
+  group_gram_kernel<<<dim3((npair + 8 * kRY - 1) / (8 * kRY), Ng,
+                           n_lt * n_split),
+                      kRY * kNX, fp32_smem_floats(GB) * (int)sizeof(float),
+                      s>>>(xt, om, dst, split_stride, T, N, GB, n_lt, steps,
+                           vec_o);
   return cudaGetLastError();
 }
 
@@ -384,18 +381,17 @@ extern "C" int group_gram_launch(const float* xt, const float* om, float* out,
   return (int)launch_tc(xt, om, out, T, N, GB, Ng, (cudaStream_t)stream);
 }
 
-// The "highest" body. xt, om and out as above; tile (8 ry pair rows) x (8 nx
-// lanes) on ry nx threads, one of the compiled shapes (16, 16) (128 x 128)
-// and (10, 25) (80 x 200); T split into n_split ranges of `steps` steps (a
-// multiple of 512, so folds fall on the same steps as without a split),
-// summed by a second pass from part ((n_split, Ng, GB(GB+1)/2, N) floats)
-// when n_split > 1 (ops/gram_cuda.py::fp32_tile_plan chooses).
+// The "highest" body. xt, om and out as above; T split into n_split ranges
+// of `steps` steps (a multiple of 512, so folds fall on the same steps as
+// without a split), summed by a second pass from part ((n_split, Ng,
+// GB(GB+1)/2, N) floats) when n_split > 1 (ops/gram_cuda.py::
+// fp32_split_plan chooses).
 extern "C" int group_gram_fp32_launch(const float* xt, const float* om,
                                       float* out, float* part, int T, int N,
-                                      int GB, int Ng, int ry, int nx,
-                                      int n_split, int steps, void* stream) {
+                                      int GB, int Ng, int n_split, int steps,
+                                      void* stream) {
   const int npair = GB * (GB + 1) / 2;
-  const int n_lt = (N + 8 * nx - 1) / (8 * nx);
+  const int n_lt = (N + 8 * kNX - 1) / (8 * kNX);
   if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || Ng < 1 || Ng > 65535 ||
       n_split < 1 || steps < 1 || steps % (kFS * kFoldStages) != 0 ||
       (long long)(n_split - 1) * steps >= T ||
@@ -405,17 +401,10 @@ extern "C" int group_gram_fp32_launch(const float* xt, const float* om,
   cudaStream_t s = (cudaStream_t)stream;
   const long long count = (long long)Ng * npair * N;
   float* dst = n_split > 1 ? part : out;
-  cudaError_t err;
-  if (ry == 16 && nx == 16)
-    err = launch_fp32<16, 16>(xt, om, dst, count, T, N, GB, Ng, n_split,
-                              steps, s);
-  else if (ry == 10 && nx == 25)
-    err = launch_fp32<10, 25>(xt, om, dst, count, T, N, GB, Ng, n_split,
-                              steps, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      launch_fp32(xt, om, dst, count, T, N, GB, Ng, n_split, steps, s);
   if (err == cudaSuccess && n_split > 1)
-    err = gram_tc::reduce_splits(part, out, n_split, count, count, s);
+    err = copy_reduce::reduce_splits(part, out, n_split, count, count, s);
   return (int)err;
 }
 

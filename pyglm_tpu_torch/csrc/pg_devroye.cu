@@ -182,7 +182,9 @@ __device__ bool series_accept(float x, float u) {
 // stay busy until the chunk runs dry, instead of waiting each round for
 // the slowest lane's tries. Each element draws from its own Philox stream,
 // so its draw does not depend on the lane or the order that serve it.
-constexpr int kPerLane = 16;
+// Of 16, 32 and 64 elements a lane, 32 ran fastest at the flagship's shape
+// and beat 16 at config 5's, with the same draws (PERF.md).
+constexpr int kPerLane = 32;
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)

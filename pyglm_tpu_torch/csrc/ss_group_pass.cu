@@ -14,8 +14,8 @@
 // and carries M0/Jgg in VMEM scratch from one time chunk to the next. Hopper
 // blocks run in no order, so the time axis is split across blocks
 // (split-K): each block owns a t-range and writes its partial sums to a
-// scratch buffer that the wrapper allocated; gram_tc::reduce_splits sums the
-// partials in a fixed order, so results repeat from run to run. No atomics.
+// scratch buffer that the wrapper allocated; copy_reduce::reduce_splits
+// sums the partials in a fixed order, so results repeat from run to run. No atomics.
 //
 // The Gram's mode is the caller's precision, as the TPU kernel's `gram`:
 // "high" 3xTF32 (bf16x3 there) on the mma.sync tile loop of gram_tc.cuh;
@@ -56,6 +56,7 @@
 
 #include <cuda_runtime.h>
 
+#include "copy_reduce.cuh"
 #include "gram_tc.cuh"
 #include "gram_wgmma.cuh"
 
@@ -107,8 +108,8 @@ scatter_kernel(const float* __restrict__ xp, const float* __restrict__ om,
       for (int i = tid; i < GB * kCh; i += kLanes) {
         const int r = i / kCh, k = i % kCh, t = t0 + k;
         const bool ok = t < t_end;
-        gram_tc::cp_async4(xps + (buf * R + r) * kCh + k,
-                           ok ? xp + (size_t)r * T + t : xp, ok);
+        copy_reduce::cp_async4(xps + (buf * R + r) * kCh + k,
+                               ok ? xp + (size_t)r * T + t : xp, ok);
       }
     }
 #pragma unroll
@@ -117,8 +118,8 @@ scatter_kernel(const float* __restrict__ xp, const float* __restrict__ om,
       const bool ok = t < t_end && lane_ok;
       const size_t g = ok ? (size_t)t * N + n : 0;
       const int o = (buf * kCh + k) * kLanes + tid;
-      gram_tc::cp_async4(oms + o, om + g, ok);
-      if (scatter) gram_tc::cp_async4(us + o, u + g, ok);
+      copy_reduce::cp_async4(oms + o, om + g, ok);
+      if (scatter) copy_reduce::cp_async4(us + o, u + g, ok);
     }
   };
 
@@ -129,11 +130,11 @@ scatter_kernel(const float* __restrict__ xp, const float* __restrict__ om,
   float sum_om = 0.0f;
 
   if (nch > 0) load_chunk(0);
-  gram_tc::cp_async_commit();
+  copy_reduce::cp_async_commit();
   for (int c = 0; c < nch; ++c) {
     if (c + 1 < nch) load_chunk(c + 1);
-    gram_tc::cp_async_commit();
-    gram_tc::cp_async_wait<1>();
+    copy_reduce::cp_async_commit();
+    copy_reduce::cp_async_wait<1>();
     __syncthreads();
     const int t0 = t_begin + c * kCh, buf = c & 1;
     const float* xpb = xps + buf * R * kCh;
@@ -164,7 +165,7 @@ scatter_kernel(const float* __restrict__ xp, const float* __restrict__ om,
     }
     __syncthreads();   // the next load refills this chunk's buffers
   }
-  gram_tc::cp_async_wait<0>();
+  copy_reduce::cp_async_wait<0>();
   if (want_sumom && lane_ok) part[(size_t)blockIdx.x * N + n] = sum_om;
 }
 
@@ -387,7 +388,7 @@ extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
     return (int)err;
 
   // out = [M0; Jgg; sum omega], each summed over its splits in order.
-  using gram_tc::reduce_splits;
+  using copy_reduce::reduce_splits;
   if ((err = reduce_splits(part_m, out, n_split_m, (long long)GB * N,
                            (long long)GB * N, s)) != cudaSuccess ||
       (err = reduce_splits(part_g, out + (size_t)GB * N, n_split,

@@ -4,8 +4,8 @@ the flagship's, for the package of a given checkout, whole or with parts of
 its main loop cut out.
 
     python pyglm_tpu_torch/diagnostics/time_group_gram.py [ROOT]
-        [--precision default|highest] [--shape config5|flagship]
-        [--cut PART]...
+        [--precision default|high|highest] [--shape config5|flagship]
+        [--cut PART]... [--splits N,N,...]
 
 ROOT (default: the checkout holding this file) is put first on sys.path, so
 older checkouts' packages can be timed on the same card in one command, in
@@ -13,10 +13,11 @@ turns (older, this, this, older). ``--cut build`` drops the Z build from
 the body's main loop (``csrc/gram_wgmma.cuh`` at "default",
 ``csrc/group_gram.cu``'s fp32 body at "highest"), ``--cut products`` its
 products, ``--cut lds`` (fp32 body) one of the four shared loads per step
-of its products (the second omega float4, read as the first); the cut copy of the package goes to ROOT/build/gram_cut_<parts>/
-and its results are wrong by design, so only its time is read: the time
-the remaining parts take. It builds the package's kernels (and prints the
-Gram kernels' registers and spills), checks the whole body against its
+of its products (the second omega float4, read as the first); the cut
+copy of the package goes to ROOT/build/gram_cut_<parts>/ and its results
+are wrong by design, so only its time is read: the time the remaining
+parts take. It builds the package's kernels (and prints the Gram
+kernels' registers and spills), checks the whole body against its
 plain version, for bit-repeatability and against a float64 Gram of group
 0, prints a digest of its output (equal digests: equal outputs, bit for
 bit, e.g. across checkouts), then times ``group_gram_blocks_cuda`` with
@@ -26,7 +27,9 @@ also times cuBLAS SGEMM on the materialised Z of every group (the library
 call). Shapes: config 5, Xt (2001, 20000) and omega (20000, 4000), G = 10,
 B = 4 (50 groups of 40 rows); the flagship, Xt (801, 100000) and omega
 (100000, 200), G = 8, B = 4 (25 groups of 32 rows), the staged loop's call
-at precision "highest". Needs a CUDA card.
+at precision "highest". ``--splits 1,2,3`` (fp32 body, this checkout)
+then times the body with T forced into each listed number of ranges, in
+turns, each checked against the plain version. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -38,34 +41,22 @@ import subprocess
 import sys
 from pathlib import Path
 
-# The statements of the main loop each cut removes, per body: the file and
-# one (old, new) pair per kernel version it knows (the first pair whose old
-# text is found applies).
+# The statement of the main loop each cut replaces, per body: the file and
+# (old, new) in it.
 _CUTS = {
     "default": ("gram_wgmma.cuh", {
-        "build": [("    if (s + 1 < nst) build_z(s + 1);\n", "")],
-        "products": [("    for (int kk = 0; kk < kKS / 16; ++kk) "
-                      "mma(acc, desc_a(a, kk), desc_b(b, kk));\n", "")],
+        "build": ("    if (s + 1 < nst) build_z(s + 1);\n", ""),
+        "products": ("    for (int kk = 0; kk < kKS / 16; ++kk) "
+                     "mma(acc, desc_a(a, kk), desc_b(b, kk));\n", ""),
     }),
     "highest": ("group_gram.cu", {
-        "build": [
-            ("      as[k][r] = p >= 0 ? xs[p][k] * xs[qidx[r]][k] : 0.0f;\n",
-             ""),
-            ("    if (s + 1 < s_end) fp32_build_z(s + 1);\n", ""),
-        ],
-        "products": [
-            ("          for (int j = 0; j < 8; ++j) acc[i][j] = "
-             "fmaf(av[i], bv[j], acc[i][j]);\n",
-             "          for (int j = 0; j < 8; ++j) acc[i][j] += 0.0f;\n"),
-            ("      fp32_products<RY, NX>(acc, as + (s & 1) * kFS * RT + 8 * ty,\n"
-             "                            bs + (s & 1) * kFS * NT + 4 * tx);\n",
-             ""),
-        ],
-        "lds": [
-            ("    const float4 b1 =\n"
-             "        *reinterpret_cast<const float4*>(b + k * 8 * NX + 4 * NX);"
-             "\n", "    const float4 b1 = b0;\n"),
-        ],
+        "build": ("    if (s + 1 < s_end) fp32_build_z(s + 1);\n", ""),
+        "products": ("      fp32_products(acc, as + (s & 1) * kFS * RT + "
+                     "8 * ty,\n                    bs + (s & 1) * kFS * NT "
+                     "+ 4 * tx);\n", ""),
+        "lds": ("    const float4 b1 =\n"
+                "        *reinterpret_cast<const float4*>(b + k * 8 * kNX + "
+                "4 * kNX);\n", "    const float4 b1 = b0;\n"),
     }),
 }
 _SHAPES = {  # T, N, B, G, lanes, spike rate
@@ -83,13 +74,11 @@ def _cut_copy(root: Path, precision: str, parts: list[str]) -> Path:
     path = dst / "pyglm_tpu_torch" / "csrc" / fname
     src = path.read_text()
     for part in parts:
-        for old, new in cuts.get(part, ()):
-            if old in src:
-                src = src.replace(old, new)
-                break
-        else:
+        old, new = cuts.get(part, ("", ""))
+        if not old or old not in src:
             raise SystemExit(f"time_group_gram: --cut {part} does not apply "
                              f"to {path}")
+        src = src.replace(old, new)
     path.write_text(src)
     return dst
 
@@ -111,10 +100,15 @@ def main() -> None:
     ap.add_argument("--shape", default="config5", choices=sorted(_SHAPES))
     ap.add_argument("--cut", action="append", default=[],
                     choices=("build", "products", "lds"))
+    ap.add_argument("--splits", default=[],
+                    type=lambda v: [int(n) for n in v.split(",")])
     args = ap.parse_args()
     prec = args.precision
     if args.cut and prec not in _CUTS:
         raise SystemExit(f"time_group_gram: no cuts at precision {prec!r}")
+    if args.splits and (prec != "highest" or args.cut):
+        raise SystemExit("time_group_gram: --splits times the uncut fp32 "
+                         "body (--precision highest)")
     root = Path(args.root).resolve()
     pkg_root = _cut_copy(root, prec, args.cut) if args.cut else root
     sys.path.insert(0, str(pkg_root))
@@ -185,6 +179,41 @@ def main() -> None:
           f"{med:.3f} ({flops / med / 1e9:.1f} TFLOP/s); "
           f"{_kernel_resources(_build.LOG_PATH, match)}{checks} ({card})",
           flush=True)
+    if args.splits:
+        _time_splits(args.splits, label, card, gram, run, rel,
+                     group_gram_blocks_plain(Xt, omega, B, G, precision=prec),
+                     (GB, lanes, T, Ng))
+
+
+def _time_splits(splits, label, card, gram, run, rel, plain, shape):
+    """The fp32 body with T forced into each of `splits` ranges (the
+    plan's function replaced for the call), timed in turns, three rounds;
+    each checked once against the plain version."""
+    from pyglm_tpu_torch.ops import gram_cuda
+    plan = gram_cuda.fp32_split_plan
+    chunks = -(-shape[2] // gram_cuda.FP32_FOLD)
+    times, errs = {n: [] for n in splits}, {}
+    try:
+        for _ in range(3):
+            for n in splits:
+                per = -(-chunks // n)
+                if -(-chunks // per) != n:
+                    raise SystemExit(f"time_group_gram: T does not split "
+                                     f"into {n} ranges of whole folds")
+                gram_cuda.fp32_split_plan = (
+                    lambda *a, n=n, per=per: (n, per * gram_cuda.FP32_FOLD))
+                if n not in errs:
+                    errs[n] = rel(gram(), plain)
+                times[n].append(run(gram))
+    finally:
+        gram_cuda.fp32_split_plan = plan
+    planned = plan(*shape)[0]
+    for n in splits:
+        print(f"{label}: K6 highest, T in {n} splits"
+              f"{' (the plan)' if n == planned else ''}: ms "
+              f"{[round(t, 3) for t in times[n]]}, median "
+              f"{statistics.median(times[n]):.3f}, vs plain {errs[n]:.2e} "
+              f"({card})", flush=True)
 
 
 if __name__ == "__main__":

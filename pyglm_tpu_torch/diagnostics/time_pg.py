@@ -32,30 +32,14 @@ import subprocess
 import sys
 from pathlib import Path
 
-# Each cut: the statements it replaces, one (old, new) pair per kernel
-# version it knows (the first pair whose old text is found applies).
+# Each cut: the statement it replaces (old, new) in the kernel's source.
 _CUTS = {
-    "setup": [
-        ("      (float)exp(logp - (lm + log1p(exp(-fabs(logp - lq)))));\n",
-         "      0.3f;\n"),
-        ("        ratio_exp = mixture_weight(z);\n",
-         "        ratio_exp = 0.3f;\n"),
-    ],
-    "series": [
-        ("      const float term = expf(log_coef_ratio(x, k));\n",
-         "      const float term = 0.0f;\n"),
-        ("  const float a1 = 3.0f * expf(w1);\n",
-         "  const float a1 = 0.0f;\n"),
-    ],
-    "exp_branch": [
-        ("    if (uniform_open(&st) <= ratio_exp) {\n",
-         "    if (uniform_open(&st) <= 2.0f) {\n"),
-        ("      tail = u0 <= ratio_exp;\n", "      tail = true;\n"),
-    ],
-    "levy": [
-        ("  if (z * kT < 1.0f) {\n", "  if (true) {\n"),
-        ("        levy = z * kT < 1.0f;\n", "        levy = true;\n"),
-    ],
+    "setup": ("        ratio_exp = mixture_weight(z);\n",
+              "        ratio_exp = 0.3f;\n"),
+    "series": ("  const float a1 = 3.0f * expf(w1);\n",
+               "  const float a1 = 0.0f;\n"),
+    "exp_branch": ("      tail = u0 <= ratio_exp;\n", "      tail = true;\n"),
+    "levy": ("        levy = z * kT < 1.0f;\n", "        levy = true;\n"),
 }
 _SHAPES = {"flagship": (100_000, 200), "config5": (20_000, 4000)}
 
@@ -68,13 +52,11 @@ def _cut_copy(root: Path, parts: list[str]) -> Path:
     src_path = dst / "pyglm_tpu_torch" / "csrc" / "pg_devroye.cu"
     src = src_path.read_text()
     for part in parts:
-        for old, new in _CUTS[part]:
-            if old in src:
-                src = src.replace(old, new)
-                break
-        else:
+        old, new = _CUTS[part]
+        if old not in src:
             raise SystemExit(f"time_pg: --cut {part} does not apply to "
                              f"{src_path}")
+        src = src.replace(old, new)
     src_path.write_text(src)
     return dst
 

@@ -43,8 +43,8 @@ _ENTRY_POINTS = {
     "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _P],
     "crt_sample_launch": [_P, _I, _P, _P, _LL, _I, _I, _ULL, _ULL, _P],
     "group_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "group_gram_fp32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _P],
+    "group_gram_fp32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P],
     "group_gram_bf16_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wgmma_probe_launch": [_P, _P, _P, _P],
 }

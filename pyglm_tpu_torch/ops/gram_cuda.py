@@ -8,8 +8,8 @@ the TPU) at precision "high" and "sr", ``_gram_kernel_fast`` (one bf16
 pass) at "default". The kernel's bodies: "high" 3xTF32 on the tensor cores,
 "default" one bf16 pass on wgmma (omega rounded once to a bf16 stream, Z
 rounded to nearest even as it is formed, tiles of 168 pair rows), "highest"
-(where the JAX package takes its f32 XLA Gram) fp32 FMA on a tile and a
-split of T chosen per call (:func:`fp32_tile_plan`).
+(where the JAX package takes its f32 XLA Gram) fp32 FMA on 80 x 200
+tiles, T split where the grid is small (:func:`fp32_split_plan`).
 
 Layouts (float32, contiguous):
   Xt    (P, T)    transposed design; group g is rows [g GB, (g + 1) GB)
@@ -36,59 +36,45 @@ _K6_KEYS = {"highest": "group_gram", "high": "group_gram",
             "default": "group_gram_bf16"}
 
 
-# The fp32 body's stage and fold (steps) and its compiled tile shapes (ry,
-# nx) (csrc/group_gram.cu: kFS, kFoldStages, group_gram_fp32_launch).
+# The fp32 body's stage and fold (steps) and its tile: 8 FP32_RY pair rows
+# x 8 FP32_NX lanes on FP32_RY FP32_NX threads (csrc/group_gram.cu: kFS,
+# kFoldStages, kRY, kNX).
 FP32_STAGE, FP32_FOLD = 16, 512
-FP32_TILES = ((16, 16), (10, 25))
-# Rough rates of the cost model: fp32 FMA per second of one SM, and the
-# bytes per second of the second pass.
-_SM_FMA_S, _HBM_B_S = 2.2e11, 3.0e12
+FP32_RY, FP32_NX = 10, 25
 
 
-def fp32_smem_bytes(GB: int, ry: int, nx: int) -> int:
+def fp32_smem_bytes(GB: int) -> int:
     """Shared memory of one block of the fp32 body (``fp32_smem_floats``):
     2 omega and 2 Z stages, 3 design stages and 64 second sums a thread."""
-    return 4 * (2 * FP32_STAGE * 8 * (nx + ry) + 3 * FP32_STAGE * (GB | 1)
-                + 64 * ry * nx)
+    return 4 * (2 * FP32_STAGE * 8 * (FP32_NX + FP32_RY)
+                + 3 * FP32_STAGE * (GB | 1) + 64 * FP32_RY * FP32_NX)
 
 
-def fp32_tile_plan(GB: int, N: int, T: int, Ng: int,
-                   n_sm: int = _H100_SMS) -> tuple[int, int, int, int]:
-    """(ry, nx, n_split, steps) of K6's fp32 body for Ng groups of GB rows:
-    tiles of 8 ry pair rows x 8 nx lanes on ry nx threads, one of
-    ``FP32_TILES`` (128 x 128, or 80 x 200 for the flagship's 200 lanes),
-    T split into n_split ranges of `steps` steps (a multiple of the
-    512-step fold, so every fold falls where it falls unsplit; no range
-    empty). Chosen by a cost model: whole waves of 2 `n_sm` blocks (two
-    share an SM), each costing its warps x steps x the instructions a
-    thread issues per step (64 FMAs and 4 shared loads, the Z build's and
-    the omega copies' share), plus the second pass's bytes when n_split >
-    1; ties go to fewer splits. At the flagship (GB = 32, 200 lanes, T =
-    1e5, 25 groups): 7 tiles of 80 x 200 per group, 3 splits of 33792
-    steps, 525 blocks (2 waves)."""
+def fp32_split_plan(GB: int, N: int, T: int, Ng: int,
+                    n_sm: int = _H100_SMS) -> tuple[int, int]:
+    """(n_split, steps) of K6's fp32 body for Ng groups of GB rows: T split
+    into n_split ranges of `steps` steps, a multiple of the 512-step fold
+    (so every fold falls where it falls unsplit), no range empty. A grid
+    of tiles that fills one wave of 2 `n_sm` blocks (two share an SM) runs
+    unsplit; a smaller one takes the split, of at most 64, with the
+    fewest waves x steps a block walks, ties going to fewer splits. At the
+    flagship (GB = 32, 200 lanes, T = 1e5, 25 groups: 175 tiles) that is 3
+    splits of 33792 steps, 525 blocks in 2 waves; the splits measured on
+    the card are in PERF.md (``time_group_gram.py --splits``)."""
     npair = GB * (GB + 1) // 2
-    r8, n8 = -(-npair // 8), -(-N // 8)
+    tiles = Ng * -(-npair // (8 * FP32_RY)) * -(-N // (8 * FP32_NX))
     chunks = -(-T // FP32_FOLD)
-    out_bytes = 4.0 * Ng * npair * N
+    if tiles >= 2 * n_sm:
+        return 1, chunks * FP32_FOLD
     best = None
-    for ry, nx in FP32_TILES:
-        th = ry * nx
-        tiles = Ng * -(-r8 // ry) * -(-n8 // nx)
-        per_step = 68 + (5 * 128 / nx + 4 * 32 / ry) / FP32_STAGE
-        for split in range(1, min(chunks, 64) + 1):
-            steps = -(-chunks // split) * FP32_FOLD
-            n_split = -(-T // steps)
-            if n_split != split:
-                continue
-            waves = -(-tiles * n_split // (2 * n_sm))
-            secs = (waves * 2 * 32 * -(-th // 32) * min(steps, T) * per_step
-                    / (64 * _SM_FMA_S))
-            if n_split > 1:
-                secs += (n_split + 1) * out_bytes / _HBM_B_S
-            key = (secs, n_split, -th)
-            if best is None or key < best[0]:
-                best = (key, (ry, nx, n_split, steps))
-    return best[1]
+    for split in range(1, min(chunks, 64) + 1):
+        per = -(-chunks // split)
+        if -(-chunks // per) != split:
+            continue
+        cost = -(-tiles * split // (2 * n_sm)) * per
+        if best is None or cost < best[0]:
+            best = (cost, split, per * FP32_FOLD)
+    return best[1], best[2]
 
 
 def _n_groups(Xt, B: int, G: int) -> int:
@@ -128,9 +114,9 @@ def group_gram_blocks_cuda(Xt, omega, B: int, G: int,
     """K6 on the card; same contract as :func:`group_gram_blocks_plain`.
     ``precision="high"`` runs the 3xTF32 tensor-core body, "default" the
     bf16 wgmma body (on :func:`omega_bf16_stream`, made here), "highest"
-    the fp32 FMA body on the tile and split of :func:`fp32_tile_plan`
-    (with a (n_split, Ng, GB(GB+1)/2, N) scratch for the partials when it
-    splits T)."""
+    the fp32 FMA body on the split of T of :func:`fp32_split_plan` (with
+    a (n_split, Ng, GB(GB+1)/2, N) scratch for the partials when it splits
+    T)."""
     _check_body(precision)
     T, N = omega.shape
     Ng, GB = _n_groups(Xt, B, G), G * B
@@ -151,13 +137,13 @@ def group_gram_blocks_cuda(Xt, omega, B: int, G: int,
                 out.data_ptr(), T, N, om16.shape[1], GB, Ng,
                 pq.numel() // PAIR_TILE, stream)
         elif precision == "highest":
-            ry, nx, n_split, steps = fp32_tile_plan(GB, N, T, Ng)
+            n_split, steps = fp32_split_plan(GB, N, T, Ng)
             part = (out.new_empty((n_split,) + out.shape) if n_split > 1
                     else None)
             err = lib.group_gram_fp32_launch(
                 Xt.data_ptr(), omega.data_ptr(), out.data_ptr(),
-                None if part is None else part.data_ptr(), T, N, GB, Ng, ry,
-                nx, n_split, steps, stream)
+                None if part is None else part.data_ptr(), T, N, GB, Ng,
+                n_split, steps, stream)
         else:
             err = lib.group_gram_launch(
                 Xt.data_ptr(), omega.data_ptr(), out.data_ptr(), T, N, GB,

@@ -54,6 +54,25 @@ def test_pg_kernel_matches_plain_distribution(gen, c):
     assert abs(float(k.mean()) - float(pg_mean(1.0, c))) < 5 * se
 
 
+def test_pg_kernel_interleaved_proposal_kinds(gen):
+    """K1 on c = 0.5, 3.0, 3.25, 8 repeated, so every warp's chunk holds
+    tilted Levy and Michael-Schucany-Haas elements side by side and orders
+    them (Levy first, MSH after) before its lanes refill across the two:
+    each c's draws against the plain version's (KS p > 1e-3) and pg_mean
+    (5 standard errors)."""
+    from scipy.stats import ks_2samp
+    cs = [0.5, 3.0, 3.25, 8.0]
+    cv = torch.tensor(cs, device="cuda").repeat(100_000)
+    k = pg_devroye_cuda(cv, 13, 7)
+    p = pg_devroye_plain(cv, gen)
+    assert torch.isfinite(k).all() and (k > 0).all()
+    for i, c in enumerate(cs):
+        ki, pi = k[i::len(cs)], p[i::len(cs)]
+        assert ks_2samp(ki.cpu().numpy(), pi.cpu().numpy()).pvalue > 1e-3, c
+        se = float(pi.std()) / np.sqrt(ki.numel())
+        assert abs(float(ki.mean()) - float(pg_mean(1.0, c))) < 5 * se, c
+
+
 def test_pg_kernel_streams(gen):
     c = torch.linspace(-10, 10, 4096, device="cuda").reshape(64, 64)
     a, b = pg_devroye_cuda(c, 1, 0), pg_devroye_cuda(c, 1, 0)
@@ -472,10 +491,10 @@ def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
     ensemble's GB = 40 over three lane tiles, GB = 28 (not a multiple of
     8) over two; GB = 64 (2080 pairs, 13 pair tiles of the "default"
     body), GB = 4 (one partial tile), T = 40 (less than one 64-step
-    stage), 4001 lanes (ragged against both 8 and 128), and 250 lanes,
-    where the fp32 body takes its 128 x 128 tile (the other shapes take
-    80 x 200). The design holds continuous values, so the bf16 rounding of
-    Z shows."""
+    stage), 4001 lanes (ragged against both 8 and 128), and 250 lanes
+    over two groups, a second lane tile of 50 for the fp32 body's 80 x 200
+    tiles and its T split in 6. The design holds continuous values, so
+    the bf16 rounding of Z shows."""
     Xt = torch.rand((N_pre * B + 1, T), generator=gen, device="cuda") * (
         torch.rand((N_pre * B + 1, T), generator=gen, device="cuda") < 0.3)
     om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")
@@ -532,12 +551,13 @@ def test_group_gram_error_against_float64(gen):
 
 def test_group_gram_highest_at_the_flagship_groups(gen):
     """K6's fp32 body at the flagship's shape (GB = 32, T = 1e5, 200
-    lanes; two groups here), where its plan splits T in 3 and sums the
-    partials by a second pass: within 1e-5 of its plain version, no
-    further from a float64 Gram than 2x the plain version, bit-repeatable."""
-    from pyglm_tpu_torch.ops.gram_cuda import fp32_tile_plan
+    lanes; two groups here, whose plan splits T in 18, as the 25 groups'
+    plan splits it in 3, the partials summed by a second pass): within
+    1e-5 of its plain version, no further from a float64 Gram than 2x the
+    plain version, bit-repeatable."""
+    from pyglm_tpu_torch.ops.gram_cuda import fp32_split_plan
     T, B, G, lanes = 100_000, 4, 8, 200
-    assert fp32_tile_plan(G * B, lanes, T, 2)[2] > 1
+    assert fp32_split_plan(G * B, lanes, T, 2)[0] > 1
     Xt = _design(gen, 2 * G, T)
     om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")
     k = group_gram_blocks_cuda(Xt, om, B, G, precision="highest")

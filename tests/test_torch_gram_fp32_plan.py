@@ -1,24 +1,25 @@
-"""The tile and split plan of K6's fp32 body ("highest"),
-``ops/gram_cuda.py::fp32_tile_plan``: the kernel's limits, every pair row,
+"""The split plan of K6's fp32 body ("highest"),
+``ops/gram_cuda.py::fp32_split_plan``: the kernel's limits, every pair row,
 lane and time step served by exactly one block, and the decomposition it
-describes (tiles, T ranges, 16-step stages, 512-step folds, partials summed
-in order) giving the plain Gram."""
+describes (80 x 200 tiles, T ranges, 16-step stages, 512-step folds,
+partials summed in order) giving the plain Gram."""
 import pytest
 import torch
 
 from pyglm_tpu_torch.ops.gram_cuda import (
-    FP32_FOLD, FP32_STAGE, FP32_TILES, fp32_smem_bytes, fp32_tile_plan,
-    group_gram_blocks_plain)
+    FP32_FOLD, FP32_NX, FP32_RY, FP32_STAGE, fp32_smem_bytes,
+    fp32_split_plan, group_gram_blocks_plain)
 from pyglm_tpu_torch.ops.ss_cuda import pair_index
 
 
 def _check_plan(GB, N, T, Ng):
     npair = GB * (GB + 1) // 2
-    ry, nx, n_split, steps = fp32_tile_plan(GB, N, T, Ng)
+    ry, nx = FP32_RY, FP32_NX
+    n_split, steps = fp32_split_plan(GB, N, T, Ng)
     # csrc/group_gram.cu::group_gram_fp32_launch's limits.
-    assert (ry, nx) in FP32_TILES and ry * nx <= 256
+    assert ry * nx <= 256 and 1 <= n_split <= 64
     # Two blocks an SM (kFMaxSmem: half of 228 KB less 1 KB a block).
-    assert fp32_smem_bytes(GB, ry, nx) <= 115712
+    assert fp32_smem_bytes(GB) <= 115712
     assert steps % FP32_FOLD == 0 and steps % FP32_STAGE == 0
     assert (n_split - 1) * steps < T <= n_split * steps
     n_rt, n_lt = -(-npair // (8 * ry)), -(-N // (8 * nx))
@@ -35,7 +36,7 @@ def _check_plan(GB, N, T, Ng):
         steps_seen[s * steps:(s + 1) * steps] += 1
     assert bool((rows == 1).all() and (lanes == 1).all()
                 and (steps_seen == 1).all())
-    return ry, nx, n_split, steps
+    return n_split, steps
 
 
 @pytest.mark.parametrize("T", [1, 40, 3001, 100_000])
@@ -47,14 +48,14 @@ def test_plan_serves_every_shape(GB, N, T):
 
 def test_plan_at_the_main_paths():
     """The flagship's "highest" call (25 groups of 528 pairs, 200 lanes, T
-    = 1e5) fills 7 tiles of 80 x 200 per group and 3 splits: 525 blocks,
-    2 waves of 2 x 132; config 5 (50 groups of 820 pairs, 4000 lanes, T =
-    2e4) takes the same tile and no split; 128 or 250 lanes take the 128 x
-    128 tile."""
-    assert _check_plan(32, 200, 100_000, 25) == (10, 25, 3, 33792)
-    assert _check_plan(40, 4000, 20_000, 50)[:3] == (10, 25, 1)
-    assert _check_plan(40, 250, 20_000, 2)[:2] == (16, 16)
-    assert _check_plan(64, 128, 20_000, 25)[:2] == (16, 16)
+    = 1e5: 175 tiles of 80 x 200) takes 3 splits: 525 blocks, 2 waves of
+    2 x 132; config 5 (50 groups of 820 pairs, 4000 lanes, T = 2e4: 11000
+    tiles) and any grid of one wave or more (264 tiles) runs unsplit; two
+    groups at 250 lanes (44 tiles) split T in 6, one wave of 264 blocks."""
+    assert _check_plan(32, 200, 100_000, 25) == (3, 33792)
+    assert _check_plan(40, 4000, 20_000, 50) == (1, 20480)
+    assert _check_plan(40, 250, 20_000, 2) == (6, 3584)
+    assert _check_plan(64, 128, 20_000, 25) == (1, 20480)
 
 
 def _emulate(Xt, omega, B, G):
@@ -66,8 +67,8 @@ def _emulate(Xt, omega, B, G):
     Ng = (Xt.shape[0] - 1) // GB
     p, q = pair_index(GB, Xt.device)
     npair = p.numel()
-    ry, nx, n_split, steps = fp32_tile_plan(GB, N, T, Ng)
-    rt, nt = 8 * ry, 8 * nx
+    n_split, steps = fp32_split_plan(GB, N, T, Ng)
+    rt, nt = 8 * FP32_RY, 8 * FP32_NX
     out = torch.zeros((Ng, npair, N))
     for g in range(Ng):
         Z = Xt[g * GB:(g + 1) * GB][p] * Xt[g * GB:(g + 1) * GB][q]
