@@ -1,12 +1,15 @@
 """Where the time of one sweep goes on the card.
 
-    python -m pyglm_tpu_torch.diagnostics.profile_sweep [flagship|ensemble]
-        [--precision default|sr|high|highest]
+    python -m pyglm_tpu_torch.diagnostics.profile_sweep
+        [flagship|nb|ensemble] [--precision default|sr|high|highest]
 
 ``flagship``: SparseBernoulliGLM(200, B=4, L=10) on synthetic spikes at rate
 0.15, T=100k, 3 warm-up sweeps, 20 timed sweeps, then 5 traced sweeps (it
 uses only the model API, so it also times an older checkout of the package
-put first on PYTHONPATH). ``ensemble``: the
+put first on PYTHONPATH). ``nb``: the NB flagship of benchmarks/common.py,
+SparseNegativeBinomialGLM(200, B=4, L=10, max_y=16) fitted to T=100k counts
+of a truth model (seed 42, sigma_w=0.003, mu_bias=-2.0, counts capped at
+15), timed as ``flagship``. ``ensemble``: the
 acceptance suite's config 5 (latent-distance truth N=500, T=20k,
 mu_bias=-3), the lane-stacked sweep of 8 chains, 2 warm-up sweeps, then 2
 traced sweeps. Prints, per sweep: the wall time untraced (host clock, ending
@@ -87,6 +90,26 @@ def flagship(precision):
     _report(f"flagship sweep ({precision})", untraced, traced, kernels)
 
 
+def nb(precision):
+    import numpy as np
+    from pyglm_tpu_torch import SparseNegativeBinomialGLM
+    N, T = 200, 100_000
+    kw = dict(B=4, L=10, obs_kwargs=dict(max_y=16), device="cuda")
+    truth = SparseNegativeBinomialGLM(
+        N, seed=42, net_kwargs=dict(rho_init=0.05, learn_rho=False,
+                                    mu_bias=-2.0, sigma_bias=0.25,
+                                    learn_weight_prior=False, sigma_w=0.003),
+        **kw)
+    Y = np.minimum(truth.generate(T, keep=False), 15.0)
+    m = SparseNegativeBinomialGLM(N, seed=0, precision=precision, **kw)
+    m.add_data(Y)
+    for _ in range(3):
+        m.resample_model()
+    untraced = _wall(m.resample_model, 20)
+    traced, kernels = _trace(m.resample_model, 5)
+    _report(f"NB flagship sweep ({precision})", untraced, traced, kernels)
+
+
 def ensemble(precision):
     from pyglm_tpu_torch import NonlinearAutoregressiveModel
     from pyglm_tpu_torch.models.ensemble import (
@@ -141,7 +164,8 @@ def ensemble(precision):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("config", nargs="*", choices=["flagship", "ensemble"])
+    ap.add_argument("config", nargs="*",
+                    choices=["flagship", "nb", "ensemble"])
     ap.add_argument("--precision", default="high",
                     choices=["default", "sr", "high", "highest"])
     args = ap.parse_args()
@@ -152,7 +176,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     for c in args.config or ["flagship", "ensemble"]:
-        {"flagship": flagship, "ensemble": ensemble}[c](args.precision)
+        {"flagship": flagship, "nb": nb,
+         "ensemble": ensemble}[c](args.precision)
 
 
 if __name__ == "__main__":

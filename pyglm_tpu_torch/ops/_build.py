@@ -39,7 +39,7 @@ _ENTRY_POINTS = {
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _ULL, _ULL, _P],
     "ss_edge_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _P],
+                            _I, _I, _I, _I, _P],
     "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _P],
     "crt_sample_launch": [_P, _I, _P, _P, _LL, _I, _I, _ULL, _ULL, _P],
     "group_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _P],

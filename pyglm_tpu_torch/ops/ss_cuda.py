@@ -40,6 +40,8 @@ from pyglm_tpu_torch.ops import _build
 
 _MAX_GB = 64           # K2 keeps a group's design rows in shared memory
 _MAX_B = 8             # K3 is instantiated for B = 1 .. 8
+_K3_SMEM = 232448      # K3: the shared memory a block may take (227 KB)
+_K3_TILES = (32, 16, 8, 4, 2, 1)   # K3's lane tiles, widest first
 
 
 def pair_index(GB: int, device=None):
@@ -381,12 +383,48 @@ def ss_edge_scan_plain(jgg, m0, w, mu, lam, lrho, u_a, eps):
     return dW, a
 
 
+def edge_scan_smem_bytes(G: int, B: int, tile: int) -> int:
+    """Shared memory of one K3 block of `tile` lanes: the packed Gram slice,
+    the residual and the old weights, the current edge's dW, and per edge
+    the packed chol(Lam0 + J_ii), Lp^{-T} eps, the log-odds' constant part
+    and u_a, each a row of `tile` floats (csrc/ss_edge_scan.cu)."""
+    GB = G * B
+    rows = (GB * (GB + 1) // 2 + 2 * GB + B
+            + G * (B * (B + 1) // 2 + B + 2))
+    return 4 * tile * rows
+
+
+def edge_scan_plan(G: int, B: int, N: int) -> int:
+    """K3's lane tile for a group of G edges of B basis weights at N lanes:
+    the widest of ``_K3_TILES`` whose block fits 227 KB of shared memory
+    and whose grid still puts a block on every SM; where no tile of 8 lanes
+    or more does, 8 lanes (a row of a tile is then one 32-byte sector), or
+    the widest that fits if narrower. At the flagship's group (200 lanes)
+    that is 8 lanes, 25 blocks; at config 5's (4000 lanes) 16, 250 blocks:
+    the fastest tiles measured there (PERF.md). Raises for a group that
+    does not fit at one lane (at B = 4: G = 83 fits, G = 84, GB = 336, does
+    not). No path of the port gets near it: K2 and K6 take GB <= 64, and
+    ``_auto_group`` gives GB <= 128 (G <= 16, B <= 8), which fits at 4
+    lanes."""
+    fits = [t for t in _K3_TILES if edge_scan_smem_bytes(G, B, t) <= _K3_SMEM]
+    if not fits:
+        raise ValueError(f"ss_edge_scan: G={G}, B={B} needs "
+                         f"{edge_scan_smem_bytes(G, B, 1)} bytes of shared "
+                         f"memory a lane, past {_K3_SMEM}")
+    for tile in fits:
+        if tile >= 8 and -(-N // tile) >= _H100_SMS:
+            return tile
+    return min(8, fits[0])
+
+
 def ss_edge_scan_cuda(jgg, m0, w, mu, lam, lrho, u_a, eps):
-    """K3 on the card; same contract as :func:`ss_edge_scan_plain`."""
+    """K3 on the card; same contract as :func:`ss_edge_scan_plain`. A
+    block serves the lane tile of :func:`edge_scan_plan`."""
     G, N, B = mu.shape
     GB = G * B
     if not 1 <= B <= _MAX_B:
         raise ValueError(f"ss_edge_scan: B={B} outside 1..{_MAX_B}")
+    tile = edge_scan_plan(G, B, N)
     for name, t, shape in (
             ("jgg", jgg, (GB * (GB + 1) // 2, N)), ("m0", m0, (GB, N)),
             ("w", w, (GB, N)), ("mu", mu, (G, N, B)),
@@ -401,7 +439,7 @@ def ss_edge_scan_cuda(jgg, m0, w, mu, lam, lrho, u_a, eps):
         err = lib.ss_edge_scan_launch(
             jgg.data_ptr(), m0.data_ptr(), w.data_ptr(), dW.data_ptr(),
             a.data_ptr(), mu.data_ptr(), lam.data_ptr(), lrho.data_ptr(),
-            u_a.data_ptr(), eps.data_ptr(), G, B, N,
+            u_a.data_ptr(), eps.data_ptr(), G, B, N, tile.bit_length() - 1,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ss_edge_scan")
     _build.LAUNCHES["ss_edge_scan"] += 1

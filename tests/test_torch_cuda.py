@@ -290,9 +290,7 @@ def test_group_pass_rejects_wide_groups(gen):
         ss_group_pass_cuda(None, x, om, om.clone(), None)
 
 
-@pytest.mark.parametrize("B", [1, 3, 4, 8])
-def test_edge_scan_matches_plain(gen, B):
-    G, N, Tn = 3, 150, 4000
+def _edge_scan_problem(gen, G, B, N, Tn=4000):
     GB = G * B
     X = (torch.rand((GB, Tn), generator=gen, device="cuda") < 0.3).float()
     om = 0.05 + 0.2 * torch.rand((Tn, N), generator=gen, device="cuda")
@@ -307,12 +305,33 @@ def test_edge_scan_matches_plain(gen, B):
     w0 = 0.1 * torch.randn((GB, N), generator=gen, device="cuda")
     u_a = torch.rand((G, N), generator=gen, device="cuda")
     eps = torch.randn((G, N, B), generator=gen, device="cuda")
+    return jgg, m0, w0, mu, lam, lrho, u_a, eps
+
+
+def _edge_scan_agrees(jgg, m0, w0, *rest):
     wk, wp = w0.clone(), w0.clone()
-    dk, ak = ss_edge_scan_cuda(jgg, m0, wk, mu, lam, lrho, u_a, eps)
-    dp, ap = ss_edge_scan_plain(jgg, m0, wp, mu, lam, lrho, u_a, eps)
+    dk, ak = ss_edge_scan_cuda(jgg, m0, wk, *rest)
+    dp, ap = ss_edge_scan_plain(jgg, m0, wp, *rest)
     assert torch.equal(ak, ap) and 0 < float(ak.sum()) < ak.numel()
     assert float((wk - wp).abs().max()) <= 1e-4
     assert float((dk - dp).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("G,B,N", [(3, 1, 150), (3, 3, 150), (3, 4, 150),
+                                   (3, 8, 150), (10, 4, 4001)])
+def test_edge_scan_matches_plain(gen, G, B, N):
+    """At the plan's lane tile; 4001 lanes leave a ragged last tile."""
+    _edge_scan_agrees(*_edge_scan_problem(gen, G, B, N))
+
+
+@pytest.mark.parametrize("N", [200, 203])
+@pytest.mark.parametrize("tile", [1, 2, 4, 8, 16, 32])
+def test_edge_scan_every_lane_tile_matches_plain(gen, monkeypatch, tile, N):
+    """Every lane tile the kernel takes, forced, with 16-byte copies (200
+    lanes) and 4-byte ones (203)."""
+    from pyglm_tpu_torch.ops import ss_cuda
+    monkeypatch.setattr(ss_cuda, "edge_scan_plan", lambda *a: tile)
+    _edge_scan_agrees(*_edge_scan_problem(gen, 8, 4, N))
 
 
 def test_sweep_on_card_launches_each_kernel(gen):
