@@ -129,7 +129,7 @@ edge_scan_kernel(const float* __restrict__ jgg, const float* __restrict__ m0,
            : row < npair + GB ? m0 + (size_t)(row - npair) * N
                               : w + (size_t)(row - npair - GB) * N;
   };
-  if (vec) {                               // TL % 4 == 0, rows 16-byte aligned
+  if (vec) {                               // rows 16-byte aligned
     const int cl = lt - 2;
     for (int k = tid; k < (rows << cl); k += kThreads) {
       const int row = k >> cl, c = (k & ((1 << cl) - 1)) << 2;
@@ -275,8 +275,7 @@ cudaError_t launch(const float* jgg, const float* m0, float* w, float* dw,
   const auto al16 = [](const void* p) {
     return ((uintptr_t)p & 15) == 0;
   };
-  const bool vec = lt >= 2 && N % 4 == 0 && al16(jgg) && al16(m0) &&
-                   al16(w);
+  const bool vec = N % 4 == 0 && al16(jgg) && al16(m0) && al16(w);
   const int blocks = (N + (1 << lt) - 1) >> lt;
   edge_scan_kernel<B><<<blocks, kThreads, (size_t)bytes, s>>>(
       jgg, m0, w, dw, a, mu, lam, lrho, ua, eps, G, N, lt, vec);
@@ -288,7 +287,7 @@ cudaError_t launch(const float* jgg, const float* m0, float* w, float* dw,
 // jgg: (GB(GB+1)/2, N) packed within-group Gram; m0, w: (GB, N), w updated
 // in place; dw: (GB, N) out; a: (G, N) out; mu: (G, N, B); lam: (G, N, B, B);
 // lrho, ua: (G, N); eps: (G, N, B). All float32, contiguous. A block serves
-// 2^lane_shift lanes (0..5).
+// 2^lane_shift lanes (3..5).
 extern "C" int ss_edge_scan_launch(const float* jgg, const float* m0,
                                    float* w, float* dw, float* a,
                                    const float* mu, const float* lam,
@@ -296,7 +295,7 @@ extern "C" int ss_edge_scan_launch(const float* jgg, const float* m0,
                                    const float* eps, int G, int B, int N,
                                    int lane_shift, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (G < 1 || N < 1 || lane_shift < 0 || lane_shift > 5)
+  if (G < 1 || N < 1 || lane_shift < 3 || lane_shift > 5)
     return (int)cudaErrorInvalidValue;
   switch (B) {
 #define PGT_CASE(b)                                                        \

@@ -14,9 +14,9 @@ the body's main loop (``csrc/gram_wgmma.cuh`` at "default",
 ``csrc/group_gram.cu``'s fp32 body at "highest"), ``--cut products`` its
 products, ``--cut lds`` (fp32 body) one of the four shared loads per step
 of its products (the second omega float4, read as the first); the cut
-copy of the package goes to ROOT/build/gram_cut_<parts>/ and its results
-are wrong by design, so only its time is read: the time the remaining
-parts take. It builds the package's kernels (and prints the Gram
+copy of the package goes to ROOT/build/gram_cut_<precision>_<parts>/ and
+its results are wrong by design, so only its time is read: the time the
+remaining parts take. It builds the package's kernels (and prints the Gram
 kernels' registers and spills), checks the whole body against its
 plain version, for bit-repeatability and against a float64 Gram of group
 0, prints a digest of its output (equal digests: equal outputs, bit for
@@ -34,12 +34,12 @@ turns, each checked against the plain version. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
-import hashlib
-import shutil
 import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+from timing import cut_copy, digest
 
 # The statement of the main loop each cut replaces, per body: the file and
 # (old, new) in it.
@@ -63,24 +63,6 @@ _SHAPES = {  # T, N, B, G, lanes, spike rate
     "config5": (20_000, 500, 4, 10, 4000, 0.05),
     "flagship": (100_000, 200, 4, 8, 200, 0.05),
 }
-
-
-def _cut_copy(root: Path, precision: str, parts: list[str]) -> Path:
-    dst = root / "build" / f"gram_cut_{precision}_{'_'.join(parts)}"
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(root / "pyglm_tpu_torch", dst / "pyglm_tpu_torch",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    fname, cuts = _CUTS[precision]
-    path = dst / "pyglm_tpu_torch" / "csrc" / fname
-    src = path.read_text()
-    for part in parts:
-        old, new = cuts.get(part, ("", ""))
-        if not old or old not in src:
-            raise SystemExit(f"time_group_gram: --cut {part} does not apply "
-                             f"to {path}")
-        src = src.replace(old, new)
-    path.write_text(src)
-    return dst
 
 
 def _kernel_resources(log: Path, match: str) -> str:
@@ -110,7 +92,8 @@ def main() -> None:
         raise SystemExit("time_group_gram: --splits times the uncut fp32 "
                          "body (--precision highest)")
     root = Path(args.root).resolve()
-    pkg_root = _cut_copy(root, prec, args.cut) if args.cut else root
+    pkg_root = (cut_copy(root, f"gram_cut_{prec}", *_CUTS[prec], args.cut)
+                if args.cut else root)
     sys.path.insert(0, str(pkg_root))
     import torch
     if not torch.cuda.is_available():
@@ -143,8 +126,7 @@ def main() -> None:
         k = gram()
         plain = group_gram_blocks_plain(Xt, omega, B, G, precision=prec)
         j64 = rnd(Xt[:GB][p] * Xt[:GB][q]).double() @ rnd(omega).double()
-        digest = hashlib.sha256(k.cpu().numpy().tobytes()).hexdigest()
-        checks = (f"; sha256 {digest[:16]}, vs plain {rel(k, plain):.2e}, "
+        checks = (f"; sha256 {digest(k)}, vs plain {rel(k, plain):.2e}, "
                   f"repeats {torch.equal(k, gram())}, vs float64 (group 0) "
                   f"{rel(k[0].double(), j64):.2e} (plain "
                   f"{rel(plain[0].double(), j64):.2e})")

@@ -19,8 +19,8 @@ runs the Gram and M0 on one kernel, so its line holds both). ``--cut
 build`` drops the Z build from the main loop of ``csrc/gram_wgmma.cuh``
 (the bf16 and SR Gram body), ``--cut products`` its wgmma products, as
 ``time_group_gram.py`` does: the cut copy of the package goes to
-ROOT/build/gram_cut_<parts>/ and its results are wrong by design, so only
-its time is read. Prints the wgmma kernels' registers and spills and the
+ROOT/build/gram_cut_default_<parts>/ and its results are wrong by design,
+so only its time is read. Prints the wgmma kernels' registers and spills and the
 card's name and power limit. Needs a CUDA card.
 """
 from __future__ import annotations
@@ -32,8 +32,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
-from time_group_gram import _CUTS, _cut_copy  # noqa: E402
+from time_group_gram import _CUTS
+from timing import cut_copy, device_ms
 
 
 def _wgmma_resources(log: Path) -> str:
@@ -45,25 +45,6 @@ def _wgmma_resources(log: Path) -> str:
             out.append(f"{name}: " + " | ".join(
                 x.strip() for x in lines[i + 2:i + 4]))
     return "; ".join(out) or "no wgmma kernel"
-
-
-def _kernel_ms(fn, reps):
-    """{kernel name: device ms per call} over `reps` traced calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0 and ev.device_type.name == "CUDA":
-            out[ev.key] = out.get(ev.key, 0.0) + us / 1e3 / reps
-    return out
 
 
 def _is_gram(name: str, precision: str) -> bool:
@@ -83,10 +64,11 @@ def main() -> None:
     ap.add_argument("--precision", default="high",
                     choices=["high", "default", "sr"])
     ap.add_argument("--cut", action="append", default=[],
-                    choices=sorted(_CUTS))
+                    choices=sorted(_CUTS["default"][1]))
     args = ap.parse_args()
     root = Path(args.root).resolve()
-    pkg_root = _cut_copy(root, args.cut) if args.cut else root
+    pkg_root = (cut_copy(root, "gram_cut_default", *_CUTS["default"],
+                         args.cut) if args.cut else root)
     sys.path.insert(0, str(pkg_root))
     import torch
     if not torch.cuda.is_available():
@@ -124,7 +106,7 @@ def main() -> None:
         return t0.elapsed_time(t1) / reps
 
     times = [run() for _ in range(5)]
-    kernels = _kernel_ms(call, 20)
+    kernels = device_ms(call, 20)
     gram = sum(v for k, v in kernels.items() if _is_gram(k, args.precision))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -38,12 +38,12 @@ Prints medians and the card's name and power limit. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
-import hashlib
-import shutil
 import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+from timing import cut_copy, device_ms, digest, edge_scan_priors
 
 N, T, B, L, G = 200, 100_000, 4, 10, 8
 N5, T5, C5, G5 = 500, 20_000, 8, 10
@@ -59,60 +59,6 @@ _CUTS = {
     "setup": ("  tail_sums(a, &S1, &S2, &S3);\n",
               "  S1 = 0.24f; S2 = 0.005f; S3 = 1.5e-4f;\n"),
 }
-
-
-def _cut_copy(root: Path, parts: list[str]) -> Path:
-    dst = root / "build" / f"k4_cut_{'_'.join(parts)}"
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(root / "pyglm_tpu_torch", dst / "pyglm_tpu_torch",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    src_path = dst / "pyglm_tpu_torch" / "csrc" / "pg_gamma.cu"
-    src = src_path.read_text()
-    for part in parts:
-        old, new = _CUTS[part]
-        if old not in src:
-            raise SystemExit(f"time_k3_k4: --cut {part} does not apply to "
-                             f"{src_path}")
-        src = src.replace(old, new)
-    src_path.write_text(src)
-    return dst
-
-
-def _digest(*ts) -> str:
-    h = hashlib.sha256()
-    for t in ts:
-        h.update(t.cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
-def _device_ms(fn, reps):
-    """Device time per call of the kernels named edge_scan_kernel, over
-    `reps` calls traced by torch.profiler (after one untraced call)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-             for ev in prof.key_averages()
-             if ev.device_type.name == "CUDA" and "edge_scan_kernel" in ev.key)
-    return us / 1e3 / reps
-
-
-def _priors(gen, n_edges, lanes):
-    import torch
-    M = torch.randn((n_edges, lanes, B, B), generator=gen, device="cuda")
-    lam = (M @ M.transpose(-1, -2) / B
-           + torch.eye(B, device="cuda")).contiguous()
-    mu = 0.3 * torch.randn((n_edges, lanes, B), generator=gen, device="cuda")
-    lrho = torch.full((n_edges, lanes), -1.0, device="cuda")
-    u_a = torch.rand((n_edges, lanes), generator=gen, device="cuda")
-    eps = torch.randn((n_edges, lanes, B), generator=gen, device="cuda")
-    return mu, lam, lrho, u_a, eps
 
 
 def _k3_cases(gen):
@@ -134,7 +80,8 @@ def _k3_cases(gen):
     del omega, u
     w0 = (torch.randn((GB, N), generator=gen, device="cuda")
           * (torch.rand((GB, N), generator=gen, device="cuda") < 0.25))
-    cases["flagship"] = ([(jgg, m0, *_priors(gen, G, N))], w0, 20)
+    cases["flagship"] = ([(jgg, m0, *edge_scan_priors(gen, G, N, B))], w0,
+                         20)
 
     lanes, GB = C5 * N5, G5 * B
     Ng = N5 // G5
@@ -149,7 +96,7 @@ def _k3_cases(gen):
     w0 = (torch.randn((Ng * GB, lanes), generator=gen, device="cuda")
           * (torch.rand((Ng * GB, lanes), generator=gen, device="cuda")
              < 0.25))
-    pri = _priors(gen, N5, lanes)
+    pri = edge_scan_priors(gen, N5, lanes, B)
     groups = [(Jg[g], M0[g * GB:(g + 1) * GB],
                *(p[g * G5:(g + 1) * G5] for p in pri)) for g in range(Ng)]
     cases["config5"] = (groups, w0, 2)
@@ -172,7 +119,7 @@ def time_k3(label, card, tiles):
         n_diff = int((a_k != a_p).sum())
         werr = float((w_k - w_p).abs().max())
         derr = float((d_k - d_p).abs().max())
-        digest = _digest(w_k, d_k, a_k)
+        dig = digest(w_k, d_k, a_k)
         del out_p, w_p, a_p, d_p
         w_t = w0.clone()
         variants = [None] + list(tiles)
@@ -187,11 +134,13 @@ def time_k3(label, card, tiles):
                         if v not in digests:
                             w_v = w0.clone()
                             o = run(ss_cuda.ss_edge_scan_cuda, w_v)
-                            digests[v] = _digest(
+                            digests[v] = digest(
                                 w_v, torch.cat([d for d, _ in o]),
                                 torch.cat([a for _, a in o]))
-                    times[v].append(_device_ms(
+                    ms = device_ms(
                         lambda: run(ss_cuda.ss_edge_scan_cuda, w_t), reps)
+                    times[v].append(sum(
+                        t for k, t in ms.items() if "edge_scan_kernel" in k)
                         / len(groups))
                     if plan is not None:
                         ss_cuda.edge_scan_plan = plan
@@ -206,7 +155,7 @@ def time_k3(label, card, tiles):
               f"per call {[round(t, 5) for t in times[None]]}, median "
               f"{statistics.median(times[None]):.5f}; vs plain: A "
               f"{n_diff} of {a_k.numel()} differ ({int(a_k.sum())} active), "
-              f"W {werr:.2e}, dW {derr:.2e}; sha256 {digest} ({card})",
+              f"W {werr:.2e}, dW {derr:.2e}; sha256 {dig} ({card})",
               flush=True)
         for v in tiles:
             print(f"{label}: K3 {name} at lane tile {v}: ms "
@@ -242,7 +191,7 @@ def time_k4(label, card):
     times = [run() for _ in range(3)]
     print(f"{label}: K4 ({T}, {N}) ms {[round(t, 4) for t in times]}, "
           f"median {statistics.median(times):.4f}; sum z {z:.3f}, spread "
-          f"ratio {ratio:.5f}, sha256 {_digest(om)} ({card})", flush=True)
+          f"ratio {ratio:.5f}, sha256 {digest(om)} ({card})", flush=True)
 
 
 def main() -> None:
@@ -258,7 +207,8 @@ def main() -> None:
     root = Path(args.root).resolve()
     if args.cut and args.only != "k4":
         raise SystemExit("time_k3_k4: --cut applies to K4: add --only k4")
-    sys.path.insert(0, str(_cut_copy(root, args.cut) if args.cut else root))
+    sys.path.insert(0, str(cut_copy(root, "k4_cut", "pg_gamma.cu", _CUTS,
+                                    args.cut) if args.cut else root))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("time_k3_k4: needs a CUDA device")

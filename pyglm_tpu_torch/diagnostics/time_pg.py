@@ -25,12 +25,12 @@ limit. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
-import hashlib
-import shutil
 import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+from timing import cut_copy, digest
 
 # Each cut: the statement it replaces (old, new) in the kernel's source.
 _CUTS = {
@@ -44,23 +44,6 @@ _CUTS = {
 _SHAPES = {"flagship": (100_000, 200), "config5": (20_000, 4000)}
 
 
-def _cut_copy(root: Path, parts: list[str]) -> Path:
-    dst = root / "build" / f"pg_cut_{'_'.join(parts)}"
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(root / "pyglm_tpu_torch", dst / "pyglm_tpu_torch",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    src_path = dst / "pyglm_tpu_torch" / "csrc" / "pg_devroye.cu"
-    src = src_path.read_text()
-    for part in parts:
-        old, new = _CUTS[part]
-        if old not in src:
-            raise SystemExit(f"time_pg: --cut {part} does not apply to "
-                             f"{src_path}")
-        src = src.replace(old, new)
-    src_path.write_text(src)
-    return dst
-
-
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?",
@@ -69,7 +52,8 @@ def main() -> None:
                     choices=sorted(_CUTS))
     args = ap.parse_args()
     root = Path(args.root).resolve()
-    pkg_root = _cut_copy(root, args.cut) if args.cut else root
+    pkg_root = (cut_copy(root, "pg_cut", "pg_devroye.cu", _CUTS, args.cut)
+                if args.cut else root)
     sys.path.insert(0, str(pkg_root))
     import torch
     if not torch.cuda.is_available():
@@ -92,9 +76,8 @@ def main() -> None:
             m, v = pg_mean(1.0, psi).double(), pg_var(1.0, psi).double()
             z = float((om.sum() - m.sum()) / v.sum().sqrt())
             ratio = float(((om - m) ** 2).sum() / v.sum())
-            digest = hashlib.sha256(om.cpu().numpy().tobytes()).hexdigest()
             checks = (f"; sum z {z:.3f}, spread ratio {ratio:.5f}, sha256 "
-                      f"{digest[:16]}")
+                      f"{digest(om)}")
 
         def run(reps=10):
             pg_devroye_cuda(psi, 3, 0)

@@ -41,7 +41,7 @@ from pyglm_tpu_torch.ops import _build
 _MAX_GB = 64           # K2 keeps a group's design rows in shared memory
 _MAX_B = 8             # K3 is instantiated for B = 1 .. 8
 _K3_SMEM = 232448      # K3: the shared memory a block may take (227 KB)
-_K3_TILES = (32, 16, 8, 4, 2, 1)   # K3's lane tiles, widest first
+_K3_TILES = (32, 16, 8)   # K3's lane tiles, widest first
 
 
 def pair_index(GB: int, device=None):
@@ -387,7 +387,8 @@ def edge_scan_smem_bytes(G: int, B: int, tile: int) -> int:
     """Shared memory of one K3 block of `tile` lanes: the packed Gram slice,
     the residual and the old weights, the current edge's dW, and per edge
     the packed chol(Lam0 + J_ii), Lp^{-T} eps, the log-odds' constant part
-    and u_a, each a row of `tile` floats (csrc/ss_edge_scan.cu)."""
+    and u_a, each a row of `tile` floats (the layout of
+    csrc/ss_edge_scan.cu, whose launcher refuses a block past 227 KB)."""
     GB = G * B
     rows = (GB * (GB + 1) // 2 + 2 * GB + B
             + G * (B * (B + 1) // 2 + B + 2))
@@ -397,24 +398,18 @@ def edge_scan_smem_bytes(G: int, B: int, tile: int) -> int:
 def edge_scan_plan(G: int, B: int, N: int) -> int:
     """K3's lane tile for a group of G edges of B basis weights at N lanes:
     the widest of ``_K3_TILES`` whose block fits 227 KB of shared memory
-    and whose grid still puts a block on every SM; where no tile of 8 lanes
-    or more does, 8 lanes (a row of a tile is then one 32-byte sector), or
-    the widest that fits if narrower. At the flagship's group (200 lanes)
+    and whose grid still puts a block on every SM, else 8 lanes (a row of a
+    tile is then one 32-byte sector). At the flagship's group (200 lanes)
     that is 8 lanes, 25 blocks; at config 5's (4000 lanes) 16, 250 blocks:
-    the fastest tiles measured there (PERF.md). Raises for a group that
-    does not fit at one lane (at B = 4: G = 83 fits, G = 84, GB = 336, does
-    not). No path of the port gets near it: K2 and K6 take GB <= 64, and
-    ``_auto_group`` gives GB <= 128 (G <= 16, B <= 8), which fits at 4
-    lanes."""
-    fits = [t for t in _K3_TILES if edge_scan_smem_bytes(G, B, t) <= _K3_SMEM]
-    if not fits:
-        raise ValueError(f"ss_edge_scan: G={G}, B={B} needs "
-                         f"{edge_scan_smem_bytes(G, B, 1)} bytes of shared "
-                         f"memory a lane, past {_K3_SMEM}")
-    for tile in fits:
-        if tile >= 8 and -(-N // tile) >= _H100_SMS:
+    the fastest tiles measured there (PERF.md). Raises for GB > 64, as K2
+    and K6 do; every GB up to 64 fits at 16 lanes (165 KB at most)."""
+    if not 1 <= G * B <= _MAX_GB:
+        raise ValueError(f"ss_edge_scan: GB={G * B} outside 1..{_MAX_GB}")
+    for tile in _K3_TILES:
+        if (edge_scan_smem_bytes(G, B, tile) <= _K3_SMEM
+                and -(-N // tile) >= _H100_SMS):
             return tile
-    return min(8, fits[0])
+    return 8
 
 
 def ss_edge_scan_cuda(jgg, m0, w, mu, lam, lrho, u_a, eps):

@@ -18,35 +18,41 @@ from pyglm_tpu_torch.ops.ss_cuda import (
 
 @pytest.mark.parametrize("B", range(1, 9))
 def test_plan_fits_every_group(B):
-    """For G <= 16 (``_auto_group``'s range) at every lane count, the plan's
-    tile fits, and it is the widest that fits and leaves no SM without a
-    block, else 8 lanes (or the widest that fits, if narrower)."""
-    for G in range(1, 17):
+    """For every group K2 and K6 take (GB <= 64) at every lane count, the
+    plan's tile fits, and it is the widest that fits and leaves no SM
+    without a block, else 8 lanes."""
+    for G in range(1, 64 // B + 1):
         for N in (1, 7, 200, 1000, 2112, 4000, 4001, 20000):
             tile = edge_scan_plan(G, B, N)
             assert tile in _K3_TILES
             assert edge_scan_smem_bytes(G, B, tile) <= _K3_SMEM
-            wide = max(t for t in _K3_TILES
-                       if edge_scan_smem_bytes(G, B, t) <= _K3_SMEM)
-            full = [t for t in (32, 16, 8)
-                    if t <= wide and -(-N // t) >= 132]
-            assert tile == (full[0] if full else min(8, wide))
+            assert edge_scan_smem_bytes(G, B, 16) <= _K3_SMEM
+            full = [t for t in _K3_TILES
+                    if edge_scan_smem_bytes(G, B, t) <= _K3_SMEM
+                    and -(-N // t) >= 132]
+            assert tile == (full[0] if full else 8)
 
 
-@pytest.mark.parametrize("G,B", [(84, 4), (42, 8), (335, 1)])
+@pytest.mark.parametrize("G,B", [(17, 4), (9, 8), (65, 1)])
 def test_plan_raises_past_the_limit(G, B):
-    """A group whose one-lane block does not fit raises; one edge fewer
-    fits at one lane."""
+    """A group past K2's and K6's GB = 64 raises, as theirs do; one edge
+    fewer is taken."""
     with pytest.raises(ValueError):
         edge_scan_plan(G, B, 200)
-    assert edge_scan_smem_bytes(G - 1, B, 1) <= _K3_SMEM
-    assert edge_scan_plan(G - 1, B, 200) == 1
+    assert edge_scan_plan(G - 1, B, 200) == 8
 
 
 def test_auto_group_never_reaches_the_limit():
+    """Every group ``_auto_group`` gives that K2 and K6 take (GB <= 64),
+    K3 takes too; the groups past it raise here as they do there."""
     for B in range(1, 9):
         for n_pre in range(1, 513):
-            edge_scan_plan(tw._auto_group(n_pre, B), B, 4000)
+            G = tw._auto_group(n_pre, B)
+            if G * B <= 64:
+                assert edge_scan_plan(G, B, 4000) in _K3_TILES
+            else:
+                with pytest.raises(ValueError):
+                    edge_scan_plan(G, B, 4000)
 
 
 def test_plan_at_the_main_paths():
