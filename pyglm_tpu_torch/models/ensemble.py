@@ -13,8 +13,10 @@ latent-distance prior runs its HMC for all chains at once, the others
 resample per chain.
 
 Chain c is initialized from the prior with generators seeded from
-``seeds[c]``; the stacked sweeps then draw from one shared stream seeded
-from ``seeds[0]``, shaped over the lanes.
+``seeds[c]`` and salted (:func:`ensemble_generators`), so that it does not
+start from the prior draw of a model built with that seed; the stacked
+sweeps then draw from one shared stream seeded from ``seeds[0]``, shaped
+over the lanes.
 """
 from __future__ import annotations
 
@@ -85,6 +87,19 @@ def chain_generators(seed: int, device) -> Generators:
     host_gen = torch.Generator()
     host_gen.manual_seed(int(seed) + 0x5EED)
     return Generators(dev_gen, host_gen)
+
+
+# A chain seeded sd draws from other streams than a model seeded sd, as the
+# JAX package folds 0x5EED into a chain's key: otherwise a chain would start
+# from the very prior draw of a model built with its seed, such as the
+# truth that simulated the data. (A CPU generator reads the low 32 bits of
+# its seed, so the salt lives there.)
+_CHAIN_SALT = 0x5EED0000
+
+
+def ensemble_generators(seed: int, device) -> Generators:
+    """The generators of the ensemble chain seeded `seed`."""
+    return chain_generators(int(seed) + _CHAIN_SALT, device)
 
 
 def lane_inputs(network, chains):
@@ -191,8 +206,8 @@ def run_stacked_chains(model, n_chains: int, n_samples: int,
         raise ValueError(f"{len(seeds)} seeds for {C} chains")
     dev = model.device
     st = stack_states([init_state_from_prior(
-        chain_generators(sd, dev), model.observation, model.network, model.N,
-        model.B, model.spike_and_slab, dev) for sd in seeds])
+        ensemble_generators(sd, dev), model.observation, model.network,
+        model.N, model.B, model.spike_and_slab, dev) for sd in seeds])
     gens = chain_generators(int(seeds[0]) + _SWEEP_SALT, dev)
     sweep = make_stacked_sweep(model.observation, model.network, model.N,
                                model.B, C, model.spike_and_slab,

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from pyglm_tpu_torch.models.ensemble import (
-    chain_generators, run_stacked_chains,
+    chain_generators, ensemble_generators, run_stacked_chains,
 )
 from pyglm_tpu_torch.models.networks import make_network
 from pyglm_tpu_torch.models.observations import make_observation
@@ -24,10 +24,13 @@ from pyglm_tpu_torch.models.sweep import (
     GLMData, GLMState, init_state_from_prior, make_generator,
     make_gibbs_sweep, make_log_likelihood,
 )
-from pyglm_tpu_torch.models.weights import _auto_group, check_precision
+from pyglm_tpu_torch.models.weights import (
+    _auto_group, check_precision, pack_weights,
+)
 from pyglm_tpu_torch.ops.basis import cosine_basis, design_matrix
+from pyglm_tpu_torch.utils.convert import state_to_numpy
 from pyglm_tpu_torch.utils.metrics import split_rhat
-from pyglm_tpu_torch.utils.utils import require_device
+from pyglm_tpu_torch.utils.utils import fp32_matmul, require_device
 
 
 def _as_f32(Y, device) -> torch.Tensor:
@@ -146,6 +149,29 @@ class NonlinearAutoregressiveModel:
             self.add_data(Y)
         return Y.cpu().numpy()
 
+    def forecast(self, T_ahead: int, n_samples: int = 1, thin: int = 1,
+                 data_index: int = -1):
+        """Posterior-predictive simulation that continues from observed
+        history: the generator's ring starts from the last L bins of
+        dataset `data_index` (zeros in front if it is shorter). Before each
+        of the `n_samples` futures the chain advances `thin` sweeps, so the
+        futures integrate over the parameters' uncertainty. Returns
+        (n_samples, T_ahead, N)."""
+        if not self.datas:
+            raise RuntimeError("no observed history; call add_data() first")
+        ring0 = self.datas[data_index].Y[-self.L:]
+        if ring0.shape[0] < self.L:
+            ring0 = torch.cat([ring0.new_zeros(
+                (self.L - ring0.shape[0], self.N)), ring0])
+        out = []
+        for _ in range(n_samples):
+            for _ in range(thin):
+                self.resample_model()
+            Y, _ = self._generate(self.generators.device, self.state,
+                                  self.basis, T_ahead, ring0=ring0)
+            out.append(Y.cpu().numpy())
+        return np.stack(out)
+
     def resample_model(self):
         """One Gibbs sweep over weights, adjacency, aux and network."""
         if not self.datas:
@@ -163,6 +189,9 @@ class NonlinearAutoregressiveModel:
         d = GLMData(Y=Y, Xf=design_matrix(Y, self.basis), Xt=None)
         return float(self._loglik(self.state, d))
 
+    def log_probability(self) -> float:
+        return self.log_likelihood()
+
     @property
     def A(self) -> np.ndarray:
         """(N_pre, N_post) adjacency sample."""
@@ -174,8 +203,30 @@ class NonlinearAutoregressiveModel:
         return self.state.W.cpu().numpy()
 
     @property
+    def W_effective(self) -> np.ndarray:
+        """(N_pre, N_post) net synaptic weights: sum over the basis of
+        A * W."""
+        return (self.state.A[:, :, None] * self.state.W).sum(-1).cpu().numpy()
+
+    @property
     def bias(self) -> np.ndarray:
         return self.state.b.cpu().numpy()
+
+    @property
+    def means(self) -> list:
+        """Per dataset, the observation family's mean E[y_t | history]
+        (T, N) under the current sample, psi by a float32 GEMM."""
+        w_full = pack_weights(self.state.A, self.state.W, self.state.b)
+        with fp32_matmul():
+            return [self.observation.mean(d.Xf @ w_full,
+                                          self.state.aux).cpu().numpy()
+                    for d in self.datas]
+
+    def copy_sample(self) -> dict:
+        """Host numpy snapshot of the current sample
+        (``utils.convert.state_to_numpy``; ``state_from_numpy`` restores
+        it)."""
+        return state_to_numpy(self.state)
 
     def fit(self, n_samples: int = 100, n_burnin: int = 0, thin: int = 1,
             callback=None, verbose: bool = False):
@@ -208,7 +259,9 @@ class NonlinearAutoregressiveModel:
                      collect: str = "samples"):
         """Run `n_chains` Gibbs chains from fresh prior draws on the
         registered data, with split-R-hat over the pooled traces. Chain c
-        draws from generators seeded from ``seeds[c]`` (default 1 .. C).
+        draws from generators seeded from ``seeds[c]`` (default 1 .. C),
+        salted so that it does not start from the prior draw of a model
+        seeded ``seeds[c]`` (models/ensemble.py::ensemble_generators).
 
         ``stacked`` ("auto" or True) runs the C chains as one lane-stacked
         sweep at C*N postsyn lanes (models/ensemble.py); False runs
@@ -248,7 +301,7 @@ class NonlinearAutoregressiveModel:
             runs = []
             try:
                 for sd in seeds:
-                    self.generators = chain_generators(sd, self.device)
+                    self.generators = ensemble_generators(sd, self.device)
                     self.state = init_state_from_prior(
                         self.generators, self.observation, self.network,
                         self.N, self.B, self.spike_and_slab, self.device)

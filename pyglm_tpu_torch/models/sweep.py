@@ -104,16 +104,19 @@ def make_log_likelihood(obs, N: int, B: int):
 
 
 def make_generator(obs, N: int, B: int):
-    """Autoregressive forward simulation from silence: a loop over time bins
-    that keeps the last L bins of output in a ring. The family's
-    psi-independent noise for all T bins (Bernoulli's uniforms, NB's
-    Gamma(r) factors) is drawn before the loop, so a bin costs one draw
-    that needs no host sync. ``uniforms`` (T, N), if given, replaces a
-    Bernoulli family's uniforms (for reproducing a reference run)."""
+    """Autoregressive forward simulation: a loop over time bins that keeps
+    the last L bins of output in a ring. The family's psi-independent noise
+    for all T bins (Bernoulli's uniforms, NB's Gamma(r) factors) is drawn
+    before the loop, so a bin costs one draw that needs no host sync.
+    ``uniforms`` (T, N), if given, replaces a Bernoulli family's uniforms
+    (for reproducing a reference run). ``ring0`` (L, N), the last L bins of
+    observed history in time order, seeds the ring, so that generation
+    continues from the data (a posterior-predictive forecast); None starts
+    from silence."""
 
     @fp32_matmul()
     def generate(generator: torch.Generator, state: GLMState, basis, T: int,
-                 uniforms=None):
+                 uniforms=None, ring0=None):
         dev = state.b.device
         basis = torch.as_tensor(basis, dtype=torch.float32, device=dev)
         L = basis.shape[0]
@@ -123,6 +126,10 @@ def make_generator(obs, N: int, B: int):
         # Each bin is written twice, L rows apart, so rows pos+1 .. pos+L
         # are always the last L bins in time order.
         ring = torch.zeros((2 * L, N), dtype=torch.float32, device=dev)
+        if ring0 is not None:
+            # Rows 1 .. L hold the window; row i + L repeats row i.
+            r0 = torch.as_tensor(ring0, dtype=torch.float32, device=dev)
+            ring = torch.cat([r0[-1:], r0, r0[:-1]])
         noise = (obs.sample_noise(generator, (T, N), state.aux)
                  if uniforms is None else uniforms)
         Y = torch.empty((T, N), dtype=torch.float32, device=dev)

@@ -1,0 +1,558 @@
+"""The port's copy of the f64 NumPy oracle of the Gibbs sweep.
+
+A copy, line for line, of ``NumpyGLMReference`` and the samplers it uses
+(exact Devroye PG(1, c), the gamma-series PG(b, c), CRT counts) from the
+JAX package's ``pyglm_tpu/reference/numpy_ref.py``. It is a copy on
+purpose: an oracle is only independent of the sampler under test while it
+shares no code with it, and the port imports nothing of the JAX package.
+It imports numpy (and scipy inside the functions that need it), never
+torch. ``tests/test_torch_numpy_ref.py`` holds it to the original: with the
+same seeds both give bit-identical chains.
+
+The oracle is deliberately f64 and architecture-faithful to the original
+pyglm: resample() loops neurons in Python, forms per-neuron sufficient
+statistics with BLAS and runs the sequential per-edge collapsed
+spike-and-slab update. It covers Bernoulli, negative-binomial, Gaussian and
+Binomial observations (Binomial's PG(n, c) as the exact n-fold Devroye
+convolution) under the Erdos-Renyi, SBM, latent-distance (random-walk
+Metropolis on the positions: another exact algorithm than the port's HMC)
+and dense networks. The stick-breaking multinomial oracle is not copied
+(ROADMAP.md Queue A, item 13).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+_T = 0.64
+
+
+def _coef(x, n):
+    """Devroye alternating-series coefficients a_n(x) (piecewise)."""
+    half = n + 0.5
+    out = np.where(
+        x <= _T,
+        np.pi * half * (2.0 / (np.pi * np.maximum(x, 1e-300))) ** 1.5
+        * np.exp(-2.0 * half * half / np.maximum(x, 1e-300)),
+        np.pi * half * np.exp(-half * half * np.pi ** 2 * x / 2.0),
+    )
+    return out
+
+
+def _trunc_inv_gauss(rng, z):
+    """X ~ IG(1/z, 1) | X < t, vectorized rejection (PSW 2013)."""
+    n = z.shape[0]
+    X = np.empty(n)
+    todo = np.ones(n, bool)
+    while todo.any():
+        idx = np.flatnonzero(todo)
+        zz = z[idx]
+        useA = zz * _T < 1.0
+        E1 = rng.exponential(size=idx.size)
+        E2 = rng.exponential(size=idx.size)
+        okA = E1 ** 2 <= 2 * E2 / _T
+        XA = _T / (1 + _T * E1) ** 2
+        accA = useA & okA & (rng.rand(idx.size) <= np.exp(-0.5 * zz ** 2 * XA))
+        mu = 1.0 / np.maximum(zz, 1e-300)
+        Yn = rng.randn(idx.size) ** 2
+        # errstate: at z ~ 0, mu ~ 1e300 and mu**2 / XB overflows to inf;
+        # the inf branch is rejected by `XB <= _T` below, so the overflow
+        # is statistically harmless — but the trusted oracle should run
+        # warning-clean under the gatekeeper suites (VERDICT r4 weak #6).
+        with np.errstate(over="ignore"):
+            muY = mu * Yn
+            XB = mu + 0.5 * mu * muY - 0.5 * mu * np.sqrt(4 * muY + muY ** 2)
+            XB = np.where(rng.rand(idx.size) <= mu / (mu + XB), XB,
+                          mu ** 2 / np.maximum(XB, 1e-300))
+        accB = (~useA) & (XB <= _T)
+        acc = accA | accB
+        X[idx[acc]] = np.where(accA, XA, XB)[acc]
+        todo[idx[acc]] = False
+    return X
+
+
+def numpy_pg_devroye(rng, c):
+    """Exact PG(1, c) draws, vectorized NumPy (independent of the JAX path)."""
+    c = np.asarray(c, np.float64)
+    z = 0.5 * np.abs(c).ravel()
+    n = z.size
+    X = np.empty(n)
+    todo = np.ones(n, bool)
+    K = np.pi ** 2 / 8 + z ** 2 / 2
+    from scipy.stats import norm
+    sq = np.sqrt(_T)
+    logq = np.log(2.0) + np.logaddexp(
+        -z + norm.logcdf((z * _T - 1) / sq),
+        z + norm.logcdf(-(z * _T + 1) / sq))
+    logp = np.log(np.pi / (2 * K)) - K * _T
+    p_ratio = np.exp(logp - np.logaddexp(logp, logq))
+    while todo.any():
+        idx = np.flatnonzero(todo)
+        m = idx.size
+        use_exp = rng.rand(m) < p_ratio[idx]
+        Xp = np.where(use_exp,
+                      _T + rng.exponential(size=m) / K[idx],
+                      _trunc_inv_gauss(rng, z[idx]))
+        # series accept
+        S = _coef(Xp, 0)
+        Y = rng.rand(m) * S
+        acc = np.zeros(m, bool)
+        done = np.zeros(m, bool)
+        for nn in range(1, 12):
+            term = _coef(Xp, nn)
+            if nn % 2 == 1:
+                S = S - term
+                newacc = (~done) & (Y <= S)
+                acc |= newacc
+                done |= newacc
+            else:
+                S = S + term
+                done |= Y > S
+        X[idx[acc]] = Xp[acc]
+        todo[idx[acc]] = False
+    return (X / 4.0).reshape(np.shape(c))
+
+
+def numpy_pg_gamma_series(rng, b, c, K=64):
+    """PG(b, c) draws via the exact infinite gamma series (PSW 2013 eq. 3):
+
+        PG(b, c) = (1 / (2 pi^2)) sum_{k>=1} g_k / ((k - 1/2)^2 + y^2),
+        g_k ~ Gamma(b, 1),  y = |c| / (2 pi),
+
+    truncated at K in-sum terms plus a moment-matched Gamma tail. The tail
+    mean uses the closed form sum_{k>=1} 1/((k-1/2)^2 + y^2) =
+    (pi / (2 y)) tanh(pi y); the tail second moment is summed numerically.
+    At K=64 the tail's variance share is ~(1/K)^3 ~ 4e-6 — far inside the
+    MC tolerance of any chain-level comparison. Independent of the JAX/
+    Pallas kernels (different language, f64, different truncation depth).
+    """
+    b = np.asarray(b, np.float64).ravel()
+    c_flat = np.asarray(c, np.float64).ravel()
+    y = np.abs(c_flat) / (2.0 * np.pi)
+    ks = np.arange(1, K + 1)[:, None]                      # (K, 1)
+    d = (ks - 0.5) ** 2 + y[None, :] ** 2                  # (K, n)
+    g = rng.standard_gamma(np.broadcast_to(b, (K, b.size)))
+    head = np.sum(g / d, axis=0)
+    # tail moments
+    with np.errstate(invalid="ignore", divide="ignore"):
+        total1 = np.where(y > 1e-8,
+                          np.pi / (2.0 * np.maximum(y, 1e-300))
+                          * np.tanh(np.pi * y),
+                          np.pi ** 2 / 2.0)
+    head1 = np.sum(1.0 / d, axis=0)
+    t1 = np.maximum(total1 - head1, 1e-300)                # sum 1/d, k>K
+    ks2 = np.arange(K + 1, K + 501)[:, None]
+    d2 = (ks2 - 0.5) ** 2 + y[None, :] ** 2
+    t2 = np.sum(1.0 / d2 ** 2, axis=0) + 1.0 / (3.0 * (K + 500.0) ** 3)
+    m_t = b * t1                                           # tail mean (pre-norm)
+    v_t = b * t2                                           # tail var  (pre-norm)
+    shape = m_t ** 2 / v_t
+    tail = rng.standard_gamma(shape) * (v_t / m_t)
+    return ((head + tail) / (2.0 * np.pi ** 2)).reshape(np.shape(c))
+
+
+def numpy_crt(rng, Y, r):
+    """CRT table counts l[t, n] = sum_{i=0}^{y-1} Bern(r_n / (r_n + i)) —
+    the same conditional as ops/linalg.py crt_sample, f64 NumPy."""
+    Y = np.asarray(Y)
+    out = np.zeros(Y.shape, np.int64)
+    for i in range(int(Y.max())):
+        p = r[None, :] / (r[None, :] + i)
+        out += ((Y > i) & (rng.rand(*Y.shape) < p)).astype(np.int64)
+    return out
+
+
+class NumpyGLMReference:
+    """Bernoulli spike-and-slab network GLM, architecture-faithful to the
+    reference: resample() loops neurons in Python, forms per-neuron
+    sufficient stats with BLAS, and runs the sequential per-edge collapsed
+    spike-and-slab update (pyglm/regressions.py _resample_A_W analog)."""
+
+    def __init__(self, N, B, basis, rho=0.2, mu_w=0.0, sigma_w=1.0,
+                 mu_b=-2.0, sigma_b=1.0, seed=0, observation="bernoulli",
+                 r_init=4.0, a_r=2.0, b_r=0.5, resample_r=True,
+                 eta_init=1.0, a_eta=2.0, b_eta=1.0, resample_eta=True,
+                 n_trials=1,
+                 network="er", K=2, alpha_pi=1.0, a_rho=1.0, b_rho=1.0,
+                 niw_mu0=0.0, niw_kappa0=1.0, niw_nu0=None, niw_psi0=1.0,
+                 dim=2, sigma_l=1.0, sigma_gamma=2.0, gamma_init=0.0,
+                 ld_mh_passes=10, ld_step=0.3, ld_step_gamma=0.3,
+                 ld_learn_weight_prior=True):
+        self.N, self.B = N, B
+        self.basis = np.asarray(basis, np.float64)
+        self.rho, self.mu_w, self.sigma_w = rho, mu_w, sigma_w
+        self.mu_b, self.sigma_b = mu_b, sigma_b
+        self.observation = observation
+        assert observation in ("bernoulli", "negative_binomial", "gaussian",
+                               "binomial")
+        self.n_trials = int(n_trials)
+        assert network in ("er", "sbm", "latent_distance", "dense")
+        self.network = network
+        self.a_r, self.b_r, self.resample_r = a_r, b_r, resample_r
+        self.a_eta, self.b_eta, self.resample_eta = a_eta, b_eta, resample_eta
+        self.rng = np.random.RandomState(seed)
+        self.r = np.full(N, float(r_init))
+        self.eta = np.full(N, float(eta_init))
+        self.A = (self.rng.rand(N, N) < rho).astype(np.float64)
+        self.W = self.rng.randn(N, N, B) * np.sqrt(sigma_w) * self.A[:, :, None]
+        self.b = mu_b + np.sqrt(sigma_b) * self.rng.randn(N)
+        if network in ("sbm", "latent_distance", "dense"):
+            self.niw_mu0 = np.full(B, float(niw_mu0))
+            self.niw_kappa0 = float(niw_kappa0)
+            self.niw_nu0 = float(niw_nu0 if niw_nu0 is not None else B + 2)
+            self.niw_psi0 = np.eye(B) * float(niw_psi0)
+        if network == "dense":
+            # Dense path, mirroring networks.py DenseNetworkConfig: all
+            # edges present; shared NIW-learned slab prior initialized at
+            # (0, sigma_w * I) like init_state.
+            self.A = np.ones((N, N))
+            self.W = self.rng.randn(N, N, B) * np.sqrt(sigma_w)
+            self.mu_sh = np.zeros(B)
+            self.Sigma_sh = np.eye(B) * sigma_w
+        if network == "latent_distance":
+            # Latent-distance state, mirroring networks.py
+            # LatentDistanceConfig.init_state: positions from the prior,
+            # gamma = gamma_init, shared slab prior (0, sigma_w * I).
+            self.dim = int(dim)
+            self.sigma_l, self.sigma_gamma = float(sigma_l), float(sigma_gamma)
+            self.ld_mh_passes = int(ld_mh_passes)
+            self.ld_step, self.ld_step_gamma = float(ld_step), float(ld_step_gamma)
+            self.ld_learn_weight_prior = bool(ld_learn_weight_prior)
+            self.Lpos = self.sigma_l * self.rng.randn(N, self.dim)
+            self.gamma = float(gamma_init)
+            self.mu_sh = np.zeros(B)
+            self.Sigma_sh = np.eye(B) * sigma_w
+        if network == "sbm":
+            # SBM state, mirroring networks.py SBMConfig.init_state: random
+            # labels, uniform pi, rho_init = rho, zero block means, sigma_w*I
+            # block covariances; NIW prior (mu0, kappa0, nu0 = B+2, psi0*I).
+            self.K = K
+            self.alpha_pi, self.a_rho, self.b_rho = alpha_pi, a_rho, b_rho
+            self.c = self.rng.randint(0, K, size=N)
+            self.pi = np.full(K, 1.0 / K)
+            self.rho_blk = np.full((K, K), float(rho))
+            self.mu_blk = np.zeros((K, K, B))
+            self.Sigma_blk = np.broadcast_to(
+                np.eye(B) * sigma_w, (K, K, B, B)).copy()
+
+    def design(self, Y):
+        T, N = Y.shape
+        L, B = self.basis.shape
+        X = np.zeros((T, N, B))
+        for d in range(1, L + 1):
+            X[d:] += Y[:-d][:, :, None] * self.basis[d - 1][None, None, :]
+        Xf = X.reshape(T, N * B)
+        return np.concatenate([Xf, np.ones((T, 1))], axis=1)
+
+    def resample(self, Y, Xf):
+        """One Gibbs sweep (weights + adjacency; fixed hyperparameters)."""
+        N, B = self.N, self.B
+        P = N * B + 1
+        w_full = np.concatenate(
+            [(self.A[:, :, None] * self.W).transpose(0, 2, 1).reshape(N * B, N),
+             self.b[None, :]], axis=0)
+        nb = self.observation == "negative_binomial"
+        gauss = self.observation == "gaussian"
+        binom = self.observation == "binomial"
+        if nb:
+            kappa = 0.5 * (Y - self.r[None, :])
+        elif gauss:
+            # identity link: omega = 1/eta_n deterministic, kappa = y/eta_n
+            # (models/observations.py Gaussian.omega_kappa analog).
+            kappa = Y / self.eta[None, :]
+        elif binom:
+            # models/observations.py Binomial.omega_kappa analog.
+            kappa = Y - 0.5 * self.n_trials
+        else:
+            kappa = Y - 0.5
+        if self.network == "sbm":
+            # Per-edge slab/spike hypers from the block state: edge j -> n
+            # carries blocks (c_j, c_n) (networks.py SBMConfig.edge_hypers).
+            Lam_blk = np.linalg.inv(self.Sigma_blk)          # (K, K, B, B)
+            ld_blk = 0.5 * np.linalg.slogdet(Lam_blk)[1]     # (K, K)
+            rho_c = np.clip(self.rho_blk, 1e-5, 1 - 1e-5)
+            lrho_blk = np.log(rho_c) - np.log1p(-rho_c)
+            ce = (self.c[:, None], self.c[None, :])
+            Lam_e, mu_e = Lam_blk[ce], self.mu_blk[ce]       # (N,N,B,B/B)
+            lrho_e, ld_e = lrho_blk[ce], ld_blk[ce]          # (N, N)
+        elif self.network == "latent_distance":
+            # Shared learned slab prior; per-edge logit rho from the
+            # latent positions, clipped like networks.py edge_hypers.
+            Lam0 = np.linalg.inv(self.Sigma_sh)
+            mu0 = self.mu_sh
+            ld0 = 0.5 * np.linalg.slogdet(Lam0)[1]
+            d2 = ((self.Lpos[:, None, :]
+                   - self.Lpos[None, :, :]) ** 2).sum(-1)
+            lrho_ld = np.clip(self.gamma - d2, -15.0, 15.0)
+        elif self.network == "dense":
+            # Shared learned slab prior; all edges present (A == 1), so
+            # each neuron's weights update as ONE full P-dim conjugate
+            # Gaussian draw (weights.py resample_dense analog).
+            Lam0 = np.linalg.inv(self.Sigma_sh)
+            mu0 = self.mu_sh
+        else:
+            Lam0 = np.eye(B) / self.sigma_w
+            mu0 = np.full(B, self.mu_w)
+            logit_rho = np.log(self.rho / (1 - self.rho))
+            ld0 = 0.5 * np.linalg.slogdet(Lam0)[1]
+        for n in range(N):                       # per-neuron loop (reference style)
+            if gauss:
+                omega = np.full(Y.shape[0], 1.0 / self.eta[n])
+            else:
+                psi = Xf @ w_full[:, n]
+                if nb:
+                    omega = numpy_pg_gamma_series(
+                        self.rng, Y[:, n] + self.r[n], psi)
+                elif binom:
+                    # PG(n_trials, psi) as the exact n_trials-fold sum of
+                    # independent PG(1, psi) draws (Devroye) — independent
+                    # of the JAX integer-b gamma-series dispatch.
+                    omega = np.zeros(psi.shape[0])
+                    for _ in range(self.n_trials):
+                        omega += numpy_pg_devroye(self.rng, psi)
+                else:
+                    omega = numpy_pg_devroye(self.rng, psi)
+            J = (Xf * omega[:, None]).T @ Xf     # (P, P)
+            h = Xf.T @ kappa[:, n]
+            if self.network == "dense":
+                # Full conjugate draw: prior precision blockdiag(Lam0 x N,
+                # 1/sigma_b), prior info [Lam0 mu0 tiled; mu_b/sigma_b]
+                # (weights.py _dense_one_neuron analog, f64 Cholesky).
+                prior_prec = np.zeros((P, P))
+                for j in range(N):
+                    sl = slice(j * B, (j + 1) * B)
+                    prior_prec[sl, sl] = Lam0
+                prior_prec[-1, -1] = 1.0 / self.sigma_b
+                h0 = np.concatenate(
+                    [np.tile(Lam0 @ mu0, N), [self.mu_b / self.sigma_b]])
+                Jp = J + prior_prec
+                mean = np.linalg.solve(Jp, h + h0)
+                Lc = np.linalg.cholesky(Jp)
+                w = mean + np.linalg.solve(Lc.T, self.rng.randn(P))
+                self.W[:, n] = w[:-1].reshape(N, B)
+                self.b[n] = w[-1]
+                w_full[:, n] = w
+                continue
+            w = w_full[:, n].copy()
+            r = J @ w
+            for j in range(N):                   # sequential spike-and-slab
+                if self.network == "sbm":
+                    Lam0, mu0 = Lam_e[j, n], mu_e[j, n]
+                    logit_rho, ld0 = lrho_e[j, n], ld_e[j, n]
+                elif self.network == "latent_distance":
+                    logit_rho = lrho_ld[j, n]
+                sl = slice(j * B, (j + 1) * B)
+                Jjj = J[sl, sl]
+                mj = h[sl] - (r[sl] - Jjj @ w[sl])
+                Lp = Lam0 + Jjj
+                bpost = mj + Lam0 @ mu0
+                mup = np.linalg.solve(Lp, bpost)
+                log_ev = (0.5 * mup @ bpost - 0.5 * mu0 @ (Lam0 @ mu0)
+                          + ld0 - 0.5 * np.linalg.slogdet(Lp)[1])
+                p1 = 1.0 / (1.0 + np.exp(-(logit_rho + log_ev)))
+                a = self.rng.rand() < p1
+                wj_new = np.zeros(B)
+                if a:
+                    cov = np.linalg.inv(Lp)
+                    wj_new = self.rng.multivariate_normal(mup, cov)
+                r += J[:, sl] @ (wj_new - w[sl])
+                w[sl] = wj_new
+                self.A[j, n] = float(a)
+                self.W[j, n] = wj_new
+            # bias
+            m = h[-1] - (r[-1] - J[-1, -1] * w[-1]) + self.mu_b / self.sigma_b
+            lamp = 1.0 / self.sigma_b + J[-1, -1]
+            bn = m / lamp + self.rng.randn() / np.sqrt(lamp)
+            w[-1] = bn
+            self.b[n] = bn
+            w_full[:, n] = w
+        if nb and self.resample_r:
+            # dispersion r | everything: CRT tables + conjugate Gamma
+            # (Zhou-Carin), same conditional as observations.resample_aux —
+            # evaluated at psi under the NEW weights, like the JAX sweep.
+            psi = Xf @ w_full
+            l = numpy_crt(self.rng, Y.astype(np.int64), self.r)
+            shape = self.a_r + l.sum(axis=0)
+            rate = self.b_r + np.logaddexp(0.0, psi).sum(axis=0)
+            self.r = np.maximum(self.rng.standard_gamma(shape) / rate, 1e-3)
+        if gauss and self.resample_eta:
+            # eta_n | rest ~ InvGamma(a + T/2, b + 0.5 sum_t (y - psi)^2),
+            # evaluated at psi under the NEW weights, like the JAX sweep
+            # (models/observations.py Gaussian.resample_aux).
+            psi = Xf @ w_full
+            alpha = self.a_eta + 0.5 * Y.shape[0]
+            beta = self.b_eta + 0.5 * np.sum((Y - psi) ** 2, axis=0)
+            self.eta = np.maximum(
+                beta / self.rng.standard_gamma(alpha, size=self.N), 1e-6)
+        if self.network == "sbm":
+            self._resample_sbm()
+        elif self.network == "latent_distance":
+            self._resample_latent_distance()
+        elif self.network == "dense":
+            # learned shared NIW prior over ALL N^2 edges (mask == 1;
+            # networks.py DenseNetworkConfig.resample analog).
+            self._resample_shared_niw(np.ones((self.N, self.N)))
+
+    def _resample_sbm(self):
+        """SBM block-state conditionals given (A, W): sequential-Gibbs label
+        scan over precomputed edge log-lik tables, Dirichlet pi, per-pair
+        Beta rho, per-pair NIW weight hypers (networks.py SBMConfig.resample
+        analog; f64 NumPy + scipy invwishart)."""
+        N, B, K = self.N, self.B, self.K
+        A, W = self.A, self.W
+        # tbl[k1, k2, i, j] = log Bern(A_ij; rho[k1,k2])
+        #                     + A_ij log N(W_ij; mu[k1,k2], Sigma[k1,k2]),
+        # fixed during the label scan (block hypers don't change within it).
+        rho = np.clip(self.rho_blk, 1e-5, 1 - 1e-5)
+        logB = (A[None, None] * np.log(rho)[:, :, None, None]
+                + (1 - A)[None, None] * np.log1p(-rho)[:, :, None, None])
+        Lam = np.linalg.inv(self.Sigma_blk)                   # (K,K,B,B)
+        logdet = np.linalg.slogdet(self.Sigma_blk)[1]         # (K,K)
+        d = W[None, None] - self.mu_blk[:, :, None, None]     # (K,K,N,N,B)
+        quad = np.einsum("xyijb,xybc,xyijc->xyij", d, Lam, d)
+        logN = -0.5 * (quad + logdet[:, :, None, None]
+                       + B * np.log(2.0 * np.pi))
+        tbl = logB + A[None, None] * logN
+
+        # --- labels: sequential Gibbs (self-edge n->n carries the candidate
+        # label on BOTH ends: excluded from the out/in sums, added once) ---
+        c = self.c.copy()
+        idx = np.arange(N)
+        for n in range(N):
+            logits = np.log(self.pi + 1e-12).copy()
+            for x in range(K):
+                out = tbl[x, c, n, idx]                       # (m,) n -> m
+                inc = tbl[c, x, idx, n]                       # (m,) m -> n
+                logits[x] += (out.sum() - out[n] + inc.sum() - inc[n]
+                              + tbl[x, x, n, n])
+            p = np.exp(logits - logits.max())
+            c[n] = self.rng.choice(K, p=p / p.sum())
+        self.c = c
+
+        # --- conjugate block hypers ---------------------------------------
+        onehot = np.eye(K)[c]                                 # (N, K)
+        self.pi = self.rng.dirichlet(self.alpha_pi + onehot.sum(0))
+        pair = np.einsum("ix,jy->xyij", onehot, onehot)       # (K,K,N,N)
+        n_pair = pair.sum((2, 3))
+        n_act = np.einsum("xyij,ij->xy", pair, A)
+        self.rho_blk = self.rng.beta(self.a_rho + n_act,
+                                     self.b_rho + n_pair - n_act)
+        from scipy.stats import invwishart
+        mask = pair * A[None, None]
+        for x in range(K):
+            for y in range(K):
+                m = mask[x, y]
+                n = m.sum()
+                xbar = (np.einsum("ij,ijb->b", m, W) / n if n > 0
+                        else self.niw_mu0.copy())
+                dd = (W - xbar) * m[:, :, None]
+                S = np.einsum("ijb,ijc->bc", dd, dd)
+                kap_n = self.niw_kappa0 + n
+                dv = (xbar - self.niw_mu0)[:, None]
+                Psi_n = (self.niw_psi0 + S
+                         + (self.niw_kappa0 * n / kap_n) * (dv @ dv.T))
+                Sig = np.atleast_2d(invwishart.rvs(
+                    df=self.niw_nu0 + n, scale=Psi_n, random_state=self.rng))
+                self.Sigma_blk[x, y] = Sig
+                L = np.linalg.cholesky(Sig / kap_n)
+                self.mu_blk[x, y] = (
+                    (self.niw_kappa0 * self.niw_mu0 + n * xbar) / kap_n
+                    + L @ self.rng.randn(B))
+
+    def _resample_latent_distance(self):
+        """Latent-distance conditionals given (A, W): single-site
+        random-walk Metropolis on each position l_n and on gamma, one
+        prior-relocation independence move per pass (proposal == prior, so
+        the densities cancel; lets a neuron jump embedding basins), then
+        the shared masked-NIW slab update on the active-edge weights
+        (networks.py LatentDistanceConfig.resample analog; the JAX side
+        uses leapfrog HMC — a different exact algorithm targeting the SAME
+        conditional, which is the point of this oracle)."""
+        N, B = self.N, self.B
+        A = self.A
+        L, gamma = self.Lpos, self.gamma
+
+        def a_loglik(Lc, g):
+            # unclipped, like the HMC potential (all N^2 directed edges)
+            d2 = ((Lc[:, None, :] - Lc[None, :, :]) ** 2).sum(-1)
+            lr = g - d2
+            return np.sum(A * lr - np.logaddexp(0.0, lr))
+
+        ll_cur = a_loglik(L, gamma)
+        for _ in range(self.ld_mh_passes):
+            for n in range(N):
+                prop = L.copy()
+                prop[n] = L[n] + self.ld_step * self.rng.randn(self.dim)
+                ll_new = a_loglik(prop, gamma)
+                dlp = (ll_new - ll_cur
+                       - 0.5 * (prop[n] @ prop[n] - L[n] @ L[n])
+                       / self.sigma_l ** 2)
+                if np.log(self.rng.rand()) < dlp:
+                    L, ll_cur = prop, ll_new
+            # prior-relocation move on one random site
+            n = self.rng.randint(N)
+            prop = L.copy()
+            prop[n] = self.sigma_l * self.rng.randn(self.dim)
+            ll_new = a_loglik(prop, gamma)
+            if np.log(self.rng.rand()) < ll_new - ll_cur:
+                L, ll_cur = prop, ll_new
+            # gamma random walk
+            gprop = gamma + self.ld_step_gamma * self.rng.randn()
+            ll_new = a_loglik(L, gprop)
+            dlp = (ll_new - ll_cur
+                   - 0.5 * (gprop ** 2 - gamma ** 2) / self.sigma_gamma ** 2)
+            if np.log(self.rng.rand()) < dlp:
+                gamma, ll_cur = gprop, ll_new
+        self.Lpos, self.gamma = L, gamma
+
+        if self.ld_learn_weight_prior:
+            self._resample_shared_niw(A)
+
+    def _resample_shared_niw(self, mask):
+        """(mu_sh, Sigma_sh) ~ NIW posterior from the masked-edge weights
+        (masked stats, networks.py _masked_niw_resample analog: xbar -> 0
+        when no edge is active, matching the JAX masked form). Shared by
+        the latent-distance (mask = A) and dense (mask = 1) networks."""
+        B = self.B
+        from scipy.stats import invwishart
+        n_act = mask.sum()
+        xbar = (np.einsum("ij,ijb->b", mask, self.W) / n_act if n_act > 0
+                else np.zeros(B))
+        dd = (self.W - xbar) * mask[:, :, None]
+        S = np.einsum("ijb,ijc->bc", dd, dd)
+        kap_n = self.niw_kappa0 + n_act
+        dv = (xbar - self.niw_mu0)[:, None]
+        Psi_n = (self.niw_psi0 + S
+                 + (self.niw_kappa0 * n_act / kap_n) * (dv @ dv.T))
+        Sig = np.atleast_2d(invwishart.rvs(
+            df=self.niw_nu0 + n_act, scale=Psi_n,
+            random_state=self.rng))
+        self.Sigma_sh = Sig
+        Lc = np.linalg.cholesky(Sig / kap_n)
+        self.mu_sh = (
+            (self.niw_kappa0 * self.niw_mu0 + n_act * xbar) / kap_n
+            + Lc @ self.rng.randn(B))
+
+    def log_likelihood(self, Y, Xf):
+        N, B = self.N, self.B
+        w_full = np.concatenate(
+            [(self.A[:, :, None] * self.W).transpose(0, 2, 1).reshape(N * B, N),
+             self.b[None, :]], axis=0)
+        psi = Xf @ w_full
+        if self.observation == "gaussian":
+            return float(np.sum(
+                -0.5 * np.log(2.0 * np.pi * self.eta[None, :])
+                - 0.5 * (Y - psi) ** 2 / self.eta[None, :]))
+        if self.observation == "negative_binomial":
+            from scipy.special import gammaln
+            r = self.r[None, :]
+            logC = gammaln(Y + r) - gammaln(r) - gammaln(Y + 1.0)
+            return float(np.sum(
+                logC + Y * psi - (Y + r) * np.logaddexp(0.0, psi)))
+        if self.observation == "binomial":
+            from scipy.special import gammaln
+            nt = float(self.n_trials)
+            logC = (gammaln(nt + 1.0) - gammaln(Y + 1.0)
+                    - gammaln(nt - Y + 1.0))
+            return float(np.sum(
+                logC + Y * psi - nt * np.logaddexp(0.0, psi)))
+        return float(np.sum(Y * psi - np.logaddexp(0.0, psi)))

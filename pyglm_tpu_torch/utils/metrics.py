@@ -1,5 +1,7 @@
-"""Evaluation metrics and convergence diagnostics (the port's subset of
-``pyglm_tpu/utils/metrics.py``). Host-side numpy, like the JAX package's."""
+"""Evaluation metrics and convergence diagnostics (PyTorch counterpart of
+``pyglm_tpu/utils/metrics.py``). Host-side numpy, like the JAX package's:
+held-out predictive log-likelihood and bits per spike, link AUC, split-R-hat
+and ESS."""
 from __future__ import annotations
 
 import numpy as np
@@ -29,6 +31,24 @@ def link_auc(edge_scores, A_true) -> float:
     r_pos = ranks[: len(pos)]
     return float((r_pos.sum() - len(pos) * (len(pos) + 1) / 2)
                  / (len(pos) * len(neg)))
+
+
+def predictive_log_likelihood(model, Y_test, n_samples: int = 20,
+                              thin: int = 1):
+    """Posterior-averaged predictive log-likelihood of held-out spikes.
+
+    Continues the model's Gibbs chain for n_samples * thin sweeps,
+    evaluating log p(Y_test | theta_s) every `thin` sweeps, and returns the
+    log-mean-exp over the samples (the paper's protocol) and the per-sample
+    values. The chain state advances as a side effect."""
+    lls = []
+    for _ in range(n_samples):
+        for _ in range(thin):
+            model.resample_model()
+        lls.append(model.log_likelihood(Y_test))
+    lls = np.asarray(lls)
+    m = lls.max()
+    return float(m + np.log(np.mean(np.exp(lls - m)))), lls
 
 
 def split_rhat(chains):
@@ -73,3 +93,16 @@ def ess_per_chain(x) -> float:
         tau += 2.0 * pair
         k += 2
     return float(n / max(tau, 1.0))
+
+
+def bits_per_spike(pll, Y_test, baseline_rate=None) -> float:
+    """A predictive log-likelihood (nats) as bits per spike over a
+    homogeneous Bernoulli baseline at `baseline_rate` (default: the mean of
+    Y_test), the paper's normalised metric."""
+    Y = np.asarray(Y_test)
+    n_spikes = Y.sum()
+    T, N = Y.shape
+    rate = Y.mean() if baseline_rate is None else baseline_rate
+    rate = min(max(rate, 1e-12), 1 - 1e-12)
+    ll_base = Y.sum() * np.log(rate) + (T * N - Y.sum()) * np.log(1 - rate)
+    return float((pll - ll_base) / max(n_spikes, 1) / np.log(2))
