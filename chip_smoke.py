@@ -50,13 +50,28 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      noise; small models on the card held against the same models on the
      CPU (Bernoulli at "high", "default" and "sr" and NB on the fused
      loop, 2 stacked chains on the staged loop at "high" and "highest"):
-     same state, same PG draws and noise, same result; the latent-distance
-     HMC on the card against the CPU with the same noise.
+     same state, same PG draws and noise, same result; the
+     latent-distance HMC on the card against the CPU with the same noise.
+     Acceptance
+     config 1 (BernoulliGLM, N=27, T=60k: K1 and the fp32 dense update)
+     with its dense update on the card against the CPU on the same noise,
+     its stacked ensemble (8 chains) and NegativeBinomialGLM (K4; K5 when
+     stacked) and BinomialGLM (K4) at its shape; config 4 (the SBM prior,
+     K=5, N=100, T=40k) at "high", "default" and "sr" on the fused loop,
+     the SBM resample and its label scan timed apart; SparseGaussianGLM
+     at the flagship's shapes (its cached group Gram by K6 against K6's
+     plain version, sweeps on the staged loop reading that Gram, one
+     update on it against the staged loop forming the Gram) and
+     GaussianGLM at config 1's shape; every class of the model surface
+     (the default model, BernoulliGLM, GaussianGLM, SparseGaussianGLM,
+     NegativeBinomialGLM, BinomialGLM, the SBM) through fit and
+     fit_ensemble at N=12.
   3. Correctness against references other than the port itself:
-     - acceptance (pyglm_tpu_torch/acceptance.py): config 2 (NB, N=50) and
-       config 3 (N=100) at full length, config 3 at "high", "default" and
-       "sr" on one simulated dataset, gated by benchmarks/acceptance.py's
-       floors; a
+     - acceptance (pyglm_tpu_torch/acceptance.py): config 1 (dense,
+       N=27), config 2 (NB, N=50), config 3 (N=100) and config 4 (SBM,
+       N=100) at full length, configs 3 and 4 at "high", "default" and
+       "sr" on one simulated dataset each, gated by
+       benchmarks/acceptance.py's floors; a
        config-2 truth whose counts run away past max_y is refused and
        recorded, not scored; config 5 cut to ACC_C5_SWEEPS, ungated but
        for finite, complete fields;
@@ -68,16 +83,23 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
        0.22) and a per-edge |z| < 5; then every pool held to 32 chains of
        the f64 NumPy oracle (the port's copy, in spawned processes with one
        BLAS thread each) at tests/test_numpy_parity.py's tolerances and a
-       per-edge |z| < 5;
+       per-edge |z| < 5; pools of lane-stacked chains of the
+       dense-NIW, Gaussian and SBM oracle configs of
+       tests/test_numpy_parity.py against 8 oracle chains each, at those
+       tests' tolerances and a per-edge |z| < 5;
      - Geweke (tests/test_geweke_tpu.py's protocol: N=8, T=384, 4000
        iterations, 500 burn-in, n_eff by the autocorrelation time):
-       Bernoulli at "high" and "sr", NB with the count table, Binomial, one
-       spawned process per lane, read at the end; each lane must run the
-       fused loop and its kernels.
+       Bernoulli at "high" and "sr", NB with the count table, Binomial,
+       and at 3000 iterations (tests/test_geweke.py's) the dense Gaussian,
+       the SBM (at that file's shape, N=3, B=1, T=50: the staged loop)
+       and the sparse Gaussian, one spawned process per lane, read at the
+       end;
+       each spike-and-slab lane must run the fused loop and its
+       kernels.
      Every timed phase runs first, with nothing else on the card or the
      host; the oracle's chains start after the last of them (acceptance),
-     the Geweke lanes after the chain parity. Each phase's wall seconds and
-     the run's total are printed.
+     the Geweke lanes after the chain parity, beside the config parity.
+     Each phase's wall seconds and the run's total are printed.
 
 Any failed check exits 1 and prints no result line. On success the last
 three lines are the card's name and power limit (as nvidia-smi prints
@@ -987,6 +1009,439 @@ def phase_config5_default(check, record, ctx):
     return {"c5_default_chain_sweeps_per_s": C5 * n_sw / dt}
 
 
+# Acceptance config 1 (benchmarks/acceptance.py): the dense Bernoulli GLM.
+N1, T1 = 27, 60_000
+# The stacked dense ensemble's chains.
+C1 = 8
+
+
+def _timed_sweeps(model, n):
+    """n sweeps of `model` after the launch counts are set to 0: (seconds
+    on the host clock ending in a synchronize, launch counts, lls)."""
+    import torch
+    from pyglm_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    lls = [model.resample_model()["log_likelihood"] for _ in range(n)]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(_build.LAUNCHES), lls
+
+
+def _add_launches(record, launches):
+    for name in KERNELS:
+        record[name]["launches"] += launches[name]
+
+
+def phase_dense(check, record, ctx):
+    """Acceptance config 1 at full width through the user entry points:
+    its truth generates T1 + T1/10 bins (kept for phase_acceptance), a
+    BernoulliGLM fits the first T1 (2 warm-up + N_TIMED timed sweeps: K1
+    and the fp32 dense update); one dense update on the card against the
+    CPU on the same PG draws and normals; the stacked dense ensemble (C1
+    chains); then NegativeBinomialGLM (K4, and K5 when stacked) and
+    BinomialGLM (K4) on counts at the same shape."""
+    import math
+    import numpy as np
+    import torch
+    from pyglm_tpu_torch import (
+        BernoulliGLM, BinomialGLM, NegativeBinomialGLM)
+    from pyglm_tpu_torch import acceptance as acc
+    from pyglm_tpu_torch.models.weights import (
+        pack_weights, resample_dense, sufficient_stats)
+    from pyglm_tpu_torch.ops import _build
+
+    print(f"dense: config 1, BernoulliGLM N={N1}, T={T1}", flush=True)
+    true = acc.make_truth("1_bernoulli_dense", "cuda")
+    Y, gen_s = acc.simulate(true, T1 + T1 // 10)
+    ctx["c1"] = (true, Y)
+    print(f"  truth generates {len(Y)} bins in {gen_s:.2f} s, rate "
+          f"{Y.mean():.4f}")
+    m = BernoulliGLM(N1, B=B, L=L, seed=0, device="cuda")
+    m.add_data(Y[:T1])
+    for _ in range(N_WARMUP):
+        m.resample_model()
+    dt, launches, lls = _timed_sweeps(m, N_TIMED)
+    print(f"  {N_TIMED} timed sweeps: {dt:.3f} s = {N_TIMED / dt:.3f} "
+          f"sweeps/s; lls {[round(x, 1) for x in lls]}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(launches["pg_devroye"] == N_TIMED
+          and sum(launches.values()) == N_TIMED,
+          "the dense Bernoulli sweep launches K1 once and no other kernel")
+    check(all(math.isfinite(x) for x in lls) and (m.A == 1).all(),
+          "dense log-likelihoods finite, A all ones")
+    _add_launches(record, launches)
+    out = {"dense_c1_sweeps_per_s": N_TIMED / dt}
+
+    # The dense update on the card and on the CPU from one state, one set
+    # of PG draws (K1's) and one set of normals.
+    d = m.datas[0]
+    w = pack_weights(m.state.A, m.state.W, m.state.b)
+    omega, kappa = m.observation.omega_kappa(m.generators.host, d.Y,
+                                             d.Xf @ w, None)
+    P1 = N1 * B + 1
+    eps = torch.randn((N1, P1), generator=torch.Generator().manual_seed(8))
+    w_dev = {}
+    for dev in ("cuda", "cpu"):
+        J, h = sufficient_stats(d.Xf.to(dev), omega.to(dev), kappa.to(dev))
+        w_dev[dev] = resample_dense(None, J, h,
+                                    m.network.edge_hypers(m.state.net, dev),
+                                    B, eps=eps.to(dev))
+    err = rel_err(w_dev["cuda"].cpu(), w_dev["cpu"])
+    check(err <= 1e-3, f"dense update card vs CPU on the same noise: "
+          f"max|diff w| / max|w| = {err:.2e} (limit 1e-3)")
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    ens = m.fit_ensemble(n_chains=C1, n_burnin=1, n_samples=4,
+                         collect="mean")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(f"  stacked dense ensemble, {C1} chains: 5 stacked sweeps in "
+          f"{dt:.3f} s = {C1 * 5 / dt:.2f} chain-sweeps/s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(launches["pg_devroye"] == 5 and np.isfinite(ens["lls"]).all(),
+          "the stacked dense sweep: K1 once a stacked sweep, lls finite")
+    _add_launches(record, launches)
+    out["dense_c1_ensemble_chain_sweeps_per_s"] = C1 * 5 / dt
+
+    rng = np.random.default_rng(1)
+    counts = np.minimum(rng.negative_binomial(4, 0.9, (T1, N1)), 15)
+    for cls, kw, data, key in (
+            (NegativeBinomialGLM, dict(obs_kwargs=dict(max_y=16)), counts,
+             "nb"),
+            (BinomialGLM, dict(obs_kwargs=dict(n_trials=3)),
+             rng.binomial(3, 0.1, (T1, N1)), "binomial")):
+        mm = cls(N1, B=B, L=L, seed=0, device="cuda", **kw)
+        mm.add_data(data)
+        mm.resample_model()
+        dt, launches, lls = _timed_sweeps(mm, 3)
+        print(f"  {cls.__name__}: 3 sweeps {dt:.3f} s; lls "
+              f"{[round(x, 1) for x in lls]}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        check(launches["pg_gamma_series"] == 3
+              and all(math.isfinite(x) for x in lls),
+              f"{cls.__name__}: K4 once a sweep, lls finite")
+        _add_launches(record, launches)
+        out[f"dense_{key}_sweeps_per_s"] = 3 / dt
+        if key == "nb":
+            _build.reset_launches()
+            ens = mm.fit_ensemble(n_chains=C1, n_samples=4, collect="mean")
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            check(launches["crt_sample"] == 4
+                  and launches["pg_gamma_series"] == 4
+                  and np.isfinite(ens["lls"]).all(),
+                  f"stacked dense NB ({C1} chains): K4 and K5 once a "
+                  f"stacked sweep ({launches['pg_gamma_series']}, "
+                  f"{launches['crt_sample']} for 4), lls finite")
+            _add_launches(record, launches)
+    return out
+
+
+# Acceptance config 4: the SBM prior, K=5.
+N4, T4 = 100, 40_000
+SBM_GRAMS = {"high": "ss_group_pass", "default": "ss_group_pass_bf16",
+             "sr": "ss_group_pass_sr"}
+
+
+def phase_sbm(check, record, ctx):
+    """Acceptance config 4 at full width through the user entry points: its
+    truth generates T4 + T4/10 bins (kept for phase_acceptance); the fitted
+    model (SBM, K=5) runs 1 warm-up and N_TIMED timed sweeps at "high",
+    "default" and "sr" on the fused loop (G=10, GB=40), with the SBM
+    resample and its label scan timed apart on the host clock."""
+    import math
+    import numpy as np
+    from pyglm_tpu_torch import acceptance as acc
+    from pyglm_tpu_torch.models import weights
+
+    print(f"sbm: config 4, N={N4}, K={acc.K4}, T={T4}", flush=True)
+    true = acc.make_truth("4_sbm", "cuda")
+    Y, gen_s = acc.simulate(true, T4 + T4 // 10)
+    ctx["c4"] = (true, Y)
+    print(f"  truth generates {len(Y)} bins in {gen_s:.2f} s, rate "
+          f"{Y.mean():.4f}, {int(true.A.sum())} true edges")
+    out = {}
+    for prec, key in SBM_GRAMS.items():
+        m = acc.make_model("4_sbm", prec, "cuda")
+        m.add_data(Y[:T4])
+        m.resample_model()
+        weights.LAST_SS_PATH = None
+        dt, launches, lls = _timed_sweeps(m, N_TIMED)
+        ng = N4 // m.group
+        st, net = m.state, m.network
+        t0 = time.perf_counter()
+        for _ in range(3):
+            net.resample(m.generators, st.net, st.A, st.W)
+        net_ms = (time.perf_counter() - t0) / 3 * 1e3
+        tabs = [x.double().cpu().numpy() for x in
+                net._scan_tables(net._edge_tables(st.net, st.A, st.W))]
+        u = np.random.default_rng(0).random(N4)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            net._label_scan(*tabs, st.net.c.numpy(),
+                            st.net.pi.double().numpy(), u)
+        scan_ms = (time.perf_counter() - t0) / 3 * 1e3
+        sweep_ms = dt / N_TIMED * 1e3
+        print(f"  {prec!r}: {N_TIMED} sweeps {dt:.3f} s = "
+              f"{N_TIMED / dt:.3f} sweeps/s; the SBM resample {net_ms:.2f} "
+              f"ms ({net_ms / sweep_ms:.3f} of a sweep), its label scan "
+              f"{scan_ms:.2f} ms ({scan_ms / sweep_ms:.3f}); lls "
+              f"{[round(x, 1) for x in lls]}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; loop "
+              f"{weights.LAST_SS_PATH}")
+        check(weights.LAST_SS_PATH == "fused"
+              and launches[key] == N_TIMED * (ng + 1)
+              and launches["ss_edge_scan"] == N_TIMED * ng
+              and launches["pg_devroye"] == N_TIMED,
+              f"config 4 at {prec!r}: the fused loop, {key} {ng + 1} and K3 "
+              f"{ng} and K1 1 per sweep")
+        check(all(math.isfinite(x) for x in lls), "lls finite")
+        _add_launches(record, launches)
+        out[f"sbm_{prec}_sweeps_per_s"] = N_TIMED / dt
+        out[f"sbm_{prec}_resample_ms"] = net_ms
+        out[f"sbm_{prec}_label_scan_ms"] = scan_ms
+        if prec == "high":
+            _sbm_update_card_vs_cpu(check, m, Y[:T4])
+    return out
+
+
+def _sbm_update_card_vs_cpu(check, mc, Y):
+    """One spike-and-slab update of config 4's model `mc` at full width on
+    the card (the fused loop at "high": K2 + K3) and on the CPU (their
+    plain versions) from the same state, PG draws (K1's, copied) and
+    noise; then the SBM resample from the CPU update's (A, W) on each
+    device with one host generator seed. A and the labels identical; w
+    within REL_TOL of max |w| or, where larger, 10x the CPU update's own
+    change when psi is rounded from float64 instead of a float32 GEMM (as
+    phase_small_parity bounds NB's; at this width the edges that are on
+    make the update's w that sensitive)."""
+    import torch
+    from pyglm_tpu_torch import acceptance as acc
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.models.ensemble import chain_generators
+    from pyglm_tpu_torch.models.weights import (
+        SpikeSlabNoise, pack_weights, resample_spike_slab_tspace,
+        unpack_weights)
+    from pyglm_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+    mh = acc.make_model("4_sbm", "high", "cpu")
+    mh.add_data(Y)
+    s = state_to_numpy(mc.state)
+    mh.state = state_from_numpy(s["A"], s["W"], s["b"], s["net"],
+                                device="cpu", network=mh.network)
+    G_ = mc.group
+    ng = N4 // G_
+    gen = torch.Generator().manual_seed(5)
+    noise = SpikeSlabNoise(torch.rand((ng, G_, N4), generator=gen),
+                           torch.randn((ng, G_, N4, B), generator=gen),
+                           torch.randn((N4,), generator=gen))
+    dc = mc.datas[0]
+    w_c = pack_weights(mc.state.A, mc.state.W, mc.state.b)
+    psi_c = dc.Xf @ w_c
+    omega, kappa = mc.observation.omega_kappa(mc.generators.host, dc.Y,
+                                              psi_c, None)
+    def update(m, dev, psi=None):
+        d = m.datas[0]
+        w = pack_weights(m.state.A, m.state.W, m.state.b)
+        return resample_spike_slab_tspace(
+            None, d.Xt, omega.to(dev), kappa.to(dev),
+            d.Xf @ w if psi is None else psi, w,
+            m.network.edge_hypers(m.state.net, dev), B, group=G_,
+            noise=SpikeSlabNoise(*(x.to(dev) for x in noise[:3])),
+            precision="high")
+    outs = [update(mc, "cuda")]
+    path = weights.LAST_SS_PATH
+    outs.append(update(mh, "cpu"))
+    dh = mh.datas[0]
+    w_h = pack_weights(mh.state.A, mh.state.W, mh.state.b)
+    out_64 = update(mh, "cpu", (dh.Xf.double() @ w_h.double()).float())
+    w_tol = max(REL_TOL, 10 * rel_err(out_64[1], outs[1][1]))
+    n_diff = int((outs[0][0].cpu() != outs[1][0]).sum())
+    werr = rel_err(outs[0][1].cpu(), outs[1][1])
+    print(f"  config 4 update, card vs CPU at 'high': {n_diff} of {N4 * N4} "
+          f"edges differ ({int(outs[1][0].sum())} on), w {werr:.2e}; the "
+          f"CPU's own sensitivity to rounding psi {w_tol / 10:.2e}; loop "
+          f"{path}", flush=True)
+    check(path == "fused" and n_diff == 0 and werr <= w_tol,
+          f"config 4 update on the card (fused loop) against the CPU, same "
+          f"noise: A identical, w {werr:.2e} (limit {w_tol:.2e})")
+    A_h, W_h = outs[1][0], unpack_weights(outs[1][1], N4, B)[0]
+    nets = [m.network.resample(chain_generators(6, dev), m.state.net,
+                               A_h.to(dev), W_h.to(dev))
+            for m, dev in ((mc, "cuda"), (mh, "cpu"))]
+    n_lab = int((nets[0].c != nets[1].c).sum())
+    close = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                for a, b in zip(nets[0][1:], nets[1][1:]))
+    check(n_lab == 0 and close,
+          f"config 4 SBM resample card vs CPU: labels identical ({n_lab} of "
+          f"{N4} differ), pi, rho, mu, Sigma within 1e-5")
+
+
+# The model surface's classes: (class name, family data, constructor
+# arguments); "default" is NonlinearAutoregressiveModel with its defaults.
+SURFACE = (("default", "spikes", {}), ("BernoulliGLM", "spikes", {}),
+           ("GaussianGLM", "gauss", {}), ("SparseGaussianGLM", "gauss", {}),
+           ("NegativeBinomialGLM", "counts", dict(obs_kwargs=dict(
+               max_y=16))),
+           ("BinomialGLM", "counts", dict(obs_kwargs=dict(n_trials=3))),
+           ("sbm", "spikes", dict(network="sbm", spike_and_slab=True,
+                                  net_kwargs=dict(K=3))))
+
+
+def phase_surface(check, record):
+    """Each class of the model surface on the card at a small size (N=12,
+    T=2000): construct, add_data, fit (3 samples) and fit_ensemble (2
+    stacked chains of 4 samples), finite results."""
+    import numpy as np
+    import pyglm_tpu_torch as ptt
+    from pyglm_tpu_torch.ops import _build
+
+    n, t = 12, 2000
+    rng = np.random.default_rng(3)
+    data = {"spikes": (rng.random((t, n)) < 0.15).astype(np.float32),
+            "counts": rng.binomial(3, 0.15, (t, n)).astype(np.float32),
+            "gauss": rng.standard_normal((t, n)).astype(np.float32)}
+    print(f"surface: every class at N={n}, T={t}: fit and fit_ensemble",
+          flush=True)
+    _build.reset_launches()
+    for name, kind, kw in SURFACE:
+        cls = (ptt.NonlinearAutoregressiveModel
+               if name in ("default", "sbm") else getattr(ptt, name))
+        m = cls(n, B=B, L=L, seed=1, device="cuda", **kw)
+        m.add_data(data[kind])
+        fit = m.fit(n_samples=3)
+        ens = m.fit_ensemble(n_chains=2, n_samples=4)
+        ok = (np.isfinite(fit["lls"]).all() and np.isfinite(fit["W"]).all()
+              and np.isfinite(ens["lls"]).all()
+              and ens["A"].shape == (2, 4, n, n))
+        check(ok, f"{name} ({m.observation.name}, {m.network.name}, "
+                  f"spike_and_slab={m.spike_and_slab}): fit and "
+                  f"fit_ensemble on the card, finite")
+    _add_launches(record, dict(_build.LAUNCHES))
+
+
+def _lagged_noise(gen, T_, N_):
+    """(T_, N_) Gaussian data in which neuron n follows neuron perm[n] one
+    bin later: y_t = z_t + 0.4 z_{t-1}[perm], z iid N(0, 1), made on the
+    card. A Gaussian model finds those edges (a truth's per-bin
+    generation would take ~20 s at T=1e5)."""
+    import torch
+    z = torch.randn((T_ + 1, N_), generator=gen, device="cuda")
+    perm = torch.randperm(N_, generator=gen, device="cuda")
+    return z[1:] + 0.4 * z[:-1][:, perm]
+
+
+def phase_gaussian(check, record):
+    """SparseGaussianGLM at the flagship's shapes (N=200, T=100k, lagged
+    Gaussian data): its cached group Gram (K6 on one lane of ones at
+    add_data) against K6's plain version; 1 warm-up and N_TIMED timed
+    sweeps (the staged loop on the cached Gram: K3 only); one update on
+    the cached Gram against the staged loop forming the Gram (K6) from
+    omega = 1/eta, same state and noise. Then GaussianGLM (dense, its full
+    Gram cached) at config 1's shape, and one dense update on its cached
+    Gram against J and h formed from omega = 1/eta on the same normals."""
+    import math
+    import torch
+    from pyglm_tpu_torch import GaussianGLM, SparseGaussianGLM
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.models.weights import (
+        SpikeSlabNoise, pack_weights, resample_dense,
+        resample_spike_slab_tspace, sufficient_stats)
+    from pyglm_tpu_torch.ops import _build
+    from pyglm_tpu_torch.ops.gram_cuda import group_gram_blocks_plain
+
+    print(f"gaussian: SparseGaussianGLM N={N}, T={T}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m = SparseGaussianGLM(N, B=B, L=L, seed=0, device="cuda")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    m.add_data(_lagged_noise(gen, T, N))
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    d = m.datas[0]
+    plain = group_gram_blocks_plain(d.Xt, torch.ones((T, 1), device="cuda"),
+                                    B, m.group, precision="high")
+    err = rel_err(d.Gg0, plain)
+    print(f"  add_data {add_s:.3f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; Gg0 "
+          f"{tuple(d.Gg0.shape)}")
+    check(launches["group_gram"] == 1 and err <= GRAM_REL_TOL,
+          f"Gg0 by K6 (one lane of ones) against its plain version: "
+          f"max|diff|/max = {err:.2e} (limit {GRAM_REL_TOL:g})")
+    _add_launches(record, launches)
+    m.resample_model()
+    dt, launches, lls = _timed_sweeps(m, N_TIMED)
+    ng = N // m.group
+    print(f"  {N_TIMED} timed sweeps: {dt:.3f} s = {N_TIMED / dt:.3f} "
+          f"sweeps/s; lls {[round(x, 1) for x in lls]}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(weights.LAST_SS_PATH == "staged"
+          and launches["ss_edge_scan"] == N_TIMED * ng
+          and sum(launches.values()) == N_TIMED * ng,
+          f"the cached sparse Gaussian sweep runs the staged loop: K3 {ng} "
+          f"a sweep and no other kernel")
+    check(all(math.isfinite(x) for x in lls), "lls finite")
+    _add_launches(record, launches)
+    out = {"gaussian_sweeps_per_s": N_TIMED / dt}
+
+    st = m.state
+    w = pack_weights(st.A, st.W, st.b)
+    psi = d.Xf @ w
+    omega, kappa = m.observation.omega_kappa(None, d.Y, psi, st.aux)
+    hyp = m.network.edge_hypers(st.net, "cuda")
+    G_ = m.group
+    noise = SpikeSlabNoise(
+        torch.rand((ng, G_, N), generator=gen, device="cuda"),
+        torch.randn((ng, G_, N, B), generator=gen, device="cuda"),
+        torch.randn((N,), generator=gen, device="cuda"))
+    outs = [resample_spike_slab_tspace(
+        None, d.Xt, omega, kappa, psi, w, hyp, B, group=G_, noise=noise,
+        precision="high", **kw)
+        for kw in (dict(Jg=d.Gg0 / st.aux["eta"]), dict(path="staged"))]
+    n_diff = int((outs[0][0] != outs[1][0]).sum())
+    werr = rel_err(outs[0][1], outs[1][1])
+    print(f"  cached against uncached: {n_diff} of {N * N} edges differ, "
+          f"w {werr:.2e}; edges {int(outs[1][0].sum())}")
+    check(n_diff == 0 and werr <= REL_TOL and int(outs[1][0].sum()) > 0,
+          f"the staged loop on the cached Gram against the staged loop "
+          f"forming it: A identical (edges found), w {werr:.2e} (limit "
+          f"{REL_TOL:g})")
+
+    gm = GaussianGLM(N1, B=B, L=L, seed=0, device="cuda")
+    gm.add_data(_lagged_noise(gen, T1, N1))
+    gm.resample_model()
+    dt, launches, lls = _timed_sweeps(gm, N_TIMED)
+    print(f"  GaussianGLM N={N1}, T={T1}: {N_TIMED} sweeps {dt:.3f} s; "
+          f"lls {[round(x, 1) for x in lls]}; launches "
+          f"{sum(launches.values())}")
+    check(all(math.isfinite(x) for x in lls)
+          and bool(torch.isfinite(gm.state.aux["eta"]).all()),
+          "GaussianGLM (dense, cached full Gram): lls and eta finite")
+    out["gaussian_dense_c1_sweeps_per_s"] = N_TIMED / dt
+
+    # One dense update from the cached full Gram (as the sweep scales it)
+    # against J and h formed from omega = 1/eta, on the same normals.
+    gd, aux = gm.datas[0], gm.state.aux
+    inv_eta = 1.0 / aux["eta"]
+    w = pack_weights(gm.state.A, gm.state.W, gm.state.b)
+    omega, kappa = gm.observation.omega_kappa(None, gd.Y, gd.Xf @ w, aux)
+    hyp = gm.network.edge_hypers(gm.state.net, "cuda")
+    eps = torch.randn((N1, gd.Xf.shape[1]), generator=gen, device="cuda")
+    w_c = resample_dense(None, gd.Gfull[None] * inv_eta[:, None, None],
+                         gd.XtY * inv_eta, hyp, B, eps=eps)
+    w_u = resample_dense(None, *sufficient_stats(gd.Xf, omega, kappa), hyp,
+                         B, eps=eps)
+    err = rel_err(w_c, w_u)
+    check(err <= 1e-3, f"GaussianGLM's dense update on its cached Gram "
+          f"against J, h from omega = 1/eta, same normals: max|diff w| / "
+          f"max|w| = {err:.2e} (limit 1e-3)")
+    return out
+
+
 # The chain-level protocol of benchmarks/sr_parity.py, in
 # pyglm_tpu_torch/diagnostics/parity.py: N=8, B=4 (GB=32, so the fused loop
 # runs), T=1500, 150 + 400 sweeps. One chain per mode is too noisy (edge
@@ -1007,14 +1462,52 @@ PAR_POOLS = (("high", "high", 1), ("default", "default", 201),
 ORC_SEED0, ORC_PROCS = 7, 4
 
 
+# The oracle configs of tests/test_numpy_parity.py that the dense path, the
+# Gaussian family and the SBM prior answer to (diagnostics/parity.py::
+# ORACLE_CONFIGS, planted data by the port's generator on the CPU): per
+# config, a pool of lane-stacked chains on the card (seeds of its own; the
+# learned NIW and the SBM resample per chain on the host, so their pools
+# are smaller) against ORC_CFG_C oracle chains, at the config's tolerances
+# and a per-edge |z| < ORC_Z where A varies.
+ORC_CFG = {"dense_niw": 16, "gaussian": 32, "sbm": 8}
+ORC_CFG_C, ORC_CFG_SEED0, ORC_CFG_PROCS = 8, 1001, 2
+
+
 def start_oracle(ctx):
-    """Make the parity data and start the oracle chains on it; they run on
-    the host beside the chain-parity and Geweke phases."""
+    """Make the parity data and start the oracle chains on it: those of the
+    chain-parity data (ORC_PROCS processes) and those of the ORC_CFG
+    configs (ORC_CFG_PROCS); they run on the host beside the chain-parity,
+    config-parity and Geweke phases."""
+    import multiprocessing as mp
     from pyglm_tpu_torch.diagnostics import parity as par
     ctx["par_Y"] = par.parity_data()
     ctx["oracle_pool"], ctx["oracle"] = par.start_oracle(
         ctx["par_Y"], range(ORC_SEED0, ORC_SEED0 + par.ORC_C), ORC_PROCS)
+    ctx["cfg_Y"] = {name: par.config_data(name) for name in ORC_CFG}
+    pool = mp.get_context("spawn").Pool(ORC_CFG_PROCS)
+    ctx["cfg_oracle_pool"] = pool
+    ctx["cfg_oracle"] = pool.starmap_async(par.config_oracle_means, [
+        (name, ctx["cfg_Y"][name], ORC_SEED0 + i)
+        for name in ORC_CFG for i in range(ORC_CFG_C)])
+    pool.close()
     ctx["oracle_t0"] = time.perf_counter()
+
+
+def phase_config_parity(check, ctx):
+    """The ORC_CFG pools on the card (lane-stacked chains at "high"); kept
+    in ctx["cfg_pools"] for phase_oracle_parity."""
+    from pyglm_tpu_torch.diagnostics import parity as par
+    pools = {}
+    for name, C in ORC_CFG.items():
+        cfg = par.ORACLE_CONFIGS[name]
+        t0 = time.perf_counter()
+        pools[name] = par.config_port_means(
+            name, ctx["cfg_Y"][name],
+            list(range(ORC_CFG_SEED0, ORC_CFG_SEED0 + C)), device="cuda")
+        print(f"config parity: {name} ({cfg.source}), {C} stacked chains, "
+              f"{cfg.burn} + {cfg.keep} sweeps in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ctx["cfg_pools"] = pools
 
 
 def phase_chain_parity(check, ctx):
@@ -1083,15 +1576,36 @@ def phase_oracle_parity(check, ctx):
               f"{name} pool within the oracle protocol's tolerances "
               f"{par.ORC_TOL} and every edge within {par.ORC_Z:g} standard "
               f"errors")
+    res = ctx["cfg_oracle"].get(timeout=1800)
+    ctx.pop("cfg_oracle_pool").join()
+    print(f"  the configs' oracle chains done "
+          f"{time.perf_counter() - ctx['oracle_t0']:.1f} s after their "
+          f"start", flush=True)
+    for i, name in enumerate(ORC_CFG):
+        part = res[i * ORC_CFG_C:(i + 1) * ORC_CFG_C]
+        orc_c = {k: np.concatenate([r[0][k] for r in part])
+                 for k in part[0][0]}
+        r = out[name] = par.config_compare(name, ctx["cfg_pools"][name],
+                                           orc_c)
+        secs_c = [round(x[1], 1) for x in part]
+        print(f"  {name} ({ORC_CFG[name]} port chains vs {ORC_CFG_C} oracle "
+              f"chains, {min(secs_c)}..{max(secs_c)} s each): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in r.items()))
+        check(par.config_gates(name, r, z_max=par.ORC_Z),
+              f"{name} pool within {par.ORACLE_CONFIGS[name].tol} of the "
+              f"oracle's and every edge within {par.ORC_Z:g} standard errors")
     return {"oracle_parity": out, "oracle_chain_s": secs}
 
 
 # The Geweke protocol of tests/test_geweke_tpu.py on the card: the
 # successive-conditional simulator at a shape where the fused loop runs
-# (N=8, B=4 -> GB=32, T=384), GW_ITERS iterations, the first GW_BURN
-# dropped, n_eff discounted by each series' integrated autocorrelation time.
+# (N=8, B=4 -> GB=32, T=384), GW_ITERS iterations (4000, as there), the
+# first GW_BURN dropped, n_eff discounted by each series' integrated
+# autocorrelation time.
 # Lanes: Bernoulli at "high" and "sr" (K1 + K2 + K3), NB with the count
-# table (K4 + K2 + K3 and the collapsed-CRT r update), Binomial n=5 (K4).
+# table (K4 + K2 + K3 and the collapsed-CRT r update), Binomial n=5 (K4);
+# the dense Gaussian, the SBM and the sparse Gaussian at the `iters` of
+# their tests in tests/test_geweke.py (3000).
 # No lane at "default": its Gram is biased by design (ss_pallas.py:30-31).
 # The lanes run at once, one spawned process each: each is paced by the
 # per-bin generation loop on the host, not by the card.
@@ -1114,6 +1628,27 @@ GW_LANES = {
                      obs=("binomial", dict(n_trials=5)),
                      net=dict(rho_init=0.4, sigma_w=0.05, mu_bias=-1.0,
                               sigma_bias=0.3)),
+    # tests/test_geweke.py:89, :239, :300.
+    "gaussian_dense": dict(
+        seed=13, precision="high", spike_slab=False, network="dense",
+        iters=3000,
+        obs=("gaussian", dict(a_eta=6.0, b_eta=2.0, eta_init=0.5)),
+        net=dict(learn_weight_prior=False, sigma_w=0.003, mu_bias=0.0,
+                 sigma_bias=0.1)),
+    # At test_geweke.py's own shape (N=3, B=1, L=3, T=50: the staged loop,
+    # K6 + K3): at N=8, B=4 the labels mix too slowly for its gates in
+    # both packages (block-0 fraction tau ~250, pi variance ratio ~0.34
+    # over 1500 iterations of the JAX package's chain; ROADMAP Queue C).
+    "sbm": dict(seed=14, precision="high", network="sbm", N=3, B=1, L=3,
+                T=50, path="staged", iters=3000, obs=("bernoulli", {}),
+                net=dict(K=2, a_rho=2.0, b_rho=3.0, alpha_pi=1.0,
+                         sigma_w=0.5, niw_kappa0=1.0, mu_bias=-1.0,
+                         sigma_bias=0.3)),
+    "gaussian_sparse": dict(
+        seed=15, precision="high", iters=3000,
+        obs=("gaussian", dict(a_eta=6.0, b_eta=2.0, eta_init=0.5)),
+        net=dict(rho_init=0.4, sigma_w=0.003, mu_bias=0.0,
+                 sigma_bias=0.1)),
 }
 # The kernels each lane must launch (LAUNCHES keys).
 GW_KERNELS = {"bernoulli_high": ("pg_devroye", "ss_group_pass",
@@ -1123,7 +1658,10 @@ GW_KERNELS = {"bernoulli_high": ("pg_devroye", "ss_group_pass",
               "negative_binomial": ("pg_gamma_series", "ss_group_pass",
                                     "ss_edge_scan"),
               "binomial": ("pg_gamma_series", "ss_group_pass",
-                           "ss_edge_scan")}
+                           "ss_edge_scan"),
+              "gaussian_dense": (),
+              "sbm": ("pg_devroye", "group_gram", "ss_edge_scan"),
+              "gaussian_sparse": ("ss_group_pass", "ss_edge_scan")}
 
 
 def geweke_lane(name, n_iters):
@@ -1133,21 +1671,29 @@ def geweke_lane(name, n_iters):
     import torch
     from pyglm_tpu_torch.diagnostics.geweke import geweke_chain
     from pyglm_tpu_torch.models import weights
-    from pyglm_tpu_torch.models.networks import ErdosRenyiConfig
+    from pyglm_tpu_torch.models.networks import (
+        ErdosRenyiConfig, make_network)
     from pyglm_tpu_torch.models.observations import make_observation
     from pyglm_tpu_torch.ops import _build
     from pyglm_tpu_torch.ops.basis import cosine_basis
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     lane = GW_LANES[name]
+    weights.LAST_SS_PATH = None
     obs = make_observation(lane["obs"][0], **lane["obs"][1])
-    net = ErdosRenyiConfig(N=GW_N, B=B, learn_rho=False,
-                           learn_weight_prior=False, **lane["net"])
+    n, b, l, t = (lane.get(k, v) for k, v in
+                  (("N", GW_N), ("B", B), ("L", L), ("T", GW_T)))
+    if "network" in lane:
+        net = make_network(lane["network"], n, b, **lane["net"])
+    else:
+        net = ErdosRenyiConfig(N=n, B=b, learn_rho=False,
+                               learn_weight_prior=False, **lane["net"])
     _build.library()
     _build.reset_launches()
     t0 = time.perf_counter()
-    series = geweke_chain(lane["seed"], obs, net, GW_N, B, cosine_basis(B, L),
-                          GW_T, spike_slab=True, n_iters=n_iters,
+    series = geweke_chain(lane["seed"], obs, net, n, b, cosine_basis(b, l),
+                          t, spike_slab=lane.get("spike_slab", True),
+                          n_iters=n_iters,
                           precision=lane["precision"],
                           with_llc=lane.get("llc", False), device="cuda")
     torch.cuda.synchronize()
@@ -1191,13 +1737,14 @@ def start_geweke(ctx):
     """Start the Geweke lanes, one spawned process each; ctx["geweke"]
     holds the pending result. No timed phase follows them."""
     import multiprocessing as mp
-    print(f"geweke: N={GW_N}, B={B}, T={GW_T}, {GW_ITERS} iterations "
-          f"({GW_BURN} burn-in) per lane, lanes {list(GW_LANES)}, one "
-          f"process each", flush=True)
+    iters = {name: lane.get("iters", GW_ITERS)
+             for name, lane in GW_LANES.items()}
+    print(f"geweke: N={GW_N}, B={B}, T={GW_T}, {GW_BURN} burn-in, "
+          f"iterations per lane {iters}, one process each", flush=True)
     pool = mp.get_context("spawn").Pool(len(GW_LANES))
     ctx["geweke_pool"] = pool
     ctx["geweke"] = pool.starmap_async(
-        geweke_lane, [(name, GW_ITERS) for name in GW_LANES])
+        geweke_lane, list(iters.items()))
     ctx["geweke_t0"] = time.perf_counter()
     pool.close()
 
@@ -1212,18 +1759,32 @@ def phase_geweke(check, ctx):
           flush=True)
     for name, (series, launches, path, secs) in res.items():
         ran = {k: launches[k] for k in GW_KERNELS[name]}
-        print(f"  {name}: {secs:.1f} s ({secs / GW_ITERS * 1e3:.1f} ms an "
-              f"iteration), loop {path}, launches {ran}")
-        check(path == "fused" and all(v >= GW_ITERS for v in ran.values()),
-              f"{name}: the fused loop ran and each of {list(ran)} launched "
-              f"at least once per iteration")
         lane = GW_LANES[name]
+        n_iters = lane.get("iters", GW_ITERS)
+        print(f"  {name}: {n_iters} iterations {secs:.1f} s "
+              f"({secs / n_iters * 1e3:.1f} ms an iteration), loop {path}, "
+              f"launches {ran}")
+        if lane.get("spike_slab", True):
+            want = lane.get("path", "fused")
+            check(path == want
+                  and all(v >= n_iters for v in ran.values()),
+                  f"{name}: the {want} loop ran and each of {list(ran)} "
+                  f"launched at least once per iteration")
+        else:
+            check(path is None and sum(launches.values()) == 0,
+                  f"{name}: the dense sweep ran (no spike-and-slab loop; the "
+                  f"Gaussian family draws no PG, so no kernel launches)")
         obs = lane["obs"][1]
+        net = lane["net"]
         gates = prior_gates(
-            series, lane["net"], B, GW_BURN, GW_Z,
+            series, net, lane.get("B", B), GW_BURN, GW_Z,
             weights=name.startswith("bernoulli"),
             r_prior=(obs["a_r"], obs["b_r"]) if "a_r" in obs else None,
-            max_y=obs.get("max_y"))
+            max_y=obs.get("max_y"),
+            eta_prior=(obs["a_eta"], obs["b_eta"]) if "a_eta" in obs
+            else None,
+            sbm_prior=(net["a_rho"], net["b_rho"]) if name == "sbm"
+            else None)
         for what, ok, numbers in gates:
             print(f"    {what}: {numbers}")
             check(ok, f"{name}: the {what} marginal matches the prior")
@@ -1234,11 +1795,13 @@ def phase_geweke(check, ctx):
 ACC_C5_SWEEPS = (20, 20)
 
 
-def phase_acceptance(check, record):
-    """Acceptance configs 2 and 3 through the port's acceptance runner
+def phase_acceptance(check, record, ctx):
+    """Acceptance configs 1 to 4 through the port's acceptance runner
     (pyglm_tpu_torch/acceptance.py) at full length, gated by its floors:
+    config 1 (dense) at "high" and config 4 (SBM) at "high", "default" and
+    "sr" on the data their truths generated in phase_dense and phase_sbm,
     config 2 at "high", config 3 at "high", "default" and "sr" on one
-    simulated dataset (its loop is fused, so the modes differ). Then
+    simulated dataset (their loop is fused, so the modes differ). Then
     config 5 cut to ACC_C5_SWEEPS, ungated except for finite values and
     complete fields. Launch counts are read around each fit."""
     import math
@@ -1271,8 +1834,16 @@ def phase_acceptance(check, record):
                   f"{list(ran)} launched")
         return res
 
-    print("acceptance: configs 2 and 3 at full length, config 5 cut to "
+    print("acceptance: configs 1 to 4 at full length, config 5 cut to "
           f"{ACC_C5_SWEEPS}", flush=True)
+    true1, Y1 = ctx["c1"]
+    gated.append(fit("1_bernoulli_dense", "high", ("pg_devroye",), None,
+                     true=true1, Y=Y1))
+    true4, Y4 = ctx["c4"]
+    for prec in ("high", "default", "sr"):
+        gated.append(fit("4_sbm", prec,
+                         ("pg_devroye", grams[prec], "ss_edge_scan"),
+                         "fused", true=true4, Y=Y4))
     c2 = fit("2_negative_binomial", "high",
              ("pg_gamma_series", "ss_group_pass", "ss_edge_scan"), "fused")
     if "truth_runaway" in c2:
@@ -1439,7 +2010,8 @@ def phase_small_parity(check, nb=False, precision="high"):
     mc.fit(n_samples=3)
     s = state_to_numpy(mc.state)
     mh.state = state_from_numpy(s["A"], s["W"], s["b"], s["net"],
-                                device="cpu", aux=s["aux"])
+                                device="cpu", aux=s["aux"],
+                                network=mh.network)
     xerr = float((mc.datas[0].Xf.cpu() - mh.datas[0].Xf).abs().max())
     check(xerr <= 1e-6, f"design on card vs CPU: max|diff| = {xerr:.2e}")
     if nb:
@@ -1952,7 +2524,8 @@ def phase_small_staged_parity(check):
     states_c = []
     for st in states_h:
         x = state_to_numpy(st)
-        states_c.append(state_from_numpy(x["A"], x["W"], x["b"], x["net"]))
+        states_c.append(state_from_numpy(x["A"], x["W"], x["b"], x["net"],
+                                         network=mc.network))
     w_c, hyp_c = lane_inputs(mc.network, states_c)
     w_h, hyp_h = lane_inputs(mh.network, states_h)
     psi_c = mc.datas[0].Xf @ w_c
@@ -2090,13 +2663,18 @@ def main() -> int:
             check, record, ctx))),
         ("staged_vs_fused",
          lambda: summary.update(phase_staged_vs_fused(check, ctx))),
+        ("dense", lambda: summary.update(phase_dense(check, record, ctx))),
+        ("sbm", lambda: summary.update(phase_sbm(check, record, ctx))),
+        ("gaussian", lambda: summary.update(phase_gaussian(check, record))),
+        ("surface", lambda: phase_surface(check, record)),
         ("acceptance",
-         lambda: summary.update(phase_acceptance(check, record))),
+         lambda: summary.update(phase_acceptance(check, record, ctx))),
         ("generation", lambda: summary.update(time_generation())),
         ("oracle_start", lambda: start_oracle(ctx)),
         ("chain_parity",
          lambda: summary.update(phase_chain_parity(check, ctx))),
         ("geweke_start", lambda: start_geweke(ctx)),
+        ("config_parity", lambda: phase_config_parity(check, ctx)),
         ("small_parity", lambda: phase_small_parity(check)),
         ("small_parity_nb", lambda: phase_small_parity(check, nb=True)),
         ("small_parity_default",
@@ -2121,7 +2699,7 @@ def main() -> int:
             phase_s[name] = round(time.perf_counter() - t0, 2)
             print(f"phase {name}: {phase_s[name]} s", flush=True)
     finally:
-        for pool in ("oracle_pool", "geweke_pool"):
+        for pool in ("oracle_pool", "cfg_oracle_pool", "geweke_pool"):
             if pool in ctx:                # a phase failed before the join
                 ctx.pop(pool).terminate()
     total_s = time.perf_counter() - t_run

@@ -7,14 +7,19 @@ has a CUDA C++ kernel written for Hopper here (``csrc/``), built with nvcc
 at first use and bound with ctypes; each has a plain PyTorch version beside
 it, which tensors on the CPU take.
 
-It runs the spike-and-slab GLMs with an Erdos-Renyi or latent-distance
-prior and Bernoulli, Binomial or negative-binomial observations, one chain
-or a lane-stacked ensemble. Models live on the card unless
-``device="cpu"`` is passed:
+It runs the network GLM with Bernoulli, Binomial, negative-binomial or
+Gaussian observations, dense or spike-and-slab weights, and a dense,
+Erdos-Renyi, stochastic-block or latent-distance prior, one chain or a
+lane-stacked ensemble. Models live on the card unless ``device="cpu"`` is
+passed:
 
     m = SparseBernoulliGLM(N, B=4, L=10, seed=0)
     m.add_data(Y)
     m.fit(n_samples=100, n_burnin=50)
+
+    m = BernoulliGLM(N, seed=0)          # dense weights, the dense prior
+    m = NonlinearAutoregressiveModel(N, network="sbm", spike_and_slab=True,
+                                     net_kwargs=dict(K=5))
 
     m = SparseNegativeBinomialGLM(N, seed=0, obs_kwargs=dict(max_y=16))
 
@@ -31,10 +36,13 @@ from pyglm_tpu_torch.ops.polyagamma import (
     pg_draw_unit, pg_mean, pg_var, polya_gamma,
 )
 from pyglm_tpu_torch.models.glm import (
-    GLM, NonlinearAutoregressiveModel, SparseBernoulliGLM,
+    GLM, BernoulliGLM, BinomialGLM, GaussianGLM, NegativeBinomialGLM,
+    NonlinearAutoregressiveModel, SparseBernoulliGLM, SparseGaussianGLM,
     SparseNegativeBinomialGLM,
 )
-from pyglm_tpu_torch.models.observations import Binomial, NegativeBinomial
+from pyglm_tpu_torch.models.observations import (
+    Binomial, Gaussian, NegativeBinomial,
+)
 
 __all__ = [
     "cosine_basis",
@@ -45,8 +53,14 @@ __all__ = [
     "polya_gamma",
     "NonlinearAutoregressiveModel",
     "GLM",
+    "BernoulliGLM",
     "SparseBernoulliGLM",
+    "GaussianGLM",
+    "SparseGaussianGLM",
+    "NegativeBinomialGLM",
     "SparseNegativeBinomialGLM",
+    "BinomialGLM",
     "Binomial",
+    "Gaussian",
     "NegativeBinomial",
 ]

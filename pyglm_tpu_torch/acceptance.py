@@ -1,4 +1,4 @@
-"""Acceptance runner of the port: configs 2, 3 and 5 of the JAX package's
+"""Acceptance runner of the port: the five configs of the JAX package's
 ``benchmarks/acceptance.py``, end to end on the card.
 
 For each config a ground-truth model (the port's own, at the JAX script's
@@ -10,16 +10,17 @@ against the truth. The gates are the JAX script's regression floors
 (``THRESHOLDS``, a copy), so a miss means a conditional or a kernel went
 wrong, not Monte Carlo noise.
 
+  1_bernoulli_dense     dense Bernoulli GLM (BernoulliGLM), N=27, T=60k,
+                        500 + 150 sweeps (no AUC: every edge is present)
   2_negative_binomial   NB, N=50, T=20k, 1200 + 300 sweeps
   3_spike_slab          Bernoulli spike-and-slab, N=100, T=40k, 500 + 150
+  4_sbm                 spike-and-slab under the SBM prior (K=5), N=100,
+                        T=40k, 500 + 150
   5_latent_distance     latent-distance prior, N=500, T=20k, the pooled
                         posterior mean of 8 lane-stacked chains
                         (fit_ensemble collect="mean"), 1200 + 1200 each;
                         also each chain's own AUC and their spread, R-hat of
                         the log-likelihood, and chain-sweeps per second
-
-Configs 1 and 4 wait for the dense path and the SBM prior (ROADMAP.md
-Queue A, items 8 and 10).
 
 Run: python -m pyglm_tpu_torch.acceptance [--quick] [--only SUBSTR]
          [--precision high|default|sr] [--out PATH] [--device cuda|cpu]
@@ -40,26 +41,34 @@ import numpy as np
 import torch
 
 from pyglm_tpu_torch.models.glm import (
-    NonlinearAutoregressiveModel, SparseBernoulliGLM,
+    BernoulliGLM, NonlinearAutoregressiveModel, SparseBernoulliGLM,
     SparseNegativeBinomialGLM,
 )
 from pyglm_tpu_torch.utils.metrics import link_auc
 from pyglm_tpu_torch.utils.utils import require_device
 
-# A copy of the JAX script's floors for the configs the port runs: the
-# measured values of its round-1/2 runs less a Monte Carlo margin.
+# A copy of the JAX script's floors: the measured values of its round-1/2
+# runs less a Monte Carlo margin.
 THRESHOLDS = {
+    "1_bernoulli_dense": {
+        "weight_corr": (">=", 0.75), "pred_ll_gap_per_bin": ("<=", 0.002)},
     "2_negative_binomial": {
         "link_auc": (">=", 0.86), "weight_corr": (">=", 0.85),
         "pred_ll_gap_per_bin": ("<=", 0.003)},
     "3_spike_slab": {
         "link_auc": (">=", 0.93), "weight_corr": (">=", 0.93),
         "pred_ll_gap_per_bin": ("<=", 0.004)},
+    "4_sbm": {
+        "link_auc": (">=", 0.93), "weight_corr": (">=", 0.93),
+        "pred_ll_gap_per_bin": ("<=", 0.004)},
     "5_latent_distance": {
         "link_auc": (">=", 0.86), "weight_corr": (">=", 0.60),
         "pred_ll_gap_per_bin": ("<=", 0.040)},
 }
-CONFIGS = ("2_negative_binomial", "3_spike_slab", "5_latent_distance")
+CONFIGS = ("1_bernoulli_dense", "2_negative_binomial", "3_spike_slab",
+           "4_sbm", "5_latent_distance")
+# The SBM configs' block count.
+K4 = 5
 
 
 def check_gates(results):
@@ -101,9 +110,11 @@ def _sync(device) -> None:
 
 def lengths(name: str, quick: bool):
     """(T_train, n_burn, n_avg, n_chains) of a config; T_test = T/10."""
+    if name == "1_bernoulli_dense":
+        return (5_000, 10, 5, 1) if quick else (60_000, 500, 150, 1)
     if name == "2_negative_binomial":
         return (4_000, 10, 5, 1) if quick else (20_000, 1200, 300, 1)
-    if name == "3_spike_slab":
+    if name in ("3_spike_slab", "4_sbm"):
         return (5_000, 10, 5, 1) if quick else (40_000, 500, 150, 1)
     if name == "5_latent_distance":
         return (4_000, 10, 5, 4) if quick else (20_000, 1200, 1200, 8)
@@ -112,6 +123,10 @@ def lengths(name: str, quick: bool):
 
 def make_truth(name: str, device):
     """The config's ground-truth model, at the JAX script's seed."""
+    if name == "1_bernoulli_dense":
+        return BernoulliGLM(27, B=4, L=10, seed=1, device=device,
+                            net_kwargs=dict(sigma_w=0.05, mu_bias=-2.5,
+                                            learn_weight_prior=False))
     if name == "2_negative_binomial":
         return SparseNegativeBinomialGLM(
             50, B=4, L=10, seed=2, device=device,
@@ -122,6 +137,11 @@ def make_truth(name: str, device):
             100, B=4, L=10, seed=3, device=device, net_kwargs=dict(
                 rho_init=0.08, learn_rho=False, mu_bias=-2.5,
                 sigma_bias=0.2, learn_weight_prior=False, sigma_w=1.5))
+    if name == "4_sbm":
+        return NonlinearAutoregressiveModel(
+            100, B=4, L=10, observation="bernoulli", network="sbm",
+            spike_and_slab=True, seed=4, device=device,
+            net_kwargs=dict(K=K4, rho_init=0.1, mu_bias=-2.5))
     if name == "5_latent_distance":
         return NonlinearAutoregressiveModel(
             500, B=4, L=10, observation="bernoulli",
@@ -132,6 +152,9 @@ def make_truth(name: str, device):
 
 def make_model(name: str, precision: str, device):
     """The config's fitted model (seed 0) at `precision`."""
+    if name == "1_bernoulli_dense":
+        return BernoulliGLM(27, B=4, L=10, seed=0, precision=precision,
+                            device=device)
     if name == "2_negative_binomial":
         return SparseNegativeBinomialGLM(
             50, B=4, L=10, seed=0, precision=precision, device=device,
@@ -139,6 +162,11 @@ def make_model(name: str, precision: str, device):
     if name == "3_spike_slab":
         return SparseBernoulliGLM(100, B=4, L=10, seed=0,
                                   precision=precision, device=device)
+    if name == "4_sbm":
+        return NonlinearAutoregressiveModel(
+            100, B=4, L=10, observation="bernoulli", network="sbm",
+            spike_and_slab=True, seed=0, precision=precision, device=device,
+            net_kwargs=dict(K=K4))
     if name == "5_latent_distance":
         return NonlinearAutoregressiveModel(
             500, B=4, L=10, observation="bernoulli",

@@ -36,9 +36,11 @@ def geweke_chain(seed: int, obs, network, N: int, B: int, basis, T: int,
     `seed`; returns per-iteration parameter summaries as a host numpy dict.
 
     Collected series: bias (n, N), A_density, n_active, W_sum, W_sq and
-    y_max (n,), plus rho (ER), prior_mu (n, B) and prior_Sigma (n, B, B)
-    where the network state has them, and each observation aux entry
-    (r (n, N) for NB).
+    y_max (n,), plus rho (ER and dense (n,), SBM (n, K, K)), prior_mu and
+    prior_Sigma ((n, B) and (n, B, B); per block pair for the SBM) where
+    the network state has them, the SBM's pi and label fractions c_frac
+    (n, K), and each observation aux entry (r (n, N) for NB, eta (n, N)
+    for the Gaussian).
 
     ``precision`` and ``group`` pass to the sweep, so the same chain runs
     either spike-and-slab loop at any mode. ``with_llc=True`` registers each
@@ -73,6 +75,10 @@ def geweke_chain(seed: int, obs, network, N: int, B: int, basis, T: int,
         if hasattr(net, "mu") and hasattr(net, "Sigma"):
             out["prior_mu"] = net.mu
             out["prior_Sigma"] = net.Sigma
+        if hasattr(net, "c"):
+            out["pi"] = net.pi
+            out["c_frac"] = torch.bincount(
+                net.c, minlength=net.pi.shape[0]).float() / N
         if isinstance(state.aux, dict):
             out.update(state.aux)
         for k, v in out.items():
@@ -113,18 +119,26 @@ def tau_int(x, c: float = 5.0) -> float:
 
 
 def prior_gates(series, net: dict, B: int, burn: int, z_max: float = 5.0,
-                weights: bool = False, r_prior=None, max_y=None):
+                weights: bool = False, r_prior=None, max_y=None,
+                eta_prior=None, sbm_prior=None):
     """The gates of ``tests/test_geweke_tpu.py`` on a geweke_chain's series
     after `burn` iterations, each n_eff discounted by the series' tau_int:
     [(marginal, ok, numbers)].
 
-    `net` holds the ER prior (rho_init, sigma_w, mu_bias, sigma_bias). The
-    bias marginal (z < z_max, variance ratio within 0.3) and the adjacency
-    density (z < z_max) always; with `weights`, the active weights' second
+    `net` holds the prior's (sigma_w, mu_bias, sigma_bias, and rho_init for
+    the ER prior). The bias marginal (z < z_max, variance ratio within
+    0.3) always; the adjacency density (z < z_max) under the ER prior
+    (`net` has rho_init); with `weights`, the active weights' second
     moment (ratio within 1 +- max(5 sqrt(2 / n_draws), 0.05)) and mean
     (within 6 standard errors); with `r_prior` = (a_r, b_r), the NB
     dispersion's Gamma prior (z < z_max, variance ratio within 0.35, r
-    finite, counts at most `max_y`)."""
+    finite, counts at most `max_y`); with `eta_prior` = (a_eta, b_eta),
+    the Gaussian noise variance's inverse-gamma prior (z < z_max, eta
+    finite); with `sbm_prior` = (a_rho, b_rho), the SBM's block rho (its
+    Beta prior, z < z_max), pi_0 (K = 2, alpha_pi = 1: Beta(1, 1), z <
+    z_max, variance ratio within 0.35) and the label fraction of block 0
+    (mean 1/2 by symmetry, z < z_max on its own spread), as
+    tests/test_geweke.py::test_geweke_sbm."""
     def z(mean_emp, mean_true, var_true, n_eff):
         return abs(mean_emp - mean_true) / np.sqrt(var_true
                                                    / max(n_eff, 2.0))
@@ -138,12 +152,48 @@ def prior_gates(series, net: dict, B: int, burn: int, z_max: float = 5.0,
     vb = b.var() / net["sigma_bias"] ** 2
     out.append(("bias", zb < z_max and abs(vb - 1) < 0.3,
                 f"z {zb:.2f}, var ratio {vb:.3f}, tau {tau:.1f}"))
-    dens = series["A_density"][burn:]
-    tau = tau_int(dens)
-    rho = net["rho_init"]
-    za = z(dens.mean(), rho, rho * (1 - rho), dens.shape[0] * N ** 2 / tau)
-    out.append(("adjacency", za < z_max,
-                f"z {za:.2f}, density {dens.mean():.4f}, tau {tau:.1f}"))
+    if "rho_init" in net:
+        dens = series["A_density"][burn:]
+        tau = tau_int(dens)
+        rho = net["rho_init"]
+        za = z(dens.mean(), rho, rho * (1 - rho),
+               dens.shape[0] * N ** 2 / tau)
+        out.append(("adjacency", za < z_max,
+                    f"z {za:.2f}, density {dens.mean():.4f}, "
+                    f"tau {tau:.1f}"))
+    if eta_prior is not None:
+        a_e, b_e = eta_prior
+        eta = series["eta"][burn:]
+        m_true = b_e / (a_e - 1)
+        v_true = b_e ** 2 / ((a_e - 1) ** 2 * (a_e - 2))
+        tau = tau_int(eta.mean(axis=1))
+        ze = z(eta.mean(), m_true, v_true, eta.shape[0] * N / tau)
+        out.append(("eta", ze < z_max and np.isfinite(series["eta"]).all(),
+                    f"z {ze:.2f}, mean {eta.mean():.4f} (prior "
+                    f"{m_true:.4f}), tau {tau:.1f}"))
+    if sbm_prior is not None:
+        a_rho, b_rho = sbm_prior
+        rho = series["rho"][burn:]
+        m_true = a_rho / (a_rho + b_rho)
+        v_true = a_rho * b_rho / ((a_rho + b_rho) ** 2
+                                  * (a_rho + b_rho + 1))
+        tau = tau_int(rho.mean(axis=(1, 2)))
+        zr = z(rho.mean(), m_true, v_true, rho[..., 0, 0].size
+               * rho[0].size / tau)
+        out.append(("block rho", zr < z_max,
+                    f"z {zr:.2f}, mean {rho.mean():.4f}, tau {tau:.1f}"))
+        pi0 = series["pi"][burn:, 0]
+        tau = tau_int(pi0)
+        zp = z(pi0.mean(), 0.5, 1.0 / 12.0, pi0.size / tau)
+        vp = pi0.var() * 12.0
+        out.append(("pi", zp < z_max and abs(vp - 1) < 0.35,
+                    f"z {zp:.2f}, var ratio {vp:.3f}, tau {tau:.1f}"))
+        cf0 = series["c_frac"][burn:, 0]
+        tau = tau_int(cf0)
+        zc = z(cf0.mean(), 0.5, cf0.var() + 1e-12, cf0.size / tau)
+        out.append(("labels", zc < z_max,
+                    f"z {zc:.2f}, block-0 fraction {cf0.mean():.4f}, "
+                    f"tau {tau:.1f}"))
     if weights:
         wsq = series["W_sq"][burn:]
         nact = series["n_active"][burn:]

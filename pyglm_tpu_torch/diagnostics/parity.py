@@ -11,8 +11,16 @@ pools are held to each other by their max edge-marginal difference (within
 pools' means; a pool is held to a pool of oracle chains at the tolerances
 of ``tests/test_numpy_parity.py`` (``oracle_gates``).
 
-Run as a script, it measures how those gates behave where nothing is
-biased (needs a CUDA card):
+``ORACLE_CONFIGS`` adds the other oracle configs of
+``tests/test_numpy_parity.py`` (dense NIW, Gaussian, Binomial, SBM, latent
+distance): the same planted data (by the port's generator), priors,
+chain lengths and tolerances, the port's chains single
+(:func:`config_port_means`, ``stacked=False``) or lane-stacked, the
+oracle's from :func:`config_oracle_means`, compared by
+:func:`config_compare` and :func:`config_gates`.
+
+Run as a script, it measures how the chain-parity gates behave where
+nothing is biased (needs a CUDA card):
 
     python -m pyglm_tpu_torch.diagnostics.parity [--high 8] [--default 2]
         [--sr 2] [--oracle 128] [--procs 7] [--out PATH]
@@ -36,6 +44,7 @@ import multiprocessing as mp
 import os
 import subprocess
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -102,6 +111,285 @@ def parity_pool(Y, precision: str, s0: int, device="cuda"):
                          n_samples=PAR_KEEP, seeds=list(range(s0, s0 + PAR_C)))
     return ({"A": out["A"].mean(1), "W": out["W"].sum(-1).mean(1),
              "b": out["bias"].mean(1)}, weights.LAST_SS_PATH)
+
+
+class OracleConfig(NamedTuple):
+    """One oracle config of tests/test_numpy_parity.py (file:line in
+    `source`): the planted model's and the fitted model's constructor
+    arguments (the port's classes), the oracle's, the chain lengths, the
+    seeds of each side's chains there, and the tolerances on the pooled
+    posterior means. The oracle reads sigma_b as the bias prior's variance
+    (the models' sigma_bias is its standard deviation) and gets its
+    square, so both sample the same posterior."""
+    source: str
+    N: int
+    T: int
+    planted: dict            # NonlinearAutoregressiveModel kwargs + seed
+    model: dict              # NonlinearAutoregressiveModel kwargs
+    oracle: dict             # NumpyGLMReference kwargs
+    burn: int
+    keep: int
+    port_seeds: tuple
+    oracle_seeds: tuple
+    tol: dict                # metric -> bound (config_compare's names)
+
+
+def _er_net(rho, sigma_w, mu_b, sigma_b):
+    return dict(rho_init=rho, learn_rho=False, mu_bias=mu_b,
+                sigma_bias=sigma_b, learn_weight_prior=False,
+                sigma_w=sigma_w)
+
+
+_SBM_NET = dict(K=2, a_rho=1.0, b_rho=1.0, alpha_pi=1.0, sigma_w=0.5,
+                niw_kappa0=1.0, niw_psi0=1.0, mu_bias=-1.0, sigma_bias=0.4,
+                rho_init=0.35)
+_LD_NET = dict(dim=2, sigma_l=1.0, sigma_gamma=2.0, sigma_w=0.5,
+               mu_bias=-1.0, sigma_bias=0.4, niw_kappa0=1.0, niw_psi0=1.0)
+_MEANS = {"b": 0.25, "A": 0.22, "W": 0.35, "density": 0.06}
+ORACLE_CONFIGS = {
+    "dense_niw": OracleConfig(
+        "tests/test_numpy_parity.py:560", N=4, T=1500,
+        planted=dict(seed=31, network="dense", net_kwargs=dict(
+            learn_weight_prior=False, sigma_w=0.05, mu_bias=-1.0,
+            sigma_bias=0.4)),
+        model=dict(network="dense", net_kwargs=dict(
+            mu_bias=-1.0, sigma_bias=0.4, sigma_w=0.05, niw_kappa0=1.0,
+            niw_psi0=1.0)),
+        oracle=dict(network="dense", sigma_w=0.05, mu_b=-1.0,
+                    sigma_b=0.4 ** 2, niw_kappa0=1.0, niw_psi0=1.0),
+        burn=150, keep=400, port_seeds=(0,), oracle_seeds=(7,),
+        tol={"b": 0.25, "W": 0.25, "mu": 0.15, "trSigma_rel": 0.3}),
+    "gaussian": OracleConfig(
+        "tests/test_numpy_parity.py:132", N=5, T=2000,
+        planted=dict(seed=456, observation="gaussian",
+                     network="erdos_renyi", spike_and_slab=True,
+                     obs_kwargs=dict(eta_init=0.3, resample_eta=False),
+                     net_kwargs=_er_net(0.35, 0.05, 0.3, 0.4)),
+        model=dict(observation="gaussian", network="erdos_renyi",
+                   spike_and_slab=True,
+                   obs_kwargs=dict(eta_init=1.0, a_eta=2.0, b_eta=1.0),
+                   net_kwargs=_er_net(0.35, 0.05, 0.3, 0.4)),
+        oracle=dict(rho=0.35, mu_w=0.0, sigma_w=0.05, mu_b=0.3,
+                    sigma_b=0.4 ** 2, observation="gaussian", eta_init=1.0,
+                    a_eta=2.0, b_eta=1.0),
+        burn=200, keep=800, port_seeds=(0, 1), oracle_seeds=(7, 8),
+        tol={"b": 0.08, "W": 0.08, "density": 0.04, "A": 0.25,
+             "eta_rel": 0.05}),
+    "binomial": OracleConfig(
+        "tests/test_numpy_parity.py:218", N=5, T=1000,
+        planted=dict(seed=77, observation="binomial",
+                     network="erdos_renyi", spike_and_slab=True,
+                     obs_kwargs=dict(n_trials=3),
+                     net_kwargs=_er_net(0.35, 0.05, -1.5, 0.3)),
+        model=dict(observation="binomial", network="erdos_renyi",
+                   spike_and_slab=True, obs_kwargs=dict(n_trials=3),
+                   net_kwargs=_er_net(0.35, 0.05, -1.5, 0.3)),
+        oracle=dict(rho=0.35, mu_w=0.0, sigma_w=0.05, mu_b=-1.5,
+                    sigma_b=0.3 ** 2, observation="binomial", n_trials=3),
+        burn=150, keep=400, port_seeds=(0, 1), oracle_seeds=(7, 8),
+        tol={"b": 0.2, "W": 0.2, "A": 0.3, "density": 0.06}),
+    "sbm": OracleConfig(
+        "tests/test_numpy_parity.py:313", N=6, T=1500,
+        planted=dict(seed=99, network="sbm", spike_and_slab=True,
+                     net_kwargs=_SBM_NET),
+        model=dict(network="sbm", spike_and_slab=True, net_kwargs=_SBM_NET),
+        oracle=dict(rho=0.35, sigma_w=0.5, mu_b=-1.0, sigma_b=0.4 ** 2,
+                    network="sbm", K=2, alpha_pi=1.0, a_rho=1.0, b_rho=1.0,
+                    niw_kappa0=1.0, niw_psi0=1.0),
+        burn=200, keep=600, port_seeds=(0, 1), oracle_seeds=(7, 8),
+        tol={**_MEANS, "A": 0.25, "rho_mean": 0.12}),
+    "latent_distance": OracleConfig(
+        "tests/test_numpy_parity.py:405", N=5, T=1500,
+        planted=dict(seed=11, network="latent_distance",
+                     spike_and_slab=True,
+                     net_kwargs=dict(_LD_NET, gamma_init=0.5)),
+        model=dict(network="latent_distance", spike_and_slab=True,
+                   net_kwargs=dict(_LD_NET, swap_moves=2, relocate_moves=2)),
+        oracle=dict(rho=0.35, sigma_w=0.5, mu_b=-1.0, sigma_b=0.4 ** 2,
+                    network="latent_distance", dim=2, sigma_l=1.0,
+                    sigma_gamma=2.0, niw_kappa0=1.0, niw_psi0=1.0),
+        burn=200, keep=600, port_seeds=(0, 1), oracle_seeds=(7, 8),
+        tol={**_MEANS, "A": 0.25, "gamma": 0.6}),
+}
+CFG_B, CFG_L = 2, 4
+
+
+def _extras(name, net, aux):
+    """A config's functionals beyond (A, W_effective, b) of one state (or
+    a stacked one, chain axis first), as (chains, ...) arrays."""
+    if name == "dense_niw":
+        return {"mu": net.mu,
+                "trSigma": net.Sigma.diagonal(dim1=-2, dim2=-1).sum(-1)}
+    if name == "gaussian":
+        return {"eta": aux["eta"]}
+    if name == "sbm":
+        return {"rho_mean": net.rho.mean((-2, -1))}
+    if name == "latent_distance":
+        return {"gamma": net.gamma}
+    return {}
+
+
+def config_data(name: str, device="cpu"):
+    """The config's planted data (T, N), by the port's generator."""
+    from pyglm_tpu_torch import NonlinearAutoregressiveModel
+    from pyglm_tpu_torch.ops.basis import cosine_basis
+    cfg = ORACLE_CONFIGS[name]
+    return NonlinearAutoregressiveModel(
+        cfg.N, basis=cosine_basis(CFG_B, CFG_L), device=device,
+        **cfg.planted).generate(cfg.T, keep=False)
+
+
+def config_port_means(name: str, Y, seeds, device="cpu", stacked=True,
+                      precision="high", sweeps=None):
+    """The port's chains on Y at the config's priors and lengths (or
+    `sweeps` = (burn, keep)): {functional: (chains, ...) posterior means}
+    with "A", "W" (W_effective), "b" and the config's extras. `stacked`
+    runs the chains of `seeds` as one lane-stacked sweep (ensemble seeds);
+    else one model per seed, seeded so, on its own sweep (the Gaussian
+    family's cached Grams included)."""
+    from pyglm_tpu_torch import NonlinearAutoregressiveModel
+    from pyglm_tpu_torch.models.ensemble import (
+        _SWEEP_SALT, chain_generators, ensemble_generators,
+        make_stacked_sweep, stack_states,
+    )
+    from pyglm_tpu_torch.models.sweep import init_state_from_prior
+    from pyglm_tpu_torch.ops.basis import cosine_basis
+    cfg = ORACLE_CONFIGS[name]
+    burn, keep = sweeps or (cfg.burn, cfg.keep)
+
+    def model(seed):
+        m = NonlinearAutoregressiveModel(
+            cfg.N, basis=cosine_basis(CFG_B, CFG_L), seed=seed,
+            precision=precision, device=device, **cfg.model)
+        m.add_data(Y)
+        return m
+
+    def run(sweep, gens, st, datas, single):
+        acc = {}
+        for it in range(burn + keep):
+            st, _ = sweep(gens, st, datas)
+            if it < burn:
+                continue
+            A = st.A[None] if single else st.A
+            W = (st.A[..., None] * st.W).sum(-1)
+            vals = {"A": A, "W": W[None] if single else W,
+                    "b": st.b[None] if single else st.b}
+            for k, v in _extras(name, st.net, st.aux).items():
+                vals[k] = v[None] if single else v
+            for k, v in vals.items():
+                acc[k] = acc.get(k, 0.0) + v.double().cpu() / keep
+        return {k: v.numpy() for k, v in acc.items()}
+
+    if not stacked:
+        outs = []
+        for sd in seeds:
+            m = model(sd)
+            outs.append(run(m._sweep, m.generators, m.state,
+                            tuple(m.datas), True))
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    m = model(0)
+    dev = m.device
+    st = stack_states([init_state_from_prior(
+        ensemble_generators(sd, dev), m.observation, m.network, m.N, m.B,
+        m.spike_and_slab, dev) for sd in seeds])
+    sweep = make_stacked_sweep(m.observation, m.network, m.N, m.B,
+                               len(seeds), m.spike_and_slab, group=m.group,
+                               precision=precision)
+    return run(sweep, chain_generators(int(seeds[0]) + _SWEEP_SALT, dev),
+               st, tuple(m.datas), False)
+
+
+def config_oracle_means(name: str, Y, seed: int, sweeps=None):
+    """One oracle chain on Y at the config's priors and lengths: the
+    posterior means as config_port_means gives them (chain axis of 1), and
+    its seconds."""
+    from pyglm_tpu_torch.ops.basis import cosine_basis
+    from pyglm_tpu_torch.reference.numpy_ref import NumpyGLMReference
+    cfg = ORACLE_CONFIGS[name]
+    burn, keep = sweeps or (cfg.burn, cfg.keep)
+    Y = np.asarray(Y, np.float64)
+    ref = NumpyGLMReference(
+        N=cfg.N, B=CFG_B,
+        basis=np.asarray(cosine_basis(CFG_B, CFG_L), np.float64), seed=seed,
+        **cfg.oracle)
+    Xf = ref.design(Y)
+    t0 = time.perf_counter()
+    acc = {}
+    for it in range(burn + keep):
+        ref.resample(Y, Xf)
+        if it < burn:
+            continue
+        vals = {"A": ref.A, "W": (ref.A[:, :, None] * ref.W).sum(-1),
+                "b": ref.b}
+        if name == "dense_niw":
+            vals.update(mu=ref.mu_sh, trSigma=np.trace(ref.Sigma_sh))
+        elif name == "gaussian":
+            vals["eta"] = ref.eta
+        elif name == "sbm":
+            vals["rho_mean"] = ref.rho_blk.mean()
+        elif name == "latent_distance":
+            vals["gamma"] = ref.gamma
+        for k, v in vals.items():
+            acc[k] = acc.get(k, 0.0) + np.asarray(v, np.float64) / keep
+    return ({k: v[None] for k, v in acc.items()},
+            time.perf_counter() - t0)
+
+
+def config_compare(name: str, port: dict, oracle: dict) -> dict:
+    """The config's numbers for two pools of per-chain means: the max
+    differences of the pooled means (bias, edge marginals, W_effective,
+    the mean edge probability; and the extras: the learned prior's mean,
+    its trace relative, eta relative, the mean block rho, gamma), and the
+    max per-edge |z| of the edge marginals as :func:`pool_compare` reads
+    it (0 where A is all ones, as under the dense prior)."""
+    cfg = ORACLE_CONFIGS[name]
+    m1 = {k: v.mean(0) for k, v in port.items()}
+    m2 = {k: v.mean(0) for k, v in oracle.items()}
+    out = {"b": float(np.abs(m1["b"] - m2["b"]).max()),
+           "W": float(np.abs(m1["W"] - m2["W"]).max()),
+           "A": float(np.abs(m1["A"] - m2["A"]).max()),
+           "density": float(abs(m1["A"].mean() - m2["A"].mean()))}
+    if "mu" in m1:
+        out["mu"] = float(np.abs(m1["mu"] - m2["mu"]).max())
+        out["trSigma_rel"] = float(abs(m1["trSigma"] - m2["trSigma"])
+                                   / m2["trSigma"])
+    if "eta" in m1:
+        out["eta_rel"] = float(np.abs((m1["eta"] - m2["eta"])
+                                      / m2["eta"]).max())
+    for k in ("rho_mean", "gamma"):
+        if k in m1:
+            out[k] = float(abs(m1[k] - m2[k]))
+    c1, c2 = len(port["A"]), len(oracle["A"])
+    se = np.sqrt((port["A"].var(0, ddof=1) / c1 if c1 > 1 else 0.0)
+                 + (oracle["A"].var(0, ddof=1) / c2 if c2 > 1 else 0.0)
+                 + (1.0 / (min(c1, c2) * cfg.keep)) ** 2)
+    out["max_z"] = float((np.abs(m1["A"] - m2["A"]) / se).max())
+    return out
+
+
+def config_parity(name: str, sweeps=None, n_chains=None, stacked=False):
+    """A config on the CPU as tests/test_numpy_parity.py runs it: the
+    planted data, the port's single chains on the config's seeds (one
+    lane-stacked sweep if `stacked`) and as many oracle chains (the first
+    `n_chains` of each side's seeds if given), at `sweeps` = (burn, keep)
+    or the config's lengths. (config_compare's numbers, the port's pool of
+    means)."""
+    cfg = ORACLE_CONFIGS[name]
+    n = n_chains or len(cfg.port_seeds)
+    Y = config_data(name)
+    port = config_port_means(name, Y, cfg.port_seeds[:n], stacked=stacked,
+                             sweeps=sweeps)
+    orc = [config_oracle_means(name, Y, sd, sweeps=sweeps)[0]
+           for sd in cfg.oracle_seeds[:n]]
+    return config_compare(name, port, {k: np.concatenate([o[k] for o in orc])
+                                       for k in orc[0]}), port
+
+
+def config_gates(name: str, r: dict, z_max: float | None = None) -> bool:
+    """config_compare's numbers within the config's tolerances (and, with
+    `z_max`, every edge marginal within z_max standard errors)."""
+    ok = all(r[k] < tol for k, tol in ORACLE_CONFIGS[name].tol.items())
+    return ok and (z_max is None or r["max_z"] < z_max)
 
 
 def perm_band(a, b, seed: int = 0) -> float:

@@ -1,7 +1,8 @@
 """Where the time of one sweep goes on the card.
 
     python -m pyglm_tpu_torch.diagnostics.profile_sweep
-        [flagship|nb|ensemble] [--precision default|sr|high|highest]
+        [flagship|nb|ensemble|dense|sbm|gaussian]
+        [--precision default|sr|high|highest]
 
 ``flagship``: SparseBernoulliGLM(200, B=4, L=10) on synthetic spikes at rate
 0.15, T=100k, 3 warm-up sweeps, 20 timed sweeps, then 5 traced sweeps (it
@@ -16,7 +17,13 @@ traced sweeps. Prints, per sweep: the wall time untraced (host clock, ending
 in a synchronize) and traced, the device busy time and idle share, the
 kernel time by name (torch.profiler), and for the ensemble the time of the
 spike-and-slab update, of K6 alone and of the network resample (HMC and
-NIW) alone, each timed apart on the same state. Every model, sweep and
+NIW) alone, each timed apart on the same state. ``dense``: acceptance
+config 1, BernoulliGLM(27, B=4, L=10) on its truth's T=60k bins; ``sbm``:
+acceptance config 4 (SBM prior, K=5, N=100) on its truth's T=40k bins,
+with the network resample and its label scan timed apart (host clock);
+``gaussian``: SparseGaussianGLM(200, B=4, L=10) on T=100k bins of unit
+Gaussian noise (the staged loop on the cached group Gram); each timed as
+``flagship``. Every model, sweep and
 update runs at ``--precision`` ("high" by default, as the models). Needs a
 CUDA card.
 """
@@ -75,6 +82,14 @@ def _report(name, untraced, traced, kernels, top=14):
         print(f"  {v:9.3f} ms  {100 * v / busy:5.1f}%  {k[:90]}")
 
 
+def _timed(m, label):
+    for _ in range(3):
+        m.resample_model()
+    untraced = _wall(m.resample_model, 20)
+    traced, kernels = _trace(m.resample_model, 5)
+    _report(label, untraced, traced, kernels)
+
+
 def flagship(precision):
     from pyglm_tpu_torch import SparseBernoulliGLM
     N, T = 200, 100_000
@@ -83,11 +98,7 @@ def flagship(precision):
     m = SparseBernoulliGLM(N, B=4, L=10, seed=0, precision=precision,
                            device="cuda")
     m.add_data(Y)
-    for _ in range(3):
-        m.resample_model()
-    untraced = _wall(m.resample_model, 20)
-    traced, kernels = _trace(m.resample_model, 5)
-    _report(f"flagship sweep ({precision})", untraced, traced, kernels)
+    _timed(m, f"flagship sweep ({precision})")
 
 
 def nb(precision):
@@ -103,11 +114,7 @@ def nb(precision):
     Y = np.minimum(truth.generate(T, keep=False), 15.0)
     m = SparseNegativeBinomialGLM(N, seed=0, precision=precision, **kw)
     m.add_data(Y)
-    for _ in range(3):
-        m.resample_model()
-    untraced = _wall(m.resample_model, 20)
-    traced, kernels = _trace(m.resample_model, 5)
-    _report(f"NB flagship sweep ({precision})", untraced, traced, kernels)
+    _timed(m, f"NB flagship sweep ({precision})")
 
 
 def ensemble(precision):
@@ -162,10 +169,54 @@ def ensemble(precision):
           f"{net_ms:.2f} ms")
 
 
+def _fitted(name, precision):
+    """Acceptance config `name`'s fitted model on its truth's bins."""
+    from pyglm_tpu_torch import acceptance as acc
+    T = acc.lengths(name, False)[0]
+    Y = acc.make_truth(name, "cuda").generate(T, keep=False)
+    m = acc.make_model(name, precision, "cuda")
+    m.add_data(Y)
+    return m
+
+
+def dense(precision):
+    _timed(_fitted("1_bernoulli_dense", precision),
+           f"config 1 dense sweep, N=27, T=60k ({precision})")
+
+
+def sbm(precision):
+    import numpy as np
+    m = _fitted("4_sbm", precision)
+    _timed(m, f"config 4 SBM sweep, N=100, K=5, T=40k ({precision})")
+    st, net = m.state, m.network
+    net_ms = _wall(lambda: net.resample(m.generators, st.net, st.A, st.W), 10)
+    tabs = [x.double().cpu().numpy() for x in
+            net._scan_tables(net._edge_tables(st.net, st.A, st.W))]
+    c, pi = st.net.c.numpy(), st.net.pi.double().numpy()
+    u = np.random.default_rng(0).random(net.N)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        net._label_scan(*tabs, c, pi, u)
+    scan_ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"  apart: the SBM resample {net_ms:.2f} ms (host clock), its "
+          f"label scan alone {scan_ms:.2f} ms (host)")
+
+
+def gaussian(precision):
+    from pyglm_tpu_torch import SparseGaussianGLM
+    N, T = 200, 100_000
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m = SparseGaussianGLM(N, B=4, L=10, seed=0, precision=precision,
+                          device="cuda")
+    m.add_data(torch.randn((T, N), generator=gen, device="cuda"))
+    _timed(m, f"sparse Gaussian sweep, N=200, T=100k ({precision})")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config", nargs="*",
-                    choices=["flagship", "nb", "ensemble"])
+                    choices=["flagship", "nb", "ensemble", "dense", "sbm",
+                             "gaussian"])
     ap.add_argument("--precision", default="high",
                     choices=["default", "sr", "high", "highest"])
     args = ap.parse_args()
@@ -176,8 +227,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     for c in args.config or ["flagship", "ensemble"]:
-        {"flagship": flagship, "nb": nb,
-         "ensemble": ensemble}[c](args.precision)
+        {"flagship": flagship, "nb": nb, "ensemble": ensemble,
+         "dense": dense, "sbm": sbm,
+         "gaussian": gaussian}[c](args.precision)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,8 @@ and run the sweep once at C*N lanes. The design, its Gram products and the
 PG and edge-scan launches are shared by all C chains. Only the network
 prior and the observation's aux couple lanes within a chain; the
 latent-distance prior runs its HMC for all chains at once, the others
-resample per chain.
+(dense, Erdos-Renyi, SBM) resample per chain. The dense update forms J over
+all C*N lanes in one pass.
 
 Chain c is initialized from the prior with generators seeded from
 ``seeds[c]`` and salted (:func:`ensemble_generators`), so that it does not
@@ -25,10 +26,11 @@ import torch
 
 from pyglm_tpu_torch.models.networks import LatentDistanceConfig
 from pyglm_tpu_torch.models.sweep import (
-    Generators, GLMState, init_state_from_prior,
+    Generators, GLMState, concat_datas, init_state_from_prior,
 )
 from pyglm_tpu_torch.models.weights import (
-    EdgeHypers, pack_weights, resample_spike_slab_tspace, unpack_weights,
+    EdgeHypers, pack_weights, resample_dense, resample_spike_slab_tspace,
+    sufficient_stats, unpack_weights,
 )
 from pyglm_tpu_torch.utils.utils import fp32_matmul
 
@@ -124,13 +126,10 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
     (stacked state, diagnostics of shape (C,)): "log_likelihood",
     "n_edges", and "hmc_accept" for the latent-distance prior. The move
     order and conditionals are those of models/sweep.py, per lane and per
-    chain, the spike-and-slab update at `precision`. The observation's ll
-    cache is not used (as in the JAX package):
-    NB's r update takes its elementwise CRT branch."""
-    if not spike_slab:
-        raise NotImplementedError(
-            "the dense (spike_and_slab=False) sweep is not ported to "
-            "pyglm_tpu_torch yet (ROADMAP.md Queue A, item 8)")
+    chain, the spike-and-slab update at `precision`, the dense one with J
+    over the C*N lanes. The observation's ll cache and the Gaussian's
+    cached Grams are not used (as in the JAX package): NB's r update takes
+    its elementwise CRT branch, and a Gaussian family forms X' Omega X."""
     batched_net = isinstance(network, LatentDistanceConfig)
 
     @fp32_matmul()
@@ -139,22 +138,25 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
         w_lane, hyp = lane_inputs(network, chains)
         aux_lane = (None if st.aux is None else
                     {k: v.reshape(-1) for k, v in st.aux.items()})
-        if len(datas) == 1:
-            Y, Xf, Xt = datas[0].Y, datas[0].Xf, datas[0].Xt
-        else:       # datasets concatenate along time
-            Y = torch.cat([d.Y for d in datas])
-            Xf = torch.cat([d.Xf for d in datas])
-            Xt = torch.cat([d.Xt for d in datas], dim=1)
+        Y, Xf, Xt = concat_datas(datas)      # datasets concatenate along time
         T = Y.shape[0]
         Y_lane = Y.repeat(1, C)                                   # (T, C*N)
 
         psi = Xf @ w_lane
         omega, kappa = obs.omega_kappa(gens.host, Y_lane, psi, aux_lane)
-        A_lane, w_lane, u, _ = resample_spike_slab_tspace(
-            gens.device, Xt, omega, kappa, psi, w_lane, hyp, B, group=group,
-            precision=precision, host_generator=gens.host)
-        psi = (kappa - u) / omega
-        del omega, kappa, u
+        if spike_slab:
+            A_lane, w_lane, u, _ = resample_spike_slab_tspace(
+                gens.device, Xt, omega, kappa, psi, w_lane, hyp, B,
+                group=group, precision=precision, host_generator=gens.host)
+            psi = (kappa - u) / omega
+            del u
+        else:
+            J, h = sufficient_stats(Xf, omega, kappa)
+            w_lane = resample_dense(gens.device, J, h, hyp, B)
+            A_lane = torch.ones((N, C * N), dtype=torch.float32,
+                                device=w_lane.device)
+            psi = Xf @ w_lane
+        del omega, kappa
 
         w_c = _from_lanes(w_lane, C)                              # (C, P, N)
         W, b = map(torch.stack, zip(*(unpack_weights(w, N, B) for w in w_c)))

@@ -1,7 +1,8 @@
 """User-facing model classes (PyTorch counterpart of
-``pyglm_tpu/models/glm.py``; ports the spike-and-slab models with an
-Erdos-Renyi or latent-distance prior and Bernoulli, Binomial or
-negative-binomial observations, and the multi-chain ``fit_ensemble``).
+``pyglm_tpu/models/glm.py``): the network GLM with Bernoulli, Binomial,
+negative-binomial or Gaussian observations, dense or spike-and-slab
+weights, and a dense, Erdos-Renyi, stochastic-block or latent-distance
+prior; the multi-chain ``fit_ensemble``; and the convenience classes.
 
 The class is a thin stateful shell: the chain state is a ``GLMState`` of
 tensors on the model's `device` (the card unless the caller asks for the
@@ -25,7 +26,8 @@ from pyglm_tpu_torch.models.sweep import (
     make_gibbs_sweep, make_log_likelihood,
 )
 from pyglm_tpu_torch.models.weights import (
-    _auto_group, check_precision, pack_weights,
+    _auto_group, check_precision, group_gram_blocks, pack_weights,
+    sufficient_stats,
 )
 from pyglm_tpu_torch.ops.basis import cosine_basis, design_matrix
 from pyglm_tpu_torch.utils.convert import state_to_numpy
@@ -50,9 +52,11 @@ class NonlinearAutoregressiveModel:
       N: number of neurons.
       B, L: basis dimension / filter length (ignored if `basis` given).
       basis: optional (L, B) filter matrix.
-      observation, network: family / prior names or config objects. The
-        port runs 'bernoulli', 'binomial' and 'negative_binomial' with
-        'erdos_renyi' or 'latent_distance' and spike_and_slab=True.
+      observation, network: family / prior names or config objects:
+        'bernoulli', 'binomial', 'negative_binomial' or 'gaussian', and
+        'dense', 'erdos_renyi', 'sbm' or 'latent_distance'.
+      spike_and_slab: the collapsed spike-and-slab update of (A, W), or
+        (False, the default) the dense update with A = 1.
       seed: seed of this model's generators.
       precision: the accuracy of the spike-and-slab Gram, as in the JAX
         package. The loop is the fused K2 + K3 where the JAX dispatcher
@@ -71,7 +75,11 @@ class NonlinearAutoregressiveModel:
         versions round as the card does at 'default' and 'sr' (the same
         words at 'sr'), and 'high' and 'highest' run in fp32. The psi and
         log-likelihood GEMMs, M0 and K2's scatter stay fp32-grade at every
-        mode.
+        mode, and so does the whole dense update (J = X' Omega X, h and
+        psi in fp32: every mode gives the same dense draw, where the JAX
+        package's "default" runs J as one bf16 pass on the TPU). A Gaussian
+        spike-and-slab model's cached group Gram (made once at add_data by
+        K6) takes the mode's K6 body.
       group: presyn neurons per spike-and-slab group (default: the divisor
         of N nearest 8 with group*B % 8 == 0, i.e. 8 at N = 200, B = 4).
       device: where the data, the state and the kernels live: the card
@@ -120,7 +128,10 @@ class NonlinearAutoregressiveModel:
 
     def add_data(self, Y) -> None:
         """Register a (T, N) spike matrix: builds the design (T, P), its
-        transpose (P, T) and the family's ll cache on the model's device.
+        transpose (P, T) and the family's ll cache on the model's device,
+        and for a Gaussian family its unweighted Grams: the packed group
+        Grams (K6 on one lane of ones, at the model's precision) for
+        spike-and-slab, else the full Gram and X'Y (fp32).
         Raises ValueError if a count exceeds the family's `max_y`."""
         Y = _as_f32(Y, self.device)
         if Y.ndim != 2 or Y.shape[1] != self.N:
@@ -138,8 +149,19 @@ class NonlinearAutoregressiveModel:
                     f"obs_kwargs=dict(max_y={int(y_max)}) or larger so the "
                     f"CRT dispersion update sees every count")
         Xf = design_matrix(Y, self.basis)
-        self.datas.append(GLMData(Y=Y, Xf=Xf, Xt=Xf.T.contiguous(),
-                                  llc=self.observation.ll_cache(Y)))
+        Xt = Xf.T.contiguous()
+        Gg0 = Gfull = XtY = None
+        if not self.observation.needs_pg:
+            ones = Y.new_ones((Y.shape[0], 1))
+            if self.spike_and_slab:
+                Gg0 = group_gram_blocks(Xt, ones, self.B, self.group,
+                                        precision=self.precision)
+            else:
+                Gfull, XtY = sufficient_stats(Xf, ones, Y)
+                Gfull = Gfull[0]
+        self.datas.append(GLMData(Y=Y, Xf=Xf, Xt=Xt,
+                                  llc=self.observation.ll_cache(Y), Gg0=Gg0,
+                                  Gfull=Gfull, XtY=XtY))
 
     def generate(self, T: int, keep: bool = True):
         """Sample a (T, N) spike train from the current parameters."""
@@ -335,6 +357,17 @@ def _merge_net_defaults(kw: dict, **defaults) -> dict:
     return kw
 
 
+class BernoulliGLM(NonlinearAutoregressiveModel):
+    """Dense Bernoulli GLM with the dense prior (on the card unless `device`
+    says otherwise)."""
+
+    def __init__(self, N, **kw):
+        kw.setdefault("observation", "bernoulli")
+        kw.setdefault("network", "dense")
+        kw.setdefault("spike_and_slab", False)
+        super().__init__(N, **kw)
+
+
 class SparseBernoulliGLM(NonlinearAutoregressiveModel):
     """Spike-and-slab Bernoulli GLM with an Erdos-Renyi prior (on the card
     unless `device` says otherwise)."""
@@ -356,4 +389,50 @@ class SparseNegativeBinomialGLM(NonlinearAutoregressiveModel):
         kw.setdefault("network", "erdos_renyi")
         kw.setdefault("spike_and_slab", True)
         kw = _merge_net_defaults(kw, sigma_w=0.003, mu_bias=-2.0)
+        super().__init__(N, **kw)
+
+
+class GaussianGLM(NonlinearAutoregressiveModel):
+    """Dense linear-Gaussian GLM (sigma_w = 0.05, mu_bias = 0 unless
+    `net_kwargs` says otherwise)."""
+
+    def __init__(self, N, **kw):
+        kw.setdefault("observation", "gaussian")
+        kw.setdefault("network", "dense")
+        kw.setdefault("spike_and_slab", False)
+        kw = _merge_net_defaults(kw, sigma_w=0.05, mu_bias=0.0)
+        super().__init__(N, **kw)
+
+
+class SparseGaussianGLM(NonlinearAutoregressiveModel):
+    """Spike-and-slab linear-Gaussian GLM with an Erdos-Renyi prior
+    (sigma_w = 0.05, mu_bias = 0 unless `net_kwargs` says otherwise)."""
+
+    def __init__(self, N, **kw):
+        kw.setdefault("observation", "gaussian")
+        kw.setdefault("network", "erdos_renyi")
+        kw.setdefault("spike_and_slab", True)
+        kw = _merge_net_defaults(kw, sigma_w=0.05, mu_bias=0.0)
+        super().__init__(N, **kw)
+
+
+class NegativeBinomialGLM(NonlinearAutoregressiveModel):
+    """Dense negative-binomial count GLM (sigma_w = 0.003, mu_bias = -2
+    unless `net_kwargs` says otherwise)."""
+
+    def __init__(self, N, **kw):
+        kw.setdefault("observation", "negative_binomial")
+        kw.setdefault("network", "dense")
+        kw.setdefault("spike_and_slab", False)
+        kw = _merge_net_defaults(kw, sigma_w=0.003, mu_bias=-2.0)
+        super().__init__(N, **kw)
+
+
+class BinomialGLM(NonlinearAutoregressiveModel):
+    """Dense Binomial GLM with the dense prior."""
+
+    def __init__(self, N, **kw):
+        kw.setdefault("observation", "binomial")
+        kw.setdefault("network", "dense")
+        kw.setdefault("spike_and_slab", False)
         super().__init__(N, **kw)

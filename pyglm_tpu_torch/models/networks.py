@@ -1,6 +1,6 @@
 """Network priors on (A, W) (PyTorch counterpart of
-``pyglm_tpu/models/networks.py``; ports the Erdos-Renyi and the
-latent-distance priors).
+``pyglm_tpu/models/networks.py``: the dense, Erdos-Renyi, stochastic-block
+and latent-distance priors).
 
 A prior is a frozen config dataclass with
 
@@ -11,12 +11,17 @@ A prior is a frozen config dataclass with
 where `gens` are a model's ``Generators`` (models/sweep.py). The weight
 prior's (mu (B,), Sigma (B, B)) and the ER rho live on the host and are
 drawn there on the CPU generator: `resample` reduces the (N, N) edge
-statistics on the device and brings back B^2 + B + 1 numbers. The
-latent-distance positions live on the device, where their HMC runs.
+statistics on the device and brings back B^2 + B + 1 numbers. The SBM's
+state (labels, block probabilities, per-block rho and NIW) lives on the
+host too: its (K, K, N, N) edge tables are built where A and W live, cross
+once per sweep, and the sequential label scan and the block draws run on
+the host. The latent-distance positions live on the device, where their
+HMC runs.
 """
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -25,7 +30,8 @@ import torch
 
 from pyglm_tpu_torch.models.weights import EdgeHypers
 from pyglm_tpu_torch.ops.linalg import (
-    NIWParams, niw_posterior, sample_beta, sample_niw,
+    NIWParams, logdet_from_chol, niw_posterior, sample_beta,
+    sample_dirichlet, sample_niw,
 )
 from pyglm_tpu_torch.utils.utils import (
     expand_cov, expand_scalar, logit, softplus,
@@ -109,6 +115,63 @@ def _weight_hypers(cfg, state, device):
 
 
 @dataclass(frozen=True)
+class DenseNetworkConfig:
+    """All edges present (rho = 1); a shared NIW-learned Gaussian weight
+    prior over all N^2 edges, or a fixed (optionally per-edge) one when
+    learn_weight_prior=False."""
+    N: int
+    B: int
+    mu_bias: object = -2.0       # scalar | (N,)
+    sigma_bias: object = 1.0     # scalar | (N,)
+    learn_weight_prior: bool = True
+    niw_mu0: float = 0.0
+    niw_kappa0: float = 1.0
+    niw_nu0: float | None = None
+    niw_psi0: float = 1.0
+    mu_w: object = 0.0           # scalar | (B,) | (N,N,B); fixed prior only
+    sigma_w: object = 1.0        # scalar | (B,) | (B,B) | (N,N,B,B) variance
+    name: str = "dense"
+
+    def __post_init__(self):
+        if self.learn_weight_prior and not (
+                _is_scalar(self.sigma_w) and _is_scalar(self.mu_w)):
+            raise ValueError(
+                "per-edge mu_w/sigma_w require learn_weight_prior=False")
+
+    @functools.cached_property
+    def _fixed_hypers(self):
+        return _fixed_weight_hypers(self)
+
+    def init_state(self, gens=None, device="cpu") -> GaussianWeightsState:
+        """The fixed initial state (no draw; `gens` and `device` unused)."""
+        return GaussianWeightsState(
+            mu=torch.zeros((self.B,), dtype=torch.float32),
+            Sigma=torch.eye(self.B, dtype=torch.float32)
+            * _sigma_w_scalar(self),
+            rho=torch.tensor(1.0, dtype=torch.float32))
+
+    def edge_hypers(self, state: GaussianWeightsState,
+                    device) -> EdgeHypers:
+        """logit rho = 20 on every edge (rho = 1, clipped so that a
+        spike-and-slab update configured with this prior stays finite)."""
+        N = self.N
+        mu, Lam = _weight_hypers(self, state, device)
+        lrho = torch.full((N, N), 20.0, dtype=torch.float32, device=device)
+        mu_b, lam_b = _bias_hypers(self, N, device)
+        return EdgeHypers(mu, Lam, lrho, mu_b, lam_b)
+
+    def resample(self, gens, state: GaussianWeightsState, A,
+                 W) -> GaussianWeightsState:
+        """(mu, Sigma) from the NIW posterior of the weights of the edges
+        in A (all of them under the dense sweep), on ``gens.host``."""
+        if not self.learn_weight_prior:
+            return state
+        mu, Sigma = _masked_niw_resample(gens.host, self,
+                                         *_masked_stats(W, A))
+        return GaussianWeightsState(mu, Sigma, state.rho)
+
+
+@dataclass(frozen=True)
 class ErdosRenyiConfig:
     """Independent-Bernoulli sparsity: A_ij ~ Bern(rho), rho ~ Beta(a, b);
     shared (optionally NIW-learned) Gaussian weight prior on active edges."""
@@ -178,6 +241,166 @@ class ErdosRenyiConfig:
         if self.learn_weight_prior:
             mu, Sigma = _masked_niw_resample(generator, self, n, xbar, S)
         return GaussianWeightsState(mu, Sigma, rho)
+
+
+class SBMState(NamedTuple):
+    """Host tensors."""
+    c: torch.Tensor       # (N,) int64 block labels
+    pi: torch.Tensor      # (K,) block probabilities
+    rho: torch.Tensor     # (K, K) block connection probabilities
+    mu: torch.Tensor      # (K, K, B) block weight means
+    Sigma: torch.Tensor   # (K, K, B, B) block weight covariances
+
+
+@dataclass(frozen=True)
+class SBMConfig:
+    """Stochastic block model: c_n ~ Cat(pi), A_ij ~ Bern(rho[c_i, c_j]),
+    W_ij ~ N(mu[c_i, c_j], Sigma[c_i, c_j]) on active edges; pi ~
+    Dirichlet(alpha_pi), rho ~ Beta(a_rho, b_rho) and (mu, Sigma) ~ NIW
+    per block pair.
+
+    The labels are resampled by a sequential Gibbs scan over the neurons
+    (labels interact through shared edges) that reads precomputed
+    (K, K, N, N) edge log-likelihood tables, then pi, rho and the block
+    NIWs given the new labels."""
+    N: int
+    B: int
+    K: int = 5
+    alpha_pi: float = 1.0
+    a_rho: float = 1.0
+    b_rho: float = 1.0
+    mu_bias: float = -2.0
+    sigma_bias: float = 1.0
+    niw_mu0: float = 0.0
+    niw_kappa0: float = 1.0
+    niw_nu0: float | None = None
+    niw_psi0: float = 1.0
+    sigma_w: float = 1.0
+    rho_init: float = 0.25
+    name: str = "sbm"
+
+    def init_state(self, gens, device="cpu") -> SBMState:
+        """Labels uniform over the K blocks from ``gens.host``; the block
+        parameters at their fixed initial values."""
+        N, B, K = self.N, self.B, self.K
+        c = torch.randint(0, K, (N,), generator=gens.host)
+        return SBMState(
+            c=c, pi=torch.full((K,), 1.0 / K, dtype=torch.float32),
+            rho=torch.full((K, K), self.rho_init, dtype=torch.float32),
+            mu=torch.zeros((K, K, B), dtype=torch.float32),
+            Sigma=(torch.eye(B, dtype=torch.float32)
+                   * self.sigma_w).expand(K, K, B, B).contiguous())
+
+    def edge_hypers(self, state: SBMState, device) -> EdgeHypers:
+        """Each edge's block pair's (mu, Lambda, logit rho), gathered on
+        `device` from the (K, K) tables."""
+        ci = state.c.to(device)[:, None]
+        cj = ci.T
+        Lam = torch.linalg.inv(state.Sigma).to(device)
+        lrho = logit(torch.clamp(state.rho, 1e-5, 1 - 1e-5)).to(device)
+        mu_b, lam_b = _bias_hypers(self, self.N, device)
+        return EdgeHypers(state.mu.to(device)[ci, cj], Lam[ci, cj],
+                          lrho[ci, cj], mu_b, lam_b)
+
+    def _edge_tables(self, state: SBMState, A, W):
+        """tbl[x, y, i, j] = log Bern(A_ij; rho[x, y])
+        + A_ij log N(W_ij; mu[x, y], Sigma[x, y]), (K, K, N, N) on A's
+        device."""
+        dev = A.device
+        rho = torch.clamp(state.rho, 1e-5, 1 - 1e-5).to(dev)
+        logB = (A * torch.log(rho)[:, :, None, None]
+                + (1 - A) * torch.log1p(-rho)[:, :, None, None])
+        Lam = torch.linalg.inv(state.Sigma).to(dev)            # (K,K,B,B)
+        logdet = logdet_from_chol(torch.linalg.cholesky(state.Sigma)).to(dev)
+        d = W - state.mu.to(dev)[:, :, None, None]            # (K,K,N,N,B)
+        quad = torch.einsum("xyijb,xybc,xyijc->xyij", d, Lam, d)
+        logN = -0.5 * (quad + logdet[:, :, None, None]
+                       + self.B * math.log(2 * math.pi))
+        return logB + A * logN
+
+    @staticmethod
+    def _label_logits(tbl_out, tbl_in, self_ll, log_pi, onehot):
+        """The label conditional of one neuron n given the others' labels:
+        log pi + its outgoing and incoming edges' log-likelihoods against
+        the other neurons' labels + its self-edge's, which carries the
+        candidate label on both ends. tbl_out[x, m k] = tbl[x, k, n, m],
+        tbl_in[x, m k] = tbl[k, x, m, n], self_ll[x] = tbl[x, x, n, n];
+        onehot (N K,) holds the labels with neuron n's row zeroed."""
+        return log_pi + tbl_out @ onehot + tbl_in @ onehot + self_ll
+
+    def _scan_tables(self, tbl):
+        """The label scan's layouts of the edge tables (K, K, N, N), on
+        their device: t_out[n, x, m K + k] = tbl[x, k, n, m], t_in[n, x,
+        m K + k] = tbl[k, x, m, n] (the label scan's rows, contiguous) and
+        self_ll[n, x] = tbl[x, x, n, n]."""
+        K, N = self.K, self.N
+        t_out = tbl.permute(2, 0, 3, 1).reshape(N, K, N * K)
+        t_in = tbl.permute(3, 1, 2, 0).reshape(N, K, N * K)
+        self_ll = torch.diagonal(torch.diagonal(tbl, dim1=2, dim2=3),
+                                 dim1=0, dim2=1)                # (N, K)
+        return t_out, t_in, self_ll
+
+    def _label_scan(self, t_out, t_in, self_ll, c, pi, u):
+        """The sequential Gibbs scan over the labels (numpy, float64): for
+        n = 0 .. N-1, c_n ~ Cat(softmax(logits_n)) by the inverse CDF at
+        u[n], given the labels drawn so far. t_out, t_in, self_ll as
+        :meth:`_scan_tables` gives them; c (N,), pi (K,), u (N,)
+        uniforms."""
+        K, N = self.K, self.N
+        log_pi = np.log(pi + 1e-12)
+        onehot = np.zeros((N, K))
+        onehot[np.arange(N), c] = 1.0
+        oh = onehot.reshape(-1)
+        c = c.copy()
+        for n in range(N):
+            onehot[n] = 0.0
+            lg = self._label_logits(t_out[n], t_in[n], self_ll[n], log_pi,
+                                    oh)
+            cdf = np.cumsum(np.exp(lg - lg.max()))
+            c[n] = min(int(np.searchsorted(cdf, u[n] * cdf[-1],
+                                           side="right")), K - 1)
+            onehot[n, c[n]] = 1.0
+        return c
+
+    def resample(self, gens, state: SBMState, A, W) -> SBMState:
+        """The label scan on the host (its uniforms one (N,) draw from
+        ``gens.host``), after one transfer of the edge tables (in the
+        scan's layouts), A and W; then pi ~ Dirichlet(alpha_pi + counts),
+        rho ~ Beta per block pair and each block pair's (mu, Sigma) from
+        its NIW posterior over the active edges it holds, all on
+        ``gens.host``. The block statistics are matrix products with the
+        label indicators (float64); the scatter is the raw second moment
+        less n xbar xbar'."""
+        N, K, B = self.N, self.K, self.B
+        g = gens.host
+        parts = [*self._scan_tables(self._edge_tables(state, A, W)), A, W]
+        sizes = [x.numel() for x in parts]
+        host = torch.cat([x.reshape(-1) for x in parts]).cpu().double()
+        t_out, t_in, self_ll, A_h, W_h = (
+            x.reshape(p.shape) for x, p in zip(host.split(sizes), parts))
+        u = torch.rand((N,), generator=g, dtype=torch.float64)
+        c = torch.from_numpy(self._label_scan(
+            t_out.numpy(), t_in.numpy(), self_ll.numpy(), state.c.numpy(),
+            state.pi.double().numpy(), u.numpy()))
+        Z = torch.nn.functional.one_hot(c, K).double()        # (N, K)
+        n_k = Z.sum(0)
+        pi = sample_dirichlet(self.alpha_pi + n_k.float(), g)
+        n_act = Z.T @ A_h @ Z                                  # (K, K)
+        rho = sample_beta((self.a_rho + n_act).float(),
+                          (self.b_rho + n_k[:, None] * n_k[None, :]
+                           - n_act).float(), g)
+
+        def block_sums(X):          # (N, N, ...) -> (K, K, ...), A's edges
+            return torch.einsum("ix,ij...,jy->xy...", Z,
+                                A_h.reshape(A_h.shape + (1,) * (X.ndim - 2))
+                                * X, Z)
+        xbar = block_sums(W_h) / torch.clamp(n_act, min=1e-12)[..., None]
+        S = (block_sums(W_h[..., :, None] * W_h[..., None, :])
+             - n_act[..., None, None] * xbar[..., :, None]
+             * xbar[..., None, :])
+        mu, Sigma = sample_niw(g, niw_posterior(
+            _niw_params(self), n_act.float(), xbar.float(), S.float()))
+        return SBMState(c, pi, rho, mu, Sigma)
 
 
 class LatentDistanceState(NamedTuple):
@@ -438,14 +661,26 @@ class LatentDistanceConfig:
         return LatentDistanceState(*(x[0] for x in out)) if single else out
 
 
-def make_network(name: str, N: int, B: int, **kwargs):
-    name = name.lower()
-    if name in ("erdos_renyi", "er", "independent", "sparse"):
-        return ErdosRenyiConfig(N=N, B=B, **kwargs)
-    if name in ("latent_distance", "distance"):
-        return LatentDistanceConfig(N=N, B=B, **kwargs)
-    if name in ("dense", "sbm", "stochastic_block"):
-        raise NotImplementedError(
-            f"network prior {name!r} is not ported to pyglm_tpu_torch yet "
-            f"(ROADMAP.md Queue A, items 8 and 10)")
+# Each prior's accepted names (as the JAX package's make_network maps them).
+_NETWORKS = {
+    "dense": (DenseNetworkConfig, ("dense",)),
+    "erdos_renyi": (ErdosRenyiConfig,
+                    ("erdos_renyi", "er", "independent", "sparse")),
+    "sbm": (SBMConfig, ("sbm", "stochastic_block")),
+    "latent_distance": (LatentDistanceConfig,
+                        ("latent_distance", "distance")),
+}
+
+
+def network_name(network) -> str:
+    """The canonical name of a prior, given its config or any of its names:
+    'dense', 'erdos_renyi', 'sbm' or 'latent_distance'."""
+    name = getattr(network, "name", network).lower()
+    for key, (_, names) in _NETWORKS.items():
+        if name in names:
+            return key
     raise ValueError(f"unknown network prior: {name}")
+
+
+def make_network(name: str, N: int, B: int, **kwargs):
+    return _NETWORKS[network_name(name)][0](N=N, B=B, **kwargs)

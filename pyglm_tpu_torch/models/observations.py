@@ -1,11 +1,13 @@
 """Observation families (PyTorch counterpart of
-``pyglm_tpu/models/observations.py``; ports ``Bernoulli``, ``Binomial`` and
-``NegativeBinomial``).
+``pyglm_tpu/models/observations.py``: ``Bernoulli``, ``Binomial``,
+``NegativeBinomial`` and ``Gaussian``).
 
-A family maps data to the PG-augmented conditionally-Gaussian form
-likelihood(psi) prop-to exp(kappa psi - omega psi^2 / 2), omega ~ PG(b, psi),
-plus per-neuron auxiliary-parameter updates (the NB dispersion r by the
-Chinese-restaurant-table augmentation).
+A family maps data to the conditionally-Gaussian form
+likelihood(psi) prop-to exp(kappa psi - omega psi^2 / 2): PG-augmented
+(omega ~ PG(b, psi)) for the logistic links, deterministic (omega =
+1/eta) for the Gaussian; plus per-neuron auxiliary-parameter updates (the
+NB dispersion r by the Chinese-restaurant-table augmentation, the Gaussian
+noise variance eta by inverse-gamma conjugacy).
 
 Generation (models/sweep.py) draws the psi-independent noise of all T bins
 at once with ``sample_noise`` and then each bin with
@@ -14,11 +16,14 @@ it itself.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 
-from pyglm_tpu_torch.ops.linalg import crt_sample, sample_gamma
+from pyglm_tpu_torch.ops.linalg import (
+    crt_sample, sample_gamma, sample_inverse_gamma,
+)
 from pyglm_tpu_torch.ops.polyagamma import pg_draw_unit, polya_gamma
 from pyglm_tpu_torch.utils.utils import logistic, softplus
 
@@ -227,6 +232,66 @@ class NegativeBinomial(_FamilyBase):
         return {"r": r_new.to(r.device, non_blocking=True)}
 
 
+@dataclass(frozen=True)
+class Gaussian(_FamilyBase):
+    """y ~ N(psi, eta_n): identity link, conjugate noise variance. No PG
+    augmentation: omega = 1/eta_n and kappa = y/eta_n are deterministic,
+    which gives the exact Gaussian conditional of the weights; eta is
+    resampled by inverse-gamma conjugacy. Since omega is constant over
+    time, the models cache the unweighted Gram statistics at add_data and
+    divide them by eta each sweep (models/sweep.py)."""
+    eta_init: float = 1.0
+    a_eta: float = 2.0        # InvGamma(a_eta, b_eta) prior on eta
+    b_eta: float = 1.0
+    resample_eta: bool = True
+    name: str = "gaussian"
+    needs_pg: bool = False
+
+    def init_aux(self, N: int, device="cpu"):
+        return {"eta": torch.full((N,), self.eta_init, dtype=torch.float32,
+                                  device=device)}
+
+    def omega_kappa(self, generator, Y, psi, aux):
+        """omega = 1/eta (materialised (T, N): the kernels read it as a
+        dense array), kappa = y/eta; draws nothing."""
+        inv_eta = 1.0 / aux["eta"][None, :]
+        return inv_eta.expand_as(Y).contiguous(), Y * inv_eta
+
+    def log_likelihood(self, Y, psi, aux):
+        eta = aux["eta"][None, :]
+        return (-0.5 * torch.log(2.0 * math.pi * eta)
+                - 0.5 * (Y - psi) ** 2 / eta)
+
+    def sample_noise(self, generator, shape, aux):
+        """Standard normals; they do not depend on psi, so generation draws
+        all bins' at once."""
+        return torch.randn(shape, generator=generator,
+                           device=generator.device)
+
+    def sample(self, generator, psi, aux, noise=None):
+        """y = psi + sqrt(eta) z, z ~ N(0, 1) (= `noise` if given)."""
+        if noise is None:
+            noise = self.sample_noise(generator, psi.shape, aux)
+        return psi + torch.sqrt(aux["eta"]) * noise
+
+    def mean(self, psi, aux):
+        return psi
+
+    def resample_aux(self, generator, aux, Y, psi, cache=None):
+        """eta ~ InvGamma(a_eta + T/2, b_eta + sum_t (y - psi)^2 / 2),
+        floored at 1e-6. The (N,) draw runs on the host on `generator` after
+        one transfer; eta goes back to the device from pinned memory."""
+        if not self.resample_eta:
+            return aux
+        eta = aux["eta"]
+        beta = (self.b_eta + 0.5 * torch.sum((Y - psi) ** 2, dim=0)).cpu()
+        eta_new = torch.clamp(sample_inverse_gamma(
+            self.a_eta + 0.5 * Y.shape[0], beta, generator), min=1e-6)
+        if eta.is_cuda:
+            eta_new = eta_new.pin_memory()
+        return {"eta": eta_new.to(eta.device, non_blocking=True)}
+
+
 def make_observation(name: str, **kwargs):
     name = name.lower()
     if name == "bernoulli":
@@ -236,7 +301,5 @@ def make_observation(name: str, **kwargs):
     if name in ("negative_binomial", "nb", "negbin"):
         return NegativeBinomial(**kwargs)
     if name == "gaussian":
-        raise NotImplementedError(
-            f"observation family {name!r} is not ported to pyglm_tpu_torch "
-            f"yet (ROADMAP.md Queue A, item 9)")
+        return Gaussian(**kwargs)
     raise ValueError(f"unknown observation family: {name}")

@@ -1,5 +1,8 @@
-"""Collapsed spike-and-slab weight update in residual space (PyTorch
-counterpart of the main-path subset of ``pyglm_tpu/models/weights.py``).
+"""Sufficient statistics and the conditionally Gaussian weight updates
+(PyTorch counterpart of ``pyglm_tpu/models/weights.py``): the collapsed
+spike-and-slab update in residual space, the dense update, and the
+full-Gram spike-and-slab update that the JAX package keeps as a
+cross-check of the residual-space one.
 
 Weight layout: P = N*B + 1 design columns, presyn-major (column j*B + b =
 presyn neuron j, basis b; last column = bias). w_full[:, n] stacks
@@ -31,7 +34,8 @@ from typing import NamedTuple
 import torch
 
 from pyglm_tpu_torch.ops.linalg import (
-    chol_small, solve_lower_small, solve_lower_t_small,
+    chol_small, gaussian_evidence, logdet_from_chol, sample_from_evidence,
+    sample_mvn_info, solve_lower_small, solve_lower_t_small,
 )
 from pyglm_tpu_torch.ops.gram_cuda import (
     group_gram_blocks_cuda, group_gram_blocks_plain,
@@ -40,7 +44,7 @@ from pyglm_tpu_torch.ops.ss_cuda import (
     _MAX_B, omega_bf16_stream, ss_edge_scan, ss_group_pass, to_bf16,
     unpack_gram,
 )
-from pyglm_tpu_torch.utils.utils import logistic
+from pyglm_tpu_torch.utils.utils import fp32_matmul, logistic
 
 # The loop the last resample_spike_slab_tspace call ran: "fused" | "staged".
 LAST_SS_PATH = None
@@ -79,6 +83,145 @@ def unpack_weights(w_full, N: int, B: int):
     """w_full (P, N) -> (W_eff (N, N, B), b (N,)); W_eff is masked by A."""
     W = w_full[: N * B].reshape(N, B, N).permute(0, 2, 1)
     return W, w_full[N * B]
+
+
+# Time steps per fp32 partial sum of the dense statistics (the JAX
+# package's t_chunk), and the bytes of omega-weighted design that one batch
+# of chunks may hold.
+T_CHUNK = 512
+_CHUNK_BATCH_BYTES = 1 << 28
+
+
+def _chunks(T: int, per_step: int):
+    """(start, stop) of batches of whole T_CHUNK-step chunks, each batch's
+    weighted design (per_step float32 a step) within _CHUNK_BATCH_BYTES."""
+    n = max(1, _CHUNK_BATCH_BYTES // (4 * per_step * T_CHUNK)) * T_CHUNK
+    return [(t0, min(t0 + n, T)) for t0 in range(0, T, n)]
+
+
+def _chunked(x, t0, t1):
+    """Rows t0 .. t1 of x (T, ...) as (chunks, T_CHUNK, ...), zero-padded."""
+    xs = x[t0:t1]
+    pad = -xs.shape[0] % T_CHUNK
+    if pad:
+        xs = torch.cat([xs, xs.new_zeros((pad,) + tuple(xs.shape[1:]))])
+    return xs.reshape((-1, T_CHUNK) + tuple(xs.shape[1:]))
+
+
+@fp32_matmul()
+def sufficient_stats(Xf, omega, kappa):
+    """J[n] = Xf' diag(omega[:, n]) Xf and h[:, n] = Xf' kappa[:, n]: the
+    dense update's statistics, O(N T P^2). Each T_CHUNK-step chunk is one
+    fp32 batched GEMM (P x N P by the chunk's steps), and the chunks' sums
+    add up, as the JAX package's scan does; the GEMMs are full float32 at
+    every precision mode (the JAX package's einsum takes the mode's
+    precision: one bf16 pass at "default" on the TPU). Xf (T, P), omega
+    and kappa (T, N); returns J (N, P, P), h (P, N)."""
+    T, P = Xf.shape
+    N = omega.shape[1]
+    J = Xf.new_zeros((N, P, P))
+    for t0, t1 in _chunks(T, N * P):
+        xc, oc = _chunked(Xf, t0, t1), _chunked(omega, t0, t1)
+        xw = (oc[:, :, :, None] * xc[:, :, None, :]).reshape(
+            xc.shape[0], T_CHUNK, N * P)                  # (c, tc, N P)
+        J += torch.bmm(xw.transpose(1, 2), xc).sum(0).reshape(N, P, P)
+    return J, Xf.T @ kappa
+
+
+@fp32_matmul()
+def diag_blocks(Xf, omega, B: int):
+    """Jd[j, n] = X_j' diag(omega[:, n]) X_j for every presyn j and postsyn
+    n, (N_pre, N, B, B): the only quadratic-in-basis statistic the collapsed
+    edge scan needs, O(N^2 T B^2), chunked as :func:`sufficient_stats`."""
+    T, P = Xf.shape
+    N_pre, N = (P - 1) // B, omega.shape[1]
+    acc = Xf.new_zeros((N_pre * B * B, N))
+    for t0, t1 in _chunks(T, N_pre * B * B + N):
+        xc = _chunked(Xf[:, :N_pre * B], t0, t1).reshape(
+            -1, T_CHUNK, N_pre, B)
+        Z = (xc[..., :, None] * xc[..., None, :]).reshape(
+            xc.shape[0], T_CHUNK, N_pre * B * B)
+        acc += torch.bmm(Z.transpose(1, 2), _chunked(omega, t0, t1)).sum(0)
+    return acc.reshape(N_pre, B, B, N).permute(0, 3, 1, 2)
+
+
+def _block_diag_precision(Lam0, lam_b, P: int, B: int):
+    """The (N_post, P, P) prior precisions: each postsyn lane's (N_pre, B, B)
+    per-edge blocks on the diagonal, the bias precision last. Lam0 is
+    (N_pre, N_post, B, B), lam_b (N_post,)."""
+    N_pre, N = Lam0.shape[:2]
+    full = Lam0.new_zeros((N, N_pre, B, N_pre, B))
+    idx = torch.arange(N_pre, device=Lam0.device)
+    full[:, idx, :, idx, :] = Lam0
+    full = full.reshape(N, N_pre * B, N_pre * B)
+    out = Lam0.new_zeros((N, P, P))
+    out[:, :N_pre * B, :N_pre * B] = full
+    out[:, P - 1, P - 1] = lam_b
+    return out
+
+
+def resample_dense(generator, J, h, hyp: EdgeHypers, B: int, eps=None):
+    """The dense weight update (A == 1), every postsyn lane at once:
+    w[:, n] ~ N((L0_n + J_n)^{-1} (h_n + L0_n mu0_n), (L0_n + J_n)^{-1}),
+    one batched (P, P) Cholesky (the JAX package's vmapped
+    ``_dense_one_neuron``). J (N, P, P), h (P, N); `eps` (N, P), the
+    standard normals of the draw, or None to draw them from `generator`.
+    Returns w_full (P, N)."""
+    P, N = h.shape
+    prec = _block_diag_precision(hyp.Lam, hyp.lam_b, P, B) + J
+    h0 = torch.cat([torch.einsum("jnbc,jnc->njb", hyp.Lam,
+                                 hyp.mu).reshape(N, -1),
+                    (hyp.lam_b * hyp.mu_b)[:, None]], dim=1)      # (N, P)
+    return sample_mvn_info(generator, h.T + h0, prec, eps=eps).T
+
+
+def resample_spike_slab(generator, J, h, w_full, hyp: EdgeHypers, B: int,
+                        noise: SpikeSlabNoise | None = None):
+    """The full-Gram collapsed spike-and-slab update (the JAX package's
+    ``resample_spike_slab``, its cross-check of the residual-space one):
+    per presyn block j in order, for all postsyn lanes at once,
+    m_j = h_j - (J w)_j + J_jj w_j, a_j ~ Bern(logistic(logit rho_j +
+    log E_j)), w_j | a_j, with the running r = J w updated by the change;
+    then the bias. J (N, P, P), h and w_full (P, N). `noise` holds the
+    uniforms, normals and bias normal in :class:`SpikeSlabNoise`'s layout
+    (any grouping: edge j is flat index j of the presyn axes), so that the
+    residual-space update fed the same noise draws the same chain; None
+    draws them from `generator` in that order. Returns (A (N_pre, N),
+    w_full (P, N))."""
+    P, N = h.shape
+    N_pre = (P - 1) // B
+    dev = h.device
+    if noise is None:
+        u_a = torch.rand((N_pre, N), generator=generator, device=dev)
+        eps = torch.randn((N_pre, N, B), generator=generator, device=dev)
+        z_b = torch.randn((N,), generator=generator, device=dev)
+    else:
+        u_a, eps = noise.u_a.reshape(N_pre, N), noise.eps.reshape(N_pre, N, B)
+        z_b = noise.bias
+    w = w_full.T.clone()                                   # (N, P)
+    r = (J @ w[:, :, None])[..., 0]                        # (N, P)
+    ht = h.T
+    ld0 = 0.5 * logdet_from_chol(torch.linalg.cholesky(hyp.Lam))
+    A = torch.empty((N_pre, N), dtype=h.dtype, device=dev)
+    for j in range(N_pre):
+        sl = slice(j * B, (j + 1) * B)
+        Jjj = J[:, sl, sl]
+        wj = w[:, sl].clone()
+        m = ht[:, sl] - (r[:, sl] - (Jjj @ wj[:, :, None])[..., 0])
+        ev = gaussian_evidence(m, Jjj, hyp.mu[j], hyp.Lam[j],
+                               chol0_logdet=ld0[j])
+        a = u_a[j] < logistic(hyp.logit_rho[j] + ev.log_evidence)
+        wnew = torch.where(a[:, None], sample_from_evidence(None, ev,
+                                                            eps=eps[j]),
+                           torch.zeros_like(wj))
+        r += (J[:, :, sl] @ (wnew - wj)[:, :, None])[..., 0]
+        w[:, sl] = wnew
+        A[j] = a.to(h.dtype)
+    # The always-active bias column.
+    m_b = ht[:, -1] - (r[:, -1] - J[:, -1, -1] * w[:, -1]) + hyp.lam_b * hyp.mu_b
+    lamp = hyp.lam_b + J[:, -1, -1]
+    w[:, -1] = m_b / lamp + z_b / torch.sqrt(lamp)
+    return A, w.T.contiguous()
 
 
 def _auto_group(N_pre: int, B: int = 4) -> int:

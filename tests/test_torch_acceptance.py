@@ -1,7 +1,8 @@
 """The port's acceptance runner (pyglm_tpu_torch/acceptance.py) against the
-JAX package's benchmarks/acceptance.py: the same floors for configs 2, 3
-and 5, the same gate verdicts on the same results, and a --quick run of
-config 3 on the CPU that writes every field of the report. Also: the
+JAX package's benchmarks/acceptance.py: the same floors for all five
+configs, the same gate verdicts on the same results, a --quick run of
+config 3 on the CPU that writes every field of the report, and --quick runs
+of configs 1 (dense) and 4 (SBM). Also: the
 port's config-2 truth (seed 2) is supercritical in the JAX package's
 generator too, so its runaway is the draw's, not the port generator's.
 """
@@ -82,6 +83,23 @@ def test_quick_config3_writes_every_field(tmp_path):
               "generate_s"):
         assert np.isfinite(res[k]), k
     assert 0.0 <= res["link_auc"] <= 1.0
+
+
+@pytest.mark.parametrize("name", ["1_bernoulli_dense", "4_sbm"])
+def test_quick_configs_1_and_4(name):
+    res = acc.run(name, True, "high", "cpu")
+    assert res["config"] == name and res["T"] == 5000
+    assert res["sweeps"] == [10, 5]
+    want = ["rate", "sweeps_per_sec", "weight_corr", "pred_ll_model",
+            "pred_ll_truth", "pred_ll_gap_per_bin", "generate_s"]
+    # Config 1's truth is dense: every edge is present, so no AUC.
+    assert ("link_auc" in res) == (name == "4_sbm")
+    for k in want + (["link_auc"] if name == "4_sbm" else []):
+        assert np.isfinite(res[k]), k
+    passed, failures = acc.check_gates([dict(res, weight_corr=1.0,
+                                             link_auc=1.0,
+                                             pred_ll_gap_per_bin=0.0)])
+    assert passed, failures
 
 
 def test_config2_truth_runs_away_in_both_generators():

@@ -210,7 +210,8 @@ def test_convert_latent_distance_and_stacked_states():
     for st in (states[0], stacked):
         parts = [np.asarray(x) for x in (st.A, st.W, st.b)]
         net = tuple(np.asarray(x) for x in st.net)
-        pm = state_from_numpy(*parts, net, device="cpu")
+        pm = state_from_numpy(*parts, net, device="cpu",
+                              network="latent_distance")
         assert type(pm.net).__name__ == "LatentDistanceState"
         back = state_to_numpy(pm)
         for got, ref in zip((back["A"], back["W"], back["b"]), parts):

@@ -7,7 +7,9 @@ cases whose families and priors the port has (3000 iterations, thinned by
 10, z < 5; marked slow as there): Erdos-Renyi with a fixed prior, a learned
 rho, a learned NIW weight prior, B=2 cross terms, negative binomial with
 the count table (on the subcritical prior of tests/test_geweke_tpu.py; see
-that test), Binomial and the latent-distance prior.
+that test), Binomial, the latent-distance prior, the dense Gaussian, the
+SBM and the sparse Gaussian. The last three also have a smoke case in the
+quick lane (600 iterations, z < 6).
 """
 import numpy as np
 import pytest
@@ -17,10 +19,10 @@ from pyglm_tpu_torch.diagnostics.geweke import (
     geweke_chain, ks_two_sample, prior_gates, tau_int,
 )
 from pyglm_tpu_torch.models.networks import (
-    ErdosRenyiConfig, LatentDistanceConfig,
+    DenseNetworkConfig, ErdosRenyiConfig, LatentDistanceConfig, SBMConfig,
 )
 from pyglm_tpu_torch.models.observations import (
-    Bernoulli, Binomial, NegativeBinomial,
+    Bernoulli, Binomial, Gaussian, NegativeBinomial,
 )
 from pyglm_tpu_torch.ops.basis import cosine_basis
 
@@ -35,9 +37,10 @@ def _z(mean_emp, mean_true, var_true, n_eff):
     return abs(mean_emp - mean_true) / np.sqrt(var_true / n_eff)
 
 
-def _chain(seed, obs, net, n_iters=N_ITERS, B_=B, **kw):
+def _chain(seed, obs, net, n_iters=N_ITERS, B_=B, spike_slab=True, **kw):
     return geweke_chain(seed, obs, net, N, B_, cosine_basis(B=B_, L=L), T,
-                        spike_slab=True, n_iters=n_iters, device="cpu", **kw)
+                        spike_slab=spike_slab, n_iters=n_iters, device="cpu",
+                        **kw)
 
 
 def _er(**kw):
@@ -301,3 +304,96 @@ def test_geweke_latent_distance():
     g = np.asarray(gammas)[::THIN]
     z_g = _z(g.mean(), 0.0, 1.0, g.size)
     assert z_g < 6.0, (g.mean(), z_g)
+
+
+# The cases of tests/test_geweke.py:89 (dense Gaussian), :239 (SBM) and
+# :300 (sparse Gaussian): (chain arguments, [(series, mean, variance of one
+# draw, draws per iteration)] of the z gates).
+A_ETA, B_ETA = 6.0, 2.0
+ETA_M = B_ETA / (A_ETA - 1)
+ETA_V = B_ETA ** 2 / ((A_ETA - 1) ** 2 * (A_ETA - 2))
+NEW_CASES = {
+    "gaussian_dense": (
+        dict(seed=2, obs=Gaussian(a_eta=A_ETA, b_eta=B_ETA, eta_init=0.5),
+             net=DenseNetworkConfig(N=N, B=B, learn_weight_prior=False,
+                                    sigma_w=0.003, mu_bias=0.0,
+                                    sigma_bias=0.1),
+             spike_slab=False),
+        [("bias", 0.0, 0.1 ** 2), ("eta", ETA_M, ETA_V)]),
+    "sbm": (
+        dict(seed=6, obs=Bernoulli(),
+             net=SBMConfig(N=N, B=B, K=2, a_rho=2.0, b_rho=3.0,
+                           alpha_pi=1.0, sigma_w=0.5, niw_kappa0=1.0,
+                           mu_bias=-1.0, sigma_bias=0.3)),
+        [("rho", 0.4, 2.0 * 3.0 / (25.0 * 6.0)), ("bias", -1.0, 0.3 ** 2),
+         ("pi", 0.5, 1.0 / 12.0)]),
+    "gaussian_sparse": (
+        dict(seed=7, obs=Gaussian(a_eta=A_ETA, b_eta=B_ETA, eta_init=0.5),
+             net=_er(sigma_w=0.003, mu_bias=0.0, sigma_bias=0.1)),
+        [("bias", 0.0, 0.1 ** 2), ("A_density", 0.4, 0.24 / (N * N)),
+         ("eta", ETA_M, ETA_V)]),
+}
+
+
+def _new_case(name, n_iters, z_max):
+    kw, gates = NEW_CASES[name]
+    kw = dict(kw)
+    series = _chain(kw.pop("seed"), kw.pop("obs"), kw.pop("net"),
+                    n_iters=n_iters, **kw)
+    for key, mean, var in gates:
+        x = series[key][::THIN]
+        if key == "pi":
+            x = x[:, 0]
+        z = _z(x.mean(), mean, var, x.size)
+        assert z < z_max, (key, x.mean(), mean, z)
+    return series
+
+
+@pytest.mark.parametrize("name", list(NEW_CASES))
+def test_geweke_smoke_new_cases(name):
+    _new_case(name, 600, 6.0)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(NEW_CASES))
+def test_geweke_new_cases(name):
+    series = _new_case(name, N_ITERS, 5.0)
+    if name == "sbm":
+        # pi_0 ~ Beta(1, 1) stationary; the block-0 label fraction averages
+        # 1/2 by symmetry (sensitive to the self-edge term of the labels).
+        pi0 = series["pi"][::THIN][:, 0]
+        assert abs(pi0.var() / (1.0 / 12.0) - 1) < 0.35, pi0.var()
+        cf0 = series["c_frac"][::THIN][:, 0]
+        z = _z(cf0.mean(), 0.5, cf0.var() + 1e-12, cf0.size)
+        assert z < 5.0, (cf0.mean(), z)
+
+
+@pytest.mark.slow
+def test_sbm_labels_mix_alike_at_the_card_shape():
+    """At the card's Geweke shape (N=8, B=4, T=384) the SBM's labels mix
+    too slowly for test_geweke_sbm's gates, in the JAX package as in the
+    port: the same chain (1500 iterations, the test's prior) has a
+    block-0 label fraction with an autocorrelation time over 100 in both,
+    the port's within 2x of JAX's, and pi_0's variance ratio (1 under its
+    prior) within 0.25 of JAX's. So the card lane runs at the test's own
+    shape (chip_smoke.py::GW_LANES)."""
+    import jax
+    from pyglm_tpu.diagnostics.geweke import geweke_chain as jax_chain
+    from pyglm_tpu.models.networks import SBMConfig as JaxSBM
+    from pyglm_tpu.models.observations import Bernoulli as JaxBernoulli
+    n, b, t, iters = 8, 4, 384, 1500
+    kw = dict(K=2, a_rho=2.0, b_rho=3.0, alpha_pi=1.0, sigma_w=0.5,
+              niw_kappa0=1.0, mu_bias=-1.0, sigma_bias=0.3)
+    basis = cosine_basis(B=b, L=10)
+    sj = jax_chain(jax.random.key(14), JaxBernoulli(), JaxSBM(N=n, B=b, **kw),
+                   n, b, basis, t, spike_slab=True, n_iters=iters,
+                   seg_iters=250)
+    sp = geweke_chain(14, Bernoulli(), SBMConfig(N=n, B=b, **kw), n, b,
+                      basis, t, spike_slab=True, n_iters=iters,
+                      device="cpu")
+    tau = [tau_int(s["c_frac"][:, 0]) for s in (sj, sp)]
+    var = [12.0 * s["pi"][:, 0].var() for s in (sj, sp)]
+    print(f"block-0 fraction tau (JAX, port) {tau}; pi_0 variance ratio "
+          f"{var}")
+    assert min(tau) > 100 and tau[1] < 2 * tau[0], tau
+    assert abs(var[1] - var[0]) < 0.25, var

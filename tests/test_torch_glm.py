@@ -5,7 +5,9 @@ pyglm_tpu.SparseBernoulliGLM on the CPU (N=10, T=3000, B=4, L=10, G=5).
 (b) generation from the same state with JAX's uniforms injected: same Y;
 (c) both packages fit the same Y from the same initial state (50 burn-in +
     150 kept sweeps) and must agree on the posterior;
-(d) what the port does not run yet raises NotImplementedError.
+(d) configurations beyond the slice (dense sweeps, the Gaussian family,
+    the SBM prior) construct and run a sweep, and what the port does not
+    run yet (chain meshes) raises NotImplementedError.
 Every port model here is built with device="cpu".
 """
 import numpy as np
@@ -49,7 +51,7 @@ def _port_like(jm, seed):
     pm.state = state_from_numpy(np.asarray(s.A), np.asarray(s.W),
                                 np.asarray(s.b),
                                 tuple(np.asarray(x) for x in s.net),
-                                device="cpu")
+                                device="cpu", network=pm.network)
     return pm
 
 
@@ -106,6 +108,40 @@ def test_generate_matches_jax_with_injected_uniforms():
     np.testing.assert_array_equal(Y, np.asarray(Y_ref))
 
 
+# aten calls that only make views: no kernel runs for them.
+_VIEWS = {"select", "slice", "view", "unsqueeze", "squeeze", "squeeze_",
+          "permute", "t", "transpose", "expand", "as_strided", "alias",
+          "_unsafe_view", "detach", "reshape"}
+
+
+def test_generate_launches_ten_kernels_a_bin():
+    """A Bernoulli bin of the per-bin generation loop runs 10 kernels: the
+    two GEMMs, the bias add into psi's row, the draw (logistic's neg, exp,
+    add and reciprocal, the compare, the cast) and one copy into the
+    output. Counted as the aten calls that are not views, the calls of
+    T=20 bins less those of T=10, over 10."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Calls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func.__name__.split(".")[0] not in _VIEWS
+            return func(*args, **(kwargs or {}))
+
+    pm = pyglm_tpu_torch.SparseBernoulliGLM(N, B=B, L=L, seed=2,
+                                            device="cpu")
+    calls = []
+    for t in (10, 20):
+        with Calls() as c:
+            pm._generate(torch.Generator().manual_seed(0), pm.state,
+                         pm.basis, t)
+        calls.append(c.n)
+    assert (calls[1] - calls[0]) / 10 == 10, calls
+
+
 def test_posterior_agrees_with_jax():
     seed = 0
     truth, Y = _truth_and_data(seed)
@@ -134,8 +170,12 @@ def test_posterior_agrees_with_jax():
 def test_unported_configurations_raise(kw):
     cls = (pyglm_tpu_torch.NonlinearAutoregressiveModel
            if "spike_and_slab" in kw else pyglm_tpu_torch.SparseBernoulliGLM)
+    m = cls(N, B=B, L=L, device="cpu", **kw)
+    Y = (np.random.default_rng(0).random((600, N)) < 0.2).astype(np.float32)
+    m.add_data(Y)
+    assert np.isfinite(m.resample_model()["log_likelihood"])
     with pytest.raises(NotImplementedError):
-        cls(N, B=B, L=L, device="cpu", **kw)
+        m.fit_ensemble(n_chains=2, n_samples=4, mesh=object())
 
 
 def test_link_auc_matches_jax_metric():

@@ -52,7 +52,7 @@ def _pair(name):
     pm.state = state_from_numpy(np.asarray(s.A), np.asarray(s.W),
                                 np.asarray(s.b),
                                 tuple(np.asarray(x) for x in s.net),
-                                device="cpu", aux=aux)
+                                device="cpu", aux=aux, network=pm.network)
     pm.add_data(Y)
     return jm, pm, Y
 
@@ -81,7 +81,8 @@ def test_copy_sample_round_trips(network):
     snap = m.copy_sample()
     assert all(isinstance(snap[k], np.ndarray) for k in ("A", "W", "b"))
     back = state_from_numpy(snap["A"], snap["W"], snap["b"], snap["net"],
-                            device="cpu", aux=snap["aux"])
+                            device="cpu", aux=snap["aux"],
+                            network=m.network)
     for got, want in zip(back[:3], m.state[:3]):
         assert torch.equal(got, want)
     assert torch.equal(back.aux["r"], m.state.aux["r"])

@@ -41,7 +41,7 @@ def _pair():
     pm.state = state_from_numpy(np.asarray(s.A), np.asarray(s.W),
                                 np.asarray(s.b),
                                 tuple(np.asarray(x) for x in s.net),
-                                device="cpu")
+                                device="cpu", network=pm.network)
     pm.add_data(Y)
     return jm, pm, Y_test
 

@@ -199,7 +199,8 @@ def _port_like(jm, seed):
                                 np.asarray(s.b),
                                 tuple(np.asarray(x) for x in s.net),
                                 device="cpu",
-                                aux={"r": np.asarray(s.aux["r"])})
+                                aux={"r": np.asarray(s.aux["r"])},
+                                network=pm.network)
     return pm
 
 
@@ -299,7 +300,7 @@ def test_binomial_model_matches_jax_and_runs():
     pm.state = state_from_numpy(np.asarray(s.A), np.asarray(s.W),
                                 np.asarray(s.b),
                                 tuple(np.asarray(x) for x in s.net),
-                                device="cpu")
+                                device="cpu", network=pm.network)
     pm.add_data(Y)
     np.testing.assert_allclose(pm.log_likelihood(), jm.log_likelihood(),
                                rtol=1e-5)

@@ -3,9 +3,10 @@ numpy_ref.py) against the JAX package's original, and the port's import
 boundary.
 
 (a) With the same seeds and data, the copy gives bit-identical chains to
-    pyglm_tpu/reference/numpy_ref.py for 10 sweeps of the Bernoulli-ER, NB
-    and latent-distance configs of tests/test_numpy_parity.py (every state
-    field and the log-likelihood equal, not close);
+    pyglm_tpu/reference/numpy_ref.py for 10 sweeps of the Bernoulli-ER, NB,
+    latent-distance, dense-NIW, Gaussian and SBM configs of
+    tests/test_numpy_parity.py (every state field and the log-likelihood
+    equal, not close);
 (b) the copy imports no torch, and no module of pyglm_tpu_torch nor
     chip_smoke.py imports jax, pyglm_tpu or benchmarks (by the AST, so
     imports inside functions count too).
@@ -37,7 +38,22 @@ CONFIGS = {
         T=1500, kw=dict(rho=0.35, sigma_w=0.5, mu_b=-1.0, sigma_b=0.4,
                         network="latent_distance", dim=2, sigma_l=1.0,
                         sigma_gamma=2.0, niw_kappa0=1.0, niw_psi0=1.0)),
+    "dense_niw": dict(
+        T=1500, kw=dict(sigma_w=0.05, mu_b=-1.0, sigma_b=0.4,
+                        network="dense", niw_kappa0=1.0, niw_psi0=1.0)),
+    "gaussian": dict(
+        T=2000, kw=dict(rho=0.35, mu_w=0.0, sigma_w=0.05, mu_b=0.3,
+                        sigma_b=0.4, observation="gaussian", eta_init=1.0,
+                        a_eta=2.0, b_eta=1.0)),
+    "sbm": dict(
+        T=1500, kw=dict(rho=0.35, sigma_w=0.5, mu_b=-1.0, sigma_b=0.4,
+                        network="sbm", K=2, alpha_pi=1.0, a_rho=1.0,
+                        b_rho=1.0, niw_kappa0=1.0, niw_psi0=1.0)),
 }
+# The extra state fields each network keeps.
+NET_FIELDS = {"latent_distance": ["Lpos", "gamma", "mu_sh", "Sigma_sh"],
+              "dense_niw": ["mu_sh", "Sigma_sh"],
+              "sbm": ["c", "pi", "rho_blk", "mu_blk", "Sigma_blk"]}
 
 
 def _data(name, T):
@@ -45,6 +61,8 @@ def _data(name, T):
     if name == "negative_binomial":
         return np.minimum(rng.negative_binomial(2, 0.7, (T, 5)),
                           63).astype(np.float64)
+    if name == "gaussian":
+        return 0.3 + 0.6 * rng.standard_normal((T, 5))
     return (rng.random((T, 5)) < 0.25).astype(np.float64)
 
 
@@ -61,9 +79,7 @@ def test_copy_gives_bit_identical_chains(name):
     for _ in range(N_SWEEPS):
         a.resample(Y, Xa)
         b.resample(Y, Xb)
-    fields = ["A", "W", "b", "r", "eta"]
-    if name == "latent_distance":
-        fields += ["Lpos", "gamma", "mu_sh", "Sigma_sh"]
+    fields = ["A", "W", "b", "r", "eta"] + NET_FIELDS.get(name, [])
     for f in fields:
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
     assert a.log_likelihood(Y, Xa) == b.log_likelihood(Y, Xb)
