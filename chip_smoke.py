@@ -65,7 +65,18 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      GaussianGLM at config 1's shape; every class of the model surface
      (the default model, BernoulliGLM, GaussianGLM, SparseGaussianGLM,
      NegativeBinomialGLM, BinomialGLM, the SBM) through fit and
-     fit_ensemble at N=12.
+     fit_ensemble at N=12. Then, after the acceptance runs: parallel
+     tempering of config 5's model (fit_tempered, 8 rungs x 500 lanes,
+     T=20k, "high": a 20 + 20-sweep pilot sets the ladder, 10 tempered
+     sweeps timed, 2 profiled for the device busy time; K4 once, K6 once
+     and K3 50 times a tempered sweep), with K4 at the tempered shape
+     (20000, 4000), b the betas tiled, against pg_mean / pg_var per rung
+     and its plain version, at the run's ladder and at suggest_ladder's
+     floor (beta = 0.05), timed and bounded; the standalone regressions at
+     the NB flagship's size (the NB regression of its counts on the
+     previous bin's, T = 1e5, D_in = D_out = 200: K4 and K5; the Bernoulli
+     regression: K1) and pgdrawv at 2e7 draws (K1; K4); and exact resume
+     from a checkpoint at the flagship (two 5-sweep continuations equal).
   3. Correctness against references other than the port itself:
      - acceptance (pyglm_tpu_torch/acceptance.py): config 1 (dense,
        N=27), config 2 (NB, N=50), config 3 (N=100) and config 4 (SBM,
@@ -86,7 +97,10 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
        per-edge |z| < 5; pools of lane-stacked chains of the
        dense-NIW, Gaussian and SBM oracle configs of
        tests/test_numpy_parity.py against 8 oracle chains each, at those
-       tests' tolerances and a per-edge |z| < 5;
+       tests' tolerances and a per-edge |z| < 5; and the cold rungs of 64
+       tempering ladders (diagnostics/parity.py::tempered_pool: 256 rungs
+       as one tempered pass, the swaps drawn per ladder) held to the same
+       32 oracle chains at the same gates;
      - Geweke (tests/test_geweke_tpu.py's protocol: N=8, T=384, 4000
        iterations, 500 burn-in, n_eff by the autocorrelation time):
        Bernoulli at "high" and "sr", NB with the count table, Binomial,
@@ -145,6 +159,9 @@ FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
+# The regressions phase: resamples of the NB regression; the checkpoint
+# phase: sweeps after the save.
+REG_RESAMPLES, CK_SWEEPS = 3, 5
 # The special-function unit (log, exp, sqrt, reciprocal, sin, cos, atan):
 # 16 results per clock per SM on sm_90 (CUDA C++ Programming Guide,
 # arithmetic instruction throughput), x 132 SMs x the SM clock's maximum.
@@ -1886,10 +1903,10 @@ def phase_acceptance(check, record, ctx):
     return summary
 
 
-def phase_nb_slice(check, record):
+def phase_nb_slice(check, record, ctx):
     """The NB flagship (benchmarks/common.py) through the user entry points,
     and the launch counts of that run; then one dispersion update without
-    the count table, which runs K5."""
+    the count table, which runs K5. The counts are kept in ctx["nb_Y"]."""
     import numpy as np
     import torch
     from pyglm_tpu_torch import SparseNegativeBinomialGLM
@@ -1905,6 +1922,7 @@ def phase_nb_slice(check, record):
     Y = np.minimum(truth.generate(T, keep=False), 15.0)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
+    ctx["nb_Y"] = Y
     print(f"  generate: {gen_s:.2f} s, mean count {Y.mean():.4f}/bin, "
           f"{(Y > 0).mean():.4f} of bins nonzero, max {Y.max():.0f}, "
           f"{int(truth.A.sum())} true edges")
@@ -2605,6 +2623,343 @@ def phase_hmc_parity(check):
     check(lerr <= 1e-4 and gerr <= 1e-4,
           f"L max|diff| = {lerr:.2e}, gamma {gerr:.2e} (limit 1e-4)")
 
+# Parallel tempering at acceptance config 5's width (benchmarks/
+# config5_pt.py: N=500, T=20k, 8 rungs, "high"): the ladder from a pilot of
+# TP_PILOT + TP_PILOT sweeps, then TP_TIMED timed tempered sweeps and a
+# profiled run of TP_PROF. Each tempered sweep launches K4 once (PG(beta,
+# psi) over all 8 x 500 lanes), K6 once and K3 once per group (the staged
+# loop at 4000 lanes).
+TP_RUNGS, TP_PILOT, TP_TIMED, TP_PROF = 8, 20, 10, 2
+# K4 held to pg_mean / pg_var per rung at the tempered shape: |z| < TP_Z.
+TP_Z = 6.0
+# The cold rungs of PAR_C ladders (diagnostics/parity.py::tempered_pool) on
+# seeds of their own.
+TP_PAR_SEED0 = 501
+
+
+def _k4_tempered(check, b, psi, gen, label):
+    """K4 and its plain version at the tempered shape (T, C N) with b the
+    betas tiled over each rung's lanes: every draw finite and positive, and
+    per rung the sum's and the spread's z against pg_mean / pg_var (the
+    spread's standard error from the draws' own fourth moment), |z| < TP_Z,
+    and a two-sample KS test of kernel against plain on the rung's first
+    200k draws. Returns the largest |z|."""
+    import torch
+    from scipy.stats import ks_2samp
+    from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
+    from pyglm_tpu_torch.ops.polyagamma import (
+        pg_gamma_series_plain, pg_mean, pg_var)
+
+    draws = {"K4": pg_gamma_series_cuda(b, psi, 71, 0, normal_cutoff=170.0),
+             "plain": pg_gamma_series_plain(b, psi, gen, 170.0)}
+    torch.cuda.synchronize()
+    lanes = b.shape[1] // TP_RUNGS
+    worst, zs, ks_min = 0.0, [], 1.0
+    for name, om in draws.items():
+        check(bool(torch.isfinite(om).all() and (om > 0).all()),
+              f"{label}: {name} draws finite and positive")
+    for c in range(TP_RUNGS):
+        sl = slice(c * lanes, (c + 1) * lanes)
+        m = pg_mean(b[:, sl], psi[:, sl]).double()
+        v = pg_var(b[:, sl], psi[:, sl]).double()
+        row = []
+        for name, om in draws.items():
+            x = om[:, sl].double()
+            d2 = (x - m) ** 2
+            z_m = float((x.sum() - m.sum()) / v.sum().sqrt())
+            z_v = float((d2.sum() - v.sum()) / ((d2 - v) ** 2).sum().sqrt())
+            row += [round(z_m, 2), round(z_v, 2)]
+            worst = max(worst, abs(z_m), abs(z_v))
+        ks = ks_2samp(draws["K4"][:, sl].flatten()[:200_000].cpu().numpy(),
+                      draws["plain"][:, sl].flatten()[:200_000].cpu().numpy())
+        ks_min = min(ks_min, ks.pvalue)
+        zs.append((round(float(b[0, c * lanes]), 4), row,
+                   round(float(ks.pvalue), 4)))
+    print(f"  {label}: per rung (b, [z mean, z var] K4 then plain, KS p): "
+          f"{zs}")
+    check(worst < TP_Z, f"{label}: K4 and plain within {TP_Z:g} standard "
+          f"errors of pg_mean and pg_var on every rung (max |z| "
+          f"{worst:.2f})")
+    check(ks_min > KS_P_MIN, f"{label}: K4 vs plain KS p > {KS_P_MIN} on "
+          f"every rung (min {ks_min:.4f})")
+    return worst
+
+
+def phase_tempered_config5(check, record, ctx):
+    """fit_tempered on config 5's model (phase_config5's, on its data): the
+    pilot's sd(ll) and ladder, TP_TIMED timed tempered sweeps (chain-sweeps
+    per second on the host clock), the device busy time of a profiled run,
+    the launches per tempered sweep; then K4 at the tempered shape against
+    its plain version in law, at the run's ladder and at the widest ladder
+    suggest_ladder gives (its floor, beta = 0.05), timed and bounded."""
+    import warnings
+    import numpy as np
+    import torch
+    from pyglm_tpu_torch.diagnostics.timing import device_ms
+    from pyglm_tpu_torch.models import tempering, weights
+    from pyglm_tpu_torch.models.ensemble import lane_inputs, unstack_states
+    from pyglm_tpu_torch.ops import _build
+    from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
+    from pyglm_tpu_torch.ops.polyagamma import pg_gamma_series_plain
+
+    model = ctx["model"]
+    n_groups = N5 // model.group
+    print(f"tempered config 5: fit_tempered, {TP_RUNGS} rungs x {N5} lanes, "
+          f"T={T5}, precision={model.precision!r}; pilot {TP_PILOT} + "
+          f"{TP_PILOT} sweeps", flush=True)
+
+    def run(**kw):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as warns:
+            warnings.simplefilter("always")
+            out = model.fit_tempered(n_rungs=TP_RUNGS, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        _add_launches(record, launches)
+        for w in warns:
+            print(f"  warning: {str(w.message)[:160]}")
+        ok = (np.isfinite(out["lls"]).all() and np.isfinite(out["A"]).all()
+              and np.isfinite(out["W"]).all()
+              and np.isfinite(out["bias"]).all())
+        rates = out["swap_rate"]
+        check(bool(ok) and out["A"].shape[1:] == (N5, N5),
+              "tempered outputs finite, shapes right")
+        check(bool(np.all((rates >= 0) & (rates <= 1))),
+              f"swap rates in [0, 1]: {np.round(rates, 3).tolist()}")
+        return out, dt, launches
+
+    out, pilot_s, _ = run(n_samples=2, pilot_sweeps=TP_PILOT)
+    betas, sd_ll = out["betas"], out["sd_ll"]
+    print(f"  pilot and 2 tempered sweeps: {pilot_s:.2f} s; sd(ll) "
+          f"{sd_ll:.2f}; betas {np.round(betas, 5).tolist()}; span "
+          f"{out['ladder_span']:.5f}")
+    check(math.isfinite(sd_ll) and sd_ll > 0 and betas[-1] == 1.0,
+          "pilot: sd(ll) finite, ladder ends at 1")
+
+    out, dt, launches = run(n_samples=TP_TIMED, betas=betas)
+    cs = TP_RUNGS * TP_TIMED / dt
+    print(f"  {TP_TIMED} tempered sweeps in {dt:.3f} s = "
+          f"{TP_TIMED / dt:.4f} sweeps/s = {cs:.3f} chain-sweeps/s; swap "
+          f"rate {np.round(out['swap_rate'], 3).tolist()}; cold lls "
+          f"{[round(float(x), 1) for x in out['lls'][-3:]]}; launches "
+          f"{launches}")
+    check(weights.LAST_SS_PATH == "staged",
+          f"the tempered sweep ran the staged loop ({weights.LAST_SS_PATH})")
+    check(launches["pg_gamma_series"] == TP_TIMED,
+          f"K4 launched once per tempered sweep "
+          f"({launches['pg_gamma_series']} for {TP_TIMED})")
+    check(launches["group_gram"] == TP_TIMED,
+          f"K6 launched once per tempered sweep ({launches['group_gram']})")
+    check(launches["ss_edge_scan"] == TP_TIMED * n_groups,
+          f"K3 launched {n_groups} times per tempered sweep "
+          f"({launches['ss_edge_scan']})")
+    check(launches["pg_devroye"] == 0 and launches["ss_group_pass"] == 0,
+          "K1 and K2 not launched by the tempered sweep")
+
+    kern = device_ms(lambda: model.fit_tempered(
+        n_samples=TP_PROF, betas=betas, n_rungs=TP_RUNGS), 1)
+    busy = sum(kern.values()) / TP_PROF
+    wall = 1e3 * dt / TP_TIMED
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  device busy {busy:.2f} ms per tempered sweep of {wall:.2f} ms "
+          f"(host clock): idle share {1 - busy / wall:.3f}; top kernels "
+          + "; ".join(f"{k[:40]} {v / TP_PROF:.2f}" for k, v in top))
+
+    # K4 at the tempered shape, psi of the rungs' prior draws.
+    st = tempering.init_tempered_states(model, betas)
+    w, _ = lane_inputs(model.network, unstack_states(st, TP_RUNGS))
+    psi = (model.datas[0].Xf @ w).contiguous()
+    del st, w
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # the clamp, asked for here
+        floor, _ = tempering.suggest_ladder(1e-3, TP_RUNGS)
+    res = {}
+    for label, lad in (("run ladder", betas), ("floor ladder", floor)):
+        b = torch.tensor(np.repeat(lad, N5), dtype=torch.float32,
+                         device="cuda")[None].expand(T5, -1).contiguous()
+        zmax = _k4_tempered(check, b, psi, gen, f"K4 {label}")
+        ms = event_ms(lambda: pg_gamma_series_cuda(
+            b, psi, 3, 0, normal_cutoff=170.0), 10)
+        res[label] = dict(ms=ms, max_z=zmax, betas=[float(x) for x in lad])
+        print(f"  K4 at ({T5}, {TP_RUNGS * N5}), {label}: {ms:.3f} ms",
+              flush=True)
+    # The run ladder's K4 against its plain version and its bound: b and
+    # psi in, omega out, and the special-function work the law needs.
+    b = torch.tensor(np.repeat(betas, N5), dtype=torch.float32,
+                     device="cuda")[None].expand(T5, -1).contiguous()
+    plain_ms = event_ms(lambda: pg_gamma_series_plain(b, psi, gen, 170.0), 2)
+    (law_ops, _), rate = k4_sfu_ops(b, psi, 170.0), sfu_rate()
+    kb = bound(3 * 4 * b.numel(), (law_ops, rate))
+    print(f"  run ladder: plain {plain_ms:.3f} ms, bound "
+          f"{kb['bound_ms']:.4f} ms ({kb['bound_by']})")
+    res["run ladder"].update(plain_ms=plain_ms, **kb)
+    record["pg_gamma_series"].update(
+        tempered_shape=[T5, TP_RUNGS * N5],
+        tempered_ms=res["run ladder"]["ms"], tempered_plain_ms=plain_ms,
+        tempered_bound_ms=kb["bound_ms"], tempered_bound_by=kb["bound_by"],
+        tempered_floor_ms=res["floor ladder"]["ms"],
+        tempered_max_z=max(v["max_z"] for v in res.values()))
+    return {"tp_sd_ll": sd_ll, "tp_betas": [float(x) for x in betas],
+            "tp_span": out["ladder_span"], "tp_pilot_s": pilot_s,
+            "tp_sweeps_per_s": TP_TIMED / dt, "tp_chain_sweeps_per_s": cs,
+            "tp_busy_ms": busy, "tp_wall_ms": wall,
+            "tp_idle_share": 1 - busy / wall,
+            "tp_swap_rate": [float(x) for x in out["swap_rate"]],
+            "tp_k4": res}
+
+
+def phase_tempered_parity(check, ctx):
+    """The cold rungs of PAR_C ladders of parity.TEMPER_BETAS, run as one
+    tempered pass of PAR_C x 4 rungs on the chain-parity data; the pool is
+    added to ctx["par_pools"], so that phase_oracle_parity holds it to the
+    oracle's chains with the gates of the other pools."""
+    import numpy as np
+    from pyglm_tpu_torch.diagnostics import parity as par
+
+    C = len(par.TEMPER_BETAS)
+    print(f"tempered parity: {par.PAR_C} ladders of {par.TEMPER_BETAS} as "
+          f"one pass of {par.PAR_C * C} rungs, {par.PAR_BURN} + "
+          f"{par.PAR_KEEP} sweeps", flush=True)
+    t0 = time.perf_counter()
+    pool, rates, path = par.tempered_pool(ctx["par_Y"], TP_PAR_SEED0)
+    dt = time.perf_counter() - t0
+    r = par.pool_compare(pool, ctx["par_pools"]["high"])
+    print(f"  {dt:.1f} s; loop {path}; swap rates "
+          f"{np.round(rates, 3).tolist()}; against the 'high' pool: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in r.items()))
+    check(bool(np.all((rates >= 0) & (rates <= 1)) and rates.min() > 0.05),
+          "every rung swaps, rates in [0, 1]")
+    check(all(np.isfinite(v).all() for v in pool.values()),
+          "cold-rung means finite")
+    ctx["par_pools"]["tempered_cold"] = pool
+    return {"tempered_parity_s": dt,
+            "tempered_parity_swap_rate": [float(x) for x in rates]}
+
+
+def phase_regressions(check, record, ctx):
+    """The standalone regressions at a size users would call real: the NB
+    regression of the NB flagship's counts (T = 1e5, D_out = 200) on the
+    previous bin's counts (D_in = 200), REG_RESAMPLES resamples (K4 and K5
+    each once a resample); the Bernoulli regression of whether each neuron
+    fired on the same covariates (K1); and pgdrawv at 2e7 draws, all-ones
+    (K1) and b = y + 4 (K4), each held to pg_mean."""
+    import numpy as np
+    import torch
+    from pyglm_tpu_torch import (
+        BernoulliRegression, NegativeBinomialRegression, PyPolyaGamma)
+    from pyglm_tpu_torch.ops import _build
+    from pyglm_tpu_torch.ops.polyagamma import pg_mean, pg_var
+
+    Yc = torch.as_tensor(ctx["nb_Y"], dtype=torch.float32, device="cuda")
+    X, y = Yc[:-1], Yc[1:]
+    prior = dict(sigmasq_A=0.01, mu_b=-2.0, seed=0, device="cuda")
+    out = {}
+
+    def window(label, fn, want):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        _add_launches(record, launches)
+        ran = {k: v for k, v in launches.items() if v}
+        print(f"  {label}: {dt:.3f} s, launches {ran}", flush=True)
+        check(ran == want, f"{label}: launches {want}")
+        out[f"{label}_s"] = dt
+        return res
+
+    print(f"regressions: NB regression T={X.shape[0]}, D_in={N}, "
+          f"D_out={N}; Bernoulli regression; pgdrawv at 2e7", flush=True)
+    nb = NegativeBinomialRegression(N, N, max_y=16, **prior)
+
+    def nb_fit():
+        for _ in range(REG_RESAMPLES):
+            nb.resample((X, y))
+        return nb.log_likelihood((X, y))
+    ll = window("nb_regression", nb_fit,
+                {"pg_gamma_series": REG_RESAMPLES,
+                 "crt_sample": REG_RESAMPLES})
+    print(f"    r mean {nb.r.mean():.4f} range [{nb.r.min():.4f}, "
+          f"{nb.r.max():.4f}]; sum log-likelihood {ll.sum():.1f}")
+    check(np.isfinite(nb.A).all() and np.isfinite(nb.b).all()
+          and np.all(nb.r >= 1e-3) and np.isfinite(ll).all(),
+          "NB regression: A, b, r and log-likelihood finite")
+
+    br = BernoulliRegression(N, N, **prior)
+    yb = (y > 0).to(torch.float32)
+
+    def b_fit():
+        for _ in range(2):
+            br.resample((X, yb))
+        return br.log_likelihood((X, yb))
+    ll = window("bernoulli_regression", b_fit, {"pg_devroye": 2})
+    check(np.isfinite(br.A).all() and np.isfinite(ll).all(),
+          "Bernoulli regression: A and log-likelihood finite")
+
+    n = 20_000_000
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    zs = (2.0 * torch.randn(n, generator=gen, device="cuda")).cpu().numpy()
+    for label, ns, want in (
+            ("pgdrawv_ones", np.ones(n, np.float32), {"pg_devroye": 1}),
+            ("pgdrawv_counts", Yc.flatten().cpu().numpy() + 4.0,
+             {"pg_gamma_series": 1})):
+        ppg = PyPolyaGamma(3, device="cuda")
+        res = window(label, lambda: ppg.pgdrawv(ns, zs), want)
+        bt, ct = torch.as_tensor(ns), torch.as_tensor(zs)
+        z = float((torch.as_tensor(res).double().sum()
+                   - pg_mean(bt, ct).double().sum())
+                  / pg_var(bt, ct).double().sum().sqrt())
+        check(res.shape == (n,) and np.isfinite(res).all()
+              and (res > 0).all() and abs(z) < 6.0,
+              f"{label}: {n} draws finite, positive, sum within 6 standard "
+              f"errors of pg_mean (z {z:.2f})")
+    return {"reg": out}
+
+
+def phase_checkpoint(check, record, ctx):
+    """Exact resume on the card at the flagship at "high": 2 sweeps, save,
+    CK_SWEEPS more; a model of another seed loads the file and runs
+    CK_SWEEPS: A, W and b torch.equal to the first run's."""
+    import tempfile
+    import torch
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.ops import _build
+    from pyglm_tpu_torch.utils.checkpoint import load_state, save_state
+
+    print(f"checkpoint: the flagship at 'high', 2 + {CK_SWEEPS} sweeps, "
+          f"resume for {CK_SWEEPS}", flush=True)
+    models = [SparseBernoulliGLM(N, B=B, L=L, seed=s, precision="high",
+                                 device="cuda") for s in (0, 1)]
+    for m in models:
+        m.add_data(ctx["flagship_Y"])
+    a, r = models
+    _build.reset_launches()
+    for _ in range(2):
+        a.resample_model()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "chain.npz")
+        save_state(path, a)
+        for _ in range(CK_SWEEPS):
+            a.resample_model()
+        load_state(path, r)
+    for _ in range(CK_SWEEPS):
+        r.resample_model()
+    torch.cuda.synchronize()
+    _add_launches(record, dict(_build.LAUNCHES))
+    same = {f: torch.equal(getattr(a.state, f), getattr(r.state, f))
+            for f in ("A", "W", "b")}
+    diff = {f: float((getattr(a.state, f) - getattr(r.state, f)).abs().max())
+            for f in same}
+    print(f"  resumed chain equal to the first: {same} (max |diff| {diff})")
+    check(all(same.values()), "resume from a checkpoint is bit-identical")
+    return {"checkpoint_equal": all(same.values())}
+
 
 def main() -> int:
     import torch
@@ -2656,7 +3011,8 @@ def main() -> int:
             phase_bf16_flagship(check, record, ctx, "default"))),
         ("bf16_flagship_sr", lambda: summary.update(
             phase_bf16_flagship(check, record, ctx, "sr"))),
-        ("nb_slice", lambda: summary.update(phase_nb_slice(check, record))),
+        ("nb_slice",
+         lambda: summary.update(phase_nb_slice(check, record, ctx))),
         ("config5", lambda: summary.update(phase_config5(check, record,
                                                          ctx))),
         ("config5_default", lambda: summary.update(phase_config5_default(
@@ -2670,9 +3026,17 @@ def main() -> int:
         ("acceptance",
          lambda: summary.update(phase_acceptance(check, record, ctx))),
         ("generation", lambda: summary.update(time_generation())),
+        ("tempered_config5", lambda: summary.update(
+            phase_tempered_config5(check, record, ctx))),
+        ("regressions",
+         lambda: summary.update(phase_regressions(check, record, ctx))),
+        ("checkpoint",
+         lambda: summary.update(phase_checkpoint(check, record, ctx))),
         ("oracle_start", lambda: start_oracle(ctx)),
         ("chain_parity",
          lambda: summary.update(phase_chain_parity(check, ctx))),
+        ("tempered_parity",
+         lambda: summary.update(phase_tempered_parity(check, ctx))),
         ("geweke_start", lambda: start_geweke(ctx)),
         ("config_parity", lambda: phase_config_parity(check, ctx)),
         ("small_parity", lambda: phase_small_parity(check)),

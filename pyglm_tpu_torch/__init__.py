@@ -27,14 +27,22 @@ passed:
                                      network="latent_distance")
     m.add_data(Y)
     m.fit_ensemble(n_chains=8, n_samples=100, collect="mean")
+    m.fit_tempered(n_samples=100, n_rungs=8)    # parallel tempering
+
+Beside the network GLM: checkpoints (``utils.checkpoint``), profiling
+(``diagnostics.profiling``), the standalone PG regressions
+(``models.regressions``), the conjugate Gaussian and linear regressions
+(``models.bayesian``), the stick-breaking transforms and the
+``pypolyagamma`` API surface (``compat``).
 """
 
 __version__ = "0.1.0"
 
 from pyglm_tpu_torch.ops.basis import cosine_basis, convolve_with_basis
 from pyglm_tpu_torch.ops.polyagamma import (
-    pg_draw_unit, pg_mean, pg_var, polya_gamma,
+    pg_devroye, pg_draw_unit, pg_gamma_series, pg_mean, pg_var, polya_gamma,
 )
+from pyglm_tpu_torch.ops.stick_breaking import pi_to_psi, psi_to_pi
 from pyglm_tpu_torch.models.glm import (
     GLM, BernoulliGLM, BinomialGLM, GaussianGLM, NegativeBinomialGLM,
     NonlinearAutoregressiveModel, SparseBernoulliGLM, SparseGaussianGLM,
@@ -43,10 +51,23 @@ from pyglm_tpu_torch.models.glm import (
 from pyglm_tpu_torch.models.observations import (
     Binomial, Gaussian, NegativeBinomial,
 )
+from pyglm_tpu_torch.models.regressions import (
+    BernoulliRegression, BinomialRegression, MultinomialRegression,
+    NegativeBinomialRegression,
+)
+from pyglm_tpu_torch.models.bayesian import DiagonalRegression, Regression
+from pyglm_tpu_torch.models.tempering import suggest_ladder
+from pyglm_tpu_torch.compat.pypolyagamma import (
+    PyPolyaGamma, pgdrawv, pgdrawvpar,
+)
+from pyglm_tpu_torch.utils.checkpoint import load_state, save_state
+from pyglm_tpu_torch.diagnostics.profiling import sweep_breakdown
 
 __all__ = [
     "cosine_basis",
     "convolve_with_basis",
+    "pg_devroye",
+    "pg_gamma_series",
     "pg_draw_unit",
     "pg_mean",
     "pg_var",
@@ -63,4 +84,19 @@ __all__ = [
     "Binomial",
     "Gaussian",
     "NegativeBinomial",
+    "psi_to_pi",
+    "pi_to_psi",
+    "BernoulliRegression",
+    "BinomialRegression",
+    "NegativeBinomialRegression",
+    "MultinomialRegression",
+    "Regression",
+    "DiagonalRegression",
+    "suggest_ladder",
+    "PyPolyaGamma",
+    "pgdrawv",
+    "pgdrawvpar",
+    "save_state",
+    "load_state",
+    "sweep_breakdown",
 ]

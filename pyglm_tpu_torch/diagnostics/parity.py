@@ -61,6 +61,10 @@ PAR_PERM, PAR_PERM_Q, PAR_BAND_CAP = 10_000, 0.999, 0.22
 PAR_Z = 5.0
 PAR_NET = dict(rho_init=0.35, learn_rho=False, mu_bias=-1.2, sigma_bias=0.4,
                learn_weight_prior=False, sigma_w=0.8)
+# The ladder of the tempered pool (tempered_pool): suggest_ladder(7.77, 4)
+# rounded, 7.77 the sd of the log-likelihood over 300 sweeps (after 150)
+# of one chain on this data (CPU), so adjacent swaps accept ~0.3.
+TEMPER_BETAS = (0.43, 0.62, 0.81, 1.0)
 # Oracle chains per pool, and tests/test_numpy_parity.py's tolerances.
 ORC_C = 32
 ORC_TOL = {"max_edge_marginal_diff": 0.22, "max_weight_mean_diff": 0.35,
@@ -390,6 +394,61 @@ def config_gates(name: str, r: dict, z_max: float | None = None) -> bool:
     `z_max`, every edge marginal within z_max standard errors)."""
     ok = all(r[k] < tol for k, tol in ORACLE_CONFIGS[name].tol.items())
     return ok and (z_max is None or r["max_z"] < z_max)
+
+
+def tempered_pool(Y, s0: int, betas=TEMPER_BETAS, n_ladders: int = PAR_C,
+                  precision: str = "high", device="cuda"):
+    """The cold rungs of `n_ladders` tempering ladders (`betas`, ending at
+    1) at the pools' protocol, run as one tempered pass of n_ladders * C
+    rungs (``models/tempering.py``): the betas tiled over the ladders, the
+    swaps drawn per ladder by ``swap_permutation`` on the host generator,
+    each ladder's permutation applied to its own rungs. Rung c of ladder l
+    starts from ``ensemble_generators(s0 + l C + c)``. Returns (the cold
+    rungs' posterior means {"A", "W" (W_effective): (n_ladders, N, N),
+    "b": (n_ladders, N)} over PAR_KEEP sweeps after PAR_BURN, the swap
+    rates per rung (C,) over all ladders and sweeps, the loop that ran).
+    A harness of this module: the model API tempers one ladder."""
+    import torch
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import tempering as tm
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.ops.basis import cosine_basis
+    m = SparseBernoulliGLM(PAR_N, basis=cosine_basis(PAR_B, PAR_L), seed=0,
+                           net_kwargs=PAR_NET, precision=precision,
+                           device=device)
+    m.add_data(Y)
+    betas = np.asarray(betas, np.float64)
+    C = betas.shape[0]
+    R = n_ladders * C
+    tiled = np.tile(betas, n_ladders)
+    gibbs = tm._make_tempered_pass(m.observation, m.network, PAR_N, PAR_B,
+                                   torch.tensor(tiled), True, group=m.group,
+                                   precision=precision)
+    seeds = list(range(s0, s0 + R))
+    st = tm.init_tempered_states(m, tiled, seeds)
+    gens = tm.tempered_generators(seeds, m.device)
+    datas = tuple(m.datas)
+    cold = torch.arange(n_ladders, device=m.device) * C + C - 1
+    offset = torch.arange(n_ladders).repeat_interleave(C) * C
+    sums = {k: 0.0 for k in "AWb"}
+    acc, n_par1 = np.zeros(C), 0
+    for it in range(PAR_BURN + PAR_KEEP):
+        st, d = gibbs(gens, st, datas)
+        lls = d["log_likelihood"].cpu().reshape(n_ladders, C)
+        perms = []
+        for l in range(n_ladders):
+            p, a, parity = tm.swap_permutation(gens.host, lls[l], betas)
+            perms.append(p)
+            acc += a.numpy()
+            n_par1 += parity
+        st = tm.permute_states(st, torch.cat(perms) + offset)
+        if it >= PAR_BURN:
+            sums["A"] = sums["A"] + st.A[cold]
+            sums["W"] = sums["W"] + st.W[cold].sum(-1)
+            sums["b"] = sums["b"] + st.b[cold]
+    pool = {k: (v / PAR_KEEP).cpu().numpy() for k, v in sums.items()}
+    rates = tm.swap_rates(acc, n_ladders * (PAR_BURN + PAR_KEEP), n_par1)
+    return pool, rates, weights.LAST_SS_PATH
 
 
 def perm_band(a, b, seed: int = 0) -> float:

@@ -1,7 +1,7 @@
 """Where the time of one sweep goes on the card.
 
     python -m pyglm_tpu_torch.diagnostics.profile_sweep
-        [flagship|nb|ensemble|dense|sbm|gaussian]
+        [flagship|nb|ensemble|dense|sbm|gaussian|tempered]
         [--precision default|sr|high|highest]
 
 ``flagship``: SparseBernoulliGLM(200, B=4, L=10) on synthetic spikes at rate
@@ -23,9 +23,11 @@ acceptance config 4 (SBM prior, K=5, N=100) on its truth's T=40k bins,
 with the network resample and its label scan timed apart (host clock);
 ``gaussian``: SparseGaussianGLM(200, B=4, L=10) on T=100k bins of unit
 Gaussian noise (the staged loop on the cached group Gram); each timed as
-``flagship``. Every model, sweep and
-update runs at ``--precision`` ("high" by default, as the models). Needs a
-CUDA card.
+``flagship``. ``tempered``: config 5's model tempered (models/
+tempering.py), 8 rungs on the ladder of a 20 + 20-sweep pilot
+(fit_tempered's), 2 warm-up tempered sweeps, 3 timed, 2 traced. Every
+model, sweep and update runs at ``--precision`` ("high" by default, as
+the models). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -169,6 +171,39 @@ def ensemble(precision):
           f"{net_ms:.2f} ms")
 
 
+def tempered(precision):
+    import warnings
+    from pyglm_tpu_torch import NonlinearAutoregressiveModel
+    from pyglm_tpu_torch.models import tempering
+    N, T, C = 500, 20_000, 8
+    kw = dict(B=4, L=10, observation="bernoulli",
+              network="latent_distance", spike_and_slab=True)
+    truth = NonlinearAutoregressiveModel(
+        N, seed=5, net_kwargs=dict(dim=2, mu_bias=-3.0), **kw)
+    m = NonlinearAutoregressiveModel(N, seed=0, net_kwargs=dict(dim=2),
+                                     precision=precision, **kw)
+    m.add_data(truth.generate(T, keep=False))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")           # the NARROW ladder
+        betas = m.fit_tempered(n_samples=1, n_rungs=C,
+                               pilot_sweeps=20)["betas"]
+    sweep = tempering.make_tempered_sweep(
+        m.observation, m.network, N, 4, betas, group=m.group,
+        precision=precision)
+    box = [tempering.init_tempered_states(m, betas)]
+    gens = tempering.tempered_generators(range(1, C + 1), "cuda")
+    datas = tuple(m.datas)
+
+    def one():
+        box[0], _ = sweep(gens, box[0], datas)
+    for _ in range(2):
+        one()
+    untraced = _wall(one, 3)
+    traced, kernels = _trace(one, 2)
+    _report(f"tempered sweep ({C} rungs x {N}, betas "
+            f"{betas[0]:.4f}..1, {precision})", untraced, traced, kernels)
+
+
 def _fitted(name, precision):
     """Acceptance config `name`'s fitted model on its truth's bins."""
     from pyglm_tpu_torch import acceptance as acc
@@ -216,7 +251,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config", nargs="*",
                     choices=["flagship", "nb", "ensemble", "dense", "sbm",
-                             "gaussian"])
+                             "gaussian", "tempered"])
     ap.add_argument("--precision", default="high",
                     choices=["default", "sr", "high", "highest"])
     args = ap.parse_args()
@@ -228,8 +263,8 @@ def main():
                          text=True).stdout.strip())
     for c in args.config or ["flagship", "ensemble"]:
         {"flagship": flagship, "nb": nb, "ensemble": ensemble,
-         "dense": dense, "sbm": sbm,
-         "gaussian": gaussian}[c](args.precision)
+         "dense": dense, "sbm": sbm, "gaussian": gaussian,
+         "tempered": tempered}[c](args.precision)
 
 
 if __name__ == "__main__":

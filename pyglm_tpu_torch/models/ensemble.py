@@ -121,7 +121,7 @@ def lane_inputs(network, chains):
 
 def make_stacked_sweep(obs, network, N: int, B: int, C: int,
                        spike_slab: bool, group: int | None = None,
-                       precision: str = "highest"):
+                       precision: str = "highest", betas=None):
     """The C-chain lane-stacked sweep: (generators, stacked state, datas) ->
     (stacked state, diagnostics of shape (C,)): "log_likelihood",
     "n_edges", and "hmc_accept" for the latent-distance prior. The move
@@ -129,8 +129,17 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
     chain, the spike-and-slab update at `precision`, the dense one with J
     over the C*N lanes. The observation's ll cache and the Gaussian's
     cached Grams are not used (as in the JAX package): NB's r update takes
-    its elementwise CRT branch, and a Gaussian family forms X' Omega X."""
+    its elementwise CRT branch, and a Gaussian family forms X' Omega X.
+
+    `betas` (C,), if given, tempers chain c to the beta_c-power posterior
+    (models/tempering.py): the family's ``tempered_omega_kappa`` replaces
+    ``omega_kappa`` over chain c's lanes, and nothing else changes. The
+    "log_likelihood" stays the untempered one, with psi recovered as
+    (kappa - u) / omega from the tempered kappa and omega. A family that
+    tempers resamples no aux (``tempering_blocker``)."""
     batched_net = isinstance(network, LatentDistanceConfig)
+    beta_lane = (None if betas is None else torch.as_tensor(
+        betas, dtype=torch.float32).repeat_interleave(N))       # (C*N,)
 
     @fp32_matmul()
     def sweep(gens: Generators, st: GLMState, datas):
@@ -143,7 +152,12 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
         Y_lane = Y.repeat(1, C)                                   # (T, C*N)
 
         psi = Xf @ w_lane
-        omega, kappa = obs.omega_kappa(gens.host, Y_lane, psi, aux_lane)
+        if beta_lane is None:
+            omega, kappa = obs.omega_kappa(gens.host, Y_lane, psi, aux_lane)
+        else:
+            omega, kappa = obs.tempered_omega_kappa(
+                gens.host, Y_lane, psi, aux_lane,
+                beta_lane.to(psi.device))
         if spike_slab:
             A_lane, w_lane, u, _ = resample_spike_slab_tspace(
                 gens.device, Xt, omega, kappa, psi, w_lane, hyp, B,

@@ -11,6 +11,7 @@ Randomness comes from the model's own generators, seeded from `seed`.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -22,7 +23,7 @@ from pyglm_tpu_torch.models.ensemble import (
 from pyglm_tpu_torch.models.networks import make_network
 from pyglm_tpu_torch.models.observations import make_observation
 from pyglm_tpu_torch.models.sweep import (
-    GLMData, GLMState, init_state_from_prior, make_generator,
+    GLMData, GLMState, Generators, init_state_from_prior, make_generator,
     make_gibbs_sweep, make_log_likelihood,
 )
 from pyglm_tpu_torch.models.weights import (
@@ -32,14 +33,7 @@ from pyglm_tpu_torch.models.weights import (
 from pyglm_tpu_torch.ops.basis import cosine_basis, design_matrix
 from pyglm_tpu_torch.utils.convert import state_to_numpy
 from pyglm_tpu_torch.utils.metrics import split_rhat
-from pyglm_tpu_torch.utils.utils import fp32_matmul, require_device
-
-
-def _as_f32(Y, device) -> torch.Tensor:
-    """A float32 tensor on `device` from a tensor or an array-like."""
-    if isinstance(Y, torch.Tensor):
-        return Y.to(device=device, dtype=torch.float32)
-    return torch.tensor(np.asarray(Y), dtype=torch.float32, device=device)
+from pyglm_tpu_torch.utils.utils import as_f32, fp32_matmul, require_device
 
 
 class NonlinearAutoregressiveModel:
@@ -133,7 +127,7 @@ class NonlinearAutoregressiveModel:
         Grams (K6 on one lane of ones, at the model's precision) for
         spike-and-slab, else the full Gram and X'Y (fp32).
         Raises ValueError if a count exceeds the family's `max_y`."""
-        Y = _as_f32(Y, self.device)
+        Y = as_f32(Y, self.device)
         if Y.ndim != 2 or Y.shape[1] != self.N:
             raise ValueError(f"expected (T, {self.N}) data, got "
                              f"{tuple(Y.shape)}")
@@ -207,7 +201,7 @@ class NonlinearAutoregressiveModel:
         if data is None:
             return float(sum(self._loglik(self.state, d)
                              for d in self.datas))
-        Y = _as_f32(data, self.device)
+        Y = as_f32(data, self.device)
         d = GLMData(Y=Y, Xf=design_matrix(Y, self.basis), Xt=None)
         return float(self._loglik(self.state, d))
 
@@ -268,26 +262,67 @@ class NonlinearAutoregressiveModel:
             if verbose and it % 10 == 0:
                 print(f"iter {it}: ll={diag['log_likelihood']:.1f} "
                       f"edges={diag['n_edges']:.0f}")
-        N, B = self.N, self.B
-        shapes = {"A": (0, N, N), "W": (0, N, N, B), "bias": (0, N),
-                  "lls": (0,)}
-        return {k: (np.asarray(v, np.float32) if v
-                    else np.zeros(shapes[k], np.float32))
+        empties = self._empties()
+        return {k: (np.asarray(v, np.float32) if v else empties[k])
                 for k, v in samples.items()}
+
+    def fit_compiled(self, n_samples: int = 100, n_burnin: int = 0,
+                     thin: int = 1, max_sweeps_per_launch: int = 250):
+        """:meth:`fit`'s chain with the samples kept on the device: the
+        same sweeps from the same generators, sample for sample, returning
+        the same dict. The samples of a segment of at most
+        `max_sweeps_per_launch` sweeps stay on the device and are copied
+        to the host once per segment, where :meth:`fit` copies every
+        sample. Each sweep is still launched from Python: capturing a
+        segment as one CUDA graph is later work (ROADMAP.md Queue A), and
+        nothing here is claimed faster than :meth:`fit`.
+
+        Raises ValueError if `thin` exceeds `max_sweeps_per_launch` (one
+        sample would span more than one segment). A burn-only call
+        returns correctly shaped empty arrays."""
+        if not self.datas:
+            raise RuntimeError("call add_data() or generate(keep=True) first")
+        cap = max(1, max_sweeps_per_launch)
+        if thin > cap:
+            raise ValueError(
+                f"thin={thin} exceeds max_sweeps_per_launch={cap}: one "
+                f"sample would span more than one segment; raise "
+                f"max_sweeps_per_launch")
+        datas = tuple(self.datas)
+
+        def sweep():
+            self.state, diag = self._sweep(self.generators, self.state, datas)
+            return diag
+
+        def sample(diag):
+            return {"A": self.state.A, "W": self.state.W,
+                    "bias": self.state.b, "lls": diag["log_likelihood"]}
+
+        return _segments(sweep, sample, n_samples, n_burnin, thin, cap,
+                         self._empties())
+
+    def _empties(self) -> dict:
+        N, B = self.N, self.B
+        return {"A": np.zeros((0, N, N), np.float32),
+                "W": np.zeros((0, N, N, B), np.float32),
+                "bias": np.zeros((0, N), np.float32),
+                "lls": np.zeros((0,), np.float32)}
 
     def fit_ensemble(self, n_chains: int = 4, n_samples: int = 100,
                      n_burnin: int = 0, thin: int = 1, seeds=None,
-                     stacked: bool | str = "auto", mesh=None,
-                     collect: str = "samples"):
+                     compiled: bool = True, stacked: bool | str = "auto",
+                     mesh=None, collect: str = "samples"):
         """Run `n_chains` Gibbs chains from fresh prior draws on the
         registered data, with split-R-hat over the pooled traces. Chain c
         draws from generators seeded from ``seeds[c]`` (default 1 .. C),
         salted so that it does not start from the prior draw of a model
         seeded ``seeds[c]`` (models/ensemble.py::ensemble_generators).
 
-        ``stacked`` ("auto" or True) runs the C chains as one lane-stacked
-        sweep at C*N postsyn lanes (models/ensemble.py); False runs
-        :meth:`fit` once per chain. ``mesh`` (chain meshes) is not ported.
+        ``stacked=True`` runs the C chains as one lane-stacked sweep at
+        C*N postsyn lanes (models/ensemble.py); False runs the chains one
+        after another, each by :meth:`fit_compiled` if ``compiled`` else
+        by :meth:`fit`. "auto" (the default) is ``compiled``, as in the
+        JAX package. ``mesh`` (chain meshes) is not ported.
 
         ``collect="samples"`` returns 'A' (C,S,N,N), 'W' (C,S,N,N,B),
         'bias' (C,S,N), 'lls' (C,S), 'rhat_edge' (N,N), 'rhat_bias' (N,)
@@ -306,7 +341,7 @@ class NonlinearAutoregressiveModel:
             raise ValueError(f"collect must be 'samples' or 'mean', got "
                              f"{collect!r}")
         if stacked == "auto":
-            stacked = True
+            stacked = compiled
         if collect == "mean" and not stacked:
             raise ValueError("collect='mean' accumulates in the lane-stacked "
                              "sweep; it needs stacked=True")
@@ -327,8 +362,9 @@ class NonlinearAutoregressiveModel:
                     self.state = init_state_from_prior(
                         self.generators, self.observation, self.network,
                         self.N, self.B, self.spike_and_slab, self.device)
-                    runs.append(self.fit(n_samples=n_samples,
-                                         n_burnin=n_burnin, thin=thin))
+                    fit = self.fit_compiled if compiled else self.fit
+                    runs.append(fit(n_samples=n_samples, n_burnin=n_burnin,
+                                    thin=thin))
             finally:
                 self.state, self.generators = state0, gens0
         if collect == "mean":
@@ -344,6 +380,169 @@ class NonlinearAutoregressiveModel:
         out["rhat_bias"] = split_rhat(out["bias"])
         out["rhat_ll"] = float(split_rhat(out["lls"][..., None])[0])
         return out
+
+    def fit_tempered(self, n_samples: int = 100, n_burnin: int = 0,
+                     thin: int = 1, n_rungs: int = 8, betas=None,
+                     accept: float = 0.3, pilot_sweeps: int = 200,
+                     seeds=None, max_sweeps_per_launch: int | None = None,
+                     mesh=None):
+        """Parallel-tempered Gibbs (models/tempering.py): a ladder of
+        inverse temperatures beta_1 < ... < beta_C = 1 run as one
+        lane-stacked sweep, with adjacent-rung replica-exchange swaps every
+        sweep. Rung c starts from a prior draw of
+        ``ensemble_generators(seeds[c])`` (default seeds 1 .. C).
+
+        Returns the cold (beta = 1) rung's thinned samples as
+        :meth:`fit_compiled` does ('A', 'W', 'bias', 'lls'), plus 'betas'
+        (C,); 'swap_rate' (C,), accepted swaps per attempt (interior rungs
+        attempt every sweep, the two ends on their parity only, counted
+        from the parity bits drawn); 'ladder_span' (beta_C - beta_1);
+        'sd_ll', the pilot's sd of the log-likelihood (None when `betas`
+        is given); and 'pilot_sweeps', the pilot's sweeps (a matched-budget
+        comparison counts them).
+
+        With ``betas=None`` a pilot (:meth:`fit_compiled`, `pilot_sweeps`
+        burn-in and as many kept) measures sd(ll) and
+        ``tempering.suggest_ladder`` spaces `n_rungs` rungs for adjacent
+        acceptance ~ `accept`; the model's state and generators are
+        restored after it, and a ladder narrower than 0.1 is warned about.
+        `betas` must be positive, strictly ascending and end at 1
+        (ValueError otherwise).
+
+        Samples of a segment of at most `max_sweeps_per_launch` sweeps
+        (default 250) stay on the device, as in :meth:`fit_compiled`
+        (ValueError if `thin` exceeds it). Supported for Bernoulli and
+        Binomial, NB with ``resample_r=False`` and the Gaussian with
+        ``resample_eta=False`` (ValueError otherwise). ``mesh`` (rungs over
+        several cards) raises NotImplementedError (ROADMAP.md Queue A,
+        item 15)."""
+        from pyglm_tpu_torch.models import tempering
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "fit_tempered(mesh=...) is not ported to pyglm_tpu_torch "
+                "yet (ROADMAP.md Queue A, item 15)")
+        if not self.datas:
+            raise RuntimeError("call add_data() or generate(keep=True) first")
+        cap = max(1, 250 if max_sweeps_per_launch is None
+                  else max_sweeps_per_launch)
+        if thin > cap:
+            raise ValueError(
+                f"thin={thin} exceeds max_sweeps_per_launch={cap}")
+        tempering._check_tempering(self.observation)
+
+        sd_ll, pilot_cost = None, 0
+        if betas is None:
+            state0, gens0 = self.state, _copy_generators(self.generators)
+            try:
+                pilot = self.fit_compiled(n_samples=pilot_sweeps,
+                                          n_burnin=pilot_sweeps,
+                                          max_sweeps_per_launch=cap)
+            finally:
+                self.state, self.generators = state0, gens0
+            sd_ll = float(np.std(pilot["lls"]))
+            betas, span = tempering.suggest_ladder(sd_ll, n_rungs,
+                                                   accept=accept)
+            pilot_cost = 2 * pilot_sweeps
+            if span < 0.1:
+                warnings.warn(
+                    f"fit_tempered: the acceptance-feasible ladder is "
+                    f"NARROW: {n_rungs} rungs span only "
+                    f"[{betas[0]:.4f}, 1] (sd(ll)={sd_ll:.1f} bounds the "
+                    f"swap-feasible rung gap at ~{span / (n_rungs - 1):.2e}"
+                    f"). Such a ladder still shortens the cold chain's "
+                    f"autocorrelation, but it has no rungs near a flat "
+                    f"beta~0.3 posterior: covering [0.3, 1] at this sd(ll) "
+                    f"would need "
+                    f"~{int(np.ceil(0.7 * (n_rungs - 1) / max(span, 1e-12)))}"
+                    f" rungs", stacklevel=2)
+        betas = np.asarray(betas, np.float64)
+        if betas.ndim != 1 or betas.shape[0] < 2:
+            raise ValueError(f"betas must be a vector of >= 2 rungs, got "
+                             f"shape {betas.shape}")
+        if not np.all(betas > 0):
+            raise ValueError(
+                f"betas must be positive (got min {betas.min():.4g}); "
+                f"suggest_ladder clamps its ladder to a positive floor")
+        if not np.all(np.diff(betas) > 0):
+            raise ValueError("betas must be strictly ascending")
+        if abs(betas[-1] - 1.0) > 1e-9:
+            raise ValueError(f"the cold rung must run at beta=1 (got "
+                             f"betas[-1]={betas[-1]!r})")
+        C = betas.shape[0]
+        seeds = list(range(1, C + 1) if seeds is None else seeds)
+        sweep = tempering.make_tempered_sweep(
+            self.observation, self.network, self.N, self.B, betas,
+            spike_slab=self.spike_and_slab, group=self.group,
+            precision=self.precision)
+        box = {"st": tempering.init_tempered_states(self, betas, seeds)}
+        gens = tempering.tempered_generators(seeds, self.device)
+        datas = tuple(self.datas)
+        tally = {"acc": torch.zeros(C, dtype=torch.float64), "sweeps": 0,
+                 "parity1": 0}
+        cold = C - 1
+
+        def step():
+            box["st"], diag = sweep(gens, box["st"], datas)
+            tally["acc"] += diag["swap_accept"]
+            tally["sweeps"] += 1
+            tally["parity1"] += diag["swap_parity"]
+            return diag
+
+        def sample(diag):
+            st = box["st"]
+            return {"A": st.A[cold], "W": st.W[cold], "bias": st.b[cold],
+                    "lls": diag["log_likelihood"][cold]}
+
+        res = _segments(step, sample, n_samples, n_burnin, thin, cap,
+                        self._empties())
+        res["swap_rate"] = tempering.swap_rates(
+            tally["acc"], tally["sweeps"], tally["parity1"])
+        res["betas"] = betas
+        res["ladder_span"] = float(betas[-1] - betas[0])
+        res["sd_ll"] = sd_ll
+        res["pilot_sweeps"] = pilot_cost
+        return res
+
+
+def _copy_generators(gens: Generators) -> Generators:
+    """Generators in the same state as `gens`, drawing apart from them."""
+    dev, host = torch.Generator(device=gens.device.device), torch.Generator()
+    dev.set_state(gens.device.get_state())
+    host.set_state(gens.host.get_state())
+    return Generators(dev, host)
+
+
+def _segments(sweep, sample, n_samples: int, n_burnin: int, thin: int,
+              cap: int, empties: dict) -> dict:
+    """`n_burnin` calls of sweep(), then `n_samples` samples, each
+    sample(diag) of the `thin`-th sweep after the last, as host arrays
+    stacked on a leading axis. A segment's samples (at most cap // thin of
+    them) are copied into tensors on the device as they come and to the
+    host once per segment. No samples: `empties`."""
+    for _ in range(n_burnin):
+        sweep()
+    out: dict = {}
+    left = n_samples
+    while left > 0:
+        c = min(left, max(1, cap // thin))
+        block = None
+        for i in range(c):
+            for _ in range(thin):
+                diag = sweep()
+            s = sample(diag)
+            if block is None:
+                block = {k: torch.empty((c,) + tuple(v.shape),
+                                        dtype=v.dtype, device=v.device)
+                         for k, v in s.items()}
+            for k, v in s.items():
+                block[k][i] = v
+        for k, v in block.items():
+            out.setdefault(k, []).append(v.cpu().numpy())
+        left -= c
+    if not out:
+        return dict(empties)
+    return {k: np.concatenate(v) for k, v in out.items()}
 
 
 GLM = NonlinearAutoregressiveModel

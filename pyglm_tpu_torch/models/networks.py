@@ -230,7 +230,10 @@ class ErdosRenyiConfig:
                  W) -> GaussianWeightsState:
         """rho ~ Beta(a + #edges, b + #non-edges), then (mu, Sigma) from the
         NIW posterior of the active weights; draws from the CPU generator
-        ``gens.host``."""
+        ``gens.host``. With both fixed it returns `state` and reads nothing
+        back from the device."""
+        if not (self.learn_rho or self.learn_weight_prior):
+            return state
         generator = gens.host
         n, xbar, S = _masked_stats(W, A)
         rho = state.rho

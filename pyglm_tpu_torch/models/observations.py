@@ -9,6 +9,14 @@ likelihood(psi) prop-to exp(kappa psi - omega psi^2 / 2): PG-augmented
 NB dispersion r by the Chinese-restaurant-table augmentation, the Gaussian
 noise variance eta by inverse-gamma conjugacy).
 
+Parallel tempering (models/tempering.py) asks each family for the
+auxiliaries of its beta-power likelihood L(psi)^beta, beta a per-lane
+(lanes,) vector: ``tempered_omega_kappa``. The power stays PG-conjugate
+with the shape scaled, b -> beta b, and kappa -> beta kappa (the
+Gaussian's precision scales by beta). ``tempering_blocker`` says why a
+family cannot temper with its current flags (a resampled likelihood
+auxiliary), or None.
+
 Generation (models/sweep.py) draws the psi-independent noise of all T bins
 at once with ``sample_noise`` and then each bin with
 ``sample(generator, psi_t, aux, noise_t)``; ``sample`` without noise draws
@@ -50,6 +58,12 @@ class _FamilyBase:
     def resample_aux(self, generator, aux, Y, psi, cache=None):
         return aux
 
+    def tempering_blocker(self):
+        """None if the family tempers exactly with its current flags, else
+        the reason: a resampled likelihood auxiliary (NB r, Gaussian eta),
+        whose conjugate update assumes the untempered likelihood."""
+        return None
+
 
 @dataclass(frozen=True)
 class Bernoulli(_FamilyBase):
@@ -59,6 +73,13 @@ class Bernoulli(_FamilyBase):
     def omega_kappa(self, generator: torch.Generator, Y, psi, aux):
         """omega ~ PG(1, psi) (kernel K1 on the card), kappa = y - 1/2."""
         return pg_draw_unit(psi, generator), Y - 0.5
+
+    def tempered_omega_kappa(self, generator, Y, psi, aux, beta):
+        """omega ~ PG(beta, psi) by the gamma series (kernel K4 on the
+        card: the shape is fractional), kappa = beta (y - 1/2)."""
+        b = torch.broadcast_to(beta[None, :], psi.shape)
+        omega = polya_gamma(b, psi, generator, method="real")
+        return omega, beta[None, :] * (Y - 0.5)
 
     def log_likelihood(self, Y, psi, aux):
         return Y * psi - softplus(psi)
@@ -97,6 +118,14 @@ class Binomial(_FamilyBase):
         b = torch.full_like(psi, float(self.n_trials))
         return (polya_gamma(b, psi, generator),
                 Y - 0.5 * self.n_trials)
+
+    def tempered_omega_kappa(self, generator, Y, psi, aux, beta):
+        """omega ~ PG(n beta, psi) by the gamma series (K4 on the card),
+        kappa = beta (y - n/2)."""
+        b = torch.broadcast_to(float(self.n_trials) * beta[None, :],
+                               psi.shape)
+        omega = polya_gamma(b, psi, generator, method="real")
+        return omega, beta[None, :] * (Y - 0.5 * self.n_trials)
 
     def log_likelihood(self, Y, psi, aux):
         n = float(self.n_trials)
@@ -143,6 +172,21 @@ class NegativeBinomial(_FamilyBase):
         r = aux["r"][None, :]
         omega = polya_gamma(Y + r, psi, generator, method="real")
         return omega, 0.5 * (Y - r)
+
+    def tempering_blocker(self):
+        if self.resample_r:
+            return ("NegativeBinomial with resample_r=True: the CRT r "
+                    "update assumes the untempered likelihood; construct "
+                    "with resample_r=False (fixed dispersion) to temper")
+        return None
+
+    def tempered_omega_kappa(self, generator, Y, psi, aux, beta):
+        """omega ~ PG(beta (y + r), psi) at fixed r (K4 on the card),
+        kappa = beta (y - r) / 2."""
+        r = aux["r"][None, :]
+        omega = polya_gamma(beta[None, :] * (Y + r), psi, generator,
+                            method="real")
+        return omega, beta[None, :] * 0.5 * (Y - r)
 
     def log_likelihood(self, Y, psi, aux):
         r = aux["r"][None, :]
@@ -256,6 +300,19 @@ class Gaussian(_FamilyBase):
         dense array), kappa = y/eta; draws nothing."""
         inv_eta = 1.0 / aux["eta"][None, :]
         return inv_eta.expand_as(Y).contiguous(), Y * inv_eta
+
+    def tempering_blocker(self):
+        if self.resample_eta:
+            return ("Gaussian with resample_eta=True: the inverse-gamma "
+                    "eta update assumes the untempered likelihood; "
+                    "construct with resample_eta=False to temper")
+        return None
+
+    def tempered_omega_kappa(self, generator, Y, psi, aux, beta):
+        """N(y | psi, eta)^beta is Gaussian with precision beta / eta:
+        omega and kappa scale by beta; draws nothing."""
+        om, ka = self.omega_kappa(generator, Y, psi, aux)
+        return beta[None, :] * om, beta[None, :] * ka
 
     def log_likelihood(self, Y, psi, aux):
         eta = aux["eta"][None, :]

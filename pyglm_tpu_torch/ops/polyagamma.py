@@ -9,14 +9,15 @@
   inverse-Gaussian proposals below t = 0.64, exponential above, and an
   alternating-series test with ``_N_SERIES`` terms. Where JAX masks the whole
   batch every round, this version redraws only the pending elements.
-- :func:`pg_draw_unit`: a CUDA tensor goes to the kernel, a CPU tensor to
-  the plain version.
+- :func:`pg_draw_unit` (also :data:`pg_devroye`): a CUDA tensor goes to the
+  kernel, a CPU tensor to the plain version.
 - :func:`pg_gamma_series_plain`: PG(b, c) for real b > 0 by the gamma
   series truncated at ``_GAMMA_K`` terms plus a three-moment shifted-gamma
   tail, the plain version of kernel ``csrc/pg_gamma.cu``; with a finite
   ``normal_cutoff`` it draws :func:`pg_normal_approx` where b >= cutoff.
 - :func:`polya_gamma`: the hybrid sampler, dispatching each element to one
-  regime (zero, normal approximation, gamma series, Devroye).
+  regime (zero, normal approximation, gamma series, Devroye);
+  :func:`pg_gamma_series`, the gamma series alone.
 
 PG(1, c) = J*(1, c/2) / 4;
 PG(b, c) = (1/(2 pi^2)) sum_k g_k / ((k-1/2)^2 + c^2/(4 pi^2)), g_k ~ Gamma(b).
@@ -260,6 +261,10 @@ def pg_draw_unit(c: torch.Tensor, generator: torch.Generator):
     return pg_devroye_plain(c, generator)
 
 
+# The JAX package's name of its exact PG(1, c) sampler.
+pg_devroye = pg_draw_unit
+
+
 # ---------------------------------------------------------------------------
 # Gamma-series sampler for general b > 0
 # ---------------------------------------------------------------------------
@@ -416,3 +421,10 @@ def polya_gamma(b, c, generator: torch.Generator, method: str = "auto"):
     rest = ~unit
     out[rest] = _gamma_or_normal(b[rest], c[rest], generator, cutoff)
     return out
+
+
+def pg_gamma_series(b, c, generator: torch.Generator):
+    """PG(b, c) by the gamma series wherever b > 0, 0 elsewhere (the JAX
+    package's ``pg_gamma_series``): kernel K4 for CUDA tensors, its plain
+    version for CPU tensors; ``polya_gamma(..., method="gamma")``."""
+    return polya_gamma(b, c, generator, method="gamma")

@@ -1,6 +1,7 @@
 """The port's copy of the f64 NumPy oracle of the Gibbs sweep.
 
-A copy, line for line, of ``NumpyGLMReference`` and the samplers it uses
+A copy, line for line, of ``NumpyGLMReference``,
+``NumpyMultinomialRegression`` and the samplers they use
 (exact Devroye PG(1, c), the gamma-series PG(b, c), CRT counts) from the
 JAX package's ``pyglm_tpu/reference/numpy_ref.py``. It is a copy on
 purpose: an oracle is only independent of the sampler under test while it
@@ -16,8 +17,8 @@ spike-and-slab update. It covers Bernoulli, negative-binomial, Gaussian and
 Binomial observations (Binomial's PG(n, c) as the exact n-fold Devroye
 convolution) under the Erdos-Renyi, SBM, latent-distance (random-walk
 Metropolis on the positions: another exact algorithm than the port's HMC)
-and dense networks. The stick-breaking multinomial oracle is not copied
-(ROADMAP.md Queue A, item 13).
+and dense networks; and ``NumpyMultinomialRegression``, the oracle of the
+stick-breaking multinomial regression (models/regressions.py).
 """
 from __future__ import annotations
 
@@ -556,3 +557,76 @@ class NumpyGLMReference:
             return float(np.sum(
                 logC + Y * psi - nt * np.logaddexp(0.0, psi)))
         return float(np.sum(Y * psi - np.logaddexp(0.0, psi)))
+
+
+class NumpyMultinomialRegression:
+    """f64 oracle for the stick-breaking multinomial PG regression
+    (seventh independent parity config, round 4).
+
+    Cross-checks models/regressions.py MultinomialRegression together with
+    the ops/stick_breaking.py transforms (reference analogs:
+    pypolyagamma/distributions.py MultinomialRegression +
+    pypolyagamma/utils.py N_vec/kappa_vec/psi_to_pi). The K-way counts
+    y_t decompose into K-1 dependent binomial stick subproblems with
+    trial counts N_k = total - sum_{j<k} y_j and kappa_k = y_k - N_k/2;
+    each admits the standard PG augmentation. The INTEGER-b PG
+    auxiliaries are drawn as exact N_k-fold Devroye convolutions — the
+    JAX side routes them through the integer-b gamma-series dispatch, so
+    the two samplers share no PG code path at all. Weight rows update by
+    per-dim conjugate MVN draws in f64 (the JAX side batches all K-1
+    dims through one vmapped Cholesky)."""
+
+    def __init__(self, K, D_in, mu_A=0.0, sigmasq_A=1.0, mu_b=0.0,
+                 sigmasq_b=1.0, seed=0):
+        self.K, self.D_in = int(K), int(D_in)
+        D_out, P = self.K - 1, self.D_in + 1
+        self.rng = np.random.RandomState(seed)
+        self.mu = np.full((D_out, P), float(mu_A))
+        self.mu[:, -1] = mu_b
+        self.lam = np.full((D_out, P), 1.0 / float(sigmasq_A))
+        self.lam[:, -1] = 1.0 / float(sigmasq_b)
+        w = self.mu + self.rng.randn(D_out, P) / np.sqrt(self.lam)
+        self.A, self.b = w[:, :-1].copy(), w[:, -1].copy()
+
+    @staticmethod
+    def _N_kappa(y):
+        """Stick trial counts and kappa (ops/stick_breaking.py analogs)."""
+        total = y.sum(-1, keepdims=True)
+        cum = np.cumsum(y, -1)
+        cum_excl = np.concatenate(
+            [np.zeros_like(cum[..., :1]), cum[..., :-1]], -1)
+        Nv = (total - cum_excl)[..., :-1]
+        return Nv, y[..., :-1] - 0.5 * Nv
+
+    def psi(self, X):
+        return X @ self.A.T + self.b
+
+    def pi(self, X):
+        """Stick-breaking map psi -> simplex (psi_to_pi analog, f64)."""
+        psi = self.psi(X)
+        sig = 1.0 / (1.0 + np.exp(-psi))
+        log_rem = np.cumsum(np.log1p(-sig), -1)
+        log_rem_excl = np.concatenate(
+            [np.zeros_like(log_rem[..., :1]), log_rem[..., :-1]], -1)
+        head = sig * np.exp(log_rem_excl)
+        return np.concatenate([head, np.exp(log_rem[..., -1:])], -1)
+
+    def resample(self, X, y):
+        T = X.shape[0]
+        Xb = np.concatenate([X, np.ones((T, 1))], 1)
+        psi = self.psi(X)
+        Nv, kap = self._N_kappa(np.asarray(y, np.float64))
+        omega = np.zeros_like(psi)
+        for i in range(int(Nv.max())):
+            m = Nv > i
+            if not m.any():
+                break
+            omega[m] += numpy_pg_devroye(self.rng, psi[m])
+        for k in range(self.K - 1):
+            J = (Xb * omega[:, k][:, None]).T @ Xb + np.diag(self.lam[k])
+            h = Xb.T @ kap[:, k] + self.lam[k] * self.mu[k]
+            mean = np.linalg.solve(J, h)
+            Lc = np.linalg.cholesky(J)
+            w = mean + np.linalg.solve(
+                Lc.T, self.rng.randn(self.D_in + 1))
+            self.A[k], self.b[k] = w[:-1], w[-1]

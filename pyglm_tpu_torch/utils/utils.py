@@ -59,6 +59,13 @@ def expand_cov(sigma, shape):
     return np.broadcast_to(cov, shape).copy()
 
 
+def as_f32(x, device) -> torch.Tensor:
+    """A float32 tensor on `device` from a tensor or an array-like."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
 def require_device(device) -> torch.device:
     """`device` as a torch.device; raises if it is a card and none is
     present, rather than running silently on the CPU."""

@@ -6,7 +6,8 @@ boundary.
     pyglm_tpu/reference/numpy_ref.py for 10 sweeps of the Bernoulli-ER, NB,
     latent-distance, dense-NIW, Gaussian and SBM configs of
     tests/test_numpy_parity.py (every state field and the log-likelihood
-    equal, not close);
+    equal, not close), and for 10 resamples of the stick-breaking
+    multinomial regression's oracle (A, b and pi equal);
 (b) the copy imports no torch, and no module of pyglm_tpu_torch nor
     chip_smoke.py imports jax, pyglm_tpu or benchmarks (by the AST, so
     imports inside functions count too).
@@ -85,6 +86,21 @@ def test_copy_gives_bit_identical_chains(name):
     assert a.log_likelihood(Y, Xa) == b.log_likelihood(Y, Xb)
     # The chain moved (10 sweeps are not a no-op).
     assert a.A.sum() > 0 and np.abs(a.W).sum() > 0
+
+
+def test_multinomial_copy_gives_bit_identical_chains():
+    rng = np.random.default_rng(12)
+    X = rng.standard_normal((300, 3))
+    Y = rng.multinomial(5, [0.2, 0.3, 0.1, 0.4], size=300).astype(np.float64)
+    a = jax_ref.NumpyMultinomialRegression(4, 3, seed=7)
+    b = port_ref.NumpyMultinomialRegression(4, 3, seed=7)
+    for _ in range(N_SWEEPS):
+        a.resample(X, Y)
+        b.resample(X, Y)
+    np.testing.assert_array_equal(a.A, b.A)
+    np.testing.assert_array_equal(a.b, b.b)
+    np.testing.assert_array_equal(a.pi(X), b.pi(X))
+    assert np.abs(a.A).sum() > 0
 
 
 def _imports(path):
