@@ -2961,6 +2961,444 @@ def phase_checkpoint(check, record, ctx):
     return {"checkpoint_equal": all(same.values())}
 
 
+# The mesh phases (parallel/sharding.py): SPMD ranks spawned on cuda:0 under
+# gloo (NCCL refuses two ranks on one card; gloo's collectives go through
+# the host), and one NCCL rank. Times of ranks that share one card are not
+# multi-GPU rates. The flagship update on each data mesh is held to the
+# unsharded update on the same omega and noise. On (1, 2), with no time
+# split, a rank's update does the unsharded update's work on its 100
+# lanes: A and w identical to the unsharded update run on those lanes
+# alone (K2 splits T by the lane count, so 100 lanes sum in another order
+# than all 200). On (2, 1), whose time ranks add their Grams in another
+# order, the differing edges and w are held to 10x the update's own
+# sensitivity to fp32 order (phase_staged_vs_fused's measure: the fused
+# loop on psi from a float64 product).
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_SWEEPS = 5
+# NB's r update on a mesh against the unsharded update on the same inputs
+# and generator state: the counts sum exactly, the rates over T = 100000
+# in another fp32 order.
+MESH_R_RTOL = 1e-5
+MESH_C5_BURN, MESH_C5_KEEP = 1, 4
+# A fixed ladder for the tempered chain mesh (no pilot): 8 rungs up to 1.
+MESH_TP_BETAS = (0.93, 0.94, 0.95, 0.96, 0.97, 0.98, 0.99, 1.0)
+MESH_PAR_SEED0 = 601
+
+
+def _mesh_update_case(model, mesh):
+    """The flagship's spike-and-slab update on `mesh` against the
+    unsharded update on the same omega (K1 on a seeded stream) and noise,
+    and the unsharded update's own sensitivity to float32 order (the fused
+    loop on psi from a float64 product): rank-local counts, summed by the
+    parent over lane ranks. Without a time split, also whether A and w
+    equal the unsharded update's on the rank's lanes alone. Shards
+    `model` on `mesh` on the way."""
+    import torch
+    from pyglm_tpu_torch.models.weights import (
+        SpikeSlabNoise, lane_hypers, pack_weights,
+        resample_spike_slab_tspace)
+    from pyglm_tpu_torch.ops.polyagamma import pg_draw_unit
+    from pyglm_tpu_torch.parallel.sharding import glm_shardings, shard_model
+    d, st = model.datas[0], model.state
+    w = pack_weights(st.A, st.W, st.b)
+    hyp = model.network.edge_hypers(st.net, "cuda")
+    psi = d.Xf @ w
+    omega = pg_draw_unit(psi, torch.Generator().manual_seed(78))
+    kappa = d.Y - 0.5
+    g = torch.Generator(device="cuda").manual_seed(77)
+    ng = N // G
+    noise = SpikeSlabNoise(
+        torch.rand((ng, G, N), generator=g, device="cuda"),
+        torch.randn((ng, G, N, B), generator=g, device="cuda"),
+        torch.randn((N,), generator=g, device="cuda"))
+
+    def update(**kw):
+        return resample_spike_slab_tspace(None, d.Xt, omega, kappa,
+                                          kw.pop("psi", psi), w, hyp, B,
+                                          group=G, noise=noise,
+                                          precision="high", **kw)[:2]
+    A_u, w_u = update(path="fused")
+    A_r, w_r = update(path="fused", psi=(d.Xf.double() @ w.double()).float())
+    lay = glm_shardings(mesh, T, N)
+    r, ln = lay.rows, lay.lanes
+    shard_model(model, mesh)
+    dl = model.datas[0]
+    A_s, w_s = resample_spike_slab_tspace(
+        None, dl.Xt, omega[r, ln].contiguous(), kappa[r, ln].contiguous(),
+        psi[r, ln].contiguous(), w[:, ln], lane_hypers(hyp, ln), B,
+        group=G, noise=noise, precision="high", mesh=mesh)[:2]
+    block_equal = None
+    if mesh.shape["time"] == 1:
+        # the unsharded update on this rank's lanes alone
+        A_b, w_b = resample_spike_slab_tspace(
+            None, d.Xt, omega[:, ln].contiguous(), kappa[:, ln].contiguous(),
+            psi[:, ln].contiguous(), w[:, ln], lane_hypers(hyp, ln), B,
+            group=G, noise=SpikeSlabNoise(noise.u_a[..., ln],
+                                          noise.eps[:, :, ln],
+                                          noise.bias[ln]),
+            precision="high", path="fused")[:2]
+        block_equal = bool(torch.equal(A_s, A_b) and torch.equal(w_s, w_b))
+
+    def diff(A1, w1, A2, w2):
+        """Edges that differ, and max |w1 - w2| on the lanes whose edges
+        all agree."""
+        same = ~(A1 != A2).any(0)
+        return int((A1 != A2).sum()), float((w1 - w2)[:, same].abs().max())
+    out = {"n_active": int(A_u[:, ln].sum()),
+           "w_max": float(w_u[:, ln].abs().max()),
+           "block_equal": block_equal}
+    for k, pair in (("diff", (A_s, w_s, A_u[:, ln], w_u[:, ln])),
+                    ("psi", (A_r[:, ln], w_r[:, ln], A_u[:, ln],
+                             w_u[:, ln]))):
+        out[f"n_{k}"], out[f"w_{k}"] = diff(*pair)
+    return out
+
+
+def _mesh_nb(Y):
+    """The NB flagship on a (2, 1) mesh: one sharded sweep (K4 on the
+    rank's tile; the r update reads the time-summed count table), then the
+    r update without the table (K5 on the rank's tile, the CRT sums summed
+    over "time" and the draw at full width) and with it, each against the
+    unsharded update on the whole Y and psi with the replicated generator
+    in the same state. Without the table the unsharded update is fed the
+    mesh's own CRT counts: each rank's tile drawn again from its shard
+    generator's state, gathered."""
+    import torch
+    from pyglm_tpu_torch import SparseNegativeBinomialGLM, make_mesh
+    from pyglm_tpu_torch.models import observations as O
+    from pyglm_tpu_torch.models.weights import pack_weights
+    from pyglm_tpu_torch.ops import _build
+    from pyglm_tpu_torch.parallel.sharding import (
+        all_gather, gather_tile, lane_shard)
+    mesh = make_mesh(2, 1)
+    model = SparseNegativeBinomialGLM(N, B=B, L=L, seed=0, obs_kwargs=NB_OBS,
+                                      device="cuda")
+    model.add_data(Y)
+    model.shard(mesh)
+    _build.reset_launches()
+    ll = model.resample_model()["log_likelihood"]
+    sweep = dict(_build.LAUNCHES)
+    obs, d, st = model.observation, model.datas[0], model.state
+    shard = lane_shard(mesh, N, model.generators.host)
+    psi = d.Xf @ pack_weights(st.A, st.W, st.b)
+    Yl = d.Y[:, shard.lanes].contiguous()
+    rep_state = model.generators.host.get_state()
+    crt_state = model.shard_generators.host.get_state()
+    _build.reset_launches()
+    r = obs.resample_aux(model.shard_generators.host, st.aux, Yl, psi,
+                         cache=None, shard=shard)["r"]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    # the unsharded updates (their K5 draw and the table's re-draw are
+    # comparison launches, after the counts were read)
+    r_full = all_gather(st.aux["r"], mesh, "neuron")
+    Y_full, psi_full = gather_tile(Yl, mesh), gather_tile(psi, mesh)
+    l_full = gather_tile(O.crt_sample(
+        Yl, st.aux["r"], obs.max_y,
+        torch.Generator().set_state(crt_state)), mesh)
+    saved, O.crt_sample = O.crt_sample, lambda *a: l_full
+    try:
+        r_u = obs.resample_aux(torch.Generator().set_state(rep_state),
+                               {"r": r_full}, Y_full, psi_full)["r"]
+    finally:
+        O.crt_sample = saved
+    shard.generator.set_state(rep_state)
+    r_t = obs.resample_aux(None, st.aux, Yl, psi, cache=d.llc,
+                           shard=shard)["r"]
+    r_tu = obs.resample_aux(torch.Generator().set_state(rep_state),
+                            {"r": r_full}, Y_full, psi_full,
+                            cache=obs.ll_cache(Y_full))["r"]
+    ln = shard.lanes
+    return {"ll": ll, "sweep": sweep, "r_update": launches,
+            "r": r.cpu(),
+            "r_rel": float((r / r_u[ln] - 1).abs().max()),
+            "r_table_rel": float((r_t / r_tu[ln] - 1).abs().max())}
+
+
+def mesh_rank(rank, world, paths):
+    """One rank of the mesh phase (2 ranks on cuda:0, gloo): the flagship
+    on each of MESH_SHAPES, then config 5's ensemble and its tempered
+    ladder on a chain mesh of 2. Returns what the parent checks."""
+    import numpy as np
+    import torch
+    from pyglm_tpu_torch import (
+        NonlinearAutoregressiveModel, SparseBernoulliGLM, make_chain_mesh,
+        make_mesh)
+    from pyglm_tpu_torch.models import weights
+    from pyglm_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    Y = np.load(paths["flagship"])
+    for shape in MESH_SHAPES:
+        mesh = make_mesh(*shape)
+        model = SparseBernoulliGLM(N, B=B, L=L, seed=0, device="cuda")
+        model.add_data(Y)
+        r = _mesh_update_case(model, mesh)
+        model.resample_model()                       # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        lls = [model.resample_model()["log_likelihood"]
+               for _ in range(MESH_SWEEPS)]
+        torch.cuda.synchronize()
+        r.update(sweep_s=(time.perf_counter() - t0) / MESH_SWEEPS, lls=lls,
+                 launches=dict(_build.LAUNCHES), path=weights.LAST_SS_PATH,
+                 collectives=dict(mesh.collectives))
+        out[shape] = r
+        del model
+        torch.cuda.empty_cache()
+    out["nb"] = _mesh_nb(np.load(paths["nb"]))
+    mesh = make_chain_mesh(2)
+    Y5 = np.load(paths["c5"])
+    kw = dict(B=B, L=L, observation="bernoulli", network="latent_distance",
+              spike_and_slab=True, device="cuda", precision="high",
+              net_kwargs=dict(dim=2))
+    model = NonlinearAutoregressiveModel(N5, seed=0, **kw)
+    model.add_data(Y5)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ens = model.fit_ensemble(n_chains=C5, n_burnin=MESH_C5_BURN,
+                             n_samples=MESH_C5_KEEP, mesh=mesh,
+                             collect="mean")
+    torch.cuda.synchronize()
+    out["c5"] = {"s": time.perf_counter() - t0, "lls": ens["lls"],
+                 "rhat_ll": ens["rhat_ll"], "path": weights.LAST_SS_PATH,
+                 "launches": dict(_build.LAUNCHES), "group": model.group}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tp = model.fit_tempered(n_samples=MESH_SWEEPS,
+                            betas=np.asarray(MESH_TP_BETAS), mesh=mesh)
+    torch.cuda.synchronize()
+    out["tempered"] = {"s": time.perf_counter() - t0, "lls": tp["lls"],
+                       "swap_rate": tp["swap_rate"],
+                       "launches": dict(_build.LAUNCHES),
+                       "path": weights.LAST_SS_PATH}
+    return out
+
+
+def nccl_rank(rank, world, paths):
+    """The flagship on a one-rank NCCL mesh: 2 sharded sweeps whose
+    collectives go through NCCL."""
+    import numpy as np
+    import torch
+    from pyglm_tpu_torch import SparseBernoulliGLM, make_mesh
+    from pyglm_tpu_torch.models import weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, 1)
+    model = SparseBernoulliGLM(N, B=B, L=L, seed=0, device="cuda")
+    model.add_data(np.load(paths["flagship"]))
+    model.shard(mesh)
+    t0 = time.perf_counter()
+    lls = [model.resample_model()["log_likelihood"] for _ in range(2)]
+    torch.cuda.synchronize()
+    return {"backend": mesh.backend, "collectives": dict(mesh.collectives),
+            "lls": lls, "path": weights.LAST_SS_PATH,
+            "s": time.perf_counter() - t0}
+
+
+def parity_rank(rank, world, paths, s0):
+    """One rank of the chain-data parity pool: PAR_C stacked chains through
+    fit_ensemble(mesh=make_chain_data_mesh(2, n_time=2))."""
+    import numpy as np
+    import torch
+    from pyglm_tpu_torch import make_chain_data_mesh
+    from pyglm_tpu_torch.diagnostics import parity as par
+    from pyglm_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_chain_data_mesh(2, n_time=2)
+    t0 = time.perf_counter()
+    pool, path = par.parity_pool(np.load(paths["par"]), "high", s0,
+                                 device="cuda", mesh=mesh)
+    return {"pool": pool, "path": path, "s": time.perf_counter() - t0,
+            "launches": dict(_build.LAUNCHES),
+            "collectives": dict(mesh.collectives)}
+
+
+def _save_arrays(d, **arrays):
+    """Each array as d/<name>.npy; returns {name: path}."""
+    import numpy as np
+    paths = {k: os.path.join(d, f"{k}.npy") for k in arrays}
+    for k, v in arrays.items():
+        np.save(paths[k], np.asarray(v))
+    return paths
+
+
+def phase_mesh(check, record, ctx):
+    """The sharded port on the card: (a) the flagship on the data meshes
+    (2, 1) and (1, 2), its update against the unsharded one and 5 timed
+    sharded sweeps with each rank's launches, and the NB flagship on
+    (2, 1): one sweep (K4), then its r update without its count table
+    (K5) and with it, each against the unsharded update on the same
+    inputs and generator state;
+    (b) config 5's ensemble of 8 chains on a chain mesh of 2 (1 + 4
+    sweeps, collect="mean"); (c) its tempered ladder of 8 rungs on that
+    mesh (5 sweeps, a fixed ladder); (d) the flagship on a one-rank NCCL
+    mesh. Ranks of (a)-(c) share cuda:0 under gloo; the data are the
+    flagship's, the NB flagship's and config 5's of the earlier phases,
+    passed as temporary .npy files."""
+    import tempfile
+    import numpy as np
+    import torch
+    from pyglm_tpu_torch.parallel.sharding import spawn
+
+    print("mesh: 2 ranks on cuda:0 (gloo), then 1 rank (nccl)", flush=True)
+    with tempfile.TemporaryDirectory(prefix="pyglm_mesh_") as d:
+        paths = _save_arrays(d, flagship=ctx["flagship_Y"], c5=ctx["c5_Y"],
+                             nb=ctx["nb_Y"])
+        t0 = time.perf_counter()
+        res = spawn(mesh_rank, 2, backend="gloo", device="cuda:0",
+                    args=(paths,), timeout_s=600)
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = spawn(nccl_rank, 1, backend="nccl", device="cuda:0",
+                     args=(paths,), timeout_s=300)[0]
+        nccl_s = time.perf_counter() - t0
+    ng = N // G
+    for shape in MESH_SHAPES:
+        rs = [r[shape] for r in res]
+        lane_ranks = rs if shape[1] > 1 else rs[:1]
+        n = {k: sum(r[k] for r in lane_ranks)
+             for k in ("n_diff", "n_psi", "n_active")}
+        w = {k: max(r[k] for r in rs)
+             for k in ("w_diff", "w_psi", "w_max")}
+        n_diff = n["n_diff"]
+        print(f"  flagship on {shape}: sharded vs unsharded update: "
+              f"{n_diff} edges differ (of {n['n_active']} active), w "
+              f"{w['w_diff']:.2e} on the agreeing lanes (max |w| "
+              f"{w['w_max']:.3f}); the update's own sensitivity to fp32 "
+              f"order (psi from float64): {n['n_psi']} edges, w "
+              f"{w['w_psi']:.2e}")
+        if shape[0] == 1:
+            check(all(r["block_equal"] for r in rs),
+                  f"{shape}: A and w identical to the unsharded update on "
+                  f"each rank's lanes alone")
+        else:
+            lim, w_lim = 10 * n["n_psi"], 10 * w["w_psi"]
+            check(n_diff <= lim and w["w_diff"] <= w_lim,
+                  f"{shape}: {n_diff} edges differ, limit {lim}; w "
+                  f"{w['w_diff']:.2e}, limit {w_lim:.2e} (10x the fused "
+                  f"update's own sensitivity to psi's fp32 order)")
+        for i, r in enumerate(rs):
+            L_ = r["launches"]
+            print(f"    rank {i}: {MESH_SWEEPS} sweeps, "
+                  f"{r['sweep_s'] * 1e3:.1f} ms a sweep (ranks share one "
+                  f"card); launches {L_}; "
+                  f"lls {[round(x, 1) for x in r['lls']]}; "
+                  f"{r['collectives']['gloo']} gloo collectives")
+            check(L_["pg_devroye"] == MESH_SWEEPS
+                  and L_["ss_group_pass"] == (ng + 1) * MESH_SWEEPS
+                  and L_["ss_edge_scan"] == ng * MESH_SWEEPS
+                  and L_["group_gram"] == 0,
+                  f"{shape} rank {i}: K1 1, K2 {ng + 1}, K3 {ng}, K6 0 a "
+                  f"sweep")
+            check(r["path"] == "mesh_fused", f"{shape} rank {i}: "
+                  f"LAST_SS_PATH {r['path']!r} == 'mesh_fused'")
+            check(all(math.isfinite(x) for x in r["lls"]),
+                  f"{shape} rank {i}: lls finite")
+            _add_launches(record, L_)
+        check(all(r["lls"] == rs[0]["lls"] for r in rs),
+              f"{shape}: every rank returns the same lls")
+    for i, r in enumerate(res):
+        nb = r["nb"]
+        print(f"  NB flagship on (2, 1), rank {i}: ll {nb['ll']:.1f}; sweep "
+              f"launches {nb['sweep']}; r update without the table: "
+              f"launches {nb['r_update']}, mean r {float(nb['r'].mean()):.4f}"
+              f"; against the unsharded update: max |r/r_u - 1| "
+              f"{nb['r_rel']:.2e} (K5), {nb['r_table_rel']:.2e} (the table)")
+        check(nb["sweep"]["pg_gamma_series"] == 1
+              and nb["sweep"]["crt_sample"] == 0
+              and nb["r_update"]["crt_sample"] == 1
+              and sum(nb["r_update"].values()) == 1,
+              f"NB on (2, 1) rank {i}: K4 once a sweep; K5 once in the r "
+              f"update without the table")
+        check(math.isfinite(nb["ll"]) and bool(torch.isfinite(nb["r"]).all()
+                                               and (nb["r"] > 0).all())
+              and torch.equal(nb["r"], res[0]["nb"]["r"]),
+              f"NB on (2, 1) rank {i}: r finite, positive, the same on "
+              f"every rank")
+        check(nb["r_rel"] <= MESH_R_RTOL and nb["r_table_rel"] <= MESH_R_RTOL,
+              f"NB on (2, 1) rank {i}: r without and with the table within "
+              f"rtol {MESH_R_RTOL:g} of the unsharded update on the same "
+              f"inputs and generator state")
+        _add_launches(record, nb["sweep"])
+        _add_launches(record, nb["r_update"])
+    n_sw = MESH_C5_BURN + MESH_C5_KEEP
+    for i, r in enumerate(res):
+        c5, tp = r["c5"], r["tempered"]
+        n5 = N5 // c5["group"]
+        print(f"  config 5 on a chain mesh of 2, rank {i}: {n_sw} sweeps of "
+              f"{C5 // 2} chains in {c5['s']:.2f} s (ranks share one card); "
+              f"launches {c5['launches']}; rhat_ll {c5['rhat_ll']:.3f}")
+        L_ = c5["launches"]
+        check(c5["path"] == "staged" and L_["group_gram"] == n_sw
+              and L_["pg_devroye"] == n_sw and L_["ss_group_pass"] == 0
+              and L_["ss_edge_scan"] == n5 * n_sw,
+              f"config 5 chain mesh rank {i}: the staged loop, K6 and K1 "
+              f"once and K3 {n5} times a sweep")
+        check(np.asarray(c5["lls"]).shape == (C5, MESH_C5_KEEP)
+              and np.isfinite(c5["lls"]).all()
+              and math.isfinite(c5["rhat_ll"]),
+              f"config 5 chain mesh rank {i}: lls and rhat finite")
+        _add_launches(record, L_)
+        L_ = tp["launches"]
+        print(f"  tempered config 5 on a chain mesh of 2, rank {i}: "
+              f"{MESH_SWEEPS} sweeps in {tp['s']:.2f} s; swap rates "
+              f"{np.round(tp['swap_rate'], 3).tolist()}; launches {L_}")
+        check(L_["pg_gamma_series"] == MESH_SWEEPS
+              and L_["group_gram"] == MESH_SWEEPS
+              and L_["ss_edge_scan"] == n5 * MESH_SWEEPS,
+              f"tempered chain mesh rank {i}: K4 and K6 once, K3 {n5} "
+              f"times a sweep")
+        check(bool(np.all((tp["swap_rate"] >= 0) & (tp["swap_rate"] <= 1)))
+              and np.isfinite(tp["lls"]).all(),
+              f"tempered chain mesh rank {i}: swap rates in [0, 1], the "
+              f"cold rung's lls finite")
+        _add_launches(record, L_)
+    print(f"  nccl: backend {nccl['backend']}, 2 sharded sweeps in "
+          f"{nccl['s']:.2f} s, {nccl['collectives']} collectives, lls "
+          f"{[round(x, 1) for x in nccl['lls']]}, loop {nccl['path']}")
+    check(nccl["backend"] == "nccl" and nccl["collectives"]["nccl"] > 0
+          and nccl["collectives"]["gloo"] == 0
+          and all(math.isfinite(x) for x in nccl["lls"])
+          and nccl["path"] == "mesh_fused",
+          "the one-rank NCCL mesh ran the sharded sweep through NCCL")
+    return {"mesh_gloo_s": gloo_s, "mesh_nccl_s": nccl_s,
+            "mesh_sweep_ms": {str(s): [r[s]["sweep_s"] * 1e3 for r in res]
+                              for s in MESH_SHAPES}}
+
+
+def phase_mesh_parity(check, ctx):
+    """PAR_C chains on the chain-parity data through
+    fit_ensemble(mesh=make_chain_data_mesh(2, n_time=2)) on 4 ranks
+    (cuda:0, gloo); the pool is added to ctx["par_pools"], so that
+    phase_oracle_parity holds it to the oracle's chains with the gates of
+    the other pools."""
+    import tempfile
+    import numpy as np
+    from pyglm_tpu_torch.diagnostics import parity as par
+    from pyglm_tpu_torch.parallel.sharding import spawn
+    print(f"mesh parity: {par.PAR_C} stacked chains on a chain-data mesh "
+          f"2 x 2 x 1 (4 ranks on cuda:0, gloo), {par.PAR_BURN} + "
+          f"{par.PAR_KEEP} sweeps", flush=True)
+    with tempfile.TemporaryDirectory(prefix="pyglm_mesh_") as d:
+        paths = _save_arrays(d, par=ctx["par_Y"])
+        t0 = time.perf_counter()
+        res = spawn(parity_rank, 4, backend="gloo", device="cuda:0",
+                    args=(paths, MESH_PAR_SEED0), timeout_s=900)
+        dt = time.perf_counter() - t0
+    pool = res[0]["pool"]
+    r = par.pool_compare(pool, ctx["par_pools"]["high"])
+    print(f"  {dt:.1f} s; loop {res[0]['path']}; rank seconds "
+          f"{[round(x['s'], 1) for x in res]}; against the 'high' pool: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in r.items()))
+    check(all(x["path"] == "mesh_fused" for x in res),
+          "every rank ran the mesh-fused loop")
+    check(all(all(np.array_equal(x["pool"][k], pool[k]) for k in pool)
+              for x in res), "every rank returns the same pool")
+    ctx["par_pools"]["chain_data_mesh"] = pool
+    return {"mesh_parity_s": dt}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3032,11 +3470,14 @@ def main() -> int:
          lambda: summary.update(phase_regressions(check, record, ctx))),
         ("checkpoint",
          lambda: summary.update(phase_checkpoint(check, record, ctx))),
+        ("mesh", lambda: summary.update(phase_mesh(check, record, ctx))),
         ("oracle_start", lambda: start_oracle(ctx)),
         ("chain_parity",
          lambda: summary.update(phase_chain_parity(check, ctx))),
         ("tempered_parity",
          lambda: summary.update(phase_tempered_parity(check, ctx))),
+        ("mesh_parity",
+         lambda: summary.update(phase_mesh_parity(check, ctx))),
         ("geweke_start", lambda: start_geweke(ctx)),
         ("config_parity", lambda: phase_config_parity(check, ctx)),
         ("small_parity", lambda: phase_small_parity(check)),

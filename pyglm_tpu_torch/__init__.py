@@ -29,6 +29,13 @@ passed:
     m.fit_ensemble(n_chains=8, n_samples=100, collect="mean")
     m.fit_tempered(n_samples=100, n_rungs=8)    # parallel tempering
 
+On several ranks (``torchrun`` or ``parallel.sharding.spawn``; every rank
+runs the same calls and gets the same results):
+
+    m.shard(make_mesh(n_time=2, n_neuron=2))    # one model, 4 ranks
+    m.fit_ensemble(n_chains=8, n_samples=100,
+                   mesh=make_chain_mesh(4))     # chains over 4 ranks
+
 Beside the network GLM: checkpoints (``utils.checkpoint``), profiling
 (``diagnostics.profiling``), the standalone PG regressions
 (``models.regressions``), the conjugate Gaussian and linear regressions
@@ -62,6 +69,12 @@ from pyglm_tpu_torch.compat.pypolyagamma import (
 )
 from pyglm_tpu_torch.utils.checkpoint import load_state, save_state
 from pyglm_tpu_torch.diagnostics.profiling import sweep_breakdown
+from pyglm_tpu_torch.parallel import (
+    glm_shardings, make_mesh, make_sharded_sweep, shard_model,
+)
+from pyglm_tpu_torch.parallel.sharding import (
+    best_mesh_for, make_chain_data_mesh, make_chain_mesh,
+)
 
 __all__ = [
     "cosine_basis",
@@ -99,4 +112,11 @@ __all__ = [
     "save_state",
     "load_state",
     "sweep_breakdown",
+    "make_mesh",
+    "glm_shardings",
+    "shard_model",
+    "make_sharded_sweep",
+    "make_chain_mesh",
+    "make_chain_data_mesh",
+    "best_mesh_for",
 ]

@@ -100,10 +100,12 @@ def parity_data(device="cuda"):
                               device=device).generate(PAR_T, keep=False)
 
 
-def parity_pool(Y, precision: str, s0: int, device="cuda"):
+def parity_pool(Y, precision: str, s0: int, device="cuda", mesh=None):
     """PAR_C lane-stacked chains at `precision` on seeds s0 .. s0+PAR_C-1:
     each chain's posterior means {"A", "W" (W_effective): (PAR_C, N, N),
-    "b": (PAR_C, N)}, and the loop that ran."""
+    "b": (PAR_C, N)}, and the loop that ran. With a chain or chain-data
+    `mesh`, every rank of it calls this and the chains run spread over the
+    ranks (``fit_ensemble(mesh=)``)."""
     from pyglm_tpu_torch import SparseBernoulliGLM
     from pyglm_tpu_torch.models import weights
     from pyglm_tpu_torch.ops.basis import cosine_basis
@@ -112,7 +114,8 @@ def parity_pool(Y, precision: str, s0: int, device="cuda"):
                            device=device)
     m.add_data(Y)
     out = m.fit_ensemble(n_chains=PAR_C, n_burnin=PAR_BURN,
-                         n_samples=PAR_KEEP, seeds=list(range(s0, s0 + PAR_C)))
+                         n_samples=PAR_KEEP, seeds=list(range(s0, s0 + PAR_C)),
+                         mesh=mesh)
     return ({"A": out["A"].mean(1), "W": out["W"].sum(-1).mean(1),
              "b": out["bias"].mean(1)}, weights.LAST_SS_PATH)
 

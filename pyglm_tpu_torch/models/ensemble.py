@@ -26,11 +26,11 @@ import torch
 
 from pyglm_tpu_torch.models.networks import LatentDistanceConfig
 from pyglm_tpu_torch.models.sweep import (
-    Generators, GLMState, concat_datas, init_state_from_prior,
+    Generators, GLMState, MeshGenerators, concat_datas, init_state_from_prior,
 )
 from pyglm_tpu_torch.models.weights import (
-    EdgeHypers, pack_weights, resample_dense, resample_spike_slab_tspace,
-    sufficient_stats, unpack_weights,
+    EdgeHypers, lane_hypers, pack_weights, resample_dense,
+    resample_spike_slab_tspace, sufficient_stats, unpack_weights,
 )
 from pyglm_tpu_torch.utils.utils import fp32_matmul
 
@@ -121,7 +121,7 @@ def lane_inputs(network, chains):
 
 def make_stacked_sweep(obs, network, N: int, B: int, C: int,
                        spike_slab: bool, group: int | None = None,
-                       precision: str = "highest", betas=None):
+                       precision: str = "highest", betas=None, mesh=None):
     """The C-chain lane-stacked sweep: (generators, stacked state, datas) ->
     (stacked state, diagnostics of shape (C,)): "log_likelihood",
     "n_edges", and "hmc_accept" for the latent-distance prior. The move
@@ -136,61 +136,191 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
     ``omega_kappa`` over chain c's lanes, and nothing else changes. The
     "log_likelihood" stays the untempered one, with psi recovered as
     (kappa - u) / omega from the tempered kappa and omega. A family that
-    tempers resamples no aux (``tempering_blocker``)."""
+    tempers resamples no aux (``tempering_blocker``).
+
+    With a ("chain", "time", "neuron") `mesh`
+    (:func:`make_stacked_sweep_gspmd`) it is one rank's sweep:
+    ``sweep(MeshGenerators, stacked state, local datas)``. The stacked
+    state is whole on every rank; the C*N lanes shard over ("chain",
+    "neuron") and the datas' rows over "time"
+    (:func:`chain_data_shardings`). The rank draws the PG variables of its
+    (rows, lanes) tile from its shard generators and runs the weight
+    update on the mesh (the mesh-fused K2 + K3 loop); the new lanes are
+    gathered, and the aux, the network resample and the swaps run
+    replicated from the replicated generators.
+    """
     batched_net = isinstance(network, LatentDistanceConfig)
     beta_lane = (None if betas is None else torch.as_tensor(
         betas, dtype=torch.float32).repeat_interleave(N))       # (C*N,)
+    on_dev = {}                  # constant index tensors, moved once
+
+    def on(name, x, device):
+        if name not in on_dev:
+            on_dev[name] = x.to(device)
+        return on_dev[name]
+    if mesh is not None:
+        from pyglm_tpu_torch.models.sweep import _concat_rows, mesh_rows
+        from pyglm_tpu_torch.models.weights import mesh_ss_path
+        from pyglm_tpu_torch.parallel.sharding import (
+            all_gather, lane_axes, lane_shard)
+        lane_sh = lane_shard(mesh, C * N)
+        lanes = lane_sh.lanes
+        cols = torch.arange(C * N)[lanes] % N      # each lane's neuron
+        LA = lane_axes(mesh)
+        if beta_lane is not None:
+            beta_lane = beta_lane[lanes]
 
     @fp32_matmul()
-    def sweep(gens: Generators, st: GLMState, datas):
+    def sweep(gens, st: GLMState, datas):
+        rep, pg_gen = (gens.replicated, gens.shard.host) if mesh is not None \
+            else (gens, gens.host)
         chains = unstack_states(st, C)
         w_lane, hyp = lane_inputs(network, chains)
         aux_lane = (None if st.aux is None else
                     {k: v.reshape(-1) for k, v in st.aux.items()})
-        Y, Xf, Xt = concat_datas(datas)      # datasets concatenate along time
-        T = Y.shape[0]
-        Y_lane = Y.repeat(1, C)                                   # (T, C*N)
+        if mesh is None:
+            Y, Xf, Xt = concat_datas(datas)  # datasets concatenate in time
+            Y_lane = Y.repeat(1, C)                               # (T, C*N)
+            shard = path = None
+        else:
+            Y, Xf, Xt = _concat_rows(mesh_rows(datas, mesh), N, N * B + 1,
+                                     w_lane.device)
+            Y_lane = Y[:, on("cols", cols, Y.device)]
+            w_lane = w_lane[:, lanes].contiguous()
+            hyp = lane_hypers(hyp, lanes)
+            if aux_lane is not None:
+                aux_lane = {k: v[lanes] for k, v in aux_lane.items()}
+            shard = lane_sh._replace(generator=rep.host)
+            path = mesh_ss_path(precision,
+                                whole_rows=any(d.whole for d in datas))
 
         psi = Xf @ w_lane
         if beta_lane is None:
-            omega, kappa = obs.omega_kappa(gens.host, Y_lane, psi, aux_lane)
+            omega, kappa = obs.omega_kappa(pg_gen, Y_lane, psi, aux_lane)
         else:
             omega, kappa = obs.tempered_omega_kappa(
-                gens.host, Y_lane, psi, aux_lane,
-                beta_lane.to(psi.device))
+                pg_gen, Y_lane, psi, aux_lane,
+                on("beta", beta_lane, psi.device))
         if spike_slab:
             A_lane, w_lane, u, _ = resample_spike_slab_tspace(
-                gens.device, Xt, omega, kappa, psi, w_lane, hyp, B,
-                group=group, precision=precision, host_generator=gens.host)
+                rep.device, Xt, omega, kappa, psi, w_lane, hyp, B,
+                group=group, precision=precision, host_generator=rep.host,
+                path=path, mesh=mesh)
             psi = (kappa - u) / omega
             del u
         else:
-            J, h = sufficient_stats(Xf, omega, kappa)
-            w_lane = resample_dense(gens.device, J, h, hyp, B)
-            A_lane = torch.ones((N, C * N), dtype=torch.float32,
+            J, h = sufficient_stats(Xf, omega, kappa, mesh=mesh)
+            eps = None
+            if mesh is not None:        # drawn at full width, as unsharded
+                eps = torch.randn((C * N, Xf.shape[1]), generator=rep.device,
+                                  device=psi.device)[lanes].contiguous()
+            w_lane = resample_dense(rep.device, J, h, hyp, B, eps=eps)
+            A_lane = torch.ones((N, w_lane.shape[1]), dtype=torch.float32,
                                 device=w_lane.device)
             psi = Xf @ w_lane
         del omega, kappa
+        aux_lane = obs.resample_aux(pg_gen, aux_lane, Y_lane, psi,
+                                    shard=shard)
+        ll_el = obs.log_likelihood(Y_lane, psi, aux_lane)
+        if mesh is None:
+            lls = ll_el.reshape(-1, C, N).sum(dim=(0, 2))
+        else:
+            lls = shard.full(ll_el.sum(0)).reshape(C, N).sum(1)
+            Aw = all_gather(torch.cat([A_lane, w_lane]), mesh, LA, dim=1)
+            A_lane, w_lane = Aw[:N], Aw[N:]
+            if aux_lane is not None:
+                aux_lane = {k: shard.gather(v) for k, v in aux_lane.items()}
 
         w_c = _from_lanes(w_lane, C)                              # (C, P, N)
         W, b = map(torch.stack, zip(*(unpack_weights(w, N, B) for w in w_c)))
         A = _from_lanes(A_lane, C).contiguous()                   # (C, N, N)
-        aux_lane = obs.resample_aux(gens.host, aux_lane, Y_lane, psi)
         aux = (None if aux_lane is None else
                {k: v.reshape(C, N) for k, v in aux_lane.items()})
         if batched_net:
-            net = network.resample(gens, st.net, A, W)
+            net = network.resample(rep, st.net, A, W)
         else:
-            net = _stack([network.resample(gens, s.net, A[c], W[c])
+            net = _stack([network.resample(rep, s.net, A[c], W[c])
                           for c, s in enumerate(chains)])
-        lls = obs.log_likelihood(Y_lane, psi, aux_lane).reshape(
-            T, C, N).sum(dim=(0, 2))
         diag = {"log_likelihood": lls, "n_edges": A.sum(dim=(1, 2))}
         if hasattr(net, "hmc_accept"):
             diag["hmc_accept"] = net.hmc_accept
         return GLMState(A, W, b, aux, net), diag
 
     return sweep
+
+
+def make_stacked_sweep_sharded(obs, network, N: int, B: int, C: int, mesh,
+                               spike_slab: bool, group: int | None = None,
+                               precision: str = "highest", betas=None):
+    """Chains spread over a ("chain",) mesh of M ranks: each rank runs the
+    ordinary stacked sweep for its C/M chains (betas, if given, its C/M
+    rungs') on the whole dataset, with no collectives: chains are
+    independent. The rank calls the returned sweep with its own generators
+    (salted by its chain index, :func:`chain_rank_generators`) on its
+    slice of the stacked state. ValueError unless M divides C."""
+    from pyglm_tpu_torch.parallel.sharding import CHAIN_AXES, require_mesh
+    require_mesh(mesh, CHAIN_AXES)
+    M = mesh.shape["chain"]
+    if C % M:
+        raise ValueError(f"n_chains={C} must be divisible by the chain mesh "
+                         f"size {M}")
+    c = slice(mesh.index("chain") * (C // M), (mesh.index("chain") + 1)
+              * (C // M))
+    return make_stacked_sweep(obs, network, N, B, C // M, spike_slab,
+                              group=group, precision=precision,
+                              betas=None if betas is None
+                              else np.asarray(betas)[c])
+
+
+def make_stacked_sweep_gspmd(obs, network, N: int, B: int, C: int, mesh,
+                             spike_slab: bool, group: int | None = None,
+                             precision: str = "highest", betas=None):
+    """Chains over a ("chain", "time", "neuron") mesh: the stacked sweep of
+    all C chains with the C*N lanes sharded jointly over ("chain",
+    "neuron") and the sums over "time" (``make_stacked_sweep(mesh=)``).
+    The lane kernels do not care which chain a lane belongs to, so a
+    rank's block may straddle two chains. ValueError unless n_chain
+    divides C and n_neuron divides N."""
+    from pyglm_tpu_torch.parallel.sharding import (CHAIN_DATA_AXES,
+                                                   require_mesh)
+    require_mesh(mesh, CHAIN_DATA_AXES)
+    if C % mesh.shape["chain"]:
+        raise ValueError(f"n_chains={C} must be divisible by the chain mesh "
+                         f"axis {mesh.shape['chain']}")
+    if N % mesh.shape["neuron"]:
+        raise ValueError(f"N={N} must be divisible by the neuron mesh axis "
+                         f"{mesh.shape['neuron']}")
+    return make_stacked_sweep(obs, network, N, B, C, spike_slab, group=group,
+                              precision=precision, betas=betas, mesh=mesh)
+
+
+def chain_data_shardings(mesh, st, datas):
+    """The datasets as a rank of a ("chain", "time", "neuron") mesh holds
+    them: its rows over "time" (design rows are the same rows of the whole
+    design, bit for bit), or the whole rows, flagged ``whole``, where the
+    time axis does not divide T; every rank holds every column and the
+    whole stacked state (the counterpart of the JAX package's
+    NamedShardings, which place the stacked state over "chain"). Returns
+    (st, local datas)."""
+    from pyglm_tpu_torch.parallel.sharding import time_rows
+    out = []
+    for d in datas:
+        r, whole = time_rows(mesh, d.Y.shape[0])
+        if whole:
+            out.append(d._replace(whole=True))
+            continue
+        out.append(d._replace(Y=d.Y[r], Xf=d.Xf[r].contiguous(),
+                              Xt=None if d.Xt is None
+                              else d.Xt[:, r].contiguous(),
+                              llc=None, Gg0=None, Gfull=None, XtY=None))
+    return st, tuple(out)
+
+
+def chain_rank_generators(seed: int, mesh, device) -> Generators:
+    """The stacked sweep's generators of this rank of a chain mesh: those
+    of the unsharded sweep (``seeds[0] + _SWEEP_SALT``) on chain rank 0,
+    salted by the chain index above the seed's bits on the others."""
+    return chain_generators(int(seed) + (mesh.index("chain") << 20), device)
 
 
 def run_stacked_chains(model, n_chains: int, n_samples: int,
@@ -206,11 +336,17 @@ def run_stacked_chains(model, n_chains: int, n_samples: int,
     (C,N,N), 'lls' (S,C), 'final_states': list of C GLMState}; every
     post-burn-in sweep counts (``thin`` is ignored), and the means equal
     those of ``collect="samples"`` at thin=1 from the same seeds.
+
+    `mesh`: a ("chain",) mesh (:func:`make_stacked_sweep_sharded`: each
+    rank sweeps C/M chains on the whole data) or a ("chain", "time",
+    "neuron") mesh (:func:`make_stacked_sweep_gspmd`); every rank of it
+    calls this and gets the same result. Chain c starts from
+    ``ensemble_generators(seeds[c])`` as without a mesh, so the initial
+    states are the same; on a chain mesh each rank's sweep generators are
+    salted by its chain index, and the results are gathered over "chain".
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "chain meshes are not ported to pyglm_tpu_torch yet (ROADMAP.md "
-            "Queue A, item 15)")
+    from pyglm_tpu_torch.parallel.sharding import (
+        CHAIN_AXES, gather_tree, require_mesh, shard_generators)
     if collect not in ("samples", "mean"):
         raise ValueError(f"collect must be 'samples' or 'mean', got "
                          f"{collect!r}")
@@ -221,14 +357,35 @@ def run_stacked_chains(model, n_chains: int, n_samples: int,
     if len(seeds) != C:
         raise ValueError(f"{len(seeds)} seeds for {C} chains")
     dev = model.device
-    st = stack_states([init_state_from_prior(
-        ensemble_generators(sd, dev), model.observation, model.network,
-        model.N, model.B, model.spike_and_slab, dev) for sd in seeds])
-    gens = chain_generators(int(seeds[0]) + _SWEEP_SALT, dev)
-    sweep = make_stacked_sweep(model.observation, model.network, model.N,
-                               model.B, C, model.spike_and_slab,
-                               group=model.group, precision=model.precision)
+    kw = dict(group=model.group, precision=model.precision)
+    obs, net, N, B = model.observation, model.network, model.N, model.B
     datas = tuple(model.datas)
+    gens = chain_generators(int(seeds[0]) + _SWEEP_SALT, dev)
+    chain_mesh = mesh is not None and require_mesh(mesh).axis_names \
+        == CHAIN_AXES
+    if chain_mesh:
+        sweep = make_stacked_sweep_sharded(obs, net, N, B, C, mesh,
+                                           model.spike_and_slab, **kw)
+        Cl = C // mesh.shape["chain"]
+        mine = seeds[mesh.index("chain") * Cl:(mesh.index("chain") + 1) * Cl]
+        gens = chain_rank_generators(int(seeds[0]) + _SWEEP_SALT, mesh, dev)
+    elif mesh is not None:
+        sweep = make_stacked_sweep_gspmd(obs, net, N, B, C, mesh,
+                                         model.spike_and_slab, **kw)
+        mine, Cl = seeds, C
+        gens = MeshGenerators(gens, shard_generators(
+            int(seeds[0]) + _SWEEP_SALT, mesh, dev))
+        datas = chain_data_shardings(mesh, None, datas)[1]
+    else:
+        sweep = make_stacked_sweep(obs, net, N, B, C, model.spike_and_slab,
+                                   **kw)
+        mine, Cl = seeds, C
+    st = stack_states([init_state_from_prior(
+        ensemble_generators(sd, dev), obs, net, N, B,
+        model.spike_and_slab, dev) for sd in mine])
+
+    def gather(x, dim):
+        return gather_tree(x, mesh, "chain", dim) if chain_mesh else x
 
     for _ in range(n_burnin):
         st, _ = sweep(gens, st, datas)
@@ -242,11 +399,12 @@ def run_stacked_chains(model, n_chains: int, n_samples: int,
             accA += st.A
             accW += st.W.sum(dim=-1)        # W is 0 where A is 0
             lls.append(diag["log_likelihood"])
-        return {"A_mean": (accA / n_samples).cpu().numpy(),
-                "Weff_mean": (accW / n_samples).cpu().numpy(),
-                "lls": (torch.stack(lls).cpu().numpy() if lls
-                        else np.zeros((0, C), np.float32)),
-                "final_states": unstack_states(st, C)}
+        lls = (torch.stack(lls) if lls else
+               torch.zeros((0, Cl), dtype=torch.float32, device=dev))
+        return {"A_mean": gather(accA / n_samples, 0).cpu().numpy(),
+                "Weff_mean": gather(accW / n_samples, 0).cpu().numpy(),
+                "lls": gather(lls, 1).cpu().numpy(),
+                "final_states": unstack_states(gather(st, 0), C)}
 
     out = {"A": [], "W": [], "bias": [], "lls": []}
     for _ in range(n_samples):
@@ -254,10 +412,11 @@ def run_stacked_chains(model, n_chains: int, n_samples: int,
             st, diag = sweep(gens, st, datas)
         for k, v in (("A", st.A), ("W", st.W), ("bias", st.b),
                      ("lls", diag["log_likelihood"])):
-            out[k].append(v.cpu().numpy())
-    N, B = model.N, model.B
-    shapes = {"A": (0, C, N, N), "W": (0, C, N, N, B), "bias": (0, C, N),
-              "lls": (0, C)}
-    stacked = {k: (np.stack(v) if v else np.zeros(shapes[k], np.float32))
+            out[k].append(v.cpu())
+    shapes = {"A": (0, Cl, N, N), "W": (0, Cl, N, N, B), "bias": (0, Cl, N),
+              "lls": (0, Cl)}
+    stacked = {k: gather(torch.stack(v) if v else
+                         torch.zeros(shapes[k], dtype=torch.float32),
+                         1).numpy()
                for k, v in out.items()}
     return [{k: stacked[k][:, c] for k in stacked} for c in range(C)]

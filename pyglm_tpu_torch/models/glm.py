@@ -18,19 +18,22 @@ import numpy as np
 import torch
 
 from pyglm_tpu_torch.models.ensemble import (
-    chain_generators, ensemble_generators, run_stacked_chains,
+    _CHAIN_SALT, chain_generators, ensemble_generators, run_stacked_chains,
 )
 from pyglm_tpu_torch.models.networks import make_network
 from pyglm_tpu_torch.models.observations import make_observation
 from pyglm_tpu_torch.models.sweep import (
-    GLMData, GLMState, Generators, init_state_from_prior, make_generator,
-    make_gibbs_sweep, make_log_likelihood,
+    GLMData, GLMState, Generators, MeshGenerators, init_state_from_prior,
+    local_rows, make_generator, make_gibbs_sweep, make_log_likelihood,
+    sum_caches, total_log_likelihood,
 )
 from pyglm_tpu_torch.models.weights import (
     _auto_group, check_precision, group_gram_blocks, pack_weights,
     sufficient_stats,
 )
-from pyglm_tpu_torch.ops.basis import cosine_basis, design_matrix
+from pyglm_tpu_torch.ops.basis import (
+    cosine_basis, design_matrix, design_matrix_sharded,
+)
 from pyglm_tpu_torch.utils.convert import state_to_numpy
 from pyglm_tpu_torch.utils.metrics import split_rhat
 from pyglm_tpu_torch.utils.utils import as_f32, fp32_matmul, require_device
@@ -79,6 +82,13 @@ class NonlinearAutoregressiveModel:
       device: where the data, the state and the kernels live: the card
         by default; pass device='cpu' to run the plain versions on the CPU.
         Raises RuntimeError if the device is a card and none is present.
+
+    :meth:`shard` spreads one model over the ranks of a ("time", "neuron")
+    mesh (parallel/sharding.py); ``fit_ensemble(mesh=)`` and
+    ``fit_tempered(mesh=)`` spread chains or rungs over a ("chain",) or
+    ("chain", "time", "neuron") mesh. Every rank builds the same model and
+    makes the same calls; each returns the same global result on every
+    rank.
     """
 
     def __init__(self, N: int, B: int = 4, L: int = 10, basis=None,
@@ -103,7 +113,11 @@ class NonlinearAutoregressiveModel:
                                      **(net_kwargs or {}))
                         if isinstance(network, str) else network)
         self.group = _auto_group(N, self.B) if group is None else group
+        self.seed = int(seed)
         self.generators = chain_generators(seed, self.device)
+        # Set by shard(): the mesh, and this rank's per-shard generators.
+        self._mesh = None
+        self.shard_generators: Generators | None = None
 
         self._sweep = make_gibbs_sweep(self.observation, self.network, N,
                                        self.B, self.spike_and_slab,
@@ -126,7 +140,10 @@ class NonlinearAutoregressiveModel:
         and for a Gaussian family its unweighted Grams: the packed group
         Grams (K6 on one lane of ones, at the model's precision) for
         spike-and-slab, else the full Gram and X'Y (fp32).
-        Raises ValueError if a count exceeds the family's `max_y`."""
+        Raises ValueError if a count exceeds the family's `max_y`.
+
+        On a sharded model every rank passes the whole Y and keeps its rows
+        (``parallel.sharding.shard_model`` says how)."""
         Y = as_f32(Y, self.device)
         if Y.ndim != 2 or Y.shape[1] != self.N:
             raise ValueError(f"expected (T, {self.N}) data, got "
@@ -142,24 +159,75 @@ class NonlinearAutoregressiveModel:
                     f"observation family's max_y={max_y}; construct with "
                     f"obs_kwargs=dict(max_y={int(y_max)}) or larger so the "
                     f"CRT dispersion update sees every count")
-        Xf = design_matrix(Y, self.basis)
+        self.datas.append(self._ingest(Y, self._mesh))
+
+    def _ingest(self, Y, mesh=None) -> GLMData:
+        """The GLMData of a whole (T, N) Y: on a `mesh`, this rank's rows of
+        Y and of the design (``design_matrix_sharded``: its rows of Y and
+        the L bins before them, from the previous time rank), and the
+        tables at its lanes summed over "time"; a T that the time axis
+        does not divide into blocks of at least L rows keeps its whole
+        rows, with a warning, and sums nothing over "time"."""
+        whole, lanes = False, slice(None)
+        if mesh is not None:
+            from pyglm_tpu_torch.parallel.sharding import (
+                all_reduce_sum, glm_shardings)
+            lay = glm_shardings(mesh, Y.shape[0], self.N, L=self.L)
+            whole, lanes = lay.whole, lay.lanes
+            if whole:
+                warnings.warn(
+                    f"sharded model: dataset with T={Y.shape[0]} keeps its "
+                    f"whole rows on every time rank (needs T divisible by "
+                    f"the mesh time axis {mesh.shape['time']} and a shard "
+                    f"of at least L={self.L} bins); time rank 0 sums them "
+                    f"and the spike-and-slab update runs the staged loop. "
+                    f"Pad or trim T to a multiple of {mesh.shape['time']}",
+                    stacklevel=3)
+                Xf = design_matrix(Y, self.basis)
+            else:
+                Y = Y[lay.rows]
+                Xf = design_matrix_sharded(Y, self.basis, mesh)
+        else:
+            Xf = design_matrix(Y, self.basis)
+
+        def time_sum(x):
+            return x if mesh is None or whole else all_reduce_sum(
+                x, mesh, "time")
         Xt = Xf.T.contiguous()
+        Yl = Y[:, lanes]
         Gg0 = Gfull = XtY = None
         if not self.observation.needs_pg:
             ones = Y.new_ones((Y.shape[0], 1))
             if self.spike_and_slab:
-                Gg0 = group_gram_blocks(Xt, ones, self.B, self.group,
-                                        precision=self.precision)
+                Gg0 = time_sum(group_gram_blocks(Xt, ones, self.B,
+                                                 self.group,
+                                                 precision=self.precision))
             else:
-                Gfull, XtY = sufficient_stats(Xf, ones, Y)
-                Gfull = Gfull[0]
-        self.datas.append(GLMData(Y=Y, Xf=Xf, Xt=Xt,
-                                  llc=self.observation.ll_cache(Y), Gg0=Gg0,
-                                  Gfull=Gfull, XtY=XtY))
+                Gfull, XtY = sufficient_stats(Xf, ones, Yl)
+                Gfull, XtY = time_sum(Gfull[0]), time_sum(XtY)
+        llc = self.observation.ll_cache(Yl)
+        if llc is not None:
+            llc = {k: time_sum(v) for k, v in llc.items()}
+        return GLMData(Y=Y, Xf=Xf, Xt=Xt, llc=llc, Gg0=Gg0, Gfull=Gfull,
+                       XtY=XtY, whole=whole)
+
+    def _full_state(self) -> GLMState:
+        """The whole state: this model's, or on a sharded model its lanes
+        gathered from every rank."""
+        if self._mesh is None:
+            return self.state
+        from pyglm_tpu_torch.parallel.sharding import gather_state
+        return gather_state(self.state, self._mesh)
+
+    def _gens(self):
+        return (self.generators if self._mesh is None else
+                MeshGenerators(self.generators, self.shard_generators))
 
     def generate(self, T: int, keep: bool = True):
-        """Sample a (T, N) spike train from the current parameters."""
-        Y, _ = self._generate(self.generators.device, self.state,
+        """Sample a (T, N) spike train from the current parameters (on a
+        sharded model, the same on every rank: the whole state, the
+        replicated generator)."""
+        Y, _ = self._generate(self.generators.device, self._full_state(),
                               self.basis, T)
         if keep:
             self.add_data(Y)
@@ -176,6 +244,10 @@ class NonlinearAutoregressiveModel:
         if not self.datas:
             raise RuntimeError("no observed history; call add_data() first")
         ring0 = self.datas[data_index].Y[-self.L:]
+        if self._mesh is not None and not self.datas[data_index].whole:
+            from pyglm_tpu_torch.parallel.sharding import all_gather
+            ring0 = all_gather(ring0.contiguous(), self._mesh,
+                               "time")[-ring0.shape[0]:]
         if ring0.shape[0] < self.L:
             ring0 = torch.cat([ring0.new_zeros(
                 (self.L - ring0.shape[0], self.N)), ring0])
@@ -183,8 +255,9 @@ class NonlinearAutoregressiveModel:
         for _ in range(n_samples):
             for _ in range(thin):
                 self.resample_model()
-            Y, _ = self._generate(self.generators.device, self.state,
-                                  self.basis, T_ahead, ring0=ring0)
+            Y, _ = self._generate(self.generators.device,
+                                  self._full_state(), self.basis, T_ahead,
+                                  ring0=ring0)
             out.append(Y.cpu().numpy())
         return np.stack(out)
 
@@ -192,41 +265,60 @@ class NonlinearAutoregressiveModel:
         """One Gibbs sweep over weights, adjacency, aux and network."""
         if not self.datas:
             raise RuntimeError("call add_data() or generate(keep=True) first")
-        self.state, diag = self._sweep(self.generators, self.state,
+        self.state, diag = self._sweep(self._gens(), self.state,
                                        tuple(self.datas))
         return {k: float(v) for k, v in diag.items()}
 
     def log_likelihood(self, data=None) -> float:
         """Total log-likelihood of the registered data (or of a (T, N) Y)."""
-        if data is None:
+        if data is not None:
+            Y = as_f32(data, self.device)
+            d = GLMData(Y=Y, Xf=design_matrix(Y, self.basis), Xt=None)
+            return float(self._loglik(self._full_state(), d))
+        if self._mesh is None:
             return float(sum(self._loglik(self.state, d)
                              for d in self.datas))
-        Y = as_f32(data, self.device)
-        d = GLMData(Y=Y, Xf=design_matrix(Y, self.basis), Xt=None)
-        return float(self._loglik(self.state, d))
+        from pyglm_tpu_torch.parallel.sharding import lane_slice
+        mesh = self._mesh
+        w = pack_weights(self.state.A, self.state.W, self.state.b)
+        Y, Xf, _ = local_rows(self.datas, mesh, self.N, self.B,
+                              lane_slice(mesh, self.N), self.device)
+        with fp32_matmul():
+            return float(total_log_likelihood(
+                self.observation, Y, Xf @ w, self.state.aux,
+                sum_caches(self.datas), mesh))
 
     def log_probability(self) -> float:
         return self.log_likelihood()
 
+    def _gather_lanes(self, x, dim: int):
+        """x with its lanes (axis `dim`) gathered on a sharded model."""
+        if self._mesh is None:
+            return x
+        from pyglm_tpu_torch.parallel.sharding import all_gather, lane_axes
+        return all_gather(x, self._mesh, lane_axes(self._mesh), dim=dim)
+
     @property
     def A(self) -> np.ndarray:
         """(N_pre, N_post) adjacency sample."""
-        return self.state.A.cpu().numpy()
+        return self._gather_lanes(self.state.A, 1).cpu().numpy()
 
     @property
     def W(self) -> np.ndarray:
         """(N_pre, N_post, B) weight sample (zero where A == 0)."""
-        return self.state.W.cpu().numpy()
+        return self._gather_lanes(self.state.W, 1).cpu().numpy()
 
     @property
     def W_effective(self) -> np.ndarray:
         """(N_pre, N_post) net synaptic weights: sum over the basis of
         A * W."""
-        return (self.state.A[:, :, None] * self.state.W).sum(-1).cpu().numpy()
+        return self._gather_lanes(
+            (self.state.A[:, :, None] * self.state.W).sum(-1),
+            1).cpu().numpy()
 
     @property
     def bias(self) -> np.ndarray:
-        return self.state.b.cpu().numpy()
+        return self._gather_lanes(self.state.b, 0).cpu().numpy()
 
     @property
     def means(self) -> list:
@@ -234,15 +326,33 @@ class NonlinearAutoregressiveModel:
         (T, N) under the current sample, psi by a float32 GEMM."""
         w_full = pack_weights(self.state.A, self.state.W, self.state.b)
         with fp32_matmul():
-            return [self.observation.mean(d.Xf @ w_full,
-                                          self.state.aux).cpu().numpy()
-                    for d in self.datas]
+            means = [self.observation.mean(d.Xf @ w_full, self.state.aux)
+                     for d in self.datas]
+        if self._mesh is not None:
+            from pyglm_tpu_torch.parallel.sharding import all_gather
+            means = [self._gather_lanes(m, 1) for m in means]
+            means = [m if d.whole else all_gather(m, self._mesh, "time")
+                     for m, d in zip(means, self.datas)]
+        return [m.cpu().numpy() for m in means]
 
     def copy_sample(self) -> dict:
         """Host numpy snapshot of the current sample
         (``utils.convert.state_to_numpy``; ``state_from_numpy`` restores
         it)."""
-        return state_to_numpy(self.state)
+        return state_to_numpy(self._full_state())
+
+    def shard(self, mesh=None):
+        """Spread this model over a ("time", "neuron") mesh of SPMD ranks
+        (``parallel.sharding.shard_model``); every rank calls it on its
+        copy of the same model. With no argument, the mesh
+        ``best_mesh_for`` picks over the initialised world for N and the
+        datasets' T (ValueError if it leaves ranks out). Returns self."""
+        from pyglm_tpu_torch.parallel.sharding import (best_mesh_for,
+                                                       shard_model)
+        if mesh is None:
+            mesh = best_mesh_for(self.N, T=[int(d.Y.shape[0])
+                                            for d in self.datas])
+        return shard_model(self, mesh)
 
     def fit(self, n_samples: int = 100, n_burnin: int = 0, thin: int = 1,
             callback=None, verbose: bool = False):
@@ -273,9 +383,10 @@ class NonlinearAutoregressiveModel:
         the same dict. The samples of a segment of at most
         `max_sweeps_per_launch` sweeps stay on the device and are copied
         to the host once per segment, where :meth:`fit` copies every
-        sample. Each sweep is still launched from Python: capturing a
-        segment as one CUDA graph is later work (ROADMAP.md Queue A), and
-        nothing here is claimed faster than :meth:`fit`.
+        sample; on a sharded model a segment's lanes are gathered once.
+        Each sweep is still launched from Python: capturing a segment as
+        one CUDA graph is later work (ROADMAP.md Queue A), and nothing
+        here is claimed faster than :meth:`fit`.
 
         Raises ValueError if `thin` exceeds `max_sweeps_per_launch` (one
         sample would span more than one segment). A burn-only call
@@ -291,15 +402,36 @@ class NonlinearAutoregressiveModel:
         datas = tuple(self.datas)
 
         def sweep():
-            self.state, diag = self._sweep(self.generators, self.state, datas)
+            self.state, diag = self._sweep(self._gens(), self.state, datas)
             return diag
 
         def sample(diag):
             return {"A": self.state.A, "W": self.state.W,
                     "bias": self.state.b, "lls": diag["log_likelihood"]}
 
+        lane_dims = {"A": 2, "W": 2, "bias": 1}
+
+        def gather(block):
+            return {k: (self._gather_lanes(v, lane_dims[k])
+                        if k in lane_dims else v) for k, v in block.items()}
+
         return _segments(sweep, sample, n_samples, n_burnin, thin, cap,
-                         self._empties())
+                         self._empties(), gather=gather)
+
+    def _check_chain_mesh(self, mesh) -> None:
+        """ValueError unless `mesh` is a connected Mesh with a "chain" axis
+        and this model is unsharded (chains and rungs take the whole data
+        on each rank or shard it themselves)."""
+        from pyglm_tpu_torch.parallel.sharding import Mesh, require_mesh
+        if isinstance(mesh, Mesh) and "chain" not in mesh.shape:
+            raise ValueError("the mesh needs a 'chain' axis "
+                             "(parallel.sharding.make_chain_mesh or "
+                             "make_chain_data_mesh)")
+        require_mesh(mesh)
+        if self._mesh is not None:
+            raise ValueError("chains over a mesh need an unsharded model "
+                             "(the chains take the whole data); use either "
+                             "shard() or mesh=")
 
     def _empties(self) -> dict:
         N, B = self.N, self.B
@@ -321,8 +453,16 @@ class NonlinearAutoregressiveModel:
         ``stacked=True`` runs the C chains as one lane-stacked sweep at
         C*N postsyn lanes (models/ensemble.py); False runs the chains one
         after another, each by :meth:`fit_compiled` if ``compiled`` else
-        by :meth:`fit`. "auto" (the default) is ``compiled``, as in the
-        JAX package. ``mesh`` (chain meshes) is not ported.
+        by :meth:`fit`. "auto" (the default) is ``compiled`` on an
+        unsharded model and False on a sharded one, as in the JAX package.
+
+        ``mesh`` spreads the stacked chains over ranks: a ("chain",) mesh
+        (each rank sweeps C/M chains on the whole data) or a ("chain",
+        "time", "neuron") mesh (the stacked lanes over ("chain", "neuron"),
+        the sums over "time"); every rank calls this and gets the same
+        result. It needs an unsharded model and the stacked path, and a
+        mesh with a "chain" axis (ValueError otherwise, and for anything
+        that is not a ``parallel.sharding.Mesh``).
 
         ``collect="samples"`` returns 'A' (C,S,N,N), 'W' (C,S,N,N,B),
         'bias' (C,S,N), 'lls' (C,S), 'rhat_edge' (N,N), 'rhat_bias' (N,)
@@ -340,8 +480,19 @@ class NonlinearAutoregressiveModel:
         if collect not in ("samples", "mean"):
             raise ValueError(f"collect must be 'samples' or 'mean', got "
                              f"{collect!r}")
+        if mesh is not None:
+            self._check_chain_mesh(mesh)
+            if stacked not in ("auto", True):
+                raise ValueError("mesh= implies the stacked path; drop "
+                                 "stacked=False")
+            stacked = True
         if stacked == "auto":
-            stacked = compiled
+            stacked = self._mesh is None and compiled
+        if stacked and self._mesh is not None:
+            raise ValueError("the lane-stacked ensemble runs on an "
+                             "unsharded model (fit_ensemble(mesh=...) "
+                             "spreads it over ranks); use stacked=False on "
+                             "a sharded one")
         if collect == "mean" and not stacked:
             raise ValueError("collect='mean' accumulates in the lane-stacked "
                              "sweep; it needs stacked=True")
@@ -352,9 +503,8 @@ class NonlinearAutoregressiveModel:
                                       seeds=seeds, mesh=mesh,
                                       collect=collect)
         else:
-            if mesh is not None:
-                raise ValueError("mesh= implies the stacked path")
             state0, gens0 = self.state, self.generators
+            sgens0 = self.shard_generators
             runs = []
             try:
                 for sd in seeds:
@@ -362,11 +512,19 @@ class NonlinearAutoregressiveModel:
                     self.state = init_state_from_prior(
                         self.generators, self.observation, self.network,
                         self.N, self.B, self.spike_and_slab, self.device)
+                    if self._mesh is not None:
+                        from pyglm_tpu_torch.parallel.sharding import (
+                            lane_slice, shard_generators, shard_state)
+                        self.state = shard_state(
+                            self.state, lane_slice(self._mesh, self.N))
+                        self.shard_generators = shard_generators(
+                            int(sd) + _CHAIN_SALT, self._mesh, self.device)
                     fit = self.fit_compiled if compiled else self.fit
                     runs.append(fit(n_samples=n_samples, n_burnin=n_burnin,
                                     thin=thin))
             finally:
                 self.state, self.generators = state0, gens0
+                self.shard_generators = sgens0
         if collect == "mean":
             out = runs
             out["lls"] = out["lls"].T                   # (S, C) -> (C, S)
@@ -413,15 +571,22 @@ class NonlinearAutoregressiveModel:
         (default 250) stay on the device, as in :meth:`fit_compiled`
         (ValueError if `thin` exceeds it). Supported for Bernoulli and
         Binomial, NB with ``resample_r=False`` and the Gaussian with
-        ``resample_eta=False`` (ValueError otherwise). ``mesh`` (rungs over
-        several cards) raises NotImplementedError (ROADMAP.md Queue A,
-        item 15)."""
+        ``resample_eta=False`` (ValueError otherwise).
+
+        ``mesh`` spreads the rungs over ranks: a ("chain",) mesh (each rank
+        runs C/M rungs' pass on the whole data; the states move between
+        ranks at the swaps) or a ("chain", "time", "neuron") mesh (the rung
+        lanes over ("chain", "neuron"), the sums over "time"). Every rank
+        calls this and gets the same result. Runs on an unsharded model
+        only, and the mesh needs a "chain" axis (ValueError otherwise)."""
         from pyglm_tpu_torch.models import tempering
 
+        if self._mesh is not None:
+            raise ValueError("fit_tempered runs on an unsharded model "
+                             "(fit_tempered(mesh=...) spreads its rungs "
+                             "over ranks); temper before shard()")
         if mesh is not None:
-            raise NotImplementedError(
-                "fit_tempered(mesh=...) is not ported to pyglm_tpu_torch "
-                "yet (ROADMAP.md Queue A, item 15)")
+            self._check_chain_mesh(mesh)
         if not self.datas:
             raise RuntimeError("call add_data() or generate(keep=True) first")
         cap = max(1, 250 if max_sweeps_per_launch is None
@@ -471,13 +636,30 @@ class NonlinearAutoregressiveModel:
                              f"betas[-1]={betas[-1]!r})")
         C = betas.shape[0]
         seeds = list(range(1, C + 1) if seeds is None else seeds)
-        sweep = tempering.make_tempered_sweep(
-            self.observation, self.network, self.N, self.B, betas,
-            spike_slab=self.spike_and_slab, group=self.group,
-            precision=self.precision)
-        box = {"st": tempering.init_tempered_states(self, betas, seeds)}
-        gens = tempering.tempered_generators(seeds, self.device)
-        datas = tuple(self.datas)
+        args = (self.observation, self.network, self.N, self.B, betas)
+        kw = dict(spike_slab=self.spike_and_slab, group=self.group,
+                  precision=self.precision)
+        datas, rungs = tuple(self.datas), None
+        if mesh is None:
+            sweep = tempering.make_tempered_sweep(*args, **kw)
+            gens = tempering.tempered_generators(seeds, self.device)
+        else:
+            gens = tempering.tempered_mesh_generators(seeds, mesh,
+                                                      self.device)
+            if "time" in mesh.shape:
+                from pyglm_tpu_torch.models.ensemble import (
+                    chain_data_shardings)
+                sweep = tempering.make_tempered_sweep_gspmd(*args, mesh,
+                                                            **kw)
+                datas = chain_data_shardings(mesh, None, datas)[1]
+            else:
+                sweep = tempering.make_tempered_sweep_sharded(*args, mesh,
+                                                              **kw)
+                Cl = C // mesh.shape["chain"]
+                rungs = slice(mesh.index("chain") * Cl,
+                              (mesh.index("chain") + 1) * Cl)
+        box = {"st": tempering.init_tempered_states(self, betas, seeds,
+                                                    rungs=rungs)}
         tally = {"acc": torch.zeros(C, dtype=torch.float64), "sweeps": 0,
                  "parity1": 0}
         cold = C - 1
@@ -490,7 +672,7 @@ class NonlinearAutoregressiveModel:
             return diag
 
         def sample(diag):
-            st = box["st"]
+            st = diag.get("full_state", box["st"])
             return {"A": st.A[cold], "W": st.W[cold], "bias": st.b[cold],
                     "lls": diag["log_likelihood"][cold]}
 
@@ -514,12 +696,13 @@ def _copy_generators(gens: Generators) -> Generators:
 
 
 def _segments(sweep, sample, n_samples: int, n_burnin: int, thin: int,
-              cap: int, empties: dict) -> dict:
+              cap: int, empties: dict, gather=None) -> dict:
     """`n_burnin` calls of sweep(), then `n_samples` samples, each
     sample(diag) of the `thin`-th sweep after the last, as host arrays
     stacked on a leading axis. A segment's samples (at most cap // thin of
     them) are copied into tensors on the device as they come and to the
-    host once per segment. No samples: `empties`."""
+    host once per segment, after ``gather(block)`` if given (a sharded
+    model's lanes). No samples: `empties`."""
     for _ in range(n_burnin):
         sweep()
     out: dict = {}
@@ -537,6 +720,8 @@ def _segments(sweep, sample, n_samples: int, n_burnin: int, thin: int,
                          for k, v in s.items()}
             for k, v in s.items():
                 block[k][i] = v
+        if gather is not None:
+            block = gather(block)
         for k, v in block.items():
             out.setdefault(k, []).append(v.cpu().numpy())
         left -= c

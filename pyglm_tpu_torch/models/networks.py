@@ -48,12 +48,28 @@ def _is_scalar(x) -> bool:
     return np.ndim(x) == 0
 
 
+def _on_device(cfg, name: str, device, make):
+    """A constant of a (frozen) network config on `device`, made by make()
+    at the first call for that device and kept on the config: the edge
+    priors are read for every chain of every sweep, and each host-to-device
+    copy waits for the device (ranks that share a card wait for each
+    other). Callers must not write into it."""
+    cache = cfg.__dict__.setdefault("_device_constants", {})
+    key = (name, str(torch.device(device)))
+    if key not in cache:
+        cache[key] = make()
+    return cache[key]
+
+
 def _bias_hypers(cfg, N: int, device):
     """(mu_b, lam_b) (N,) each; mu_bias / sigma_bias are scalar or (N,)."""
-    mu_b = torch.as_tensor(expand_scalar(cfg.mu_bias, (N,)), device=device)
-    sig_b = torch.as_tensor(expand_scalar(cfg.sigma_bias, (N,)),
-                            device=device)
-    return mu_b, 1.0 / sig_b ** 2
+    def make():
+        mu_b = torch.as_tensor(expand_scalar(cfg.mu_bias, (N,)),
+                               device=device)
+        sig_b = torch.as_tensor(expand_scalar(cfg.sigma_bias, (N,)),
+                                device=device)
+        return mu_b, 1.0 / sig_b ** 2
+    return _on_device(cfg, f"bias{N}", device, make)
 
 
 def _fixed_weight_hypers(cfg):
@@ -110,8 +126,8 @@ def _weight_hypers(cfg, state, device):
         Lam = torch.linalg.inv(state.Sigma.cpu()).to(device)
         return (state.mu.to(device).expand(N, N, B),
                 Lam.expand(N, N, B, B))
-    return tuple(torch.as_tensor(x, device=device)
-                 for x in cfg._fixed_hypers)
+    return _on_device(cfg, "weights", device, lambda: tuple(
+        torch.as_tensor(x, device=device) for x in cfg._fixed_hypers))
 
 
 @dataclass(frozen=True)
@@ -218,11 +234,13 @@ class ErdosRenyiConfig:
                     device) -> EdgeHypers:
         N = self.N
         mu, Lam = _weight_hypers(self, state, device)
+        def lrho_of(rho):
+            return logit(torch.clamp(rho, 1e-5, 1.0 - 1e-5)).to(device)
         if self.learn_rho:
-            rho = state.rho.cpu().expand(N, N)
+            lrho = lrho_of(state.rho.cpu().expand(N, N))
         else:
-            rho = torch.as_tensor(expand_scalar(self.rho_init, (N, N)))
-        lrho = logit(torch.clamp(rho, 1e-5, 1.0 - 1e-5)).to(device)
+            lrho = _on_device(self, "lrho", device, lambda: lrho_of(
+                torch.as_tensor(expand_scalar(self.rho_init, (N, N)))))
         mu_b, lam_b = _bias_hypers(self, N, device)
         return EdgeHypers(mu, Lam, lrho, mu_b, lam_b)
 

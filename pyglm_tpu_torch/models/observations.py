@@ -55,7 +55,7 @@ class _FamilyBase:
     def sample_noise(self, generator, shape, aux):
         return None
 
-    def resample_aux(self, generator, aux, Y, psi, cache=None):
+    def resample_aux(self, generator, aux, Y, psi, cache=None, shard=None):
         return aux
 
     def tempering_blocker(self):
@@ -239,7 +239,7 @@ class NegativeBinomial(_FamilyBase):
     def mean(self, psi, aux):
         return aux["r"][None, :] * torch.exp(psi)
 
-    def resample_aux(self, generator, aux, Y, psi, cache=None):
+    def resample_aux(self, generator, aux, Y, psi, cache=None, shard=None):
         """r ~ Gamma(a_r + sum_t l_tn) / (b_r + sum_t softplus psi_tn),
         floored at 1e-3, with l the CRT table counts given y and r.
 
@@ -249,31 +249,50 @@ class NegativeBinomial(_FamilyBase):
         p = 1. Without it, kernel K5 (``crt_sample``) draws l per element.
         The (N,) and (max_y+1, N) work runs on the host on `generator`
         after one transfer, so the update adds one host sync to a sweep;
-        r goes back to the device from pinned memory without another."""
+        r goes back to the device from pinned memory without another.
+
+        On a mesh (`shard`, parallel/sharding.py::LaneShard) Y and psi
+        hold the rank's rows and lanes and `generator` is its shard
+        generator (K5's draws); the per-lane sums are summed over "time"
+        and gathered to full width, `cache` holds the time-summed table at
+        the rank's lanes, and the host draws run at full width on the
+        replicated ``shard.generator``; the rank keeps its lanes of r."""
         if not self.resample_r:
             return aux
         r = aux["r"]
-        rate = self.b_r + torch.sum(softplus(psi), dim=0)
+        host_gen = generator if shard is None else shard.generator
+        rate = torch.sum(softplus(psi), dim=0)
         if cache is None:
             l = crt_sample(Y, r, self.max_y, generator)
-            lsum, rate = torch.stack(
-                [torch.sum(l, dim=0).to(torch.float32), rate]).cpu()
+            sums = torch.stack([torch.sum(l, dim=0).to(torch.float32), rate])
+            lsum, rate = (sums if shard is None else shard.full(sums)).cpu()
         else:
-            host = torch.cat([cache["counts"], rate[None], r[None]]).cpu()
-            counts, rate, r_h = host[:-2], host[-2], host[-1]
-            # m[i] = #{t : y_tn > i} for i = 0 .. max_y - 1
-            m = torch.flip(torch.cumsum(torch.flip(counts, [0]), 0), [0])[1:]
-            i = torch.arange(1, counts.shape[0] - 1,
-                             dtype=torch.float32)[:, None]
-            p = r_h[None, :] / (r_h[None, :] + i)
-            draws = torch.binomial(m[1:], p.expand_as(m[1:]).contiguous(),
-                                   generator=generator)
-            lsum = m[0] + torch.sum(draws, dim=0)
-        r_new = torch.clamp(sample_gamma(self.a_r + lsum, generator) / rate,
-                            min=1e-3)
+            table = torch.cat([cache["counts"], r[None]])
+            if shard is not None:
+                table, rate = shard.gather(table), shard.full(rate)
+            host = torch.cat([table, rate[None]]).cpu()
+            lsum = _table_crt_sum(host[:-2], host[-2], host_gen)
+            rate = host[-1]
+        r_new = torch.clamp(sample_gamma(self.a_r + lsum, host_gen)
+                            / (self.b_r + rate), min=1e-3)
+        if shard is not None:
+            r_new = shard.local(r_new)
         if r.is_cuda:       # copy back without a second wait on the device
             r_new = r_new.pin_memory()
         return {"r": r_new.to(r.device, non_blocking=True)}
+
+
+def _table_crt_sum(counts, r, generator):
+    """sum_t l_tn from the count table, collapsed: with
+    m[i] = #{t : y_tn > i}, the elements with y > i contribute one
+    Binomial(m[i], r / (r + i)) each i >= 1, and m[0] (p = 1). Host
+    tensors: counts (max_y+1, N), r (N,)."""
+    m = torch.flip(torch.cumsum(torch.flip(counts, [0]), 0), [0])[1:]
+    i = torch.arange(1, counts.shape[0] - 1, dtype=torch.float32)[:, None]
+    p = r[None, :] / (r[None, :] + i)
+    draws = torch.binomial(m[1:], p.expand_as(m[1:]).contiguous(),
+                           generator=generator)
+    return m[0] + torch.sum(draws, dim=0)
 
 
 @dataclass(frozen=True)
@@ -334,16 +353,27 @@ class Gaussian(_FamilyBase):
     def mean(self, psi, aux):
         return psi
 
-    def resample_aux(self, generator, aux, Y, psi, cache=None):
+    def resample_aux(self, generator, aux, Y, psi, cache=None, shard=None):
         """eta ~ InvGamma(a_eta + T/2, b_eta + sum_t (y - psi)^2 / 2),
         floored at 1e-6. The (N,) draw runs on the host on `generator` after
-        one transfer; eta goes back to the device from pinned memory."""
+        one transfer; eta goes back to the device from pinned memory. On a
+        mesh (`shard`) the sums and T are summed over "time", gathered to
+        full width and drawn on the replicated ``shard.generator``; the
+        rank keeps its lanes."""
         if not self.resample_eta:
             return aux
         eta = aux["eta"]
-        beta = (self.b_eta + 0.5 * torch.sum((Y - psi) ** 2, dim=0)).cpu()
+        sq = 0.5 * torch.sum((Y - psi) ** 2, dim=0)
+        if shard is None:
+            host_gen, T, sq = generator, Y.shape[0], sq.cpu()
+        else:
+            host_gen = shard.generator
+            sums = shard.time_sum(torch.cat([sq, sq.new_tensor([Y.shape[0]])]))
+            T, sq = float(sums[-1]), shard.gather(sums[:-1]).cpu()
         eta_new = torch.clamp(sample_inverse_gamma(
-            self.a_eta + 0.5 * Y.shape[0], beta, generator), min=1e-6)
+            self.a_eta + 0.5 * T, self.b_eta + sq, host_gen), min=1e-6)
+        if shard is not None:
+            eta_new = shard.local(eta_new)
         if eta.is_cuda:
             eta_new = eta_new.pin_memory()
         return {"eta": eta_new.to(eta.device, non_blocking=True)}

@@ -32,6 +32,9 @@ class GLMData(NamedTuple):
                                         # Grams (spike-and-slab)
     Gfull: torch.Tensor | None = None   # (P, P) full Gram (dense)
     XtY: torch.Tensor | None = None     # (P, N) X' Y (dense)
+    # On a mesh: True where T is not divisible by the time axis, so every
+    # time rank holds the whole rows and only time rank 0 sums them.
+    whole: bool = False
 
 
 class GLMState(NamedTuple):
@@ -51,6 +54,16 @@ class Generators(NamedTuple):
     host: torch.Generator
 
 
+class MeshGenerators(NamedTuple):
+    """A sharded model's random streams: `replicated`, the same on every
+    rank and consumed in lockstep (the weight update's noise, the bias
+    normals, the "sr" seeds, the auxiliary and network draws, the swaps),
+    and `shard`, this rank's own (parallel/sharding.py::shard_generators:
+    the PG draws and CRT counts of its tile)."""
+    replicated: Generators
+    shard: Generators
+
+
 def concat_datas(datas):
     """(Y, Xf, Xt) of the datasets concatenated along time."""
     if len(datas) == 1:
@@ -60,7 +73,8 @@ def concat_datas(datas):
 
 
 def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
-                     group: int | None = None, precision: str = "highest"):
+                     group: int | None = None, precision: str = "highest",
+                     mesh=None):
     """One Gibbs sweep (the JAX package's move order):
       1. psi = Xf w;  (omega, kappa) from the family: PG(1, psi) by K1 for
          Bernoulli, PG(y + r, psi) or PG(n, psi) by K4 for NB and Binomial,
@@ -80,59 +94,154 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
     The datasets' ll caches are additive summaries (counts, scalar sums),
     so their sum stands for the concatenated data; it feeds the total
     log-likelihood and the NB collapsed-CRT r update.
-    """
 
-    def spike_slab_update(gens, w_full, hyp, datas, aux):
-        Y, Xf, Xt = concat_datas(datas)
+    With a ("time", "neuron") `mesh` it is one rank's sweep of a sharded
+    model, ``sweep(MeshGenerators, local state, local datas)``. The local
+    state holds the rank's lanes (A[:, lanes], W[:, lanes], b[lanes], the
+    aux's lanes) and the replicated network state; a local dataset holds
+    the rank's rows of Y (every column), of the design and of its
+    transpose, and its add_data tables summed over "time" at the rank's
+    lanes (parallel/sharding.py::shard_model). psi and the PG draws run on
+    the rank's (rows, lanes) tile from its shard generators (K1 or K4 at
+    the local shape); the weight update runs on the mesh (models/
+    weights.py: the mesh-fused K2 + K3 loop, or the staged one; the dense
+    J and h summed over "time"); (A, W) are gathered over the lane axes;
+    the aux is drawn at full width from time-summed, gathered sums; the
+    network resample runs replicated from the replicated generators; the
+    log-likelihood is summed over both axes. Every rank returns the same
+    diagnostics.
+    """
+    if mesh is not None:
+        from pyglm_tpu_torch.models.weights import lane_hypers, mesh_ss_path
+        from pyglm_tpu_torch.parallel.sharding import (
+            all_gather, lane_axes, lane_shard)
+        lane_sh = lane_shard(mesh, N)
+        lanes = lane_sh.lanes
+
+    def rows(datas, dev):
+        """(Y at the rank's lanes, Xf, Xt) of the rows this rank sums."""
+        if mesh is None:
+            return concat_datas(datas)
+        return local_rows(datas, mesh, N, B, lanes, dev)
+
+    def spike_slab_update(rep, pg_gen, w_full, hyp, datas, aux):
+        Y, Xf, Xt = rows(datas, w_full.device)
         psi = Xf @ w_full
-        omega, kappa = obs.omega_kappa(gens.host, Y, psi, aux)
+        omega, kappa = obs.omega_kappa(pg_gen, Y, psi, aux)
         Jg = None
         if all(d.Gg0 is not None for d in datas):
             # (Ng, GB(GB+1)/2, 1) / eta along the lane axis
             Jg = sum(d.Gg0 for d in datas) / aux["eta"]
+        path = None if mesh is None else mesh_ss_path(
+            precision, jg_given=Jg is not None,
+            whole_rows=any(d.whole for d in datas))
         A, w_full, u, _ = resample_spike_slab_tspace(
-            gens.device, Xt, omega, kappa, psi, w_full, hyp, B, group=group,
-            precision=precision, host_generator=gens.host, Jg=Jg)
+            rep.device, Xt, omega, kappa, psi, w_full, hyp, B, group=group,
+            precision=precision, host_generator=rep.host, Jg=Jg, path=path,
+            mesh=mesh)
         # psi under the NEW weights, recovered without a second matmul.
         return A, w_full, Y, (kappa - u) / omega
 
-    def dense_update(gens, w_full, hyp, datas, aux):
+    def dense_update(rep, pg_gen, w_full, hyp, datas, aux):
         if all(d.Gfull is not None for d in datas):
             inv_eta = 1.0 / aux["eta"]
             J = sum(d.Gfull for d in datas)[None] * inv_eta[:, None, None]
             h = sum(d.XtY for d in datas) * inv_eta
-        else:
+        elif mesh is None:
             J = h = 0.0
             for d in datas:
-                omega, kappa = obs.omega_kappa(gens.host, d.Y, d.Xf @ w_full,
+                omega, kappa = obs.omega_kappa(pg_gen, d.Y, d.Xf @ w_full,
                                                aux)
                 Jd, hd = sufficient_stats(d.Xf, omega, kappa)
                 J, h = J + Jd, h + hd
-        w_full = resample_dense(gens.device, J, h, hyp, B)
-        Y, Xf, _ = concat_datas(datas)
-        A = torch.ones((N, N), dtype=torch.float32, device=w_full.device)
+        else:
+            Y, Xf, _ = rows(datas, w_full.device)
+            omega, kappa = obs.omega_kappa(pg_gen, Y, Xf @ w_full, aux)
+            J, h = sufficient_stats(Xf, omega, kappa, mesh=mesh)
+        eps = None
+        if mesh is not None:            # drawn at full width, as unsharded
+            eps = torch.randn((N, N * B + 1), generator=rep.device,
+                              device=w_full.device)[lanes].contiguous()
+        w_full = resample_dense(rep.device, J, h, hyp, B, eps=eps)
+        Y, Xf, _ = rows(datas, w_full.device)
+        A = torch.ones((N, w_full.shape[1]), dtype=torch.float32,
+                       device=w_full.device)
         return A, w_full, Y, Xf @ w_full
 
     update = spike_slab_update if spike_slab else dense_update
 
     @fp32_matmul()
-    def sweep(gens: Generators, state: GLMState, datas):
+    def sweep(gens, state: GLMState, datas):
+        rep, pg_gen = ((gens, gens.host) if mesh is None
+                       else (gens.replicated, gens.shard.host))
         w_full = pack_weights(state.A, state.W, state.b)
         hyp = network.edge_hypers(state.net, w_full.device)
-        caches = [d.llc for d in datas]
-        llc = (None if any(c is None for c in caches) else
-               {k: sum(c[k] for c in caches) for k in caches[0]})
-        A, w_full, Y, psi = update(gens, w_full, hyp, datas, state.aux)
+        if mesh is not None:
+            hyp = lane_hypers(hyp, lanes)
+        llc = sum_caches(datas)
+        A, w_full, Y, psi = update(rep, pg_gen, w_full, hyp, datas,
+                                   state.aux)
         W, b = unpack_weights(w_full, N, B)
-        aux = obs.resample_aux(gens.host, state.aux, Y, psi, cache=llc)
-        net = network.resample(gens, state.net, A, W)
-        ll = obs.log_likelihood_sum(Y, psi, aux, llc)
-        diag = {"log_likelihood": ll, "n_edges": A.sum()}
+        A_all, W_all, shard = A, W, None
+        if mesh is not None:
+            Aw = all_gather(torch.cat([A, w_full]), mesh, lane_axes(mesh),
+                            dim=1)                            # one gather
+            A_all, W_all = Aw[:N], unpack_weights(Aw[N:], N, B)[0]
+            shard = lane_sh._replace(generator=rep.host)
+        aux = obs.resample_aux(pg_gen, state.aux, Y, psi, cache=llc,
+                               shard=shard)
+        net = network.resample(rep, state.net, A_all, W_all)
+        ll = total_log_likelihood(obs, Y, psi, aux, llc, mesh)
+        diag = {"log_likelihood": ll, "n_edges": A_all.sum()}
         if hasattr(net, "hmc_accept"):
             diag["hmc_accept"] = net.hmc_accept
         return GLMState(A, W, b, aux, net), diag
 
     return sweep
+
+
+def mesh_rows(datas, mesh):
+    """The datasets whose rows this rank sums: every time-sharded one, and
+    on time rank 0 also those whose whole rows every time rank holds."""
+    t0 = mesh.index("time") == 0
+    return [d for d in datas if t0 or not d.whole]
+
+
+def _concat_rows(datas, N: int, P: int, dev):
+    """concat_datas of `datas`, or empty (0, N), (0, P), (P, 0) tensors."""
+    if datas:
+        return concat_datas(datas)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.zeros((0, N), **f32), torch.zeros((0, P), **f32),
+            torch.zeros((P, 0), **f32))
+
+
+def local_rows(datas, mesh, N: int, B: int, lanes: slice, dev):
+    """(Y at the rank's `lanes`, Xf, Xt) of the rows this rank sums."""
+    Y, Xf, Xt = _concat_rows(mesh_rows(datas, mesh), N, N * B + 1, dev)
+    return Y[:, lanes].contiguous(), Xf, Xt
+
+
+def sum_caches(datas):
+    """The datasets' ll caches added up (None if one has none): additive
+    summaries that stand for the concatenated data."""
+    caches = [d.llc for d in datas]
+    if not caches or any(c is None for c in caches):
+        return None
+    return {k: sum(c[k] for c in caches) for k in caches[0]}
+
+
+def total_log_likelihood(obs, Y, psi, aux, llc, mesh=None):
+    """The family's log_likelihood_sum; on a `mesh`, of this rank's rows
+    and lanes, summed over every rank, with the time-summed cache counted
+    once (on time rank 0). A 0-d tensor."""
+    if mesh is None:
+        return obs.log_likelihood_sum(Y, psi, aux, llc)
+    from pyglm_tpu_torch.parallel.sharding import all_reduce_sum
+    if llc is not None and mesh.index("time") != 0:
+        llc = {k: torch.zeros_like(v) for k, v in llc.items()}
+    ll = obs.log_likelihood_sum(Y, psi, aux, llc)
+    return all_reduce_sum(ll.reshape(1), mesh, mesh.axis_names)[0]
 
 
 def make_log_likelihood(obs, N: int, B: int):

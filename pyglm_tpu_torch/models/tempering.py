@@ -150,11 +150,8 @@ def make_tempered_sweep(obs, network, N: int, B: int, betas,
         lls = d["log_likelihood"].cpu()            # one transfer a sweep
         perm, accept, parity = swap_permutation(gens.host, lls, betas_h)
         st = permute_states(st, perm)
-        diag = {"log_likelihood": lls[perm], "n_edges": d["n_edges"],
-                "swap_accept": accept, "swap_parity": parity}
-        if hasattr(st.net, "hmc_accept"):
-            diag["hmc_accept"] = st.net.hmc_accept
-        return st, diag
+        return st, _swap_diag(st, lls, perm, accept, parity,
+                              d["n_edges"])
 
     return sweep
 
@@ -174,20 +171,86 @@ def swap_rates(accepts, n_sweeps: int, n_parity1: int):
     return accepts / attempts
 
 
-def make_tempered_sweep_sharded(*args, **kwargs):
-    """Rungs spread over a chain mesh: not ported (ROADMAP.md Queue A,
-    item 15)."""
-    raise NotImplementedError(
-        "tempering on a chain mesh is not ported to pyglm_tpu_torch yet "
-        "(ROADMAP.md Queue A, item 15)")
+def _swap_diag(st, lls, perm, accept, parity, n_edges):
+    diag = {"log_likelihood": lls[perm], "n_edges": n_edges,
+            "swap_accept": accept, "swap_parity": parity}
+    if hasattr(st.net, "hmc_accept"):
+        diag["hmc_accept"] = st.net.hmc_accept
+    return diag
 
 
-def make_tempered_sweep_gspmd(*args, **kwargs):
-    """Rungs over a composed chain-data mesh: not ported (ROADMAP.md Queue
-    A, item 15)."""
-    raise NotImplementedError(
-        "tempering on a chain-data mesh is not ported to pyglm_tpu_torch "
-        "yet (ROADMAP.md Queue A, item 15)")
+def make_tempered_sweep_sharded(obs, network, N: int, B: int, betas, mesh,
+                                spike_slab: bool = True,
+                                group: int | None = None,
+                                precision: str = "high"):
+    """The C-rung tempering sweep with rungs spread over a ("chain",) mesh
+    of M ranks: ``sweep(MeshGenerators, local stacked state, datas)``.
+    Each rank runs the tempered pass of its C/M rungs on the whole data
+    from its shard generators (kernel K4 at (T, C/M N)); the (C,)
+    untempered log-likelihoods are gathered over "chain"; every rank draws
+    the same swap from the replicated host generator; the rung states are
+    gathered, permuted (:func:`permute_states`) and each rank keeps its
+    slice. diag as :func:`make_tempered_sweep`'s, plus "full_state", the
+    permuted stack of all C rungs. ValueError unless M divides C."""
+    from pyglm_tpu_torch.models.ensemble import make_stacked_sweep_sharded
+    from pyglm_tpu_torch.parallel.sharding import (
+        CHAIN_AXES, all_gather, gather_tree, require_mesh)
+    require_mesh(mesh, CHAIN_AXES)
+    _check_tempering(obs)
+    betas_h = torch.as_tensor(np.asarray(betas, np.float32))
+    C = betas_h.shape[0]
+    gibbs = make_stacked_sweep_sharded(obs, network, N, B, C, mesh,
+                                       spike_slab, group=group,
+                                       precision=precision, betas=betas_h)
+    Cl = C // mesh.shape["chain"]
+    mine = torch.arange(mesh.index("chain") * Cl,
+                        (mesh.index("chain") + 1) * Cl)
+
+    def sweep(gens, st, datas):
+        st, d = gibbs(gens.shard, st, datas)
+        lls = all_gather(d["log_likelihood"], mesh, "chain").cpu()
+        n_edges = all_gather(d["n_edges"], mesh, "chain")
+        perm, accept, parity = swap_permutation(gens.replicated.host, lls,
+                                                betas_h)
+        full = permute_states(gather_tree(st, mesh, "chain"), perm)
+        diag = _swap_diag(full, lls, perm, accept, parity, n_edges)
+        diag["full_state"] = full
+        return permute_states(full, mine), diag
+
+    return sweep
+
+
+def make_tempered_sweep_gspmd(obs, network, N: int, B: int, betas, mesh,
+                              spike_slab: bool = True,
+                              group: int | None = None,
+                              precision: str = "high"):
+    """The C-rung tempering sweep on a ("chain", "time", "neuron") mesh:
+    the tempered pass is the stacked sweep with the C*N rung lanes sharded
+    over ("chain", "neuron") and the sums over "time"
+    (``ensemble.make_stacked_sweep_gspmd``); the stacked state is whole on
+    every rank, so the swap, drawn on the replicated host generator, moves
+    nothing between ranks. ``sweep(MeshGenerators, stacked state, local
+    datas)``; diag as :func:`make_tempered_sweep`'s."""
+    from pyglm_tpu_torch.models.ensemble import make_stacked_sweep_gspmd
+    from pyglm_tpu_torch.parallel.sharding import (CHAIN_DATA_AXES,
+                                                   require_mesh)
+    require_mesh(mesh, CHAIN_DATA_AXES)
+    _check_tempering(obs)
+    betas_h = torch.as_tensor(np.asarray(betas, np.float32))
+    gibbs = make_stacked_sweep_gspmd(obs, network, N, B, betas_h.shape[0],
+                                     mesh, spike_slab, group=group,
+                                     precision=precision, betas=betas_h)
+
+    def sweep(gens, st, datas):
+        st, d = gibbs(gens, st, datas)
+        lls = d["log_likelihood"].cpu()
+        perm, accept, parity = swap_permutation(gens.replicated.host, lls,
+                                                betas_h)
+        st = permute_states(st, perm)
+        return st, _swap_diag(st, lls, perm, accept, parity,
+                              d["n_edges"])
+
+    return sweep
 
 
 def tempered_generators(seeds, device):
@@ -195,15 +258,33 @@ def tempered_generators(seeds, device):
     return chain_generators(int(seeds[0]) + _TEMPER_SALT, device)
 
 
-def init_tempered_states(model, betas, seeds=None):
+def tempered_mesh_generators(seeds, mesh, device):
+    """The MeshGenerators of a tempered sweep on `mesh`: replicated, those
+    of :func:`tempered_generators` (the swaps, and on a chain-data mesh the
+    pass's replicated draws); shard, the rank's own (on a chain mesh its
+    rungs' pass, salted by its chain index)."""
+    from pyglm_tpu_torch.models.sweep import MeshGenerators
+    from pyglm_tpu_torch.parallel.sharding import shard_generators
+    rep = tempered_generators(seeds, device)
+    seed = int(seeds[0]) + _TEMPER_SALT
+    if "time" in mesh.shape:
+        return MeshGenerators(rep, shard_generators(seed, mesh, device))
+    return MeshGenerators(rep, chain_generators(
+        seed + ((mesh.index("chain") + 1) << 20), device))
+
+
+def init_tempered_states(model, betas, seeds=None, rungs=None):
     """C prior-initialised rung states stacked on a chain axis, rung c
     drawn from ``ensemble_generators(seeds[c])`` (default seeds 1 .. C), as
     the ensemble seeds its chains: no rung starts from the prior draw of a
-    model built with its seed."""
+    model built with its seed. `rungs` (a slice): only those rungs (a
+    chain mesh rank's)."""
     C = len(betas)
     seeds = list(range(1, C + 1) if seeds is None else seeds)
     if len(seeds) != C:
         raise ValueError(f"{len(seeds)} seeds for {C} rungs")
+    if rungs is not None:
+        seeds = seeds[rungs]
     dev = model.device
     return stack_states([init_state_from_prior(
         ensemble_generators(sd, dev), model.observation, model.network,

@@ -46,7 +46,8 @@ from pyglm_tpu_torch.ops.ss_cuda import (
 )
 from pyglm_tpu_torch.utils.utils import fp32_matmul, logistic
 
-# The loop the last resample_spike_slab_tspace call ran: "fused" | "staged".
+# The loop the last resample_spike_slab_tspace call ran: "fused" |
+# "staged", or under a mesh "mesh_fused" | "mesh_staged".
 LAST_SS_PATH = None
 
 
@@ -72,16 +73,26 @@ class SpikeSlabNoise(NamedTuple):
     sr: torch.Tensor | None = None    # (Ng, 2) int64
 
 
+def lane_hypers(hyp: EdgeHypers, lanes: slice) -> EdgeHypers:
+    """The edge priors of a block of postsynaptic lanes."""
+    return EdgeHypers(mu=hyp.mu[:, lanes], Lam=hyp.Lam[:, lanes],
+                      logit_rho=hyp.logit_rho[:, lanes],
+                      mu_b=hyp.mu_b[lanes], lam_b=hyp.lam_b[lanes])
+
+
 def pack_weights(A, W, b):
-    """(A, W, b) -> w_full (P, N) in the design-column layout."""
-    N, _, B = W.shape
-    w = (A[:, :, None] * W).permute(0, 2, 1).reshape(N * B, N)
+    """(A, W, b) -> w_full (P, lanes) in the design-column layout (lanes:
+    N, or a mesh rank's block of them)."""
+    N, lanes, B = W.shape
+    w = (A[:, :, None] * W).permute(0, 2, 1).reshape(N * B, lanes)
     return torch.cat([w, b[None, :]], dim=0)
 
 
 def unpack_weights(w_full, N: int, B: int):
-    """w_full (P, N) -> (W_eff (N, N, B), b (N,)); W_eff is masked by A."""
-    W = w_full[: N * B].reshape(N, B, N).permute(0, 2, 1)
+    """w_full (P, lanes) -> (W_eff (N, lanes, B), b (lanes,)) for N presyn
+    neurons; W_eff is masked by A. The lanes are N, or a rank's block of
+    them on a mesh."""
+    W = w_full[: N * B].reshape(N, B, -1).permute(0, 2, 1)
     return W, w_full[N * B]
 
 
@@ -108,15 +119,25 @@ def _chunked(x, t0, t1):
     return xs.reshape((-1, T_CHUNK) + tuple(xs.shape[1:]))
 
 
+def _time_sum(x, mesh):
+    """x summed over the mesh's time ranks (x itself without a mesh)."""
+    if mesh is None:
+        return x
+    from pyglm_tpu_torch.parallel.sharding import all_reduce_sum
+    return all_reduce_sum(x, mesh, "time")
+
+
 @fp32_matmul()
-def sufficient_stats(Xf, omega, kappa):
+def sufficient_stats(Xf, omega, kappa, mesh=None):
     """J[n] = Xf' diag(omega[:, n]) Xf and h[:, n] = Xf' kappa[:, n]: the
     dense update's statistics, O(N T P^2). Each T_CHUNK-step chunk is one
     fp32 batched GEMM (P x N P by the chunk's steps), and the chunks' sums
     add up, as the JAX package's scan does; the GEMMs are full float32 at
     every precision mode (the JAX package's einsum takes the mode's
     precision: one bf16 pass at "default" on the TPU). Xf (T, P), omega
-    and kappa (T, N); returns J (N, P, P), h (P, N)."""
+    and kappa (T, N); returns J (N, P, P), h (P, N). Under a `mesh` the
+    rows are this time rank's and the lanes its own; J and h are summed
+    over "time" (one all-reduce)."""
     T, P = Xf.shape
     N = omega.shape[1]
     J = Xf.new_zeros((N, P, P))
@@ -125,7 +146,11 @@ def sufficient_stats(Xf, omega, kappa):
         xw = (oc[:, :, :, None] * xc[:, :, None, :]).reshape(
             xc.shape[0], T_CHUNK, N * P)                  # (c, tc, N P)
         J += torch.bmm(xw.transpose(1, 2), xc).sum(0).reshape(N, P, P)
-    return J, Xf.T @ kappa
+    h = Xf.T @ kappa
+    if mesh is None:
+        return J, h
+    Jh = _time_sum(torch.cat([J.reshape(-1), h.reshape(-1)]), mesh)
+    return Jh[:J.numel()].reshape(J.shape), Jh[J.numel():].reshape(h.shape)
 
 
 @fp32_matmul()
@@ -348,7 +373,8 @@ def ss_path(N_pre: int, B: int, lanes: int, T: int, group: int | None = None,
 
 
 def group_gram_blocks(Xt, omega, B: int, G: int, packed: bool = True,
-                      fast: bool = False, precision: str = "highest"):
+                      fast: bool = False, precision: str = "highest",
+                      mesh=None):
     """Every group's omega-weighted Gram: kernel K6 for CUDA tensors, its
     plain version for CPU tensors. The body, as the JAX package picks its
     Pallas body: ``fast=True`` or precision "default" the single bf16 pass
@@ -357,28 +383,43 @@ def group_gram_blocks(Xt, omega, B: int, G: int, packed: bool = True,
     Gram); on the CPU the bf16 body is the plain bf16 Gram and the others
     fp32. Xt (P, T) with the bias row last. Returns the packed
     (Ng, GB(GB+1)/2, N), or with ``packed=False`` the JAX package's
-    (Ng, N, GB, GB)."""
+    (Ng, N, GB, GB). Under a `mesh` (the JAX package's ``_gram_shard_map``)
+    Xt and omega hold this time rank's rows and its lanes: the rank forms
+    its rows' Gram (K6 on the card) and the time ranks sum them."""
     check_precision(precision)
     body = ("default" if fast or precision == "default" else
             "highest" if precision == "highest" else "high")
-    if omega.is_cuda:
+    if Xt.shape[1] == 0:            # a time rank with no rows of its own
+        GB = G * B
+        Jg = omega.new_zeros(((Xt.shape[0] - 1) // GB, GB * (GB + 1) // 2,
+                              omega.shape[1]))
+    elif omega.is_cuda:
         Jg = group_gram_blocks_cuda(Xt, omega, B, G, precision=body)
     elif omega.device.type == "cpu":
         Jg = group_gram_blocks_plain(Xt, omega, B, G, precision=body)
     else:
         raise ValueError(f"group_gram_blocks: unsupported device "
                          f"{omega.device}")
+    Jg = _time_sum(Jg, mesh)
     if packed:
         return Jg
     return torch.stack([unpack_gram(j, G * B) for j in Jg])
 
 
-def _draw_group_noise(generator, noise, g, G, N, B, dev):
-    """Group g's (u_a (G, N), eps (G, N, B)): drawn, or taken from noise."""
+def _draw_group_noise(generator, noise, g, G, N, B, dev, shard=None):
+    """Group g's (u_a (G, N), eps (G, N, B)): drawn, or taken from noise.
+    On a mesh (`shard`) the noise is drawn at full width, as without a
+    mesh, and the rank's lanes are returned."""
+    if shard is not None:
+        N = shard.n_lanes
     if noise is not None:
-        return noise.u_a[g].contiguous(), noise.eps[g].contiguous()
-    return (torch.rand((G, N), generator=generator, device=dev),
-            torch.randn((G, N, B), generator=generator, device=dev))
+        u_a, eps = noise.u_a[g], noise.eps[g]
+    else:
+        u_a = torch.rand((G, N), generator=generator, device=dev)
+        eps = torch.randn((G, N, B), generator=generator, device=dev)
+    if shard is not None:
+        u_a, eps = u_a[:, shard.lanes], eps[:, shard.lanes]
+    return u_a.contiguous(), eps.contiguous()
 
 
 def _sr_seeds(host_generator, noise, Ng):
@@ -395,11 +436,16 @@ def _sr_seeds(host_generator, noise, Ng):
 
 
 def _fused_loop(generator, host_generator, Xt, omega, u, w, hyp, A, G, B,
-                noise, precision):
+                noise, precision, shard=None):
     """Ng x (K2 + K3) and K2's epilogue, K2's Gram at `precision`; updates
     u, w and A in place and returns sum_t omega. At "default" and "sr" the
     Grams read one bf16 stream of omega (omega holds bf16 values there),
-    made here once for the update's Ng K2 calls."""
+    made here once for the update's Ng K2 calls. On a mesh (`shard`; the
+    JAX package's ``_ss_fused_shard_map``) K2 runs on the rank's rows and
+    lanes, and [M0; the packed Jgg] are summed over "time" in one
+    all-reduce a group, in the layout K3 reads, before K3 runs on the
+    rank's lanes, replicated across its time ranks; the sum returned is
+    the rank's own."""
     T, N = omega.shape
     GB, Ng = G * B, A.shape[0] // G
     sr = _sr_seeds(host_generator, noise, Ng) if precision == "sr" else None
@@ -417,7 +463,11 @@ def _fused_loop(generator, host_generator, Xt, omega, u, w, hyp, A, G, B,
             sum_om = s
         if g == Ng:
             break
-        u_a, eps = _draw_group_noise(generator, noise, g, G, N, B, u.device)
+        if shard is not None:
+            mj = _time_sum(torch.cat([m0, jgg]), shard.mesh)
+            m0, jgg = mj[:GB], mj[GB:]
+        u_a, eps = _draw_group_noise(generator, noise, g, G, N, B, u.device,
+                                     shard)
         sl = slice(g * G, (g + 1) * G)
         dW, A[sl] = ss_edge_scan(jgg, m0, w[g * GB:(g + 1) * GB], hyp.mu[sl],
                                  hyp.Lam[sl], hyp.logit_rho[sl], u_a, eps)
@@ -425,18 +475,23 @@ def _fused_loop(generator, host_generator, Xt, omega, u, w, hyp, A, G, B,
 
 
 def _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise, precision,
-                 Jg=None):
+                 Jg=None, shard=None):
     """K6 once (unless the packed Jg is given), then per group M0 = X_g u,
     K3 on Jg[g] and the scatter u -= omega * (X_g^T dW); updates u, w and A
-    in place and returns sum_t omega."""
+    in place and returns sum_t omega. On a mesh (`shard`) K6 runs on the
+    rank's rows and its Gram, unless given (then summed already), and each
+    M0 are summed over "time"; the sum returned is the rank's own."""
     N = omega.shape[1]
     GB = G * B
+    mesh = None if shard is None else shard.mesh
     if Jg is None:
-        Jg = group_gram_blocks(Xt, omega, B, G, precision=precision)
+        Jg = group_gram_blocks(Xt, omega, B, G, precision=precision,
+                               mesh=mesh)
     for g in range(Jg.shape[0]):
         xg = Xt[g * GB:(g + 1) * GB]
-        m0 = xg @ u
-        u_a, eps = _draw_group_noise(generator, noise, g, G, N, B, u.device)
+        m0 = _time_sum(xg @ u, mesh)
+        u_a, eps = _draw_group_noise(generator, noise, g, G, N, B, u.device,
+                                     shard)
         sl = slice(g * G, (g + 1) * G)
         dW, A[sl] = ss_edge_scan(Jg[g], m0, w[g * GB:(g + 1) * GB],
                                  hyp.mu[sl], hyp.Lam[sl], hyp.logit_rho[sl],
@@ -445,13 +500,42 @@ def _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise, precision,
     return omega.sum(0)
 
 
+def mesh_ss_path(precision: str = "highest", jg_given: bool = False,
+                 whole_rows: bool = False) -> str:
+    """The spike-and-slab loop on a mesh, as the JAX package's mesh
+    dispatch picks it: "mesh_fused" (K2 + K3 per shard) unless the packed
+    Gram is given (a Gaussian's cached Gram: "mesh_staged" on it), or a
+    dataset keeps its whole rows on every time rank, or the precision is
+    "highest" (K2 has no fp32 Gram; the JAX package's mesh path takes its
+    f32 XLA Gram there). The last two run "mesh_staged" with a warning,
+    never silently."""
+    check_precision(precision)
+    if jg_given:
+        return "mesh_staged"
+    reasons = []
+    if whole_rows:
+        reasons.append("a dataset's T is not divisible by the mesh time "
+                       "axis (its whole rows sit on every time rank)")
+    if precision == "highest":
+        reasons.append("precision='highest' needs K6's fp32 Gram, and K2 "
+                       "has none")
+    if not reasons:
+        return "mesh_fused"
+    import warnings
+    warnings.warn("mesh sweep runs the staged spike-and-slab loop (K6 + "
+                  "K3) instead of the fused one: " + "; ".join(reasons),
+                  stacklevel=3)
+    return "mesh_staged"
+
+
 def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
                                psi, w_full, hyp: EdgeHypers, B: int,
                                group: int | None = None,
                                noise: SpikeSlabNoise | None = None,
                                path: str | None = None, Jg=None,
                                precision: str = "highest",
-                               host_generator: torch.Generator | None = None):
+                               host_generator: torch.Generator | None = None,
+                               mesh=None):
     """Collapsed spike-and-slab for all neurons in residual (T-) space.
 
     Args:
@@ -482,6 +566,17 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
         fused loop (unless ``noise.sr`` is given); no other mode draws
         from it.
 
+      mesh: a ("time", "neuron") or ("chain", "time", "neuron") mesh
+        (parallel/sharding.py). Xt, omega, kappa and psi then hold this
+        rank's rows and lanes, w_full and hyp its lanes; the Grams, M0 and
+        the bias sums are summed over "time", and every draw (the noise,
+        the bias normal, the "sr" seeds) comes at full width from the
+        replicated `generator` and `host_generator`, each rank keeping its
+        lanes: given the same omega and noise, every mesh gives the
+        unsharded update's A and w but for the fp32 order of the time
+        ranks' sums. `noise` is full width. `path`: "mesh_fused" or
+        "mesh_staged" (default :func:`mesh_ss_path`).
+
     Returns (A (N_pre, N), w_full (P, N), u (T, N), sum_omega (N,)); psi
     under the new weights is (kappa - u) / omega. The loop run is recorded
     in ``LAST_SS_PATH``.
@@ -493,42 +588,59 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
     G = _auto_group(N_pre, B) if group is None else group
     if N_pre % G:
         raise ValueError(f"group={G} does not divide N_pre={N_pre}")
-    if path is None:
-        path = ss_path(N_pre, B, N, T, group=group, jg_given=Jg is not None,
-                       precision=precision)
     check_precision(precision)
-    if path not in ("fused", "staged") or (Jg is not None
-                                          and path != "staged"):
-        raise ValueError(f"path={path!r}: 'fused' or 'staged' (a given Jg "
-                         f"runs the staged loop)")
-    if path == "fused" and precision == "highest":
-        raise ValueError("path='fused' runs K2, whose Gram is not fp32; "
-                         "precision='highest' runs the staged loop")
+    shard = None
+    if mesh is not None:
+        from pyglm_tpu_torch.parallel.sharding import lane_count, lane_shard
+        shard = lane_shard(mesh, N * lane_count(mesh))
+        paths = ("mesh_fused", "mesh_staged")
+        if path is None:
+            path = mesh_ss_path(precision, jg_given=Jg is not None)
+    else:
+        paths = ("fused", "staged")
+        if path is None:
+            path = ss_path(N_pre, B, N, T, group=group,
+                           jg_given=Jg is not None, precision=precision)
+    fused, staged = paths
+    if path not in paths or (Jg is not None and path != staged):
+        raise ValueError(f"path={path!r}: {fused!r} or {staged!r} (a given "
+                         f"Jg runs the staged loop)")
+    if path == fused and precision == "highest":
+        raise ValueError(f"path={fused!r} runs K2, whose Gram is not fp32; "
+                         f"precision='highest' runs the staged loop")
     LAST_SS_PATH = path
     dev = omega.device
 
     # The fused loop's omega at the bf16 modes (ss_pallas.py:409-413).
-    om_k = (to_bf16(omega) if path == "fused"
+    om_k = (to_bf16(omega) if path == fused
             and precision in ("default", "sr") else omega)
     u = kappa - om_k * psi
     w = w_full.clone()
     hyp = hyp._replace(mu=hyp.mu.contiguous(), Lam=hyp.Lam.contiguous(),
                        logit_rho=hyp.logit_rho.contiguous())
     A = torch.empty((N_pre, N), dtype=torch.float32, device=dev)
-    if path == "staged":
+    if path == staged:
         sum_om = _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B,
-                              noise, precision, Jg)
+                              noise, precision, Jg, shard)
     else:
         sum_om = _fused_loop(generator, host_generator, Xt, om_k, u, w, hyp,
-                             A, G, B, noise, precision)
+                             A, G, B, noise, precision, shard)
 
     # Bias column (always active): X_bias = ones.
+    u_sum = u.sum(0)
+    if shard is not None:               # one all-reduce of both sums
+        sums = _time_sum(torch.cat([sum_om, u_sum]), mesh)
+        sum_om, u_sum = sums[:N], sums[N:]
     b_old = w[P - 1].clone()
-    m_b = u.sum(0) + sum_om * b_old + hyp.lam_b * hyp.mu_b
+    m_b = u_sum + sum_om * b_old + hyp.lam_b * hyp.mu_b
     lam_p = hyp.lam_b + sum_om
-    z_b = (torch.randn((N,), generator=generator, device=dev)
+    z_b = (torch.randn((N if shard is None else shard.n_lanes,),
+                       generator=generator, device=dev)
            if noise is None else noise.bias)
+    if shard is not None:
+        z_b = z_b[shard.lanes]
     b_new = m_b / lam_p + z_b / torch.sqrt(lam_p)
     u -= omega * (b_new - b_old)[None, :]
     w[P - 1] = b_new
     return A, w, u, sum_om
+

@@ -79,3 +79,40 @@ def design_matrix(Y: torch.Tensor, basis,
         Xf = torch.cat([Xf, torch.ones((T, 1), dtype=Xf.dtype,
                                        device=Xf.device)], dim=1)
     return Xf
+
+
+def design_matrix_sharded(Y: torch.Tensor, basis, mesh,
+                          with_bias: bool = True) -> torch.Tensor:
+    """This time rank's rows of the design, from its rows of Y.
+
+    `Y` is the rank's (T/n_time, N) block of the spike matrix (every time
+    rank holds an equal block, in time order). The causal convolution
+    needs the L bins before the block: each rank gathers the last L rows
+    of every time rank's block over "time" and prepends those of the
+    previous rank (zeros on the first: the global zero padding before
+    t = 0), the JAX package's ``ppermute`` halo. The convolution of
+    [halo; Y] without its first L rows is bit-identical to the same rows
+    of :func:`design_matrix` on the whole Y: each row is the same sum of
+    the same L inputs. Returns (T/n_time, N*B [+1]).
+
+    Raises ValueError, as the JAX package asserts, where the time blocks
+    differ in length (T not divisible by the time axis) or are shorter
+    than L.
+    """
+    from pyglm_tpu_torch.parallel.sharding import all_gather
+    L = np.asarray(basis).shape[0]
+    lens = all_gather(torch.tensor([Y.shape[0]], device=Y.device), mesh,
+                      "time")
+    if int(lens.min()) != int(lens.max()):
+        raise ValueError(f"time blocks of {lens.tolist()} rows: T is not "
+                         f"divisible by the mesh time axis "
+                         f"{mesh.shape['time']}")
+    if Y.shape[0] < L:
+        raise ValueError(f"time shards of {Y.shape[0]} bins are shorter "
+                         f"than the basis filter (L={L}); use fewer time "
+                         f"shards")
+    tails = all_gather(Y[-L:].contiguous(), mesh, "time")    # (n_time L, N)
+    t = mesh.index("time")
+    halo = (tails[(t - 1) * L:t * L] if t > 0
+            else torch.zeros_like(Y[:L]))
+    return design_matrix(torch.cat([halo, Y]), basis, with_bias)[L:]

@@ -248,11 +248,31 @@ def pg_devroye_plain(c: torch.Tensor, generator: torch.Generator):
     return (0.25 * X).reshape(c.shape)
 
 
-def pg_draw_unit(c: torch.Tensor, generator: torch.Generator):
+def _mesh_draw(draw, generator, mesh, *arrays):
+    """An elementwise sampler on a mesh (the JAX package's
+    ``_shard_map_elementwise``): each rank draws only its (T/n_time,
+    lanes/lane_count) tile of the global (T, lanes) `arrays` on its own
+    `generator`, and the tiles are gathered, so every rank returns the
+    same global draw."""
+    from pyglm_tpu_torch.parallel.sharding import gather_tile, local_tile
+    return gather_tile(draw(*(local_tile(a, mesh) for a in arrays),
+                            generator), mesh)
+
+
+def pg_draw_unit(c: torch.Tensor, generator: torch.Generator, mesh=None):
     """PG(1, c) draws: kernel K1 for a CUDA tensor, the plain version for a
     CPU tensor. On CUDA the kernel's Philox (seed, offset) pair is drawn
     from `generator`; pass a CPU generator to keep that draw off the
-    device stream."""
+    device stream.
+
+    With a `mesh` (parallel/sharding.py), `c` is the global (T, lanes)
+    tensor on every rank and `generator` the rank's per-shard one
+    (``shard_generators(...).host``): the rank draws its tile (K1 at the
+    local shape) and every rank returns the gathered whole. ValueError
+    where the mesh does not divide c's shape. A sharded model's sweep
+    draws its tiles directly, without the gather."""
+    if mesh is not None:
+        return _mesh_draw(pg_draw_unit, generator, mesh, c)
     if c.is_cuda:
         from pyglm_tpu_torch.ops.pg_cuda import pg_devroye_cuda
         return pg_devroye_cuda(c, *_build.philox_seed(generator))
@@ -381,7 +401,8 @@ def _gamma_or_normal(b, c, generator, normal_cutoff):
     return pg_gamma_series_plain(b, c, generator, normal_cutoff)
 
 
-def polya_gamma(b, c, generator: torch.Generator, method: str = "auto"):
+def polya_gamma(b, c, generator: torch.Generator, method: str = "auto",
+                mesh=None):
     """Hybrid PG(b, c) sampler over the broadcast of b and c.
 
     method:
@@ -400,10 +421,17 @@ def polya_gamma(b, c, generator: torch.Generator, method: str = "auto"):
     no host sync; "auto" counts the b == 1 elements on the host once. On
     CUDA the kernels' Philox seeds come from `generator` (pass a CPU
     generator); on the CPU the plain versions draw on it.
+
+    With a `mesh`, b and c broadcast to a global (T, lanes) shape and each
+    rank draws its tile on its per-shard `generator` (K1, or K4 where
+    b != 1, at the local shape), as :func:`pg_draw_unit` does.
     """
     if method not in _METHODS:
         raise ValueError(f"unknown PG method {method!r}; one of {_METHODS}")
     b, c = _f32_pair(b, c)
+    if mesh is not None:
+        return _mesh_draw(lambda bb, cc, g: polya_gamma(bb, cc, g, method),
+                          generator, mesh, b, c)
     if method == "devroye":
         return pg_draw_unit(c, generator)
     cutoff = {"gamma": math.inf, "normal": -math.inf}.get(method,

@@ -719,3 +719,55 @@ def test_latent_distance_hmc_on_card_matches_cpu(gen):
     assert float((h.L - c.L.cpu()).abs().max()) <= 1e-4
     assert float((h.gamma - c.gamma.cpu()).abs().max()) <= 1e-4
     assert c.L.is_cuda and torch.isfinite(c.Sigma).all()
+
+
+# ---------------------------------------------------------------------------
+# The sharded port on the card (parallel/sharding.py): ranks on cuda:0
+# ---------------------------------------------------------------------------
+
+def _spawn_on_card(fn, world, backend):
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pyglm_tpu_torch.parallel.sharding import spawn
+    return spawn(fn, world, backend=backend, device="cuda:0",
+                 timeout_s=300)
+
+
+@pytest.fixture(scope="module")
+def gloo_updates():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_mesh_workers as wk
+    return _spawn_on_card(wk.cuda_update_rank, 2, "gloo")
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+@pytest.mark.parametrize("path", ["fused", "staged"])
+def test_mesh_update_on_the_card_equals_unsharded(gloo_updates, shape,
+                                                  path):
+    """Two gloo ranks on cuda:0 (N=20, T=3000): the mesh update (K2 + K3,
+    or K6 + K3) gives the unsharded update's A and w within 1e-4; on
+    (1, 2), with no time split, exactly the unsharded update on the
+    rank's lanes alone."""
+    for r in gloo_updates:
+        u = r[shape, path]
+        assert u["path"] == "mesh_" + path
+        assert u["A_equal"] and u["w_err"] <= 1e-4, u
+        if shape[0] == 1:
+            assert u["block_equal"], u
+        L_ = u["launches"]
+        if path == "fused":
+            assert L_["ss_group_pass"] == 3 and L_["group_gram"] == 0
+        else:
+            assert L_["group_gram"] == 1 and L_["ss_group_pass"] == 0
+        assert L_["ss_edge_scan"] == 2
+
+
+def test_one_rank_nccl_mesh_runs_the_sharded_sweep():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_mesh_workers as wk
+    r = _spawn_on_card(wk.cuda_nccl_rank, 1, "nccl")[0]
+    assert r["backend"] == "nccl" and r["collectives"]["nccl"] > 0
+    assert r["path"] == "mesh_fused" and np.all(np.isfinite(r["lls"]))

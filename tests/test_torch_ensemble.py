@@ -147,7 +147,7 @@ def test_sequential_ensemble_restores_the_model():
     with pytest.raises(ValueError):
         m.fit_ensemble(n_chains=2, n_samples=4, stacked=False,
                        collect="mean")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Mesh"):
         m.fit_ensemble(n_chains=2, n_samples=4, mesh=object())
     with pytest.raises(ValueError):
         m.fit_ensemble(n_chains=1, n_samples=4)

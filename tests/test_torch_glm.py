@@ -6,8 +6,8 @@ pyglm_tpu.SparseBernoulliGLM on the CPU (N=10, T=3000, B=4, L=10, G=5).
 (c) both packages fit the same Y from the same initial state (50 burn-in +
     150 kept sweeps) and must agree on the posterior;
 (d) configurations beyond the slice (dense sweeps, the Gaussian family,
-    the SBM prior) construct and run a sweep, and what the port does not
-    run yet (chain meshes) raises NotImplementedError.
+    the SBM prior) construct and run a sweep, and a mesh that is not a
+    parallel.sharding.Mesh raises ValueError.
 Every port model here is built with device="cpu".
 """
 import numpy as np
@@ -174,7 +174,7 @@ def test_unported_configurations_raise(kw):
     Y = (np.random.default_rng(0).random((600, N)) < 0.2).astype(np.float32)
     m.add_data(Y)
     assert np.isfinite(m.resample_model()["log_likelihood"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Mesh"):
         m.fit_ensemble(n_chains=2, n_samples=4, mesh=object())
 
 

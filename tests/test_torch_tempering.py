@@ -293,7 +293,7 @@ def test_fit_tempered_validates_betas():
     with pytest.raises(ValueError, match="max_sweeps_per_launch"):
         m.fit_tempered(n_samples=4, thin=5, max_sweeps_per_launch=4,
                        betas=np.asarray([0.5, 1.0]))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="Mesh"):
         m.fit_tempered(n_samples=4, betas=np.asarray([0.5, 1.0]),
                        mesh=object())
 
@@ -357,9 +357,13 @@ def test_fit_tempered_other_families(obs, okw):
 
 
 def test_sharded_tempering_is_not_ported():
+    """The mesh tempering sweeps are ported (tests/test_torch_chain_mesh.py,
+    test_torch_chain_data_mesh.py); what is not a Mesh raises ValueError,
+    as the JAX package's assertions do."""
+    m = _model(seed=0)
     for fn in (tt.make_tempered_sweep_sharded, tt.make_tempered_sweep_gspmd):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            fn(None, None, 4, 2, [0.5, 1.0], None)
+        with pytest.raises(ValueError, match="Mesh"):
+            fn(m.observation, m.network, 4, 2, [0.5, 1.0], None)
 
 
 @pytest.mark.slow
