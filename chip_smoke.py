@@ -19,7 +19,10 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      K2's SR Gram at a small shape
      (unbiased over 256 seeds), then the NB kernels K4 (gamma-series PG;
      its bound from a count of the special-function operations its
-     proposals need at the SFU's rate) and K5 (CRT counts); at the 8-chain
+     proposals need at the SFU's rate) and K5 (CRT counts, per element and
+     summed per column: the law, both forms equal to the numpy twin's
+     draws bit for bit, device time by torch.profiler at the NB counts and
+     at a high-count shape); at the 8-chain
      latent-distance ensemble's shapes (P=2001, T=20k, 4000 lanes, G=10)
      K6 (group Gram) at precision "high" (3xTF32), "highest" (fp32 FMA)
      and "default" (one bf16 pass on wgmma over a bf16 omega stream), plus
@@ -41,7 +44,7 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      K2's bf16 and SR Grams); the same for SparseNegativeBinomialGLM
      (max_y=16, counts
      capped at 15), followed by one NB dispersion update without the count
-     table, which runs K5; then the acceptance suite's config 5
+     table, which runs K5's sums form; then the acceptance suite's config 5
      (latent-distance prior, N=500, T=20k) through fit_ensemble with 8
      lane-stacked chains, a short collect="samples" run and a timed
      collect="mean" run on the staged loop (K6 + K3), and 5 stacked sweeps
@@ -77,6 +80,8 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      previous bin's, T = 1e5, D_in = D_out = 200: K4 and K5; the Bernoulli
      regression: K1) and pgdrawv at 2e7 draws (K1; K4); and exact resume
      from a checkpoint at the flagship (two 5-sweep continuations equal).
+     K1 and K4 against the port's exact native PG sampler
+     (pyglm_tpu_torch/native, built with g++; KS per c and b).
   3. Correctness against references other than the port itself:
      - acceptance (pyglm_tpu_torch/acceptance.py): config 1 (dense,
        N=27), config 2 (NB, N=50), config 3 (N=100) and config 4 (SBM,
@@ -143,6 +148,10 @@ NB_GRID = [(0.3, 1.0), (1.0, 2.0), (2.5, 0.0), (4.5, 1.0), (13.0, 1.0),
            (40.0, 6.0)]
 CRT_GRID = [(1, 0.5), (4, 2.0), (12, 5.0), (15, 0.7)]
 KS_P_MIN = 1e-3          # two-sample KS gate, per c
+# The native oracle phase: K1 at each c, K4 at each (whole b, c), draws each.
+ORACLE_C1 = (0.0, 0.5, 2.0, 10.0)
+ORACLE_BC4 = ((2, 0.0), (5, 2.0), (17, 10.0))
+ORACLE_DRAWS = 100_000
 REL_TOL = 1e-4           # K2, small slice: max |card - plain| / max |plain|
 W_ATOL = 1e-4            # K3: weights
 GRAM_REL_TOL = 1e-5      # K6: fp32 sums over 2e4 terms in another order
@@ -181,6 +190,9 @@ KERNELS = {
                         "pyglm_tpu/ops/pg_pallas.py:452"),
     "crt_sample": ("pyglm_tpu_torch/csrc/crt.cu",
                    "pyglm_tpu/ops/pg_pallas.py:650"),
+    # K5's sums form, its own record (LAUNCHES key): the NB r updates.
+    "crt_sample_sums": ("pyglm_tpu_torch/csrc/crt.cu",
+                        "pyglm_tpu/ops/pg_pallas.py:650"),
     "group_gram": ("pyglm_tpu_torch/csrc/group_gram.cu",
                    "pyglm_tpu/ops/gram_pallas.py:63"),
     # The bf16 Gram bodies, each its own record (LAUNCHES key).
@@ -719,8 +731,7 @@ def phase_kernels_nb(check, record):
     import numpy as np
     import torch
     from scipy.stats import ks_2samp
-    from pyglm_tpu_torch.ops.crt_cuda import crt_sample_cuda
-    from pyglm_tpu_torch.ops.linalg import crt_sample_plain, sample_gamma
+    from pyglm_tpu_torch.ops.linalg import sample_gamma
     from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
     from pyglm_tpu_torch.ops.polyagamma import (
         pg_gamma_series_plain, pg_mean, pg_var)
@@ -781,7 +792,34 @@ def phase_kernels_nb(check, record):
           f"{1e3 * algo_ops / rate:.4f} ms")
 
     # --- K5: CRT counts, exact law, and at (T, N) -------------------------
-    print("K5 crt_sample: exact law, then (100000, 200)", flush=True)
+    phase_k5(check, record, gen, y)
+
+
+def phase_k5(check, record, gen, y_nb):
+    """K5's two forms: the law at CRT_GRID against the exact law and the
+    plain version; both forms equal to the numpy twin's draws bit for bit
+    at small shapes (N = 27, 200 and, past the sums form's shared column
+    table, 60000) and at (T, N) on the NB flagship's counts and on a
+    high-count shape (mean ~4.5, max_y 64), where each warp walks many
+    chunks; each form bit-repeatable; the law's z there; device time by
+    torch.profiler (CUDA events beside it), the plain versions' times and
+    the per-element form summed by torch.sum (the sums form's
+    alternative). The per-element form's launches: the public
+    ``ops.linalg.crt_sample`` at the NB flagship's shape (the models call
+    the sums form, whose launches come from the NB paths)."""
+    import numpy as np
+    import torch
+    from scipy.stats import ks_2samp
+    from pyglm_tpu_torch.diagnostics.timing import crt_z
+    from pyglm_tpu_torch.ops import _build
+    from pyglm_tpu_torch.ops.crt_cuda import (
+        crt_sample_cuda, crt_sample_sums_cuda, crt_sample_twin)
+    from pyglm_tpu_torch.ops.linalg import (
+        crt_sample, crt_sample_plain, sample_gamma)
+
+    dev = "cuda"
+    print("K5 crt_sample / crt_sample_sums: exact law, the numpy twin, then "
+          "(100000, 200)", flush=True)
     worst = 0.0
     for i, (yv, rv) in enumerate(CRT_GRID):
         yy = torch.full((200_000, 1), yv, dtype=torch.int32, device=dev)
@@ -801,18 +839,158 @@ def phase_kernels_nb(check, record):
         check(ks.pvalue > KS_P_MIN,
               f"K5 vs plain at (y, r)=({yv}, {rv}): KS D={ks.statistic:.5f} "
               f"p={ks.pvalue:.4f}, |mean diff|={dmean:.2e}")
+
+    # the twin, bit for bit, at config 1's and the flagship's widths, and
+    # at stacked lanes past the sums form's shared column table
+    rng = np.random.default_rng(15)
+    for t_, n_ in ((301, 27), (301, 200), (5, 60_000)):
+        yn = rng.poisson(3.0, (t_, n_)).astype(np.int32)
+        yn[::5, ::4] += 40                   # past max_y = 16
+        rn = rng.uniform(0.2, 6.0, n_).astype(np.float32)
+        want = crt_sample_twin(yn, rn, 16, 2 ** 40 + n_, 9)
+        yc, rc = torch.from_numpy(yn).to(dev), torch.from_numpy(rn).to(dev)
+        same = all(np.array_equal(crt_sample_cuda(yy, rc, 16, 2 ** 40 + n_,
+                                                  9).cpu().numpy(), want)
+                   for yy in (yc, yc.float()))
+        sums = crt_sample_sums_cuda(yc, rc, 16, 2 ** 40 + n_, 9).cpu()
+        check(same and np.array_equal(sums.numpy(), want.sum(0)),
+              f"K5 at ({t_}, {n_}) (int and float y, counts past max_y): both "
+              f"forms equal the numpy twin bit for bit")
+
     r = 0.5 + 4.0 * torch.rand((N,), generator=gen, device=dev)
-    yi = y.to(torch.int32)
-    ms = event_ms(lambda: crt_sample_cuda(yi, r, 16, 5, 0), 10)
-    plain_ms = event_ms(lambda: crt_sample_plain(yi, r, 16, gen), 3)
-    # y in and counts out (int32), r; the data's sum of min(y, max_y)
-    # Bernoulli draws, ~3 operations each.
+    psi = 0.5 * torch.randn((T, N), generator=gen, device=dev)
+    lam = sample_gamma(torch.full((T, N), 4.0, device=dev), gen) * psi.exp()
+    y_hi = torch.poisson(lam, generator=gen).to(torch.int32)
+    del psi, lam
+    shapes = {"nb": (y_nb.to(torch.int32), 16), "high": (y_hi, 64)}
+    times, sums_err = {}, 0
+    rn = r.cpu().numpy()
+    for name, (yi, max_y) in shapes.items():
+        want = crt_sample_twin(yi.cpu().numpy(), rn, max_y, 5, 1)
+        l = crt_sample_cuda(yi, r, max_y, 5, 1)
+        s = crt_sample_sums_cuda(yi, r, max_y, 5, 1)
+        twin = (np.array_equal(l.cpu().numpy(), want) and torch.equal(
+            crt_sample_cuda(yi.float(), r, max_y, 5, 1), l))
+        err = int(np.abs(s.cpu().numpy() - want.sum(0, dtype=np.int64)).max())
+        sums_err = max(sums_err, err)
+        rep = (torch.equal(l, crt_sample_cuda(yi, r, max_y, 5, 1))
+               and torch.equal(s, crt_sample_sums_cuda(yi, r, max_y, 5, 1)))
+        z = crt_z(s, yi, r, max_y)
+        m = float(yi.clamp(max=max_y).float().mean())
+        check(twin and err == 0 and rep and abs(z) < 5.0,
+              f"K5 at ({T}, {N}), {name} counts (mean {m:.3f}, max_y "
+              f"{max_y}): the per-element form (int and float y) equals the "
+              f"numpy twin bit for bit, the sums' max |diff| from the twin's "
+              f"column sums {err}, both forms bit-repeatable, the sums' z "
+              f"against the exact law {z:.3f} (|z| < 5)")
+        del l, want
+        n_tr = float(yi.clamp(max=max_y).sum())
+        t = times[name] = {
+            "ms": kernel_ms(lambda: crt_sample_cuda(yi, r, max_y, 5, 2), 20,
+                            "crt"),
+            "event_ms": event_ms(lambda: crt_sample_cuda(yi, r, max_y, 5, 2),
+                                 20),
+            "sums_ms": kernel_ms(lambda: crt_sample_sums_cuda(
+                yi, r, max_y, 5, 2), 20, "crt"),
+            "sums_event_ms": event_ms(lambda: crt_sample_sums_cuda(
+                yi, r, max_y, 5, 2), 20),
+            # every kernel of a call: the sums form with its zero fill, and
+            # the per-element form with torch.sum over T
+            "sums_all_ms": kernel_ms(lambda: crt_sample_sums_cuda(
+                yi, r, max_y, 5, 2), 20, ""),
+            "summed_ms": kernel_ms(lambda: crt_sample_cuda(
+                yi, r, max_y, 5, 2).sum(0), 20, ""),
+            # y in and counts out (int32), r; the data's sum of min(y,
+            # max_y) Bernoulli draws, ~3 operations each. The sums form
+            # writes 8 bytes a column.
+            "bound": bound(4 * (2 * T * N + N), (3 * n_tr, FP32_FLOPS)),
+            "sums_bound": bound(4 * T * N + 12 * N, (3 * n_tr, FP32_FLOPS))}
+        if name == "nb":
+            t["plain_ms"] = event_ms(
+                lambda: crt_sample_plain(yi, r, max_y, gen), 3)
+            t["sums_plain_ms"] = event_ms(
+                lambda: crt_sample_plain(yi, r, max_y, gen).sum(0), 3)
+        print(f"  K5 {name} counts: per element {t['ms']:.5f} ms (events "
+              f"{t['event_ms']:.5f}), bound {t['bound']['bound_ms']:.5f} "
+              f"({t['bound']['bound_by']}); sums {t['sums_ms']:.5f} ms "
+              f"(events {t['sums_event_ms']:.5f}), bound "
+              f"{t['sums_bound']['bound_ms']:.5f}; a call's kernels: sums "
+              f"{t['sums_all_ms']:.5f}, per element + torch.sum "
+              f"{t['summed_ms']:.5f}"
+              + (f"; plain {t['plain_ms']:.3f} / {t['sums_plain_ms']:.3f}"
+                 if name == "nb" else ""), flush=True)
+    nb, hi = times["nb"], times["high"]
     record["crt_sample"].update(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(4 * (2 * T * N + N),
-                (3 * float(yi.clamp(max=16).sum()), FP32_FLOPS)))
-    print(f"  K5 {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"(max_abs_err = largest |mean diff| over the grid)")
+        max_abs_err=worst, ms=nb["ms"], event_ms=nb["event_ms"],
+        plain_ms=nb["plain_ms"], library_ms=None, high_ms=hi["ms"],
+        high_event_ms=hi["event_ms"],
+        high_bound_ms=hi["bound"]["bound_ms"], **nb["bound"])
+    record["crt_sample_sums"].update(
+        max_abs_err=sums_err, ms=nb["sums_ms"], event_ms=nb["sums_event_ms"],
+        plain_ms=nb["sums_plain_ms"], library_ms=None,
+        high_ms=hi["sums_ms"], high_event_ms=hi["sums_event_ms"],
+        high_bound_ms=hi["sums_bound"]["bound_ms"],
+        all_kernels_ms=nb["sums_all_ms"],
+        per_element_summed_ms=nb["summed_ms"], **nb["sums_bound"])
+    print("  (max_abs_err: the per-element form's largest |mean diff| from "
+          "plain over the grid; the sums form's largest |diff| from the numpy "
+          "twin's column sums at both count sets)")
+
+    # the per-element form through the public crt_sample at the NB
+    # flagship's counts
+    host = torch.Generator().manual_seed(3)
+    _build.reset_launches()
+    l = crt_sample(y_nb, r, 16, host)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches["crt_sample"] == 1 and sum(launches.values()) == 1
+          and l.shape == (T, N) and l.dtype == torch.int32,
+          "ops.linalg.crt_sample at (100000, 200): K5's per-element form "
+          "launched once, int32 counts")
+    _add_launches(record, launches)
+
+
+def phase_native_oracle(check):
+    """K1 and K4 against the port's exact host sampler
+    (``pyglm_tpu_torch/native``: Polson, Scott and Windle's Devroye-type
+    sampler on std::mt19937_64, built here with g++; the phase fails if it
+    cannot be built): K1 at each c of ORACLE_C1, K4 at each whole b and c
+    of ORACLE_BC4, ORACLE_DRAWS draws each, two-sample KS p > KS_P_MIN; the
+    oracle on every host core."""
+    import numpy as np
+    import torch
+    from scipy.stats import ks_2samp
+    from pyglm_tpu_torch import native
+    from pyglm_tpu_torch.ops.pg_cuda import pg_devroye_cuda
+    from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
+
+    t0 = time.perf_counter()
+    native.library()                   # raises if the oracle cannot build
+    threads = os.cpu_count() or 1
+    n = ORACLE_DRAWS
+    print(f"native oracle: built and loaded in {time.perf_counter() - t0:.2f}"
+          f" s; K1 and K4 against it, {n} draws each, {threads} host "
+          f"threads", flush=True)
+
+    def ks(label, k, o):
+        res = ks_2samp(k, o)
+        check(res.pvalue > KS_P_MIN and np.isfinite(k).all() and (k > 0).all(),
+              f"{label} vs the native oracle: KS D={res.statistic:.5f} "
+              f"p={res.pvalue:.4f}; means {k.mean():.6f} / {o.mean():.6f}")
+
+    for i, c in enumerate(ORACLE_C1):
+        k = pg_devroye_cuda(torch.full((n,), c, device="cuda"), 300 + i,
+                            0).cpu().numpy()
+        o = native.pg_devroye_native(np.full(n, c), seed=31 + i,
+                                     n_threads=threads)
+        ks(f"K1 PG(1, {c})", k, o)
+    for i, (b, c) in enumerate(ORACLE_BC4):
+        k = pg_gamma_series_cuda(torch.full((n,), float(b), device="cuda"),
+                                 torch.full((n,), c, device="cuda"), 400 + i,
+                                 0).cpu().numpy()
+        o = native.pg_int_b_native(np.full(n, float(b)), c, seed=41 + i,
+                                   n_threads=threads)
+        ks(f"K4 PG({b}, {c})", k, o)
 
 
 def phase_slice(check, record, ctx):
@@ -874,6 +1052,7 @@ def phase_slice(check, record, ctx):
         check(launches[k] >= n_sweeps * (N // G),
               f"{k} launched >= {n_sweeps * (N // G)}")
     check(launches["pg_gamma_series"] == 0 and launches["crt_sample"] == 0
+          and launches["crt_sample_sums"] == 0
           and launches["group_gram"] == 0,
           "K4, K5 and K6 not launched by the Bernoulli sweep")
     check(weights.LAST_SS_PATH == "fused", "the flagship ran the fused loop")
@@ -1147,12 +1326,13 @@ def phase_dense(check, record, ctx):
             ens = mm.fit_ensemble(n_chains=C1, n_samples=4, collect="mean")
             torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
-            check(launches["crt_sample"] == 4
+            check(launches["crt_sample_sums"] == 4
+                  and launches["crt_sample"] == 0
                   and launches["pg_gamma_series"] == 4
                   and np.isfinite(ens["lls"]).all(),
-                  f"stacked dense NB ({C1} chains): K4 and K5 once a "
-                  f"stacked sweep ({launches['pg_gamma_series']}, "
-                  f"{launches['crt_sample']} for 4), lls finite")
+                  f"stacked dense NB ({C1} chains): K4 and K5's sums form "
+                  f"once a stacked sweep ({launches['pg_gamma_series']}, "
+                  f"{launches['crt_sample_sums']} for 4), lls finite")
             _add_launches(record, launches)
     return out
 
@@ -1985,10 +2165,11 @@ def phase_nb_slice(check, record, ctx):
     r2 = aux["r"]
     print(f"  r update without the count table: mean r "
           f"{float(r2.mean()):.4f}; launches {launches}")
-    check(launches["crt_sample"] == 1
-          and sum(launches.values()) == 1, "K5 launched exactly once")
+    check(launches["crt_sample_sums"] == 1
+          and sum(launches.values()) == 1,
+          "K5's sums form launched exactly once")
     check(bool(torch.isfinite(r2).all() and (r2 > 0).all()),
-          "r from the elementwise CRT finite and positive")
+          "r from the elementwise CRT sums finite and positive")
     for name in KERNELS:
         record[name]["launches"] += launches[name]
     return {"nb_sweeps_per_s": N_TIMED / dt, "nb_generate_s": gen_s}
@@ -2884,7 +3065,7 @@ def phase_regressions(check, record, ctx):
         return nb.log_likelihood((X, y))
     ll = window("nb_regression", nb_fit,
                 {"pg_gamma_series": REG_RESAMPLES,
-                 "crt_sample": REG_RESAMPLES})
+                 "crt_sample_sums": REG_RESAMPLES})
     print(f"    r mean {nb.r.mean():.4f} range [{nb.r.min():.4f}, "
           f"{nb.r.max():.4f}]; sum log-likelihood {ll.sum():.1f}")
     check(np.isfinite(nb.A).all() and np.isfinite(nb.b).all()
@@ -3061,8 +3242,9 @@ def _mesh_nb(Y):
     over "time" and the draw at full width) and with it, each against the
     unsharded update on the whole Y and psi with the replicated generator
     in the same state. Without the table the unsharded update is fed the
-    mesh's own CRT counts: each rank's tile drawn again from its shard
-    generator's state, gathered."""
+    mesh's own CRT sums: each rank's tile drawn again from its shard
+    generator's state by K5's sums form, summed over "time" and
+    gathered."""
     import torch
     from pyglm_tpu_torch import SparseNegativeBinomialGLM, make_mesh
     from pyglm_tpu_torch.models import observations as O
@@ -3093,15 +3275,15 @@ def _mesh_nb(Y):
     # comparison launches, after the counts were read)
     r_full = all_gather(st.aux["r"], mesh, "neuron")
     Y_full, psi_full = gather_tile(Yl, mesh), gather_tile(psi, mesh)
-    l_full = gather_tile(O.crt_sample(
+    s_full = shard.full(O.crt_sample_sums(
         Yl, st.aux["r"], obs.max_y,
-        torch.Generator().set_state(crt_state)), mesh)
-    saved, O.crt_sample = O.crt_sample, lambda *a: l_full
+        torch.Generator().set_state(crt_state)))
+    saved, O.crt_sample_sums = O.crt_sample_sums, lambda *a: s_full
     try:
         r_u = obs.resample_aux(torch.Generator().set_state(rep_state),
                                {"r": r_full}, Y_full, psi_full)["r"]
     finally:
-        O.crt_sample = saved
+        O.crt_sample_sums = saved
     shard.generator.set_state(rep_state)
     r_t = obs.resample_aux(None, st.aux, Yl, psi, cache=d.llc,
                            shard=shard)["r"]
@@ -3306,8 +3488,8 @@ def phase_mesh(check, record, ctx):
               f"; against the unsharded update: max |r/r_u - 1| "
               f"{nb['r_rel']:.2e} (K5), {nb['r_table_rel']:.2e} (the table)")
         check(nb["sweep"]["pg_gamma_series"] == 1
-              and nb["sweep"]["crt_sample"] == 0
-              and nb["r_update"]["crt_sample"] == 1
+              and nb["sweep"]["crt_sample_sums"] == 0
+              and nb["r_update"]["crt_sample_sums"] == 1
               and sum(nb["r_update"].values()) == 1,
               f"NB on (2, 1) rank {i}: K4 once a sweep; K5 once in the r "
               f"update without the table")
@@ -3471,6 +3653,7 @@ def main() -> int:
         ("checkpoint",
          lambda: summary.update(phase_checkpoint(check, record, ctx))),
         ("mesh", lambda: summary.update(phase_mesh(check, record, ctx))),
+        ("native_oracle", lambda: phase_native_oracle(check)),
         ("oracle_start", lambda: start_oracle(ctx)),
         ("chain_parity",
          lambda: summary.update(phase_chain_parity(check, ctx))),

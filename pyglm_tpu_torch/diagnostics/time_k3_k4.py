@@ -1,10 +1,10 @@
 """Device time of kernels K3 (the spike-and-slab edge scan,
-``csrc/ss_edge_scan.cu``) and K4 (gamma-series PG(b, c),
-``csrc/pg_gamma.cu``) at the main paths' shapes, for the package of a given
-checkout.
+``csrc/ss_edge_scan.cu``), K4 (gamma-series PG(b, c), ``csrc/pg_gamma.cu``)
+and K5 (CRT counts, ``csrc/crt.cu``) at the main paths' shapes, for the
+package of a given checkout.
 
-    python pyglm_tpu_torch/diagnostics/time_k3_k4.py [ROOT] [--only k3|k4]
-        [--tiles 8,16,32] [--cut rng|logs|setup]...
+    python pyglm_tpu_torch/diagnostics/time_k3_k4.py [ROOT] [--only k3|k4|k5]
+        [--tiles 8,16,32] [--cut rng|logs|setup|units|search|regs]...
 
 ROOT (default: the checkout holding this file) is put first on sys.path, so
 older checkouts' packages can be timed on the same card in one command, in
@@ -33,6 +33,23 @@ the Philox calls by a multiplicative hash, ``logs`` lets the squeezes
 accept every proposal (no log test), ``setup`` replaces the tail sums by
 constants; the cut copy of the package goes to ROOT/build/k4_cut_<parts>/
 and its draws follow another law by design, so only its time is read.
+K5 at (100000, 200) on two count sets: the NB flagship's (y as for K4,
+max_y 16) and a high-count one (psi = 0.5 randn, Gamma(4) e^psi Poisson
+counts, max_y 64, mean ~4.5), r = 0.5 + 4 U(0, 1) per column. Both forms:
+the per-element counts and the column sums (``crt_sample_sums_cuda``; a
+checkout without it is timed on its callers' former path, the per-element
+kernel and ``torch.sum``, and a checkout with it also on that path, as
+``per_element_summed``). Each is checked once: the sums' z against the
+exact mean sum_k r / (r + k) over the elements' trials, and a digest.
+Time: device time by torch.profiler over 20 calls (all of a call's
+kernels, and K5's own apart), CUDA events around 20 calls beside it,
+three times each. Each ``--cut`` with ``--only k5`` changes one part of
+K5 (the copy goes to ROOT/build/k5_cut_<parts>/; its counts are wrong by
+design, so only its time is read): ``rng`` replaces the Philox draw by a
+multiplicative hash, ``units`` runs no unit round (no trial past the
+first), ``search`` takes a unit's element as s % 128 instead of the
+binary search of the unit prefix, ``regs`` caps the registers so that 8
+blocks fit an SM.
 Prints medians and the card's name and power limit. Needs a CUDA card.
 """
 from __future__ import annotations
@@ -43,7 +60,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from timing import cut_copy, device_ms, digest, edge_scan_priors
+from timing import crt_z, cut_copy, device_ms, digest, edge_scan_priors
 
 N, T, B, L, G = 200, 100_000, 4, 10, 8
 N5, T5, C5, G5 = 500, 20_000, 8, 10
@@ -58,6 +75,24 @@ _CUTS = {
              "return true;", "  return true;"),
     "setup": ("  tail_sums(a, &S1, &S2, &S3);\n",
               "  S1 = 0.24f; S2 = 0.005f; S3 = 1.5e-4f;\n"),
+}
+
+
+# Each cut of K5: the statement it replaces (old, new) in csrc/crt.cu.
+_K5_CUTS = {
+    "rng": ("        const uint4 w = philox(make_uint4(q, base + le, off_lo, "
+            "off_hi), key);\n",
+            "        const uint32_t h = (q * 0x9E3779B9u) ^ ((base + le) * "
+            "0x85EBCA6Bu) ^ key.x;\n"
+            "        const uint4 w = make_uint4(h, h * 0xC2B2AE35u, "
+            "h * 0x27D4EB2Fu, h * 0x165667B1u);\n"),
+    "units": ("    if (total > 0) {                        // warp-uniform\n",
+              "    if (total < 0) {\n"),
+    "search": ("        for (int b = kChunk / 2; b > 0; b >>= 1)\n"
+               "          if (s_pref[warp][le + b - 1] <= s) le += b;\n",
+               "        le = s & (kChunk - 1);\n"),
+    "regs": ("__global__ void __launch_bounds__(kThreads)\n",
+             "__global__ void __launch_bounds__(kThreads, 8)\n"),
 }
 
 
@@ -194,21 +229,88 @@ def time_k4(label, card):
           f"ratio {ratio:.5f}, sha256 {digest(om)} ({card})", flush=True)
 
 
+def _k5_counts(gen, hi):
+    """(y int32 (T, N), r (N,), max_y) of one of K5's two count sets."""
+    import torch
+    from pyglm_tpu_torch.ops.linalg import sample_gamma
+    psi = ((0.0 if hi else -2.0)
+           + 0.5 * torch.randn((T, N), generator=gen, device="cuda"))
+    lam = sample_gamma(torch.full((T, N), 4.0, device="cuda"), gen) * psi.exp()
+    y = torch.poisson(lam, generator=gen)
+    if not hi:
+        y = torch.clamp(y, max=15.0)
+    r = 0.5 + 4.0 * torch.rand((N,), generator=gen, device="cuda")
+    return y.to(torch.int32), r, 64 if hi else 16
+
+
+def time_k5(label, card):
+    import torch
+    from pyglm_tpu_torch.ops import crt_cuda
+    sums_fn = getattr(crt_cuda, "crt_sample_sums_cuda", None)
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for name, hi in (("nb", False), ("high", True)):
+        y, r, max_y = _k5_counts(gen, hi)
+        forms = {"per_element": lambda i: crt_cuda.crt_sample_cuda(
+            y, r, max_y, 7, i)}
+        summed = (lambda i: torch.sum(       # counts, then torch.sum
+            crt_cuda.crt_sample_cuda(y, r, max_y, 7, i), dim=0))
+        if sums_fn is not None:
+            forms["sums"] = lambda i: sums_fn(y, r, max_y, 7, i)
+            forms["per_element_summed"] = summed
+        else:       # the callers' former path
+            forms["sums"] = summed
+        for form, fn in forms.items():
+            out = fn(0)
+            sums = out.sum(0) if form == "per_element" else out
+            z = crt_z(sums, y, r, max_y)
+            dev, k5, ev = [], [], []
+            for _ in range(3):
+                ms = device_ms(lambda: fn(1), 20)
+                dev.append(sum(ms.values()))
+                k5.append(sum(t for k, t in ms.items() if "crt" in k))
+                fn(1)
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                for i in range(20):
+                    fn(i)
+                t1.record()
+                t1.synchronize()
+                ev.append(t0.elapsed_time(t1) / 20)
+            m = y.clamp(0, max_y)
+            print(f"{label}: K5 {form} {name} ({T}, {N}, max_y {max_y}, "
+                  f"mean count {float(m.float().mean()):.3f}, nonzero "
+                  f"{float((m > 0).float().mean()):.4f}, units (Philox "
+                  f"draws) an element {float(((m + 2) // 4).float().mean()):.4f}"
+                  f"): device ms {[round(t, 5) for t in dev]}, median "
+                  f"{statistics.median(dev):.5f} (K5's kernel "
+                  f"{statistics.median(k5):.5f}); events ms "
+                  f"{[round(t, 5) for t in ev]}, median "
+                  f"{statistics.median(ev):.5f}; sums z {z:.3f}; sha256 "
+                  f"{digest(out)} ({card})", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?",
                     default=str(Path(__file__).resolve().parents[2]))
-    ap.add_argument("--only", choices=["k3", "k4"])
+    ap.add_argument("--only", choices=["k3", "k4", "k5"])
     ap.add_argument("--tiles", default=[],
                     type=lambda s: [int(x) for x in s.split(",")])
     ap.add_argument("--cut", action="append", default=[],
-                    choices=sorted(_CUTS))
+                    choices=sorted(set(_CUTS) | set(_K5_CUTS)))
     args = ap.parse_args()
     root = Path(args.root).resolve()
-    if args.cut and args.only != "k4":
-        raise SystemExit("time_k3_k4: --cut applies to K4: add --only k4")
-    sys.path.insert(0, str(cut_copy(root, "k4_cut", "pg_gamma.cu", _CUTS,
-                                    args.cut) if args.cut else root))
+    if args.cut and args.only not in ("k4", "k5"):
+        raise SystemExit("time_k3_k4: --cut applies to K4 or K5: add "
+                         "--only k4 or --only k5")
+    if args.cut:
+        name, src, cuts = (("k4_cut", "pg_gamma.cu", _CUTS)
+                           if args.only == "k4" else
+                           ("k5_cut", "crt.cu", _K5_CUTS))
+        sys.path.insert(0, str(cut_copy(root, name, src, cuts, args.cut)))
+    else:
+        sys.path.insert(0, str(root))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("time_k3_k4: needs a CUDA device")
@@ -218,10 +320,12 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    if args.only != "k4":
+    if args.only in (None, "k3"):
         time_k3(str(root), card, args.tiles)
-    if args.only != "k3":
+    if args.only in (None, "k4"):
         time_k4(f"{root}" + "".join(f" --cut {c}" for c in args.cut), card)
+    if args.only in (None, "k5"):
+        time_k5(f"{root}" + "".join(f" --cut {c}" for c in args.cut), card)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """What the timing scripts of this folder and ``chip_smoke.py`` share: a
 copy of the package with parts of one kernel source cut out, a digest of
-tensors, the kernels' device time by torch.profiler, and K3's priors.
+tensors, the kernels' device time by torch.profiler, K3's priors and K5's
+law check.
 
 The scripts import it from their own folder (``from timing import ...``),
 so that the package they time may come from another checkout."""
@@ -75,3 +76,17 @@ def edge_scan_priors(gen, n_edges, lanes, B, device="cuda"):
     u_a = torch.rand((n_edges, lanes), generator=gen, device=device)
     eps = torch.randn((n_edges, lanes, B), generator=gen, device=device)
     return mu, lam, lrho, u_a, eps
+
+
+def crt_z(sums, y, r, max_y) -> float:
+    """z of the CRT column sums' total against the exact mean and variance
+    of sum_{k < min(y, max_y)} Bern(r / (r + k)) over the elements of y
+    (T, N), r (N,)."""
+    m = y.clamp(0, max_y)
+    mean = var = 0.0
+    for k in range(max_y):
+        n_k = (m > k).sum(0).double()
+        p = r.double() / (r.double() + k)
+        mean += float((n_k * p).sum())
+        var += float((n_k * p * (1 - p)).sum())
+    return (float(sums.double().sum()) - mean) / max(var, 1e-30) ** 0.5

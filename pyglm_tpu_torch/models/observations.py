@@ -30,7 +30,7 @@ from dataclasses import dataclass
 import torch
 
 from pyglm_tpu_torch.ops.linalg import (
-    crt_sample, sample_gamma, sample_inverse_gamma,
+    crt_sample_sums, sample_gamma, sample_inverse_gamma,
 )
 from pyglm_tpu_torch.ops.polyagamma import pg_draw_unit, polya_gamma
 from pyglm_tpu_torch.utils.utils import logistic, softplus
@@ -246,14 +246,15 @@ class NegativeBinomial(_FamilyBase):
         With the count table (`cache`), sum_t l_tn is drawn collapsed:
         the Bernoulli(r/(r+i)) of all elements with y > i share one
         Binomial(#{t: y_tn > i}, r/(r+i)), an exact regrouping; i = 0 has
-        p = 1. Without it, kernel K5 (``crt_sample``) draws l per element.
+        p = 1. Without it, kernel K5's sums form (``crt_sample_sums``) draws
+        l per element and sums it over time, writing no (T, N) array.
         The (N,) and (max_y+1, N) work runs on the host on `generator`
         after one transfer, so the update adds one host sync to a sweep;
         r goes back to the device from pinned memory without another.
 
         On a mesh (`shard`, parallel/sharding.py::LaneShard) Y and psi
         hold the rank's rows and lanes and `generator` is its shard
-        generator (K5's draws); the per-lane sums are summed over "time"
+        generator (K5's draws); K5's per-lane sums are summed over "time"
         and gathered to full width, `cache` holds the time-summed table at
         the rank's lanes, and the host draws run at full width on the
         replicated ``shard.generator``; the rank keeps its lanes of r."""
@@ -263,8 +264,8 @@ class NegativeBinomial(_FamilyBase):
         host_gen = generator if shard is None else shard.generator
         rate = torch.sum(softplus(psi), dim=0)
         if cache is None:
-            l = crt_sample(Y, r, self.max_y, generator)
-            sums = torch.stack([torch.sum(l, dim=0).to(torch.float32), rate])
+            lsum = crt_sample_sums(Y, r, self.max_y, generator)
+            sums = torch.stack([lsum.to(torch.float32), rate])
             lsum, rate = (sums if shard is None else shard.full(sums)).cpu()
         else:
             table = torch.cat([cache["counts"], r[None]])

@@ -27,7 +27,7 @@ import torch
 from pyglm_tpu_torch.models.ensemble import chain_generators
 from pyglm_tpu_torch.models.weights import sufficient_stats
 from pyglm_tpu_torch.ops.linalg import (
-    crt_sample, sample_gamma, sample_mvn_info,
+    crt_sample_sums, sample_gamma, sample_mvn_info,
 )
 from pyglm_tpu_torch.ops.polyagamma import polya_gamma
 from pyglm_tpu_torch.ops.stick_breaking import N_vec, kappa_vec, psi_to_pi
@@ -208,8 +208,8 @@ class NegativeBinomialRegression(_PGLogisticRegressionBase):
             raise ValueError(f"count {y_max:.0f} exceeds max_y={self.max_y}; "
                              f"construct with a larger max_y")
         host = self.generators.host
-        l = crt_sample(y, self._t(self.r), self.max_y, host)
-        lsum, rate = torch.stack([torch.sum(l, dim=0).to(torch.float32),
+        lsum = crt_sample_sums(y, self._t(self.r), self.max_y, host)
+        lsum, rate = torch.stack([lsum.to(torch.float32),
                                   self.b_r + torch.sum(softplus(psi),
                                                        dim=0)]).cpu()
         self.r = torch.clamp(sample_gamma(self.a_r + lsum, host) / rate,

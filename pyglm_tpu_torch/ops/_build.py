@@ -41,7 +41,7 @@ _ENTRY_POINTS = {
     "ss_edge_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P],
     "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _P],
-    "crt_sample_launch": [_P, _I, _P, _P, _LL, _I, _I, _ULL, _ULL, _P],
+    "crt_sample_launch": [_P, _I, _P, _P, _I, _LL, _I, _I, _ULL, _ULL, _P],
     "group_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "group_gram_fp32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P],
@@ -50,12 +50,14 @@ _ENTRY_POINTS = {
 }
 
 # Kernel launches per wrapper, and per Gram mode for K2 and K6 (the bf16
-# bodies count under their own keys, so a run shows which body ran). Each
+# bodies count under their own keys, so a run shows which body ran) and per
+# form for K5 (per element, and summed per column). Each
 # wrapper adds one where it launches its kernel and nowhere else;
 # reset_launches() sets every count to 0.
 LAUNCHES = {"pg_devroye": 0, "ss_group_pass": 0, "ss_group_pass_bf16": 0,
             "ss_group_pass_sr": 0, "ss_edge_scan": 0, "pg_gamma_series": 0,
-            "crt_sample": 0, "group_gram": 0, "group_gram_bf16": 0}
+            "crt_sample": 0, "crt_sample_sums": 0, "group_gram": 0,
+            "group_gram_bf16": 0}
 
 
 def reset_launches() -> None:

@@ -14,8 +14,8 @@ leading axes. The model runs them on the host, on a CPU generator
 dense weight draw (:func:`sample_mvn_info`) factors a batch of (P, P)
 precisions with ``torch.linalg.cholesky`` where the weights live: the JAX
 package runs these in XLA, not in a Pallas kernel. Every function here is
-device-generic, except :func:`crt_sample`, which runs kernel K5 on a CUDA
-tensor.
+device-generic, except :func:`crt_sample` and :func:`crt_sample_sums`,
+which run kernel K5 on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -232,6 +232,24 @@ def _crt_r(y, r):
     return r.contiguous()
 
 
+# K5 indexes a launch's elements in 32 bits: a larger y is drawn in slabs
+# of whole rows, each launch with a Philox (seed, offset) of its own.
+_K5_MAX_NUMEL = 2 ** 31 - 1
+
+
+def _crt_cuda_launches(y, r, generator):
+    """K5's operands for a CUDA y, one tuple a launch: (rows of y as
+    contiguous int32 or float32 (rows, N), r by :func:`_crt_r`, and a Philox
+    (seed, offset) drawn from `generator`), one launch unless y has more
+    than _K5_MAX_NUMEL elements."""
+    if y.dtype not in (torch.int32, torch.float32):
+        y = y.to(torch.float32)
+    r = _crt_r(y, r)
+    rows = y.contiguous().reshape(-1, y.shape[-1])
+    per = max(1, _K5_MAX_NUMEL // max(1, y.shape[-1]))
+    return [(ys, r, *_build.philox_seed(generator)) for ys in rows.split(per)]
+
+
 def crt_sample_plain(y, r, max_y: int, generator: torch.Generator):
     """Plain version of kernel K5: max_y passes of masked Bernoulli draws,
     l += 1[U < r/(r+i)] where i < y, as the JAX package's XLA loop does."""
@@ -253,13 +271,36 @@ def crt_sample(y, r, max_y: int, generator: torch.Generator):
     CPU generator), the plain loop for a CPU y; other devices raise."""
     if y.is_cuda:
         from pyglm_tpu_torch.ops.crt_cuda import crt_sample_cuda
-        if y.dtype not in (torch.int32, torch.float32):
-            y = y.to(torch.float32)
-        return crt_sample_cuda(y.contiguous(), _crt_r(y, r), max_y,
-                               *_build.philox_seed(generator))
+        parts = [crt_sample_cuda(ys, rs, max_y, seed, offset)
+                 for ys, rs, seed, offset in _crt_cuda_launches(y, r,
+                                                                generator)]
+        return (parts[0] if len(parts) == 1
+                else torch.cat(parts)).reshape(y.shape)
     if y.device.type != "cpu":
         raise ValueError(f"crt_sample: no sampler for device {y.device}")
     return crt_sample_plain(y, r, max_y, generator)
+
+
+def crt_sample_sums(y, r, max_y: int, generator: torch.Generator):
+    """The counts of :func:`crt_sample` summed over every axis but the
+    last: int64 (N,), sum_t l_tn.
+
+    Kernel K5's sums form for a CUDA y, which writes no per-element array
+    (its Philox seed drawn from `generator`; pass a CPU generator);
+    ``crt_sample_plain(...)`` summed for a CPU y, the same draws from
+    `generator` as :func:`crt_sample`; other devices raise."""
+    if y.is_cuda:
+        from pyglm_tpu_torch.ops.crt_cuda import crt_sample_sums_cuda
+        sums = None
+        for ys, rs, seed, offset in _crt_cuda_launches(y, r, generator):
+            s = crt_sample_sums_cuda(ys, rs, max_y, seed, offset)
+            sums = s if sums is None else sums + s
+        return sums
+    if y.device.type != "cpu":
+        raise ValueError(f"crt_sample_sums: no sampler for device "
+                         f"{y.device}")
+    l = crt_sample_plain(y, r, max_y, generator)
+    return l.reshape(-1, l.shape[-1]).sum(0)
 
 
 # ---------------------------------------------------------------------------

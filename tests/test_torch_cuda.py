@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from pyglm_tpu_torch.ops import _build
-from pyglm_tpu_torch.ops.crt_cuda import crt_sample_cuda
+from pyglm_tpu_torch.ops.crt_cuda import (
+    crt_sample_cuda, crt_sample_sums_cuda, crt_sample_twin)
 from pyglm_tpu_torch.ops.gram_cuda import (
     group_gram_blocks_cuda, group_gram_blocks_plain)
 from pyglm_tpu_torch.ops.linalg import crt_sample_plain
@@ -345,8 +346,8 @@ def test_sweep_on_card_launches_each_kernel(gen):
     assert _build.LAUNCHES == {"pg_devroye": 3, "ss_group_pass": 3 * 5,
                                "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
-                               "crt_sample": 0, "group_gram": 0,
-                               "group_gram_bf16": 0}
+                               "crt_sample": 0, "crt_sample_sums": 0,
+                               "group_gram": 0, "group_gram_bf16": 0}
     assert np.isfinite(m.log_likelihood())
 
 
@@ -450,6 +451,104 @@ def test_crt_kernel_matches_plain_law(gen, y_val, r_val):
     assert 1 <= int(lf[0, 2]) <= 16
 
 
+def _crt_inputs(T_, N_, seed):
+    rng = np.random.default_rng(seed)
+    y = rng.poisson(3.0, (T_, N_)).astype(np.int32)
+    y[::5, ::4] += 40                        # past max_y = 16
+    r = rng.uniform(0.2, 6.0, N_).astype(np.float32)
+    return y, r
+
+
+@pytest.mark.parametrize("N_", [27, 200])
+def test_crt_kernel_equals_twin(gen, N_):
+    """K5's per-element counts equal its numpy twin bit for bit (int and
+    float y, counts past max_y, a y that starts off 16-byte alignment)."""
+    y, r = _crt_inputs(301, N_, N_)
+    rc = torch.from_numpy(r).cuda()
+    want = crt_sample_twin(y, r, 16, 2 ** 40 + 3, 17)
+    yc = torch.from_numpy(y).cuda()
+    for yy in (yc, yc.float()):
+        got = crt_sample_cuda(yy, rc, 16, 2 ** 40 + 3, 17)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    # rows 1.. of y in place: at N = 27 not 16-byte aligned (scalar loads)
+    yo = yc.view(-1)[N_:].view(300, N_)
+    np.testing.assert_array_equal(crt_sample_cuda(yo, rc, 16, 5, 0).cpu()
+                                  .numpy(), crt_sample_twin(y[1:], r, 16, 5,
+                                                            0))
+
+
+@pytest.mark.parametrize("N_", [27, 200])
+def test_crt_sums_equal_counts_summed_and_repeat(gen, N_):
+    y, r = _crt_inputs(2000, N_, 7 + N_)
+    yc, rc = torch.from_numpy(y).cuda(), torch.from_numpy(r).cuda()
+    for max_y, seed, off in ((16, 3, 0), (64, 2 ** 63 + 1, 2 ** 33)):
+        l = crt_sample_cuda(yc, rc, max_y, seed, off)
+        s = crt_sample_sums_cuda(yc, rc, max_y, seed, off)
+        assert s.dtype == torch.int64 and s.shape == (N_,)
+        assert torch.equal(s, l.sum(0))
+        assert torch.equal(s, crt_sample_sums_cuda(yc.float(), rc, max_y,
+                                                   seed, off))
+        assert torch.equal(l, crt_sample_cuda(yc, rc, max_y, seed, off))
+        assert torch.equal(s, crt_sample_sums_cuda(yc, rc, max_y, seed, off))
+        assert not torch.equal(l, crt_sample_cuda(yc, rc, max_y, seed,
+                                                  off + 1))
+
+
+@pytest.mark.parametrize("T_,N_", [(60000, 27), (20000, 200), (3, 60000)])
+def test_crt_twin_over_many_chunks(gen, T_, N_):
+    """Both forms equal the twin bit for bit where each warp walks several
+    chunks of 128 elements (more chunks than 8 warps a block times the
+    blocks resident on the card), so the column advance between chunks is
+    held draw for draw; and at N > 49152, where the sums form adds each
+    count straight to the output in place of a shared column table."""
+    y, r = _crt_inputs(T_, N_, T_ + N_)
+    want = crt_sample_twin(y, r, 16, 2 ** 41 + 5, 3)
+    yc, rc = torch.from_numpy(y).cuda(), torch.from_numpy(r).cuda()
+    for yy in (yc, yc.float()):
+        np.testing.assert_array_equal(
+            crt_sample_cuda(yy, rc, 16, 2 ** 41 + 5, 3).cpu().numpy(), want)
+        np.testing.assert_array_equal(
+            crt_sample_sums_cuda(yy, rc, 16, 2 ** 41 + 5, 3).cpu().numpy(),
+            want.sum(0, dtype=np.int64))
+
+
+def test_crt_row_slabs_on_card(gen, monkeypatch):
+    """Past K5's 32-bit element index the public wrappers launch once per
+    slab of rows: the sums form's slabs then equal the per-element form's
+    counts summed, from the same generator state."""
+    from pyglm_tpu_torch.ops import linalg
+    monkeypatch.setattr(linalg, "_K5_MAX_NUMEL", 27 * 40)
+    y, r = _crt_inputs(301, 27, 2)
+    yc, rc = torch.from_numpy(y).cuda(), torch.from_numpy(r).cuda()
+    _build.reset_launches()
+    l = linalg.crt_sample(yc, rc, 16, torch.Generator().manual_seed(4))
+    s = linalg.crt_sample_sums(yc, rc, 16, torch.Generator().manual_seed(4))
+    assert _build.LAUNCHES["crt_sample"] == 8
+    assert _build.LAUNCHES["crt_sample_sums"] == 8
+    assert l.shape == (301, 27) and torch.equal(s, l.sum(0))
+
+
+def test_crt_wrappers_raise_on_bad_input(gen):
+    y = torch.ones((8, 4), dtype=torch.int32, device="cuda")
+    r = torch.ones(4, device="cuda")
+    for fn in (crt_sample_cuda, crt_sample_sums_cuda):
+        with pytest.raises(TypeError):
+            fn(y.double(), r, 4, 0, 0)
+        with pytest.raises(TypeError):
+            fn(y, r.double(), 4, 0, 0)
+        with pytest.raises(ValueError):
+            fn(y.T, r, 4, 0, 0)                  # not contiguous
+        with pytest.raises(ValueError):
+            fn(y, r[:3].contiguous(), 4, 0, 0)
+        with pytest.raises(ValueError):
+            fn(y, r, -1, 0, 0)
+        with pytest.raises(ValueError):
+            fn(y, r, 4, -1, 0)
+        with pytest.raises(ValueError):
+            fn(y.cpu(), r.cpu(), 4, 0, 0)
+
+
 def test_nb_sweep_on_card_launches_k4_k2_k3(gen):
     from pyglm_tpu_torch import SparseNegativeBinomialGLM
     truth = SparseNegativeBinomialGLM(16, seed=1, obs_kwargs=dict(max_y=16),
@@ -463,15 +562,16 @@ def test_nb_sweep_on_card_launches_k4_k2_k3(gen):
     assert _build.LAUNCHES == {"pg_devroye": 0, "ss_group_pass": 3 * 5,
                                "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 3,
-                               "crt_sample": 0, "group_gram": 0,
-                               "group_gram_bf16": 0}
+                               "crt_sample": 0, "crt_sample_sums": 0,
+                               "group_gram": 0, "group_gram_bf16": 0}
     assert np.isfinite(m.log_likelihood())
     r = m.state.aux["r"]
     assert r.is_cuda and torch.all(r > 0)
     aux = m.observation.resample_aux(m.generators.host, m.state.aux,
                                      m.datas[0].Y, m.datas[0].Xf @ torch.zeros(
                                          (m.P, 16), device="cuda"))
-    assert _build.LAUNCHES["crt_sample"] == 1 and torch.all(aux["r"] > 0)
+    assert (_build.LAUNCHES["crt_sample_sums"] == 1
+            and _build.LAUNCHES["crt_sample"] == 0 and torch.all(aux["r"] > 0))
 
 
 @pytest.mark.parametrize("n_trials,kernel", [(1, "pg_devroye"),
@@ -607,8 +707,8 @@ def test_highest_sweep_launches_k6_not_k2(gen):
     assert _build.LAUNCHES == {"pg_devroye": 3, "ss_group_pass": 0,
                                "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
-                               "crt_sample": 0, "group_gram": 3,
-                               "group_gram_bf16": 0}
+                               "crt_sample": 0, "crt_sample_sums": 0,
+                               "group_gram": 3, "group_gram_bf16": 0}
     assert np.isfinite(m.log_likelihood())
 
 
@@ -650,8 +750,8 @@ def test_staged_path_launches_k6_not_k2(gen):
     assert _build.LAUNCHES == {"pg_devroye": 3, "ss_group_pass": 0,
                                "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
-                               "crt_sample": 0, "group_gram": 3,
-                               "group_gram_bf16": 0}
+                               "crt_sample": 0, "crt_sample_sums": 0,
+                               "group_gram": 3, "group_gram_bf16": 0}
     assert np.isfinite(m.log_likelihood())
 
 

@@ -122,7 +122,9 @@ def test_oracle_copy_imports_no_torch():
 def test_port_and_chip_smoke_import_no_jax_package():
     files = sorted((ROOT / "pyglm_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 30
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(files) > 30 and len(examples) >= 7
+    files += examples
     bad = {str(f.relative_to(ROOT)): sorted(
         _imports(f) & {"jax", "jaxlib", "pyglm_tpu", "benchmarks"})
         for f in files}

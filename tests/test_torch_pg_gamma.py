@@ -85,7 +85,7 @@ def test_plain_series_vs_jax_ks(b, c):
 
 @pytest.mark.parametrize("b,c", [(1, 1.0), (3, 2.0), (13, 0.5)])
 def test_plain_series_vs_native_oracle_ks(b, c):
-    from pyglm_tpu.native import native_available, pg_int_b_native
+    from pyglm_tpu_torch.native import native_available, pg_int_b_native
     if not native_available():
         pytest.skip("native PG oracle unavailable (no C++ toolchain)")
     n = 50_000

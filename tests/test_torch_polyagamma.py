@@ -60,7 +60,7 @@ def test_plain_sampler_vs_jax_ks(c):
 
 @pytest.mark.parametrize("c", CS)
 def test_plain_sampler_vs_native_oracle_ks(c):
-    from pyglm_tpu.native import native_available, pg_devroye_native
+    from pyglm_tpu_torch.native import native_available, pg_devroye_native
     if not native_available():
         pytest.skip("native PG oracle unavailable (no C++ toolchain)")
     ours = _plain(c, seed=int(c * 100) + 3)

@@ -194,11 +194,11 @@ def _aux_case(mesh, n_lanes=N, T_=T):
     """A family's auxiliary update on `mesh` against the unsharded update
     on the same Y, psi and aux, with the replicated generator in the same
     state: NB's r with its count table (the table summed over "time"),
-    NB's r without it (K5's CRT counts of each rank's tile, drawn again
-    from the shard generator's state and gathered, fed to the unsharded
-    update in place of its own draw) and the Gaussian's eta. Returns
-    {case: (sharded at the rank's lanes, unsharded there, the replicated
-    generators equal after)}."""
+    NB's r without it (K5's CRT sums of each rank's tile, drawn again
+    from the shard generator's state, summed over "time" and gathered,
+    fed to the unsharded update in place of its own draw) and the
+    Gaussian's eta. Returns {case: (sharded at the rank's lanes, unsharded
+    there, the replicated generators equal after)}."""
     from pyglm_tpu_torch.models import observations as O
     rng = np.random.default_rng(41)
     Y = torch.from_numpy(rng.poisson(3.0, (T_, n_lanes)).astype(np.float32))
@@ -223,18 +223,18 @@ def _aux_case(mesh, n_lanes=N, T_=T):
         got = fam.resample_aux(shard_gen, {key: aux[ln]}, Yl, psil,
                                cache=cache,
                                shard=S.lane_shard(mesh, n_lanes, rep))[key]
-        saved = O.crt_sample
+        saved = O.crt_sample_sums
         if case == "nb_crt":
-            l_full = S.gather_tile(O.crt_sample(
+            s_full = S.time_sum_lanes(O.crt_sample_sums(
                 Yl, aux[ln], nb.max_y,
                 torch.Generator().set_state(crt_state)), mesh)
-            O.crt_sample = lambda Y_, r_, max_y, g_: l_full
+            O.crt_sample_sums = lambda Y_, r_, max_y, g_: s_full
         try:
             want = fam.resample_aux(
                 twin, {key: aux}, Y, psi,
                 cache=None if cache is None else nb.ll_cache(Y))[key]
         finally:
-            O.crt_sample = saved
+            O.crt_sample_sums = saved
         out[case] = (got, want[ln], torch.equal(rep.get_state(),
                                                 twin.get_state()))
     return out
