@@ -15,7 +15,9 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      cores, timed at g = 0 and at a middle group; then in one bf16 pass
      ("default") and on a stochastically rounded Z ("sr", on the same
      rounding words as its plain version), both on wgmma over the bf16
-     omega stream, the Gram kernel alone also timed by torch.profiler),
+     omega stream, the only omega K2 reads there (its scatter and sum_t
+     omega bit for bit those of "high" on the float32 rounded omega), the
+     Gram kernel alone also timed by torch.profiler),
      K2's SR Gram at a small shape
      (unbiased over 256 seeds), then the NB kernels K4 (gamma-series PG;
      its bound from a count of the special-function operations its
@@ -511,17 +513,25 @@ def phase_kernels(check, record):
           f"matmul on the materialised Z) {lib_ms:.3f} ms; bound "
           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, 3xTF32)")
 
-    # --- K2 "default" and "sr" at the same group, on omega rounded to
-    # bf16 as the fused loop gives it (ss_pallas.py:409-413), with its bf16
-    # stream made once, as the fused loop makes it once per update (the
-    # Gram's wgmma body reads the stream; the scatter the fp32 omega) ------
+    # --- K2 "default" and "sr" at the same group, on omega's bf16 stream
+    # alone, made once as the fused loop makes it once per update: the
+    # scatter, sum_t omega and the wgmma Gram all read it, as the TPU
+    # kernel streams its one bf16 omega (ss_pallas.py:409-413) ------------
     om16 = to_bf16(omega)
-    om_s = omega_bf16_stream(om16)
+    om_s = omega_bf16_stream(omega)
     u_k, u_p = u0.clone(), u0.clone()
-    out_k = ss_group_pass_cuda(xp, xg, om16, u_k, dw, True,
+    out_k = ss_group_pass_cuda(xp, xg, None, u_k, dw, True,
                                precision="default", om16=om_s)
-    out_p = ss_group_pass_plain(xp, xg, om16, u_p, dw, True,
-                                precision="default")
+    out_p = ss_group_pass_plain(xp, xg, None, u_p, dw, True,
+                                precision="default", om16=om_s)
+    # The scatter on the widened stream is the fp32 scatter of "high" on the
+    # float32 rounded omega, bit for bit (and so is M0, which reads u).
+    u_h = u0.clone()
+    out_h = ss_group_pass_cuda(xp, xg, om16, u_h, dw, True)
+    stream_same = {"default": torch.equal(u_k, u_h)
+                   and torch.equal(out_k[0], out_h[0])
+                   and torch.equal(out_k[2], out_h[2])}
+    del out_h
     torch.cuda.synchronize()
     errs = {"u": rel_err(u_k, u_p)}
     for name, a, b in zip(("M0", "Jgg", "sum_omega"), out_k, out_p):
@@ -537,7 +547,7 @@ def phase_kernels(check, record):
     check(e_k <= F64_RATIO * e_p,
           f"K2 Gram (bf16) vs a float64 Gram of the bf16 operands: "
           f"{e_k:.2e}; the plain version: {e_p:.2e} (limit {F64_RATIO:g}x)")
-    again = ss_group_pass_cuda(xp, xg, om16, u0.clone(), dw, True,
+    again = ss_group_pass_cuda(xp, xg, None, u0.clone(), dw, True,
                                precision="default", om16=om_s)
     check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
           "K2 default repeats bit for bit")
@@ -550,18 +560,28 @@ def phase_kernels(check, record):
     sr_seed = (5, 6)
     r16 = sr_words(*sr_seed, npair, T).to(dev)
     u_k, u_p = u0.clone(), u0.clone()
-    out_k = ss_group_pass_cuda(xp, xg, om16, u_k, dw, True, precision="sr",
+    out_k = ss_group_pass_cuda(xp, xg, None, u_k, dw, True, precision="sr",
                                sr_seed=sr_seed, om16=om_s)
-    out_p = ss_group_pass_plain(xp, xg, om16, u_p, dw, True, precision="sr",
-                                r16=r16)
-    other = ss_group_pass_cuda(xp, xg, om16, u0.clone(), dw, precision="sr",
+    out_p = ss_group_pass_plain(xp, xg, None, u_p, dw, True, precision="sr",
+                                r16=r16, om16=om_s)
+    other = ss_group_pass_cuda(xp, xg, None, u0.clone(), dw, precision="sr",
                                sr_seed=(sr_seed[0] + 1, sr_seed[1]),
                                om16=om_s)[1]
-    again = ss_group_pass_cuda(xp, xg, om16, u0.clone(), dw, True,
+    again = ss_group_pass_cuda(xp, xg, None, u0.clone(), dw, True,
                                precision="sr", sr_seed=sr_seed, om16=om_s)
     check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
           "K2 sr repeats bit for bit")
     del again
+    u_h = u0.clone()
+    out_h = ss_group_pass_cuda(xp, xg, om16, u_h, dw, True)
+    stream_same["sr"] = (torch.equal(u_k, u_h)
+                         and torch.equal(out_k[0], out_h[0])
+                         and torch.equal(out_k[2], out_h[2]))
+    del out_h, u_h
+    for prec, same in stream_same.items():
+        check(same, f"K2 {prec} on the bf16 omega stream alone: u, M0 and "
+              f"sum_omega equal bit for bit to K2 \"high\"'s fp32 scatter "
+              f"on the float32 rounded omega")
     torch.cuda.synchronize()
     errs = {"u": rel_err(u_k, u_p)}
     for name, a, b in zip(("M0", "Jgg", "sum_omega"), out_k, out_p):
@@ -586,25 +606,49 @@ def phase_kernels(check, record):
     times, gram_ms = {}, {}
     for prec in ("default", "sr", "sr", "default"):
         times.setdefault(prec, []).append(event_ms(
-            lambda: ss_group_pass_cuda(xp, xg, om16, u_k, dw, precision=prec,
+            lambda: ss_group_pass_cuda(xp, xg, None, u_k, dw, precision=prec,
                                        sr_seed=sr_seed, om16=om_s), 20))
     for prec, inst in (("default", "<false>"), ("sr", "<true>")):
         gram_ms[prec] = kernel_ms(
-            lambda: ss_group_pass_cuda(xp, xg, om16, u_k, dw, precision=prec,
+            lambda: ss_group_pass_cuda(xp, xg, None, u_k, dw, precision=prec,
                                        sr_seed=sr_seed, om16=om_s), 20,
             f"group_pass_wgmma_kernel{inst}")
         check(gram_ms[prec] > 0,
               f"K2 {prec}: the profiler saw its wgmma Gram kernel")
+    # The scatter alone (the epilogue: no Gram or M0 beside it), on the
+    # float32 rounded omega as at "high" and on the bf16 stream, in turns.
+    epi = {}
+    for key in ("fp32", "bf16", "bf16", "fp32"):
+        epi.setdefault(key, []).append(event_ms(
+            (lambda: ss_group_pass_cuda(xg, None, om16, u_k, dw))
+            if key == "fp32" else
+            (lambda: ss_group_pass_cuda(xg, None, None, u_k, dw,
+                                        precision="default", om16=om_s)),
+            20))
+    scatter_bytes = 4 * (GB * T + 2 * T * N + GB * N)
+    epi_bound = {"fp32": bound(scatter_bytes + 4 * T * N)["bound_ms"],
+                 "bf16": bound(scatter_bytes + 2 * om_s.numel())["bound_ms"]}
+    print(f"  K2's scatter alone (epilogue): on the bf16 stream {epi['bf16']}"
+          f" ms (bound {epi_bound['bf16']:.4f}), on the float32 omega "
+          f"{epi['fp32']} ms (bound {epi_bound['fp32']:.4f}; order fp32, "
+          f"bf16, bf16, fp32)")
     plain_ms = event_ms(lambda: ss_group_pass_plain(
-        xp, xg, om16, u_p, dw, precision="default"), 5)
+        xp, xg, None, u_p, dw, precision="default", om16=om_s), 5)
     plain_sr_ms = event_ms(lambda: ss_group_pass_plain(
-        xp, xg, om16, u_p, dw, precision="sr", r16=r16), 5)
+        xp, xg, None, u_p, dw, precision="sr", r16=r16, om16=om_s), 5)
     del r16
     lib_ms, lib_out = bf16_matmul_ms(to_bf16(Z), om16, 10)
     del Z
     # The bf16 Gram over the bf16 peak; M0 3xTF32 and the scatter fp32.
-    # The Gram alone: X_g and the bf16 omega stream in, the packed Gram out.
-    k2_bound = bound(k2_bytes, (2 * T * N * npair, BF16_FLOPS), *m0_scatter)
+    # Bytes: as at "high", but omega is the bf16 stream, read once at 2
+    # bytes a (padded) lane. streamed: the bytes as K2 moves them, u read
+    # and written by the scatter and read by M0, the stream read by the
+    # scatter and by the Gram.
+    k2_bytes16 = (k2_bytes - 4 * T * N + 2 * om_s.numel())
+    k2_bound = bound(k2_bytes16, (2 * T * N * npair, BF16_FLOPS),
+                     *m0_scatter)
+    streamed = bound(4 * (2 * GB * T + 3 * T * N + GB * N
+                          + (GB + npair + 1) * N) + 2 * 2 * om_s.numel())
     gram_bound = bound(4 * GB * T + 2 * om_s.numel() + 4 * npair * N,
                        (2 * T * N * npair, BF16_FLOPS))
     for key, prec, pms in (("ss_group_pass_bf16", "default", plain_ms),
@@ -613,7 +657,11 @@ def phase_kernels(check, record):
             ms=min(times[prec]), plain_ms=pms, library_ms=lib_ms,
             library_out=lib_out, precision=prec, gram_ms=gram_ms[prec],
             gram_bound_ms=gram_bound["bound_ms"],
-            gram_bound_by=gram_bound["bound_by"], **k2_bound)
+            gram_bound_by=gram_bound["bound_by"],
+            streamed_bound_ms=streamed["bound_ms"],
+            epilogue_ms=min(epi["bf16"]), epilogue_bound_ms=epi_bound["bf16"],
+            epilogue_fp32_ms=min(epi["fp32"]),
+            epilogue_fp32_bound_ms=epi_bound["fp32"], **k2_bound)
     print(f"  K2 default {times['default']} ms, sr {times['sr']} ms per "
           f"middle group (order default, sr, sr, default); the Gram kernel "
           f"alone {gram_ms['default']:.4f} / {gram_ms['sr']:.4f} ms "
@@ -621,7 +669,8 @@ def phase_kernels(check, record):
           f"{gram_bound['bound_by']}); plain "
           f"{plain_ms:.3f} / {plain_sr_ms:.3f} ms; library (bf16 cuBLAS on "
           f"the materialised bf16 Z, {lib_out} output) {lib_ms:.3f} ms; "
-          f"bound {k2_bound['bound_ms']:.3f} ms ({k2_bound['bound_by']})")
+          f"bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}; "
+          f"{streamed['bound_ms']:.4f} ms for the bytes as K2 streams them)")
     phase_k2_sr(check, record, gen)
 
     # --- K3: that group's edge scan, same injected noise -----------------

@@ -25,12 +25,14 @@
 // omega stream that the caller rounds once per update (the TPU kernel
 // streams omega as bf16 there, ss_pallas.py:409-413). M0 stays 3xTF32 and
 // the scatter fp32 in every mode, as the TPU kernel keeps them f32-grade
-// (_mm3); at "default" and "sr" the caller's fp32 omega holds the same
-// bf16 values. Kernels:
-//   - scatter_kernel: u -= omega (X_p^T dW) and sum_t omega in fp32 FMA (u
-//     carries the residual across all groups, so its update stays fp32);
-//     one thread per postsyn lane with dW in registers, u and omega
-//     streamed through shared memory by cp.async; memory-bound, in place;
+// (_mm3); at "default" and "sr" the scatter and sum_t omega read the same
+// bf16 stream as the Gram, widened to fp32 in registers, as the TPU kernel
+// reads its one bf16 omega (om32 = om_raw.astype(f32), :523-527). Kernels:
+//   - scatter_kernel<R, Om>: u -= omega (X_p^T dW) and sum_t omega in fp32
+//     FMA (u carries the residual across all groups, so its update stays
+//     fp32); one thread per postsyn lane with dW in registers, u and omega
+//     (fp32 at "high", the bf16 stream otherwise) streamed through shared
+//     memory by cp.async; memory-bound, in place;
 //   - gram_tc_kernel (gram_tc.cuh, the tile loop shared with K6's "high"
 //     body): M0 = X_g u (Z = X_g) in every mode, and the packed Gram of
 //     omega (Z = X_p X_q formed in shared memory, never stored) at "high";
@@ -52,7 +54,9 @@
 // over 495 TFLOP/s. At "default" and "sr" the Gram's one bf16 pass over 989
 // TFLOP/s is ~0.021 ms, its bf16 omega 0.012 ms at 3.35 TB/s, and the call
 // turns bound by its bytes (u read and written by the scatter and read by
-// M0, omega read twice: ~0.1 ms).
+// M0, X_p and X_g, and the bf16 omega stream read twice, by the scatter
+// and the Gram: 346 MB, ~0.103 ms; an fp32 omega for the scatter would add
+// 40 MB, ~0.012 ms).
 
 #include <cuda_runtime.h>
 
@@ -72,30 +76,44 @@ constexpr int kK2NP = 176;
 // 3xTF32 tile-loop stages per fold (128 steps), as in K6 (group_gram.cu).
 constexpr int kFold = 4;
 
-template <int R>
+// Shared memory of a scatter block: X_p [2][R][kCh] and u [2][kCh][kLanes]
+// in fp32, omega [2][kCh][kLanes] in its own type.
+template <int R, typename Om>
 constexpr int scatter_smem_bytes() {
-  return 4 * (2 * R * kCh + 4 * kCh * kLanes);
+  return 4 * (2 * R * kCh + 2 * kCh * kLanes) +
+         (int)sizeof(Om) * 2 * kCh * kLanes;
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(uint16_t x) {   // bf16 -> fp32, exact
+  return __uint_as_float((unsigned)x << 16);
 }
 
 // u[t, n] -= omega[t, n] sum_r X_p[r, t] dW[r, n] (each sum over r in
 // order) when xp is given, and the split partial of sum_t omega[t, n] when
-// want_sumom is set. dW of a thread's lane lives in registers (R >= GB).
-// X_p, omega and u come through shared memory kCh steps at a time,
-// double-buffered by cp.async so that the next chunk streams in while this
-// one is computed; X_p is read as float4 over 4 steps, so each shared load
-// feeds 4 FMAs.
-template <int R>
+// want_sumom is set. omega is Om: float (T, N) at "high", or uint16_t, the
+// bf16 stream (T, ldo) with ldo = N8 a multiple of 8, at "default" and
+// "sr"; each value is widened to fp32 before it is used, so both give the
+// same u and sums on the same values. dW of a thread's lane lives in
+// registers (R >= GB). X_p, omega and u come through shared memory kCh
+// steps at a time, double-buffered by cp.async so that the next chunk
+// streams in while this one is computed; X_p is read as float4 over 4
+// steps, so each shared load feeds 4 FMAs. The bf16 stream is copied in
+// 16-byte runs of 8 lanes (cp.async copies no 2-byte element), which start
+// on 16 bytes since each row does.
+template <int R, typename Om>
 __global__ void __launch_bounds__(kLanes)
-scatter_kernel(const float* __restrict__ xp, const float* __restrict__ om,
+scatter_kernel(const float* __restrict__ xp, const Om* __restrict__ om,
                float* __restrict__ u, const float* __restrict__ dw,
-               float* __restrict__ part, int T, int N, int GB,
+               float* __restrict__ part, int T, int N, int ldo, int GB,
                int rows_per_split, int want_sumom) {
   extern __shared__ __align__(16) float sm[];
   float* xps = sm;                        // [2][R][kCh]
-  float* oms = xps + 2 * R * kCh;         // [2][kCh][kLanes]
-  float* us = oms + 2 * kCh * kLanes;     // [2][kCh][kLanes]
+  float* us = xps + 2 * R * kCh;          // [2][kCh][kLanes]
+  Om* oms = reinterpret_cast<Om*>(us + 2 * kCh * kLanes);  // [2][kCh][kLanes]
   const int tid = threadIdx.x;
-  const int n = blockIdx.y * kLanes + tid;
+  const int lane0 = blockIdx.y * kLanes;
+  const int n = lane0 + tid;
   const bool lane_ok = n < N;
   const bool scatter = xp != nullptr;
   const int t_begin = blockIdx.x * rows_per_split;
@@ -112,13 +130,28 @@ scatter_kernel(const float* __restrict__ xp, const float* __restrict__ om,
                                ok ? xp + (size_t)r * T + t : xp, ok);
       }
     }
+    if constexpr (sizeof(Om) == 2) {
+      // kCh rows of kLanes / 8 runs; lanes past ldo and rows past t_end
+      // are zero-filled.
+      constexpr int kRuns = kLanes / 8;
+      for (int i = tid; i < kCh * kRuns; i += kLanes) {
+        const int k = i / kRuns, j = i % kRuns, t = t0 + k;
+        const bool ok = t < t_end && lane0 + 8 * j < ldo;
+        const Om* src = ok ? om + (size_t)t * ldo + lane0 + 8 * j : om;
+        copy_reduce::cp_async16(
+            reinterpret_cast<float*>(oms + (buf * kCh + k) * kLanes + 8 * j),
+            reinterpret_cast<const float*>(src), ok);
+      }
+    }
 #pragma unroll
     for (int k = 0; k < kCh; ++k) {
       const int t = t0 + k;
       const bool ok = t < t_end && lane_ok;
       const size_t g = ok ? (size_t)t * N + n : 0;
       const int o = (buf * kCh + k) * kLanes + tid;
-      copy_reduce::cp_async4(oms + o, om + g, ok);
+      if constexpr (sizeof(Om) == 4)
+        copy_reduce::cp_async4(oms + o, om + (ok ? (size_t)t * ldo + n : 0),
+                               ok);
       if (scatter) copy_reduce::cp_async4(us + o, u + g, ok);
     }
   };
@@ -142,7 +175,8 @@ scatter_kernel(const float* __restrict__ xp, const float* __restrict__ om,
     for (int k = 0; k < kCh; k += 4) {
       float w[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = oms[(buf * kCh + k + i) * kLanes + tid];
+      for (int i = 0; i < 4; ++i)
+        w[i] = widen(oms[(buf * kCh + k + i) * kLanes + tid]);
       sum_om += (w[0] + w[1]) + (w[2] + w[3]);
       if (!scatter) continue;
       float sc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -211,29 +245,46 @@ group_pass_wgmma_kernel(const float* __restrict__ xg,
       offset);
 }
 
-template <int R>
-cudaError_t launch_scatter_r(const float* xp, const float* om, float* u,
+template <int R, typename Om>
+cudaError_t launch_scatter_r(const float* xp, const Om* om, float* u,
                              const float* dw, float* part, int T, int N,
-                             int GB, int n_split, int want_sumom,
+                             int ldo, int GB, int n_split, int want_sumom,
                              cudaStream_t s) {
   const int rows = (T + n_split - 1) / n_split;
-  scatter_kernel<R><<<dim3(n_split, (N + kLanes - 1) / kLanes), kLanes,
-                      scatter_smem_bytes<R>(), s>>>(xp, om, u, dw, part, T, N,
-                                                    GB, rows, want_sumom);
+  scatter_kernel<R, Om>
+      <<<dim3(n_split, (N + kLanes - 1) / kLanes), kLanes,
+         scatter_smem_bytes<R, Om>(), s>>>(xp, om, u, dw, part, T, N, ldo,
+                                           GB, rows, want_sumom);
   return cudaGetLastError();
 }
 
-cudaError_t launch_scatter(const float* xp, const float* om, float* u,
-                           const float* dw, float* part, int T, int N, int GB,
-                           int n_split, int want_sumom, cudaStream_t s) {
+template <typename Om>
+cudaError_t launch_scatter_om(const float* xp, const Om* om, float* u,
+                              const float* dw, float* part, int T, int N,
+                              int ldo, int GB, int n_split, int want_sumom,
+                              cudaStream_t s) {
   if (GB <= 16)
-    return launch_scatter_r<16>(xp, om, u, dw, part, T, N, GB, n_split,
+    return launch_scatter_r<16>(xp, om, u, dw, part, T, N, ldo, GB, n_split,
                                 want_sumom, s);
   if (GB <= 32)
-    return launch_scatter_r<32>(xp, om, u, dw, part, T, N, GB, n_split,
+    return launch_scatter_r<32>(xp, om, u, dw, part, T, N, ldo, GB, n_split,
                                 want_sumom, s);
-  return launch_scatter_r<64>(xp, om, u, dw, part, T, N, GB, n_split,
+  return launch_scatter_r<64>(xp, om, u, dw, part, T, N, ldo, GB, n_split,
                               want_sumom, s);
+}
+
+// The scatter on omega in the caller's mode: om (fp32, row stride N) at
+// "high" (gram 0), the bf16 stream om16 (row stride N8) otherwise.
+cudaError_t launch_scatter(const float* xp, const float* om,
+                           const uint16_t* om16, float* u, const float* dw,
+                           float* part, int T, int N, int N8, int GB,
+                           int n_split, int want_sumom, int gram,
+                           cudaStream_t s) {
+  if (gram == 0)
+    return launch_scatter_om(xp, om, u, dw, part, T, N, N, GB, n_split,
+                             want_sumom, s);
+  return launch_scatter_om(xp, om16, u, dw, part, T, N, N8, GB, n_split,
+                           want_sumom, s);
 }
 
 cudaError_t launch_tc(const float* xg, const float* b, float* part, int T,
@@ -325,9 +376,11 @@ cudaError_t side_for_current_device(Side** out) {
 }  // namespace
 
 // xg, xp: (GB, T) design rows of groups g and g-1 (null when absent);
-// om: (T, N); u: (T, N) updated in place; dw: (GB, N) or null. At
-// "default" and "sr" (gram 1, 2) with xg given: om16, omega rounded to
-// bf16, (T, N8) with N8 >= N a multiple of 8 and lanes past N zero; pq,
+// u: (T, N) updated in place; dw: (GB, N) or null. omega, read by the
+// scatter, sum_t omega and the Gram: at "high" (gram 0) om, (T, N) fp32;
+// at "default" and "sr" (gram 1, 2) om16 alone (om is not read and may be
+// null), omega rounded to bf16, (T, N8) with N8 >= N a multiple of 8, lanes
+// past N zero and a 16-byte aligned start. With xg given there: pq,
 // ntile x kNP pair-table entries p | q << 8 (0xFFFF past the last pair
 // row), row-major over p <= q. Scratch: part_g (n_split, GB(GB+1)/2, N),
 // part_m (n_split_m, GB, N) and part_s (n_split_s, N). out: (GB + npair +
@@ -349,19 +402,22 @@ extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
   if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || n_split < 1 ||
       n_split_m < 1 || n_split_s < 1 || gram < 0 || gram > 2)
     return (int)cudaErrorInvalidValue;
+  if (gram == 0 ? om == nullptr
+                : om16 == nullptr || (size_t)om16 % 16 != 0 || N8 < N ||
+                      N8 % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   if (gram != 0 && xg != nullptr &&
-      (om16 == nullptr || (size_t)om16 % 16 != 0 || pq == nullptr ||
-       N8 < N || N8 % 8 != 0 || ntile < 1 ||
-       (ntile - 1) * kK2NP >= npair || ntile * kK2NP < npair ||
-       n_split > 65535 ||
+      (pq == nullptr || ntile < 1 || (ntile - 1) * kK2NP >= npair ||
+       ntile * kK2NP < npair || n_split > 65535 ||
        (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT > 65535))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const uint16_t* om16_ = (const uint16_t*)om16;
   const bool scatter = xp != nullptr && dw != nullptr;
   want_sumom = want_sumom && xg != nullptr;
   if (xg == nullptr)      // the epilogue: the scatter alone
-    return (int)(scatter ? launch_scatter(xp, om, u, dw, part_s, T, N, GB,
-                                          n_split_s, 0, s)
+    return (int)(scatter ? launch_scatter(xp, om, om16_, u, dw, part_s, T,
+                                          N, N8, GB, n_split_s, 0, gram, s)
                          : cudaSuccess);
 
   // Side stream: the scatter (memory-bound), then M0 = X_g u. Caller's
@@ -374,16 +430,16 @@ extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
       (err = cudaStreamWaitEvent(sd->stream, sd->fork, 0)) != cudaSuccess)
     return (int)err;
   if ((scatter || want_sumom) &&
-      (err = launch_scatter(scatter ? xp : nullptr, om, u, dw, part_s, T, N,
-                            GB, n_split_s, want_sumom, sd->stream)) !=
-          cudaSuccess)
+      (err = launch_scatter(scatter ? xp : nullptr, om, om16_, u, dw,
+                            part_s, T, N, N8, GB, n_split_s, want_sumom, gram,
+                            sd->stream)) != cudaSuccess)
     return (int)err;
   if ((err = launch_tc(xg, u, part_m, T, N, GB, 0, n_split_m,
                        sd->stream)) != cudaSuccess ||
       (err = cudaEventRecord(sd->join, sd->stream)) != cudaSuccess ||
-      (err = launch_gram(xg, om, (const uint16_t*)om16,
-                         (const uint16_t*)pq, part_g, T, N, N8, GB, n_split,
-                         ntile, gram, seed, offset, s)) != cudaSuccess ||
+      (err = launch_gram(xg, om, om16_, (const uint16_t*)pq, part_g, T, N,
+                         N8, GB, n_split, ntile, gram, seed, offset, s)) !=
+          cudaSuccess ||
       (err = cudaStreamWaitEvent(s, sd->join, 0)) != cudaSuccess)
     return (int)err;
 

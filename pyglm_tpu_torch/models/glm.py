@@ -61,9 +61,10 @@ class NonlinearAutoregressiveModel:
         'high' (default): on the card the Gram runs 3xTF32 on the tensor
         cores (fp32-grade, as the JAX package's bf16x3): K2's Gram, or K6's
         "high" body. 'default': one bf16 pass on the tensor cores (Z and
-        omega rounded to nearest even, fp32 sums): K2's bf16 Gram on omega
-        rounded to bf16 once for the whole fused update (u0, the scatter,
-        sum omega; the bias draw keeps the fp32 omega), or K6's bf16 body;
+        omega rounded to nearest even, fp32 sums): K2's bf16 Gram on one
+        bf16 stream of omega made once for the whole fused update (u0, the
+        scatter, sum omega; the bias draw keeps the fp32 omega), or K6's
+        bf16 body;
         the fastest, with ~1e-3 relative error in the Gram. 'sr': in the
         fused loop K2's bf16 pass on a stochastically rounded Z (unbiased;
         its Philox seeds come from the host generator), and in the staged

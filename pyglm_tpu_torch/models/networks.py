@@ -703,5 +703,9 @@ def network_name(network) -> str:
     raise ValueError(f"unknown network prior: {name}")
 
 
-def make_network(name: str, N: int, B: int, **kwargs):
+NetworkConfig = (DenseNetworkConfig | ErdosRenyiConfig | SBMConfig
+                 | LatentDistanceConfig)
+
+
+def make_network(name: str, N: int, B: int, **kwargs) -> NetworkConfig:
     return _NETWORKS[network_name(name)][0](N=N, B=B, **kwargs)

@@ -380,7 +380,10 @@ class Gaussian(_FamilyBase):
         return {"eta": eta_new.to(eta.device, non_blocking=True)}
 
 
-def make_observation(name: str, **kwargs):
+ObservationFamily = Bernoulli | Binomial | NegativeBinomial | Gaussian
+
+
+def make_observation(name: str, **kwargs) -> ObservationFamily:
     name = name.lower()
     if name == "bernoulli":
         return Bernoulli(**kwargs)

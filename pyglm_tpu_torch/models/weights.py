@@ -41,8 +41,7 @@ from pyglm_tpu_torch.ops.gram_cuda import (
     group_gram_blocks_cuda, group_gram_blocks_plain,
 )
 from pyglm_tpu_torch.ops.ss_cuda import (
-    _MAX_B, omega_bf16_stream, ss_edge_scan, ss_group_pass, to_bf16,
-    unpack_gram,
+    _MAX_B, omega_bf16_stream, ss_edge_scan, ss_group_pass, unpack_gram,
 )
 from pyglm_tpu_torch.utils.utils import fp32_matmul, logistic
 
@@ -435,21 +434,23 @@ def _sr_seeds(host_generator, noise, Ng):
                          generator=host_generator).tolist()
 
 
-def _fused_loop(generator, host_generator, Xt, omega, u, w, hyp, A, G, B,
-                noise, precision, shard=None):
+def _fused_loop(generator, host_generator, Xt, omega, om16, u, w, hyp, A,
+                G, B, noise, precision, shard=None):
     """Ng x (K2 + K3) and K2's epilogue, K2's Gram at `precision`; updates
-    u, w and A in place and returns sum_t omega. At "default" and "sr" the
-    Grams read one bf16 stream of omega (omega holds bf16 values there),
-    made here once for the update's Ng K2 calls. On a mesh (`shard`; the
+    u, w and A in place and returns sum_t omega. At "high" K2 reads the
+    float32 omega; at "default" and "sr" only `om16`, omega's bf16 stream,
+    made once per update by the caller: every scatter, sum_t omega and
+    Gram of the update's Ng + 1 K2 calls reads it. On a mesh (`shard`; the
     JAX package's ``_ss_fused_shard_map``) K2 runs on the rank's rows and
     lanes, and [M0; the packed Jgg] are summed over "time" in one
     all-reduce a group, in the layout K3 reads, before K3 runs on the
     rank's lanes, replicated across its time ranks; the sum returned is
     the rank's own."""
-    T, N = omega.shape
+    N = u.shape[1]
     GB, Ng = G * B, A.shape[0] // G
     sr = _sr_seeds(host_generator, noise, Ng) if precision == "sr" else None
-    om16 = omega_bf16_stream(omega) if precision != "high" else None
+    if om16 is not None:
+        omega = None                  # K2 reads the bf16 stream alone
     dW = sum_om = None
     for g in range(Ng + 1):
         xp = Xt[(g - 1) * GB: g * GB] if g > 0 else None
@@ -556,10 +557,11 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
         the JAX package runs it (the launch counts show which ran).
         "highest": the staged loop on K6's fp32 body (a forced "fused"
         raises). In the fused loop at "default" and "sr", omega is rounded
-        to bf16 once and that value feeds u0, every K2 call and sum_omega,
-        while the bias scatter takes the float32 omega, as the JAX fused
-        kernel does (``weights.py:709-715``); K2's Grams read it as one
-        bf16 stream made once per update. On the CPU the plain versions
+        once into its bf16 stream (``omega_bf16_stream``), which feeds u0
+        and every K2 call's scatter, Gram and sum_omega (no float32 copy of
+        the rounded omega is made), while the bias scatter takes the
+        float32 omega, as the JAX fused kernel does
+        (``weights.py:709-715``). On the CPU the plain versions
         repeat each mode's rounding; "high" and "highest" are fp32 there.
       host_generator: a CPU generator that draws, in one (Ng, 2) draw, the
         (seed, offset) of each K2 call's rounding words at "sr" in the
@@ -611,10 +613,14 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
     LAST_SS_PATH = path
     dev = omega.device
 
-    # The fused loop's omega at the bf16 modes (ss_pallas.py:409-413).
-    om_k = (to_bf16(omega) if path == fused
-            and precision in ("default", "sr") else omega)
-    u = kappa - om_k * psi
+    # The fused loop's omega at the bf16 modes (ss_pallas.py:409-413): one
+    # bf16 stream, from which u0 is formed too; no float32 copy of it.
+    om16 = None
+    if path == fused and precision in ("default", "sr"):
+        om16 = omega_bf16_stream(omega)
+        u = kappa - om16[:, :N] * psi
+    else:
+        u = kappa - omega * psi
     w = w_full.clone()
     hyp = hyp._replace(mu=hyp.mu.contiguous(), Lam=hyp.Lam.contiguous(),
                        logit_rho=hyp.logit_rho.contiguous())
@@ -623,8 +629,8 @@ def resample_spike_slab_tspace(generator: torch.Generator, Xt, omega, kappa,
         sum_om = _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B,
                               noise, precision, Jg, shard)
     else:
-        sum_om = _fused_loop(generator, host_generator, Xt, om_k, u, w, hyp,
-                             A, G, B, noise, precision, shard)
+        sum_om = _fused_loop(generator, host_generator, Xt, omega, om16, u,
+                             w, hyp, A, G, B, noise, precision, shard)
 
     # Bias column (always active): X_bias = ones.
     u_sum = u.sum(0)

@@ -21,10 +21,13 @@ K2's Gram runs in the mode of the caller's precision, as the TPU kernel's
 bf16 pass on a stochastically rounded Z, both on wgmma
 (``csrc/gram_wgmma.cuh``) over a bf16 omega stream (:func:`omega_bf16_stream`,
 made once per update by the fused loop) with T split as
-:func:`gram_split_plan` says. The words of "sr"'s rounding come from a
-Philox stream selected by a (seed, offset) pair per call, on the card in the
-kernel and on the CPU from :func:`sr_words`, which repeats the kernel's
-draw, so both devices round Z alike for one pair.
+:func:`gram_split_plan` says. At "default" and "sr" that stream is the only
+omega K2 reads: the scatter and sum_t omega widen it to fp32, as the TPU
+kernel streams one bf16 omega to all of its users (``ss_pallas.py:409-413``).
+The words of "sr"'s rounding come from a Philox stream selected by a
+(seed, offset) pair per call, on the card in the kernel and on the CPU from
+:func:`sr_words`, which repeats the kernel's draw, so both devices round Z
+alike for one pair.
 
 Dispatch: :func:`ss_group_pass` and :func:`ss_edge_scan` launch the kernel
 for CUDA tensors and take the plain version for CPU tensors only.
@@ -189,32 +192,49 @@ def gram_split_plan(T: int, N: int, GB: int,
 # K2: scatter + gather + within-group Gram
 # ---------------------------------------------------------------------------
 
+def _k2_omega(omega, om16, precision, N):
+    """The float32 (T, N) omega that K2's plain version reads: omega at
+    "high"; at "default" and "sr" the bf16 stream `om16` widened, or, when
+    it is not given, omega rounded to bf16 (the stream's values)."""
+    if precision in ("default", "sr") and om16 is not None:
+        return om16[:, :N].float().contiguous()
+    if omega is None:
+        raise ValueError("ss_group_pass: need omega, or om16 at 'default' "
+                         "and 'sr'")
+    return omega if precision == "high" else to_bf16(omega)
+
+
 def ss_group_pass_plain(xp, xg, omega, u, dw, want_sum_omega=False,
-                        precision="high", r16=None):
+                        precision="high", r16=None, om16=None):
     """Plain version of K2. Updates u in place,
     u -= omega * (xp^T dw) when xp is given, and returns
     (M0 = xg u, packed Jgg, sum_t omega or None); (None, None, None) when
     xg is None (the epilogue). The Gram at `precision`: "high" fp32,
     "default" bf16(Z) bf16(omega), "sr" sr_round(Z, r16) bf16(omega) with
     r16 the (GB(GB+1)/2, T) words of the rounding; products of bf16 values
-    are exact in fp32, so only the order of the sums differs from K2."""
+    are exact in fp32, so only the order of the sums differs from K2. At
+    "default" and "sr" the scatter, the Gram and sum_t omega all read omega
+    as bf16 values, as K2 does: `om16`, its bf16 stream
+    (:func:`omega_bf16_stream`), widened, or omega rounded when `om16` is
+    not given (omega may be None when it is)."""
+    if precision not in _GRAM_MODES:
+        raise ValueError(f"ss_group_pass: precision={precision!r}, one of "
+                         f"{tuple(_GRAM_MODES)}")
+    om = _k2_omega(omega, om16, precision, u.shape[1])
     if xp is not None:
-        u -= omega * (xp.T @ dw)
+        u -= om * (xp.T @ dw)
     if xg is None:
         return None, None, None
     m0 = xg @ u
     p, q = pair_index(xg.shape[0], xg.device)
     Z = xg[p] * xg[q]
     if precision == "high":
-        jgg = Z @ omega
+        jgg = Z @ om
     elif precision == "default":
-        jgg = to_bf16(Z) @ to_bf16(omega)
-    elif precision == "sr":
-        jgg = sr_round(Z, r16) @ to_bf16(omega)
+        jgg = to_bf16(Z) @ om
     else:
-        raise ValueError(f"ss_group_pass: precision={precision!r}, one of "
-                         f"{tuple(_GRAM_MODES)}")
-    return m0, jgg, (omega.sum(0) if want_sum_omega else None)
+        jgg = sr_round(Z, r16) @ om
+    return m0, jgg, (om.sum(0) if want_sum_omega else None)
 
 
 def _check_cuda_f32(name, t, shape):
@@ -256,15 +276,16 @@ def _n_split_scatter(T: int) -> int:
     return max(1, min(1024, -(-T // 256)))
 
 
-def _check_om16(om16, omega):
+def _check_om16(om16, u):
     """The bf16 omega operand must be ``omega_bf16_stream(omega)``'s
-    layout: contiguous (T, N8) torch.bfloat16 on omega's device."""
-    T, N = omega.shape
+    layout: contiguous (T, N8) torch.bfloat16 on u's device, for u of
+    shape (T, N)."""
+    T, N = u.shape
     N8 = -(-N // 8) * 8
     if (om16.dtype != torch.bfloat16 or tuple(om16.shape) != (T, N8)
-            or not om16.is_contiguous() or om16.device != omega.device):
+            or not om16.is_contiguous() or om16.device != u.device):
         raise ValueError(f"om16: need a contiguous ({T}, {N8}) bfloat16 "
-                         f"tensor on {omega.device} (omega_bf16_stream), got "
+                         f"tensor on {u.device} (omega_bf16_stream), got "
                          f"{om16.dtype} {tuple(om16.shape)} on {om16.device}")
 
 
@@ -272,11 +293,12 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
                        precision="high", sr_seed=(0, 0), om16=None):
     """K2 on the card; same contract as :func:`ss_group_pass_plain`. The
     Gram runs in `precision`'s mode: "high" 3xTF32 on the mma.sync tile
-    loop; "default" and "sr" one bf16 pass on wgmma over `om16`, omega's
-    bf16 stream (:func:`omega_bf16_stream`; made here when not given), "sr"
-    rounding Z by the Philox words of ``sr_seed`` = (seed, offset), those of
+    loop; "default" and "sr" one bf16 pass on wgmma, "sr" rounding Z by the
+    Philox words of ``sr_seed`` = (seed, offset), those of
     :func:`sr_words`. M0 runs 3xTF32 and the scatter and sum_t omega fp32
-    (on the float32 omega) in every mode."""
+    in every mode: at "high" on the float32 omega, at "default" and "sr" on
+    `om16`, omega's bf16 stream (:func:`omega_bf16_stream`; made here from
+    omega when not given), the one operand K2 reads omega from there."""
     if precision not in _GRAM_MODES:
         raise ValueError(f"ss_group_pass: precision={precision!r}, one of "
                          f"{tuple(_GRAM_MODES)}")
@@ -284,14 +306,13 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
     if not (0 <= seed < 2 ** 64 and 0 <= offset < 2 ** 64):
         raise ValueError("sr_seed: seed and offset must fit in 64 unsigned "
                          "bits")
-    T, N = omega.shape
+    T, N = u.shape
     ref = xg if xg is not None else xp
     if ref is None:
         raise ValueError("ss_group_pass: need xg, xp or both")
     GB = ref.shape[0]
     if not 1 <= GB <= _MAX_GB:
         raise ValueError(f"ss_group_pass: GB={GB} outside 1..{_MAX_GB}")
-    _check_cuda_f32("omega", omega, (T, N))
     _check_cuda_f32("u", u, (T, N))
     if xg is not None:
         _check_cuda_f32("xg", xg, (GB, T))
@@ -299,17 +320,26 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
         _check_cuda_f32("xp", xp, (GB, T))
         _check_cuda_f32("dw", dw, (GB, N))
     npair = GB * (GB + 1) // 2
-    dev = omega.device
-    # The wgmma body's operands: omega's bf16 stream and the pair table.
-    om16_p = pq_p = None
+    dev = u.device
+    # omega's operand: float32 at "high", the bf16 stream otherwise; the
+    # wgmma Gram's pair table.
+    om_p = om16_p = pq_p = None
     N8, ntile = N, 0
-    if precision != "high" and xg is not None:
+    if precision == "high" or om16 is None:
+        if omega is None:
+            raise ValueError("ss_group_pass: need omega, or om16 at "
+                             "'default' and 'sr'")
+        _check_cuda_f32("omega", omega, (T, N))
+    if precision == "high":
+        om_p = omega.data_ptr()
+    else:
         if om16 is None:
             om16 = omega_bf16_stream(omega)
-        _check_om16(om16, omega)
+        _check_om16(om16, u)
+        om16_p, N8 = om16.data_ptr(), om16.shape[1]
+    if precision != "high" and xg is not None:
         pq = _pair_table(GB, dev, K2_PAIR_TILE)
-        om16_p, pq_p = om16.data_ptr(), pq.data_ptr()
-        N8, ntile = om16.shape[1], pq.numel() // K2_PAIR_TILE
+        pq_p, ntile = pq.data_ptr(), pq.numel() // K2_PAIR_TILE
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         n_split = gram_split_plan(T, N, GB, n_sm)[0]
     else:
@@ -328,7 +358,7 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.ss_group_pass_launch(
-            ptr(xg), ptr(xp), omega.data_ptr(), om16_p, pq_p, u.data_ptr(),
+            ptr(xg), ptr(xp), om_p, om16_p, pq_p, u.data_ptr(),
             ptr(dw) if xp is not None else None, ptr(part_g), ptr(part_m),
             ptr(part_s), ptr(out), T, N, N8, GB, n_split, n_split_m,
             n_split_s, ntile, int(want_sum_omega), _GRAM_MODES[precision],
@@ -344,24 +374,25 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
 
 def ss_group_pass(xp, xg, omega, u, dw, want_sum_omega=False,
                   precision="high", sr_seed=(0, 0), om16=None):
-    """K2 for CUDA tensors, its plain version for CPU tensors; at "sr" both
-    round Z by the words of ``sr_seed`` = (seed, offset). `om16`, omega's
-    bf16 stream (:func:`omega_bf16_stream`), is checked on either device
-    when given and read only by the card's bf16 and SR Gram bodies; the
-    plain version rounds omega itself."""
+    """K2 for CUDA tensors, its plain version for CPU tensors (u's device
+    decides); at "sr" both round Z by the words of ``sr_seed`` = (seed,
+    offset). At "default" and "sr" both read omega only as `om16`, its
+    bf16 stream (:func:`omega_bf16_stream`), made from omega when not given
+    (omega may be None when it is); `om16` is checked on either device when
+    given."""
     if om16 is not None:
-        _check_om16(om16, omega)
-    if omega.is_cuda:
+        _check_om16(om16, u)
+    if u.is_cuda:
         return ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega,
                                   precision, sr_seed, om16)
-    if omega.device.type != "cpu":
-        raise ValueError(f"ss_group_pass: unsupported device {omega.device}")
+    if u.device.type != "cpu":
+        raise ValueError(f"ss_group_pass: unsupported device {u.device}")
     r16 = None
     if precision == "sr" and xg is not None:
         GB = xg.shape[0]
-        r16 = sr_words(*sr_seed, GB * (GB + 1) // 2, omega.shape[0])
+        r16 = sr_words(*sr_seed, GB * (GB + 1) // 2, u.shape[0])
     return ss_group_pass_plain(xp, xg, omega, u, dw, want_sum_omega,
-                               precision, r16)
+                               precision, r16, om16)
 
 
 # ---------------------------------------------------------------------------

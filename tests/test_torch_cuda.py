@@ -122,6 +122,49 @@ def test_group_pass_repeats_bit_for_bit(gen):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("N", [13, 70, 200, 257])
+@pytest.mark.parametrize("GB", [4, 12, 32, 40])
+@pytest.mark.parametrize("case", ["first", "middle", "epilogue"])
+@pytest.mark.parametrize("precision", ["default", "sr"])
+def test_group_pass_reads_the_bf16_stream_alone(gen, precision, case, GB,
+                                               N):
+    """K2 at "default" and "sr" given only omega's bf16 stream (row stride
+    N8, here N8 != N at 13, 70 and 257 lanes): its scatter, M0 and sum_t
+    omega equal bit for bit those of K2 at "high" on the float32 rounded
+    omega (the same fp32 arithmetic on the same values), and its u, M0,
+    Gram and sum agree with the plain version on the stream (1e-5)."""
+    from pyglm_tpu_torch.ops.ss_cuda import omega_bf16_stream
+    Tn = 3001
+    X = _float_design(gen, 2 * GB, Tn)
+    xp = None if case == "first" else X[:GB]
+    xg = None if case == "epilogue" else X[GB:]
+    om = to_bf16(0.05 + 0.2 * torch.rand((Tn, N), generator=gen,
+                                         device="cuda"))
+    om16 = omega_bf16_stream(om)
+    u = torch.randn((Tn, N), generator=gen, device="cuda")
+    dw = 0.1 * torch.randn((GB, N), generator=gen, device="cuda")
+    seed, offset = 321, 9
+    want = case != "epilogue"
+    uk, uh, up = u.clone(), u.clone(), u.clone()
+    out_k = ss_group_pass_cuda(xp, xg, None, uk, dw, want,
+                               precision=precision, sr_seed=(seed, offset),
+                               om16=om16)
+    out_h = ss_group_pass_cuda(xp, xg, om, uh, dw, want)
+    r16 = (sr_words(seed, offset, GB * (GB + 1) // 2, Tn).cuda()
+           if precision == "sr" and xg is not None else None)
+    out_p = ss_group_pass_plain(xp, xg, None, up, dw, want,
+                                precision=precision, r16=r16, om16=om16)
+    assert torch.equal(uk, uh)
+    assert _rel(uk, up) <= 1e-5
+    if case == "epilogue":
+        assert out_k == (None, None, None)
+        return
+    assert torch.equal(out_k[0], out_h[0]) and torch.equal(out_k[2],
+                                                           out_h[2])
+    for a, b in zip(out_k, out_p):
+        assert _rel(a, b) <= 1e-5
+
+
 def _f64_errors(kernel_gram, plain_gram, X, om, p, q):
     j64 = (X[p].double() * X[q].double()) @ om.double()
     return _rel(kernel_gram.double(), j64), _rel(plain_gram.double(), j64)

@@ -13,8 +13,9 @@ kernel itself is held against its plain version on the card
 - ss_group_pass checks the bf16 omega operand it is given (dtype, shape,
   layout, device) on either device.
 - The fused loop at "default" and "sr" makes one bf16 omega stream per
-  update, ``omega_bf16_stream`` of the bf16-valued omega, and hands that
-  one tensor to every K2 call that forms a Gram.
+  update, ``omega_bf16_stream(omega)``, and hands that one tensor, and no
+  float32 omega, to every K2 call: the scatter, sum_t omega and the Gram
+  all read it. At "high" K2 gets the float32 omega and no stream.
 """
 import numpy as np
 import pytest
@@ -126,10 +127,10 @@ def test_fused_loop_makes_one_bf16_stream_per_update(monkeypatch,
         host_generator=torch.Generator().manual_seed(1))
     assert len(seen) == N // G + 1
     if precision == "high":
-        assert all(s[1] is None for s in seen)
+        assert all(s[1] is None and s[2] is omega for s in seen)
         return
     om16 = seen[0][1]
     assert all(s[1] is om16 for s in seen)                # one per update
     assert om16.dtype == torch.bfloat16 and om16.shape == (T, 8)
     assert torch.equal(om16, omega_bf16_stream(omega))
-    assert torch.equal(om16[:, :N].float(), seen[0][2])  # the bf16 omega
+    assert all(s[2] is None for s in seen)        # the stream is K2's omega
