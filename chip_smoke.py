@@ -11,8 +11,9 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      version on the card, with the device time of each (CUDA events around
      a run of calls), of its plain version and, where one PyTorch call
      computes the same function, of that call: at the flagships' shapes
-     (N=200, T=100k, B=4, G=8) K1-K3 (K2's Gram in 3xTF32 on the tensor
-     cores, timed at g = 0 and at a middle group; then in one bf16 pass
+     (N=200, T=100k, B=4, G=8) K1-K3 (K2's Gram in 3xTF32 on wgmma, timed
+     at g = 0 and at a middle group, the Gram kernel alone also timed by
+     torch.profiler; then in one bf16 pass
      ("default") and on a stochastically rounded Z ("sr", on the same
      rounding words as its plain version), both on wgmma over the bf16
      omega stream, the only omega K2 reads there (its scatter and sum_t
@@ -26,8 +27,9 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      draws bit for bit, device time by torch.profiler at the NB counts and
      at a high-count shape); at the 8-chain
      latent-distance ensemble's shapes (P=2001, T=20k, 4000 lanes, G=10)
-     K6 (group Gram) at precision "high" (3xTF32), "highest" (fp32 FMA)
-     and "default" (one bf16 pass on wgmma over a bf16 omega stream), plus
+     K6 (group Gram) at precision "high" (3xTF32 on wgmma), "highest"
+     (fp32 FMA) and "default" (one bf16 pass on wgmma over a bf16 omega
+     stream), after the two wgmma layout probes (bf16 and TF32), plus
      a small ragged shape, then K3 on that "high" Gram, one call per group
      in the staged loop's order (cold from device memory), with a
      non-identity Lam0 and a nonzero mu0; and K6's fp32 body also at the
@@ -364,6 +366,23 @@ def k3_bound(G_, B_, lanes):
                   FP32_FLOPS))
 
 
+def kernel_regs(match):
+    """{"registers", "spill_bytes"} a thread of the kernel whose (mangled)
+    name holds `match`, from the build's ptxas report (nvcc -Xptxas -v),
+    or None if no such kernel was compiled."""
+    import re
+    from pyglm_tpu_torch.ops import _build
+    lines = _build.LOG_PATH.read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and match in line:
+            text = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores", text)
+            return {"registers": int(regs.group(1)) if regs else None,
+                    "spill_bytes": int(spill.group(1)) if spill else None}
+    return None
+
+
 def kernel_ms(fn, reps, match):
     """Device time per call of the kernels whose names hold `match`, over
     `reps` calls traced by torch.profiler (after one untraced call)."""
@@ -494,6 +513,10 @@ def phase_kernels(check, record):
     plain_ms = event_ms(lambda: ss_group_pass_plain(xp, xg, omega, u_p, dw),
                          5)
     lib_ms = event_ms(lambda: torch.matmul(Z, omega), 10)
+    # The Gram kernel alone (the wgmma TF32 body), by torch.profiler.
+    gram_ms = kernel_ms(lambda: ss_group_pass_cuda(xp, xg, omega, u_k, dw),
+                        20, "group_pass_tf32_kernel")
+    check(gram_ms > 0, "K2 high: the profiler saw its wgmma TF32 Gram kernel")
     npair = GB * (GB + 1) // 2
     # xp, xg, omega, u in and out, dw; M0, packed Gram, sum omega out. The
     # Gram's and the gather's FMAs as three TF32 products at the tensor
@@ -501,15 +524,25 @@ def phase_kernels(check, record):
     k2_bytes = 4 * (2 * GB * T + 3 * T * N + GB * N + (GB + npair + 1) * N)
     m0_scatter = ((3 * 2 * T * N * GB, TF32_FLOPS),
                   (2 * T * N * GB, FP32_FLOPS))
+    gram_bound = bound(4 * (GB * T + T * N + npair * N),
+                       (3 * 2 * T * N * npair, TF32_FLOPS))
+    regs = kernel_regs("group_pass_tf32_kernel") or {}
     record["ss_group_pass"].update(
         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         precision="high", ms_g0=ms_g0, host_ms=host_ms, f64_rel_err=e_k,
-        plain_f64_rel_err=e_p,
+        plain_f64_rel_err=e_p, gram_ms=gram_ms,
+        gram_bound_ms=gram_bound["bound_ms"],
+        gram_bound_by=gram_bound["bound_by"],
+        gram_registers=regs.get("registers"),
+        gram_spill_bytes=regs.get("spill_bytes"),
         **bound(k2_bytes, (3 * 2 * T * N * npair, TF32_FLOPS), *m0_scatter))
     rec = record["ss_group_pass"]
     print(f"  K2 {ms:.3f} ms per middle group, {ms_g0:.3f} at g = 0 (no "
           f"scatter); {host_ms:.3f} ms per synchronised call on the host "
-          f"clock; plain {plain_ms:.3f} ms, library (fp32 "
+          f"clock; the Gram kernel alone {gram_ms:.4f} ms (profiler; bound "
+          f"{gram_bound['bound_ms']:.4f} ms, {gram_bound['bound_by']}; "
+          f"{regs.get('registers')} registers, {regs.get('spill_bytes')} B "
+          f"spilled); plain {plain_ms:.3f} ms, library (fp32 "
           f"matmul on the materialised Z) {lib_ms:.3f} ms; bound "
           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, 3xTF32)")
 
@@ -2331,8 +2364,8 @@ def phase_kernel_gram(check, record):
     import torch
     from pyglm_tpu_torch.ops.basis import design_matrix, cosine_basis
     from pyglm_tpu_torch.ops.gram_cuda import (
-        PAIR_TILE, group_gram_blocks_cuda, group_gram_blocks_plain,
-        wgmma_probe)
+        PAIR_TILE, TF32_PAIR_TILE, group_gram_blocks_cuda,
+        group_gram_blocks_plain, tf32_split, wgmma_probe, wgmma_tf32_probe)
     from pyglm_tpu_torch.ops.ss_cuda import pair_index, to_bf16
 
     dev = "cuda"
@@ -2346,6 +2379,24 @@ def phase_kernel_gram(check, record):
     check(torch.equal(wgmma_probe(a16, b16), a16.float().T @ b16.float().T),
           "wgmma probe (m64n168k16, A lane-major, B K-major, 128-byte "
           "swizzle) equals torch.mm")
+    # The "high" body's: A from registers (its split in registers), B as
+    # Z_hi and Z_lo tiles. Values +-{1, 2, 3} + {-1, 0, 1} 2^-12 split
+    # into an integer hi and a lo of 2^-12, so every sum is exact and the
+    # product must equal the 3xTF32 product of the splits (lo lo dropped).
+    def tf32_tile(shape):
+        ints = torch.randint(1, 4, shape, generator=gen, device=dev) * (
+            2 * torch.randint(0, 2, shape, generator=gen, device=dev) - 1)
+        frac = torch.randint(-1, 2, shape, generator=gen, device=dev)
+        return (ints + frac * 2.0 ** -12).float().contiguous()
+    at, bt = tf32_tile((32, 64)), tf32_tile((TF32_PAIR_TILE, 32))
+    (ah, al), (bh, bl) = tf32_split(at), tf32_split(bt)
+    ah, al, bh, bl = (x.double() for x in (ah, al, bh, bl))
+    want = al.T @ bh.T + ah.T @ bl.T + ah.T @ bh.T
+    check(bool(al.abs().max() > 0) and torch.equal(
+        wgmma_tf32_probe(at, bt).double(), want),
+          f"wgmma TF32 probe (m64n{TF32_PAIR_TILE}k8, A from registers "
+          "split in TF32 hi and lo, B as K-major Z_hi and Z_lo, 128-byte "
+          "swizzle) equals the 3xTF32 product of the splits")
     lanes, GB = C5 * N5, G5 * B
     Ng, npair = N5 // G5, GB * (GB + 1) // 2
     print(f"K6 group_gram: Xt ({N5 * B + 1}, {T5}), omega ({T5}, {lanes}), "
@@ -2417,12 +2468,14 @@ def phase_kernel_gram(check, record):
     nbytes = 4 * (Ng * GB * T5 + T5 * lanes + Ng * npair * lanes)
     flops = 2.0 * Ng * npair * lanes * T5
     fp32 = bound(nbytes, (flops, FP32_FLOPS))
+    regs = kernel_regs("group_gram_tf32_kernel") or {}
     record["group_gram"].update(
         max_abs_err=max_abs["high"], ms=ms, plain_ms=plain_ms,
         library_ms=lib_ms, precision="high", highest_ms=ms_fp32,
         highest_bound_ms=fp32["bound_ms"], f64_rel_err=f64["high"],
         highest_f64_rel_err=f64["highest"],
         plain_f64_rel_err=f64_plain["high"],
+        registers=regs.get("registers"), spill_bytes=regs.get("spill_bytes"),
         **bound(nbytes, (3 * flops, TF32_FLOPS)))
     record["group_gram_bf16"].update(
         max_abs_err=max_abs["default"], ms=ms_bf16, plain_ms=plain_bf16_ms,
@@ -2440,7 +2493,9 @@ def phase_kernel_gram(check, record):
           f"{fp32['bound_ms']:.2f} ms (fp32), {rec16['bound_ms']:.2f} ms "
           f"({rec16['bound_by']}, bf16); {flops / ms / 1e9:.1f} TFLOP/s of "
           f"fp32 work at high, {flops / ms_fp32 / 1e9:.1f} at highest, "
-          f"{flops / ms_bf16 / 1e9:.1f} at default")
+          f"{flops / ms_bf16 / 1e9:.1f} at default; the high body "
+          f"{regs.get('registers')} registers, {regs.get('spill_bytes')} B "
+          f"spilled")
     phase_k3_config5(check, record, Xt, omega, jg_high, gen)
 
 

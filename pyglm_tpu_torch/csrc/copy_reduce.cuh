@@ -1,11 +1,13 @@
 // Helpers shared by the kernels that stage operands through shared memory
-// and split the time axis (K2 in ss_group_pass.cu, K6 in group_gram.cu, and
-// the 3xTF32 tile loop in gram_tc.cuh): cp.async copies of 16 or 4 bytes
-// (zero-filled where `ok` is false), and the ordered, compensated sum of a
-// split's partials.
+// and split the time axis (K2 in ss_group_pass.cu, K6 in group_gram.cu, the
+// 3xTF32 gather loop in gram_tc.cuh and the 3xTF32 Gram in gram_wgmma.cuh):
+// cp.async copies of 16 or 4 bytes (zero-filled where `ok` is false), the
+// split of an fp32 value into two TF32 operands, and the ordered,
+// compensated sum of a split's partials.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace copy_reduce {
 
@@ -30,6 +32,24 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x rounded to TF32, to nearest with ties away from zero: the result of
+// cvt.rna.tf32.f32 for finite x, in two integer operations at full rate
+// (the conversion instruction runs at a fraction of that, and with it the
+// split, not the tensor cores, set the pace of the mma.sync loop).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo exactly, hi the TF32 nearest x: the operands of 3xTF32, whose
+// products a.b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi keep ~fp32 accuracy. The
+// tensor cores read only the TF32 bits of lo, i.e. lo cut toward zero: an
+// error below 2^-22 |x| whose sign follows lo's, which is as often
+// negative as positive.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // out[i] = sum over splits of part[split, i], in split order, compensated

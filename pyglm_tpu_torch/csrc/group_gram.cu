@@ -21,12 +21,17 @@
 // at GB = 40).
 //
 // Three bodies, chosen by the caller's precision:
-//   - "high": group_gram_tc_kernel, 3xTF32 on the tensor cores with
-//     the tile loop shared with K2 (gram_tc.cuh): cp.async ring, Z = X_p X_q
-//     formed once per stage in shared memory, fragments past the last pair
-//     row or lane skipped, the fp32 accumulators folded every 128 steps
-//     into a second fp32 sum (two-level, so no accumulator sums 2e4 terms).
-//     Bound: 3 x 2 x 3.3e12 FLOP at config 5 over the 495 TFLOP/s TF32 peak.
+//   - "high": group_gram_tf32_kernel, 3xTF32 on wgmma (gram_wgmma.cuh::
+//     gram_tile_tf32, the tile K2's "high" Gram runs too): omega in fp32,
+//     split into TF32 hi and lo in registers (wgmma's A), Z = X_p X_q formed
+//     per stage into swizzled Z_hi and Z_lo tiles (B), three products per
+//     8-step slice, a tile of kTf32NP = 120 pair rows x 128 lanes per block,
+//     the fp32 accumulators folded every 64 steps into a second fp32 sum
+//     (two-level, so no accumulator sums 2e4 terms). Its grid is ordered as
+//     the "default" body's. Bound: 3 x 2 x 3.3e12 FLOP at config 5 over the
+//     495 TFLOP/s TF32 peak (39.8 ms); mma.sync, whose TF32 products peak
+//     near 310 TFLOP/s, bounds the same arithmetic near 100 TFLOP/s of fp32
+//     work (an mma.sync tile loop took 136 ms there).
 //   - "default": group_gram_wgmma_kernel, one bf16 pass on wgmma
 //     (gram_wgmma.cuh): omega rounded once to a bf16 stream by the caller,
 //     Z = X_p X_q rounded to bf16 as it is formed, a tile of 168 pair rows
@@ -63,16 +68,15 @@
 
 #include <cuda_runtime.h>
 
-#include "gram_tc.cuh"
+#include "copy_reduce.cuh"
 #include "gram_wgmma.cuh"
 
 namespace {
 
 constexpr int kMaxGB = 64;
-// Tile-loop stages per fold (128 steps; 48 truncated adds per chunk at
-// 3xTF32): 64 steps halve the Gram's error and cost ~10% more time
-// (PERF.md).
-constexpr int kFold = 4;
+// Pair rows per tile of the 3xTF32 body: GB = 40's 820 pairs in 7 tiles
+// (840 rows, 2.4% padding, as the "default" body's 5 tiles of 168).
+constexpr int kTf32NP = 120;
 
 // The fp32 body ("highest"): time steps per shared-memory stage, stages per
 // fold (512 steps, the JAX Gram's chunk), the most shared memory a block
@@ -280,34 +284,21 @@ cudaError_t launch_fp32(const float* xt, const float* om, float* dst,
   return cudaGetLastError();
 }
 
-// "high" (3xTF32) on the tensor cores, one tile of one group per block.
-__global__ void __launch_bounds__(gram_tc::kThreads, 2)
-group_gram_tc_kernel(const float* __restrict__ xt, const float* __restrict__ om,
-                     float* __restrict__ out, int T, int N, int GB, int vec_x,
-                     int vec_o) {
-  extern __shared__ __align__(16) float smem[];
-  const int g = blockIdx.z, npair = GB * (GB + 1) / 2;
-  gram_tc::gram_tile(xt + (size_t)g * GB * T, T, GB, true, om, N, 0, T,
-                     blockIdx.x * gram_tc::kNT, blockIdx.y * gram_tc::kMT,
-                     npair, vec_x, vec_o, kFold, out + (size_t)g * npair * N,
-                     smem);
-}
-
-cudaError_t launch_tc(const float* xt, const float* om, float* out, int T,
-                      int N, int GB, int Ng, cudaStream_t s) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      group_gram_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      gram_tc::smem_floats(gram_tc::kMaxGB) * (int)sizeof(float));
-  if (attr != cudaSuccess) return attr;
-  const int npair = GB * (GB + 1) / 2;
-  const int vec_x = T % 4 == 0 && (size_t)xt % 16 == 0;
-  const int vec_o = N % 4 == 0 && (size_t)om % 16 == 0;
-  dim3 grid((N + gram_tc::kNT - 1) / gram_tc::kNT,
-            (npair + gram_tc::kMT - 1) / gram_tc::kMT, Ng);
-  group_gram_tc_kernel
-      <<<grid, gram_tc::kThreads, gram_tc::smem_floats(GB) * (int)sizeof(float),
-         s>>>(xt, om, out, T, N, GB, vec_x, vec_o);
-  return cudaGetLastError();
+// "high": 3xTF32 on wgmma; block (pair tile, group, lane tile), the grid
+// ordered as the "default" body's.
+__global__ void __launch_bounds__(gram_wgmma::kThreads, 1)
+group_gram_tf32_kernel(const float* __restrict__ xt,
+                       const float* __restrict__ om,
+                       const uint16_t* __restrict__ pq,
+                       float* __restrict__ out, int T, int N, int GB,
+                       int vec_x, int vec_o) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const int g = blockIdx.y, npair = GB * (GB + 1) / 2;
+  const int row0 = blockIdx.x * kTf32NP;
+  gram_wgmma::gram_tile_tf32<kTf32NP>(
+      xt + (size_t)g * GB * T, T, GB, vec_x, om, N, vec_o, 0, T,
+      blockIdx.z * gram_wgmma::kLT, pq + row0, min(kTf32NP, npair - row0),
+      out + ((size_t)g * npair + row0) * N, N, smem_raw);
 }
 
 // "default": one bf16 pass on wgmma; block (pair tile, group, lane tile).
@@ -368,17 +359,90 @@ wgmma_probe_kernel(const uint16_t* __restrict__ a,
         (e & 1)] = acc[4 * j + e];
 }
 
+// The 3xTF32 probe: one warpgroup, one stage (4 slices of 8 steps, 3
+// products each) through the same A fragments, Z_hi / Z_lo layouts,
+// descriptors and accumulator map as gram_tile_tf32: d (64, kTf32NP) = the
+// 3xTF32 product of a^T (a: 32 steps x 64 lanes, fp32, row-major, read as
+// an omega stage) and b^T (b: kTf32NP rows x 32 steps, fp32, split into
+// the two tiles as the Z build splits Z).
+__global__ void __launch_bounds__(128)
+wgmma_tf32_probe_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b, float* __restrict__ d) {
+  using namespace gram_wgmma;
+  constexpr int kZB = kTf32NP * 128;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  uint8_t* zs = smem_raw + ((1024u - (raw & 1023u)) & 1023u);
+  float* os = reinterpret_cast<float*>(zs + 2 * kZB);
+  const int tid = threadIdx.x;
+  for (int e = tid; e < kKS3 * 64; e += 128)
+    os[(e / 64) * kOS3 + e % 64] = a[e];
+  for (int c = tid; c < kTf32NP * 8; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(b + c * 4);
+    uint4 h, l;
+    copy_reduce::split(v.x, h.x, l.x);
+    copy_reduce::split(v.y, h.y, l.y);
+    copy_reduce::split(v.z, h.z, l.z);
+    copy_reduce::split(v.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(zs + sw128(c / 8, c % 8)) = h;
+    *reinterpret_cast<uint4*>(zs + kZB + sw128(c / 8, c % 8)) = l;
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const int w = tid / 32, l = tid % 32;
+  uint32_t ah[kKS3 / 8][4], al[kKS3 / 8][4];
+  load_a_tf32(os + (l % 4) * kOS3 + 16 * w + l / 4, ah, al);
+  float acc[kTf32NP / 2];
+#pragma unroll
+  for (int i = 0; i < kTf32NP / 2; ++i) acc[i] = 0.0f;
+  const uint32_t zs_a = (uint32_t)__cvta_generic_to_shared(zs);
+  fence_acc(acc);
+  fence_regs(ah);
+  fence_regs(al);
+  mma_fence();
+  products_tf32(acc, ah, al, zs_a, zs_a + kZB);
+  mma_commit();
+  mma_wait<0>();
+  fence_acc(acc);
+  fence_regs(ah);
+  fence_regs(al);
+#pragma unroll
+  for (int j = 0; j < kTf32NP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      d[(16 * w + l / 4 + 8 * (e >> 1)) * kTf32NP + 8 * j + 2 * (l % 4) +
+        (e & 1)] = acc[4 * j + e];
+}
+
 }  // namespace
 
 // xt: (>= Ng GB, T) design rows, group g in rows [g GB, (g + 1) GB);
-// om: (T, N); out: (Ng, GB(GB+1)/2, N), every element written. The 3xTF32
-// body ("high"); the fp32 body ("highest") is group_gram_fp32_launch, the
-// bf16 body ("default") group_gram_bf16_launch.
-extern "C" int group_gram_launch(const float* xt, const float* om, float* out,
-                                 int T, int N, int GB, int Ng, void* stream) {
-  if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || Ng < 1 || Ng > 65535)
+// om: (T, N); pq: ntile x kTf32NP pair-table entries p | q << 8 (0xFFFF
+// past the last pair row), row-major over p <= q; out: (Ng, GB(GB+1)/2,
+// N), every element written. The 3xTF32 body ("high"); the fp32 body
+// ("highest") is group_gram_fp32_launch, the bf16 body ("default")
+// group_gram_bf16_launch.
+extern "C" int group_gram_launch(const float* xt, const float* om,
+                                 const void* pq, float* out, int T, int N,
+                                 int GB, int Ng, int ntile, void* stream) {
+  const int npair = GB * (GB + 1) / 2;
+  if (GB < 1 || GB > kMaxGB || T < 1 || N < 1 || Ng < 1 || Ng > 65535 ||
+      pq == nullptr || ntile < 1 || (ntile - 1) * kTf32NP >= npair ||
+      ntile * kTf32NP < npair ||
+      (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT > 65535)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_tc(xt, om, out, T, N, GB, Ng, (cudaStream_t)stream);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      group_gram_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gram_wgmma::smem_bytes_tf32<kTf32NP>(kMaxGB));
+  if (attr != cudaSuccess) return (int)attr;
+  const int vec_x = T % 4 == 0 && (size_t)xt % 16 == 0;
+  const int vec_o = N % 4 == 0 && (size_t)om % 16 == 0;
+  dim3 grid(ntile, Ng, (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT);
+  group_gram_tf32_kernel<<<grid, gram_wgmma::kThreads,
+                           gram_wgmma::smem_bytes_tf32<kTf32NP>(GB),
+                           (cudaStream_t)stream>>>(
+      xt, om, (const uint16_t*)pq, out, T, N, GB, vec_x, vec_o);
+  return (int)cudaGetLastError();
 }
 
 // The "highest" body. xt, om and out as above; T split into n_split ranges
@@ -445,5 +509,15 @@ extern "C" int wgmma_probe_launch(const void* a, const void* b, float* d,
                        1024 + gram_wgmma::kOmSlab + gram_wgmma::kZBuf,
                        (cudaStream_t)stream>>>(
       (const uint16_t*)a, (const uint16_t*)b, d);
+  return (int)cudaGetLastError();
+}
+
+// The 3xTF32 probe: d (64, 120) fp32, the 3xTF32 product of a^T and b^T,
+// a (32, 64) and b (120, 32) fp32, row-major.
+extern "C" int wgmma_tf32_probe_launch(const float* a, const float* b,
+                                       float* d, void* stream) {
+  constexpr int smem =
+      1024 + 2 * kTf32NP * 128 + gram_wgmma::kKS3 * gram_wgmma::kOS3 * 4;
+  wgmma_tf32_probe_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(a, b, d);
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,8 @@
 // sums the partials in a fixed order, so results repeat from run to run. No atomics.
 //
 // The Gram's mode is the caller's precision, as the TPU kernel's `gram`:
-// "high" 3xTF32 (bf16x3 there) on the mma.sync tile loop of gram_tc.cuh;
+// "high" 3xTF32 (bf16x3 there, _mm3 at :349) on the wgmma tile of
+// gram_wgmma.cuh in its TF32 mode (gram_tile_tf32) on the fp32 omega;
 // "default" one bf16 pass (gram == "bf16", :343-345) and "sr" one bf16
 // pass on a stochastically rounded Z (gram == "sr", :346-347, with the
 // rounding of _sr16), both on the wgmma tile of gram_wgmma.cuh over a bf16
@@ -33,9 +34,14 @@
 //     fp32); one thread per postsyn lane with dW in registers, u and omega
 //     (fp32 at "high", the bf16 stream otherwise) streamed through shared
 //     memory by cp.async; memory-bound, in place;
-//   - gram_tc_kernel (gram_tc.cuh, the tile loop shared with K6's "high"
-//     body): M0 = X_g u (Z = X_g) in every mode, and the packed Gram of
-//     omega (Z = X_p X_q formed in shared memory, never stored) at "high";
+//   - m0_tc_kernel (gram_tc.cuh, an mma.sync 3xTF32 tile loop): M0 = X_g u
+//     in every mode;
+//   - group_pass_tf32_kernel (gram_wgmma.cuh::gram_tile_tf32, the tile of
+//     K6's "high" body at kK2Tf32NP = 136 pair rows): the packed Gram at
+//     "high", 3xTF32 (Z = X_p X_q formed in shared memory, never stored), a
+//     block per (split of T, tile of 136 pair rows, tile of 128 lanes):
+//     GB = 32's 528 pairs are 4 tiles (544 rows), and the 4 x 2 tiles per
+//     split take 16 splits of whole 32-step stages (128 blocks, one wave);
 //   - group_pass_wgmma_kernel<kSr> (gram_wgmma.cuh, the tile of K6's
 //     "default" body at kK2NP = 176 pair rows): the packed Gram at
 //     "default" and "sr", a block per (split of T, tile of 176 pair rows,
@@ -51,7 +57,9 @@
 //
 // Bound on the H100: at "high" the Gram, GB(GB+1)/2 * N * T FMAs per group
 // (1.06e10 at GB=32, N=200, T=1e5), as three TF32 tensor-core products each,
-// over 495 TFLOP/s. At "default" and "sr" the Gram's one bf16 pass over 989
+// over 495 TFLOP/s: 0.128 ms (an mma.sync loop, bounded near 100 TFLOP/s
+// of fp32 work by mma.sync's TF32 rate, took 0.86 ms for K2 whole). At
+// "default" and "sr" the Gram's one bf16 pass over 989
 // TFLOP/s is ~0.021 ms, its bf16 omega 0.012 ms at 3.35 TB/s, and the call
 // turns bound by its bytes (u read and written by the scatter and read by
 // M0, X_p and X_g, and the bf16 omega stream read twice, by the scatter
@@ -73,7 +81,10 @@ constexpr int kMaxDevices = 16;
 // Pair rows per tile of the wgmma Gram: GB = 32's 528 pairs are 3 tiles
 // (the flagship group; 2 x 176 fp32 sums per thread, 255 registers).
 constexpr int kK2NP = 176;
-// 3xTF32 tile-loop stages per fold (128 steps), as in K6 (group_gram.cu).
+// ... of the 3xTF32 Gram ("high"): 4 tiles of 136 (544 rows); its A
+// fragments take 32 registers more per thread than the bf16 body's.
+constexpr int kK2Tf32NP = 136;
+// M0's tile-loop stages per fold (128 steps).
 constexpr int kFold = 4;
 
 // Shared memory of a scatter block: X_p [2][R][kCh] and u [2][kCh][kLanes]
@@ -203,21 +214,41 @@ scatter_kernel(const float* __restrict__ xp, const Om* __restrict__ om,
   if (want_sumom && lane_ok) part[(size_t)blockIdx.x * N + n] = sum_om;
 }
 
-// One 3xTF32 tile loop per block over its split of T: the packed Gram
-// X_g diag(B) X_g^T (pairs = 1, B = omega) or X_g B (pairs = 0, B = u), as
-// (n_split, n_rows, N) partials.
+// M0 = X_g u by one 3xTF32 tile loop per block over its split of T, as
+// (n_split, GB, N) partials.
 __global__ void __launch_bounds__(gram_tc::kThreads, 2)
-gram_tc_kernel(const float* __restrict__ xg, const float* __restrict__ b,
-               float* __restrict__ part, int T, int N, int GB, int pairs,
-               int n_rows, int rows_per_split, int vec_x, int vec_b) {
+m0_tc_kernel(const float* __restrict__ xg, const float* __restrict__ u,
+             float* __restrict__ part, int T, int N, int GB,
+             int rows_per_split, int vec_x, int vec_u) {
   extern __shared__ __align__(16) float smem[];
   const int split = blockIdx.x;
   const int t_begin = split * rows_per_split;
   const int t_end = min(T, t_begin + rows_per_split);
-  gram_tc::gram_tile(xg, T, GB, pairs, b, N, t_begin, t_end,
+  gram_tc::gram_tile(xg, T, GB, u, N, t_begin, t_end,
                      blockIdx.y * gram_tc::kNT, blockIdx.z * gram_tc::kMT,
-                     n_rows, vec_x, vec_b, kFold,
-                     part + (size_t)split * n_rows * N, smem);
+                     vec_x, vec_u, kFold, part + (size_t)split * GB * N,
+                     smem);
+}
+
+// The 3xTF32 Gram of omega ("high") on wgmma (gram_wgmma.cuh::
+// gram_tile_tf32): block (split, pair tile, lane tile) forms its tile's
+// partial over its split of T, rows_per_split steps (a multiple of the
+// 32-step stage) from split * rows_per_split, at part[split].
+__global__ void __launch_bounds__(gram_wgmma::kThreads, 1)
+group_pass_tf32_kernel(const float* __restrict__ xg,
+                       const float* __restrict__ om,
+                       const uint16_t* __restrict__ pq,
+                       float* __restrict__ part, int T, int N, int GB,
+                       int rows_per_split, int vec_x, int vec_o) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const int npair = GB * (GB + 1) / 2, split = blockIdx.x;
+  const int row0 = blockIdx.y * kK2Tf32NP;
+  const int t_begin = split * rows_per_split;
+  const int t_end = min(T, t_begin + rows_per_split);
+  gram_wgmma::gram_tile_tf32<kK2Tf32NP>(
+      xg, T, GB, vec_x, om, N, vec_o, t_begin, t_end,
+      blockIdx.z * gram_wgmma::kLT, pq + row0, min(kK2Tf32NP, npair - row0),
+      part + ((size_t)split * npair + row0) * N, N, smem_raw);
 }
 
 // The bf16 Gram ("default") or the SR Gram ("sr", kSr) of omega on wgmma
@@ -287,22 +318,39 @@ cudaError_t launch_scatter(const float* xp, const float* om,
                            want_sumom, s);
 }
 
-cudaError_t launch_tc(const float* xg, const float* b, float* part, int T,
-                      int N, int GB, int pairs, int n_split, cudaStream_t s) {
+cudaError_t launch_m0(const float* xg, const float* u, float* part, int T,
+                      int N, int GB, int n_split, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gram_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      m0_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       gram_tc::smem_floats(gram_tc::kMaxGB) * (int)sizeof(float));
   if (attr != cudaSuccess) return attr;
-  const int n_rows = pairs ? GB * (GB + 1) / 2 : GB;
   int rows = (T + n_split - 1) / n_split;
   rows = (rows + gram_tc::kKT - 1) / gram_tc::kKT * gram_tc::kKT;
   const int vec_x = T % 4 == 0 && (size_t)xg % 16 == 0;
-  const int vec_b = N % 4 == 0 && (size_t)b % 16 == 0;
-  gram_tc_kernel
+  const int vec_u = N % 4 == 0 && (size_t)u % 16 == 0;
+  m0_tc_kernel
       <<<dim3(n_split, (N + gram_tc::kNT - 1) / gram_tc::kNT,
-              (n_rows + gram_tc::kMT - 1) / gram_tc::kMT),
+              (GB + gram_tc::kMT - 1) / gram_tc::kMT),
          gram_tc::kThreads, gram_tc::smem_floats(GB) * (int)sizeof(float),
-         s>>>(xg, b, part, T, N, GB, pairs, n_rows, rows, vec_x, vec_b);
+         s>>>(xg, u, part, T, N, GB, rows, vec_x, vec_u);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32(const float* xg, const float* om, const uint16_t* pq,
+                        float* part, int T, int N, int GB, int n_split,
+                        int ntile, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      group_pass_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gram_wgmma::smem_bytes_tf32<kK2Tf32NP>(gram_wgmma::kMaxGB));
+  if (attr != cudaSuccess) return attr;
+  int rows = (T + n_split - 1) / n_split;
+  rows = (rows + gram_wgmma::kKS3 - 1) / gram_wgmma::kKS3 * gram_wgmma::kKS3;
+  const int vec_x = T % 4 == 0 && (size_t)xg % 16 == 0;
+  const int vec_o = N % 4 == 0 && (size_t)om % 16 == 0;
+  group_pass_tf32_kernel
+      <<<dim3(n_split, ntile, (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT),
+         gram_wgmma::kThreads, gram_wgmma::smem_bytes_tf32<kK2Tf32NP>(GB),
+         s>>>(xg, om, pq, part, T, N, GB, rows, vec_x, vec_o);
   return cudaGetLastError();
 }
 
@@ -328,7 +376,7 @@ cudaError_t launch_wgmma(const float* xg, const uint16_t* om16,
 }
 
 // The packed Gram of omega in the caller's mode: om (fp32) at "high", om16
-// (bf16) and the pair table pq at "default" and "sr".
+// (bf16) at "default" and "sr"; pq, the pair table at the mode's tile.
 cudaError_t launch_gram(const float* xg, const float* om,
                         const uint16_t* om16, const uint16_t* pq, float* part,
                         int T, int N, int N8, int GB, int n_split, int ntile,
@@ -336,7 +384,7 @@ cudaError_t launch_gram(const float* xg, const float* om,
                         unsigned long long offset, cudaStream_t s) {
   switch (gram) {
     case 0:
-      return launch_tc(xg, om, part, T, N, GB, 1, n_split, s);
+      return launch_tf32(xg, om, pq, part, T, N, GB, n_split, ntile, s);
     case 1:
       return launch_wgmma<false>(xg, om16, pq, part, T, N, N8, GB, n_split,
                                  ntile, 0, 0, s);
@@ -380,10 +428,11 @@ cudaError_t side_for_current_device(Side** out) {
 // scatter, sum_t omega and the Gram: at "high" (gram 0) om, (T, N) fp32;
 // at "default" and "sr" (gram 1, 2) om16 alone (om is not read and may be
 // null), omega rounded to bf16, (T, N8) with N8 >= N a multiple of 8, lanes
-// past N zero and a 16-byte aligned start. With xg given there: pq,
-// ntile x kNP pair-table entries p | q << 8 (0xFFFF past the last pair
-// row), row-major over p <= q. Scratch: part_g (n_split, GB(GB+1)/2, N),
-// part_m (n_split_m, GB, N) and part_s (n_split_s, N). out: (GB + npair +
+// past N zero and a 16-byte aligned start. With xg given: pq, ntile x NP
+// pair-table entries p | q << 8 (0xFFFF past the last pair row), row-major
+// over p <= q, NP the mode's tile (kK2Tf32NP at "high", kK2NP otherwise).
+// Scratch: part_g (n_split, GB(GB+1)/2, N), part_m (n_split_m, GB, N) and
+// part_s (n_split_s, N). out: (GB + npair +
 // 1, N) with rows [M0; packed Jgg; sum_t omega]; the last row is written
 // only when want_sumom is set, and nothing is written to out when xg is
 // null (the epilogue). gram: the Gram's mode (0 "high", 1 "default", 2
@@ -406,9 +455,10 @@ extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
                 : om16 == nullptr || (size_t)om16 % 16 != 0 || N8 < N ||
                       N8 % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  if (gram != 0 && xg != nullptr &&
-      (pq == nullptr || ntile < 1 || (ntile - 1) * kK2NP >= npair ||
-       ntile * kK2NP < npair || n_split > 65535 ||
+  const int np = gram == 0 ? kK2Tf32NP : kK2NP;
+  if (xg != nullptr &&
+      (pq == nullptr || ntile < 1 || (ntile - 1) * np >= npair ||
+       ntile * np < npair || n_split > 65535 ||
        (N + gram_wgmma::kLT - 1) / gram_wgmma::kLT > 65535))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -434,8 +484,8 @@ extern "C" int ss_group_pass_launch(const float* xg, const float* xp,
                             part_s, T, N, N8, GB, n_split_s, want_sumom, gram,
                             sd->stream)) != cudaSuccess)
     return (int)err;
-  if ((err = launch_tc(xg, u, part_m, T, N, GB, 0, n_split_m,
-                       sd->stream)) != cudaSuccess ||
+  if ((err = launch_m0(xg, u, part_m, T, N, GB, n_split_m, sd->stream)) !=
+          cudaSuccess ||
       (err = cudaEventRecord(sd->join, sd->stream)) != cudaSuccess ||
       (err = launch_gram(xg, om, om16_, (const uint16_t*)pq, part_g, T, N,
                          N8, GB, n_split, ntile, gram, seed, offset, s)) !=

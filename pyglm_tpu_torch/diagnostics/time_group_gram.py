@@ -1,7 +1,7 @@
-"""Device time of kernel K6's "default" body (the bf16 group Gram) or its
-"highest" body (the fp32 FMA group Gram) at acceptance config 5's shapes or
-the flagship's, for the package of a given checkout, whole or with parts of
-its main loop cut out.
+"""Device time of kernel K6's "default" body (the bf16 group Gram), its
+"high" body (the 3xTF32 group Gram) or its "highest" body (the fp32 FMA
+group Gram) at acceptance config 5's shapes or the flagship's, for the
+package of a given checkout, whole or with parts of its main loop cut out.
 
     python pyglm_tpu_torch/diagnostics/time_group_gram.py [ROOT]
         [--precision default|high|highest] [--shape config5|flagship]
@@ -10,10 +10,11 @@ its main loop cut out.
 ROOT (default: the checkout holding this file) is put first on sys.path, so
 older checkouts' packages can be timed on the same card in one command, in
 turns (older, this, this, older). ``--cut build`` drops the Z build from
-the body's main loop (``csrc/gram_wgmma.cuh`` at "default",
-``csrc/group_gram.cu``'s fp32 body at "highest"), ``--cut products`` its
-products, ``--cut lds`` (fp32 body) one of the four shared loads per step
-of its products (the second omega float4, read as the first); the cut
+the body's main loop (``csrc/gram_wgmma.cuh`` at "default" and at "high",
+its TF32 mode ``gram_tile_tf32``, ``csrc/group_gram.cu``'s fp32 body at
+"highest"), ``--cut products`` its products (both: the copies alone),
+``--cut lds`` (fp32 body) one of the four shared loads per step of its
+products (the second omega float4, read as the first); the cut
 copy of the package goes to ROOT/build/gram_cut_<precision>_<parts>/ and
 its results are wrong by design, so only its time is read: the time the
 remaining parts take. It builds the package's kernels (and prints the Gram
@@ -22,12 +23,12 @@ plain version, for bit-repeatability and against a float64 Gram of group
 0, prints a digest of its output (equal digests: equal outputs, bit for
 bit, e.g. across checkouts), then times ``group_gram_blocks_cuda`` with
 CUDA events around 5 calls, three times, and prints the times, their
-median and the rate with the card's name and power limit. At "highest" it
-also times cuBLAS SGEMM on the materialised Z of every group (the library
-call). Shapes: config 5, Xt (2001, 20000) and omega (20000, 4000), G = 10,
-B = 4 (50 groups of 40 rows); the flagship, Xt (801, 100000) and omega
-(100000, 200), G = 8, B = 4 (25 groups of 32 rows), the staged loop's call
-at precision "highest". ``--splits 1,2,3`` (fp32 body, this checkout)
+median and the rate with the card's name and power limit. At "high" and
+"highest" it also times cuBLAS SGEMM on the materialised Z of every group
+(the library call). Shapes: config 5, Xt (2001, 20000) and omega
+(20000, 4000), G = 10, B = 4 (50 groups of 40 rows); the flagship, Xt
+(801, 100000) and omega (100000, 200), G = 8, B = 4 (25 groups of 32
+rows), the staged loop's call at precision "highest". ``--splits 1,2,3`` (fp32 body, this checkout)
 then times the body with T forced into each listed number of ranges, in
 turns, each checked against the plain version. Needs a CUDA card.
 """
@@ -44,6 +45,10 @@ from timing import cut_copy, digest
 # The statement of the main loop each cut replaces, per body: the file and
 # (old, new) in it.
 _CUTS = {
+    "high": ("gram_wgmma.cuh", {
+        "build": ("    if (s + 1 < nst) build_z3(s + 1);\n", ""),
+        "products": ("    products_tf32(acc, ah, al, zh, zh + kZB);\n", ""),
+    }),
     "default": ("gram_wgmma.cuh", {
         "build": ("    if (s + 1 < nst) build_z(s + 1);\n", ""),
         "products": ("    for (int kk = 0; kk < kKS / 16; ++kk) "
@@ -144,7 +149,7 @@ def main() -> None:
 
     times = [run(gram) for _ in range(3)]
     med = statistics.median(times)
-    if prec == "highest" and not args.cut:
+    if prec in ("high", "highest") and not args.cut:
         Z = Xt[:GB][p] * Xt[:GB][q]
         checks += (f"; cuBLAS SGEMM on the materialised Z x {Ng} groups "
                    f"{Ng * run(lambda: torch.matmul(Z, omega)):.3f} ms")
@@ -155,12 +160,17 @@ def main() -> None:
                           text=True).stdout.strip()
     label = f"{root} {args.shape}" + (f" --cut {' --cut '.join(args.cut)}"
                                       if args.cut else "")
-    match = {"default": "wgmma_kernel", "high": "tc_kernel",
-             "highest": "group_gram_kernel"}[prec]
+    # The "high" body's kernel: the wgmma TF32 mode, or (older checkouts)
+    # the mma.sync tile loop.
+    match = {"default": ("wgmma_kernel",),
+             "high": ("group_gram_tf32_kernel", "tc_kernel"),
+             "highest": ("group_gram_kernel",)}[prec]
+    res = next((r for m in match
+                if not (r := _kernel_resources(_build.LOG_PATH, m))
+                .startswith("no ")), f"no {match[0]} kernel")
     print(f"{label}: K6 {prec} ms {[round(t, 3) for t in times]}, median "
           f"{med:.3f} ({flops / med / 1e9:.1f} TFLOP/s); "
-          f"{_kernel_resources(_build.LOG_PATH, match)}{checks} ({card})",
-          flush=True)
+          f"{res}{checks} ({card})", flush=True)
     if args.splits:
         _time_splits(args.splits, label, card, gram, run, rel,
                      group_gram_blocks_plain(Xt, omega, B, G, precision=prec),

@@ -15,13 +15,16 @@ bf16 values, as the fused loop gives it, and the bf16 omega stream is made
 once beforehand where the package's K2 takes one): CUDA events around 20
 calls, five times, and the median; then each kernel's own device time per
 call over 20 traced calls (torch.profiler), the Gram's named apart ("high"
-runs the Gram and M0 on one kernel, so its line holds both). ``--cut
-build`` drops the Z build from the main loop of ``csrc/gram_wgmma.cuh``
-(the bf16 and SR Gram body), ``--cut products`` its wgmma products, as
-``time_group_gram.py`` does: the cut copy of the package goes to
-ROOT/build/gram_cut_default_<parts>/ and its results are wrong by design,
-so only its time is read. Prints the wgmma kernels' registers and spills and the
-card's name and power limit. Needs a CUDA card.
+in older checkouts ran the Gram and M0 on one mma.sync kernel, so their
+line holds both); at "high" also cuBLAS SGEMM on the materialised Z (the
+library call). ``--cut build`` drops the Z build from the main loop of
+``csrc/gram_wgmma.cuh`` (the Gram body of ``--precision``: the bf16 and
+SR body, or at "high" its TF32 mode), ``--cut products`` its wgmma
+products (both: the copies alone), as ``time_group_gram.py`` does: the cut
+copy of the package goes to ROOT/build/gram_cut_<mode>_<parts>/ and its
+results are wrong by design, so only its time is read. Prints the wgmma
+kernels' registers and spills and the card's name and power limit. Needs
+a CUDA card.
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ def _wgmma_resources(log: Path) -> str:
     """Registers and spills of each wgmma kernel in the nvcc log."""
     lines, out = log.read_text().splitlines(), []
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "wgmma_kernel" in line:
+        if "Compiling entry function" in line and (
+                "wgmma_kernel" in line or "tf32_kernel" in line):
             name = line.split("'")[1]
             out.append(f"{name}: " + " | ".join(
                 x.strip() for x in lines[i + 2:i + 4]))
@@ -50,9 +54,10 @@ def _wgmma_resources(log: Path) -> str:
 def _is_gram(name: str, precision: str) -> bool:
     """Whether kernel `name` is K2's Gram at `precision`: the wgmma body,
     or (older checkouts) the mma.sync tile loop's instantiation of the
-    mode; at "high" the 3xTF32 tile loop, which also runs M0."""
+    mode; at "high" the wgmma TF32 body, or (older checkouts) the 3xTF32
+    mma.sync tile loop, which also ran M0."""
     if precision == "high":
-        return "gram_tc_kernel" in name
+        return "tf32_kernel" in name or "gram_tc_kernel" in name
     mode = {"default": 1, "sr": 2}[precision]
     return "wgmma" in name or f"gram_tc_kernel<{mode}>" in name
 
@@ -67,8 +72,9 @@ def main() -> None:
                     choices=sorted(_CUTS["default"][1]))
     args = ap.parse_args()
     root = Path(args.root).resolve()
-    pkg_root = (cut_copy(root, "gram_cut_default", *_CUTS["default"],
-                         args.cut) if args.cut else root)
+    mode = "high" if args.precision == "high" else "default"
+    pkg_root = (cut_copy(root, f"gram_cut_{mode}", *_CUTS[mode], args.cut)
+                if args.cut else root)
     sys.path.insert(0, str(pkg_root))
     import torch
     if not torch.cuda.is_available():
@@ -95,19 +101,27 @@ def main() -> None:
     def call():
         ss_cuda.ss_group_pass_cuda(xp, xg, omega, u, dw, **kw)
 
-    def run(reps=20):
-        call()
+    def run(fn, reps=20):
+        fn()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
         for _ in range(reps):
-            call()
+            fn()
         t1.record()
         t1.synchronize()
         return t0.elapsed_time(t1) / reps
 
-    times = [run() for _ in range(5)]
+    times = [run(call) for _ in range(5)]
+    lib = ""
+    if args.precision == "high":
+        p, q = ss_cuda.pair_index(GB, "cuda")
+        Z = xg[p] * xg[q]
+        lib = (f"; cuBLAS SGEMM on the materialised Z "
+               f"{run(lambda: torch.matmul(Z, omega), 10):.4f} ms")
+        del Z
     kernels = device_ms(call, 20)
     gram = sum(v for k, v in kernels.items() if _is_gram(k, args.precision))
+    m0_in_gram = any("gram_tc_kernel" in k for k in kernels)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
@@ -115,7 +129,7 @@ def main() -> None:
         f" --cut {c}" for c in args.cut)
     print(f"{label}: K2 ms per middle group {[round(t, 4) for t in times]}, "
           f"median {statistics.median(times):.4f}; Gram kernel "
-          f"{gram:.4f} ms{' (with M0)' if args.precision == 'high' else ''}"
+          f"{gram:.4f} ms{' (with M0)' if m0_in_gram else ''}{lib}"
           f" ({card})", flush=True)
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]):
         print(f"  {v:8.4f} ms  {k[:100]}")

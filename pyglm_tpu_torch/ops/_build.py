@@ -42,11 +42,12 @@ _ENTRY_POINTS = {
                             _I, _I, _I, _I, _P],
     "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _P],
     "crt_sample_launch": [_P, _I, _P, _P, _I, _LL, _I, _I, _ULL, _ULL, _P],
-    "group_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "group_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "group_gram_fp32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P],
     "group_gram_bf16_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wgmma_probe_launch": [_P, _P, _P, _P],
+    "wgmma_tf32_probe_launch": [_P, _P, _P, _P],
 }
 
 # Kernel launches per wrapper, and per Gram mode for K2 and K6 (the bf16

@@ -5,7 +5,9 @@ It replaces ``pyglm_tpu/ops/gram_pallas.py::group_gram_blocks_pallas_t``
 with both its bodies, which the JAX package's staged spike-and-slab path
 runs once per sweep before its group loop: ``_gram_kernel_f32`` (bf16x3 on
 the TPU) at precision "high" and "sr", ``_gram_kernel_fast`` (one bf16
-pass) at "default". The kernel's bodies: "high" 3xTF32 on the tensor cores,
+pass) at "default". The kernel's bodies: "high" 3xTF32 on wgmma (the
+fp32 omega and Z split into TF32 hi and lo, three products per 8-step
+slice, tiles of 120 pair rows: ``csrc/gram_wgmma.cuh::gram_tile_tf32``),
 "default" one bf16 pass on wgmma (omega rounded once to a bf16 stream, Z
 rounded to nearest even as it is formed, tiles of 168 pair rows), "highest"
 (where the JAX package takes its f32 XLA Gram) fp32 FMA on 80 x 200
@@ -26,8 +28,8 @@ import torch
 
 from pyglm_tpu_torch.ops import _build
 from pyglm_tpu_torch.ops.ss_cuda import (
-    _H100_SMS, _MAX_GB, PAIR_TILE, _check_cuda_f32, _pair_table,
-    omega_bf16_stream, pair_index, to_bf16,
+    _H100_SMS, _MAX_GB, PAIR_TILE, TF32_PAIR_TILE, TF32_STAGE_STEPS,
+    _check_cuda_f32, _pair_table, omega_bf16_stream, pair_index, to_bf16,
 )
 
 # K6's bodies (csrc/group_gram.cu: group_gram_fp32_launch,
@@ -77,6 +79,17 @@ def fp32_split_plan(GB: int, N: int, T: int, Ng: int,
     return best[1], best[2]
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 x as the 3xTF32 bodies read them: hi the TF32
+    value nearest x, ties away from zero (``copy_reduce::tf32``), and lo =
+    x - hi cut toward zero to TF32, the bits of lo the tensor cores read.
+    Both float32; x = hi + lo up to lo's cut."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -8192).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -8192).view(torch.float32)
+    return hi, lo
+
+
 def _n_groups(Xt, B: int, G: int) -> int:
     """Ng of a (P, T) design with its bias row last (P = N_pre B + 1)."""
     n_pre = (Xt.shape[0] - 1) // B
@@ -112,7 +125,7 @@ def group_gram_blocks_plain(Xt, omega, B: int, G: int,
 def group_gram_blocks_cuda(Xt, omega, B: int, G: int,
                            precision: str = "highest") -> torch.Tensor:
     """K6 on the card; same contract as :func:`group_gram_blocks_plain`.
-    ``precision="high"`` runs the 3xTF32 tensor-core body, "default" the
+    ``precision="high"`` runs the 3xTF32 wgmma body, "default" the
     bf16 wgmma body (on :func:`omega_bf16_stream`, made here), "highest"
     the fp32 FMA body on the split of T of :func:`fp32_split_plan` (with
     a (n_split, Ng, GB(GB+1)/2, N) scratch for the partials when it splits
@@ -145,9 +158,11 @@ def group_gram_blocks_cuda(Xt, omega, B: int, G: int,
                 None if part is None else part.data_ptr(), T, N, GB, Ng,
                 n_split, steps, stream)
         else:
+            pq = _pair_table(GB, omega.device, TF32_PAIR_TILE)
             err = lib.group_gram_launch(
-                Xt.data_ptr(), omega.data_ptr(), out.data_ptr(), T, N, GB,
-                Ng, stream)
+                Xt.data_ptr(), omega.data_ptr(), pq.data_ptr(),
+                out.data_ptr(), T, N, GB, Ng, pq.numel() // TF32_PAIR_TILE,
+                stream)
     _build.check(err, "group_gram")
     _build.LAUNCHES[_K6_KEYS[precision]] += 1
     return out
@@ -171,4 +186,30 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             a.data_ptr(), b.data_ptr(), d.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "wgmma_probe")
+    return d
+
+
+def wgmma_tf32_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One warpgroup's stage (4 slices of 8 steps, 3 wgmma products each)
+    through the "high" body's A fragments (split in registers), Z_hi / Z_lo
+    layouts, descriptors and accumulator map: a (32 steps, 64 lanes) and b
+    (TF32_PAIR_TILE rows, 32 steps), contiguous float32 on the card;
+    returns (64, TF32_PAIR_TILE) float32, the 3xTF32 product
+    sum_t (lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b)) over a's and b's splits
+    into TF32 hi and lo. A check of the tile machinery on known tiles, not
+    a kernel of any path."""
+    shape_b = (TF32_PAIR_TILE, TF32_STAGE_STEPS)
+    if (a.shape != (TF32_STAGE_STEPS, 64) or b.shape != shape_b
+            or a.dtype != torch.float32 or b.dtype != torch.float32
+            or not (a.is_cuda and b.is_cuda and a.is_contiguous()
+                    and b.is_contiguous())):
+        raise ValueError("wgmma_tf32_probe: need contiguous float32 CUDA "
+                         f"tensors ({TF32_STAGE_STEPS}, 64) and {shape_b}")
+    d = torch.empty((64, TF32_PAIR_TILE), dtype=torch.float32,
+                    device=a.device)
+    with torch.cuda.device(a.device):
+        err = _build.library().wgmma_tf32_probe_launch(
+            a.data_ptr(), b.data_ptr(), d.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "wgmma_tf32_probe")
     return d

@@ -16,14 +16,17 @@ Layouts (postsyn lanes n last, float32, contiguous):
   mu (G, N, B), lam (G, N, B, B), lrho (G, N), u_a (G, N), eps (G, N, B)
 
 K2's Gram runs in the mode of the caller's precision, as the TPU kernel's
-`gram` (``ss_pallas.py:343-349``): "high" 3xTF32 (``csrc/gram_tc.cuh``),
+`gram` (``ss_pallas.py:343-349``), on the wgmma tile of
+``csrc/gram_wgmma.cuh`` with T split as :func:`gram_split_plan` says:
+"high" 3xTF32 (``gram_tile_tf32``: the fp32 omega and Z split into TF32 hi
+and lo, three products per slice, tiles of ``K2_TF32_PAIR_TILE`` rows),
 "default" one bf16 pass (Z and omega rounded to nearest even), "sr" one
-bf16 pass on a stochastically rounded Z, both on wgmma
-(``csrc/gram_wgmma.cuh``) over a bf16 omega stream (:func:`omega_bf16_stream`,
-made once per update by the fused loop) with T split as
-:func:`gram_split_plan` says. At "default" and "sr" that stream is the only
-omega K2 reads: the scatter and sum_t omega widen it to fp32, as the TPU
-kernel streams one bf16 omega to all of its users (``ss_pallas.py:409-413``).
+bf16 pass on a stochastically rounded Z, both over a bf16 omega stream
+(:func:`omega_bf16_stream`, made once per update by the fused loop). M0
+runs 3xTF32 on the mma.sync loop of ``csrc/gram_tc.cuh`` in every mode.
+At "default" and "sr" that stream is the only omega K2 reads: the scatter
+and sum_t omega widen it to fp32, as the TPU kernel streams one bf16 omega
+to all of its users (``ss_pallas.py:409-413``).
 The words of "sr"'s rounding come from a Philox stream selected by a
 (seed, offset) pair per call, on the card in the kernel and on the CPU from
 :func:`sr_words`, which repeats the kernel's draw, so both devices round Z
@@ -144,8 +147,26 @@ PAIR_TILE = 168        # pair rows per tile of K6 (gram_wgmma.cuh kNP)
 K2_PAIR_TILE = 176     # ... of K2 (ss_group_pass.cu kK2NP)
 LANE_TILE = 128        # postsyn lanes per tile (kLT)
 STAGE_STEPS = 64       # time steps per stage (kKS)
+# The 3xTF32 mode ("high", gram_tile_tf32): pair rows per tile of K6
+# (group_gram.cu kTf32NP) and of K2 (ss_group_pass.cu kK2Tf32NP), time
+# steps per stage (kKS3) and per fold of the accumulators (kFold3 stages).
+TF32_PAIR_TILE = 120
+K2_TF32_PAIR_TILE = 136
+TF32_STAGE_STEPS = 32
+TF32_FOLD_STEPS = 2 * TF32_STAGE_STEPS
+_RING_STAGES = 5       # kStages3
 _NO_PAIR = -1          # 0xFFFF as int16: a row past the last pair
 _H100_SMS = 132
+
+
+def tf32_smem_bytes(GB: int, tile: int) -> int:
+    """Shared memory of one block of the 3xTF32 Gram at `tile` pair rows
+    (gram_wgmma.cuh::smem_bytes_tf32): 1024 bytes of alignment slack, the
+    double-buffered Z_hi and Z_lo tiles (128 bytes a row), and a ring of
+    fp32 omega stages (32 steps x 136 floats) and design stages (GB x 32
+    steps). The launchers set the attribute for GB = 64."""
+    return (1024 + 4 * tile * 128
+            + _RING_STAGES * 4 * TF32_STAGE_STEPS * (LANE_TILE + 8 + GB))
 
 
 def pair_tile_plan(GB: int, device=None, tile: int = PAIR_TILE
@@ -169,22 +190,27 @@ def _pair_table(GB: int, device: torch.device,
     return pair_tile_plan(GB, device, tile)
 
 
-def gram_split_plan(T: int, N: int, GB: int,
-                    n_sm: int = _H100_SMS) -> tuple[int, int]:
-    """(n_split, steps per split) of K2's wgmma Gram: split s takes the
-    steps [s steps, min(T, (s + 1) steps)), steps a multiple of the
-    64-step stage, so that every split starts on a stage and on an 8-step
-    Philox chunk, and no split is empty. The grid is n_split x (pair tiles
-    x lane tiles) blocks at one block per SM: as many splits as fill one
-    wave of `n_sm` SMs with whole splits, but at least 8 stages per split
-    and partials (n_split x npair x N float32) at most a quarter of the
-    bf16 omega stream's bytes. At the flagship group (GB = 32, N = 200,
-    T = 1e5: 3 x 2 tiles) 22 splits of 4608 steps, 132 blocks."""
+def gram_split_plan(T: int, N: int, GB: int, n_sm: int = _H100_SMS,
+                    tile: int = K2_PAIR_TILE,
+                    stage: int = STAGE_STEPS) -> tuple[int, int]:
+    """(n_split, steps per split) of K2's wgmma Gram with tiles of `tile`
+    pair rows and stages of `stage` steps (K2_PAIR_TILE and STAGE_STEPS at
+    "default" and "sr", K2_TF32_PAIR_TILE and TF32_STAGE_STEPS at "high"):
+    split s takes the steps [s steps, min(T, (s + 1) steps)), steps a
+    multiple of the stage, so that every split starts on a stage (and, at
+    "sr", on an 8-step Philox chunk), and no split is empty. The grid is
+    n_split x (pair tiles x lane tiles) blocks at one block per SM: as many
+    splits as fill one wave of `n_sm` SMs with whole splits, but at least 8
+    stages per split and partials (n_split x npair x N float32) at most
+    T N / 2 bytes (a quarter of the bf16 omega stream's). At the flagship
+    group (GB = 32, N = 200, T = 1e5): 3 x 2 tiles, 22 splits of 4608
+    steps, 132 blocks at "default" and "sr"; 4 x 2 tiles, 16 splits of 6272
+    steps, 128 blocks at "high"."""
     npair = GB * (GB + 1) // 2
-    tiles = -(-npair // K2_PAIR_TILE) * -(-N // LANE_TILE)
-    stages = -(-T // STAGE_STEPS)
+    tiles = -(-npair // tile) * -(-N // LANE_TILE)
+    stages = -(-T // stage)
     n_split = max(1, min(n_sm // tiles, stages // 8, T // (8 * npair)))
-    steps = -(-stages // n_split) * STAGE_STEPS
+    steps = -(-stages // n_split) * stage
     return -(-T // steps), steps
 
 
@@ -246,20 +272,8 @@ def _check_cuda_f32(name, t, shape):
                          f"got {tuple(t.shape)}")
 
 
-# K2's tensor-core Gram tile (csrc/gram_tc.cuh) and its grid target.
+# The tile of K2's gather M0 = X_g u (csrc/gram_tc.cuh).
 _TC_ROWS, _TC_LANES = 64, 128
-_K2_BLOCKS = 1152
-
-
-def _n_split(T: int, N: int, GB: int) -> int:
-    """Time splits of K2's 3xTF32 Gram: about _K2_BLOCKS blocks in all
-    (~4.4 waves of 2 blocks on each of the H100's 132 SMs; 58 and 114 splits
-    measured slower at the flagship), at least 256 time steps per split and
-    at most 128 splits. At the flagship (T = 1e5, N = 200, GB = 32: 2 lane
-    x 9 row tiles) that is 64 splits; at 4000 lanes and GB = 40 (32 x 13
-    tiles) 3, so the partials stay small."""
-    tiles = (-(-N // _TC_LANES)) * (-(-(GB * (GB + 1) // 2) // _TC_ROWS))
-    return max(1, min(128, -(-T // 256), -(-_K2_BLOCKS // tiles)))
 
 
 def _n_split_m0(T: int, N: int, GB: int) -> int:
@@ -292,8 +306,8 @@ def _check_om16(om16, u):
 def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
                        precision="high", sr_seed=(0, 0), om16=None):
     """K2 on the card; same contract as :func:`ss_group_pass_plain`. The
-    Gram runs in `precision`'s mode: "high" 3xTF32 on the mma.sync tile
-    loop; "default" and "sr" one bf16 pass on wgmma, "sr" rounding Z by the
+    Gram runs on wgmma in `precision`'s mode: "high" 3xTF32 on the fp32
+    omega; "default" and "sr" one bf16 pass, "sr" rounding Z by the
     Philox words of ``sr_seed`` = (seed, offset), those of
     :func:`sr_words`. M0 runs 3xTF32 and the scatter and sum_t omega fp32
     in every mode: at "high" on the float32 omega, at "default" and "sr" on
@@ -337,13 +351,15 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
             om16 = omega_bf16_stream(omega)
         _check_om16(om16, u)
         om16_p, N8 = om16.data_ptr(), om16.shape[1]
-    if precision != "high" and xg is not None:
-        pq = _pair_table(GB, dev, K2_PAIR_TILE)
-        pq_p, ntile = pq.data_ptr(), pq.numel() // K2_PAIR_TILE
+    n_split = 1
+    if xg is not None:
+        tile, stage = ((K2_TF32_PAIR_TILE, TF32_STAGE_STEPS)
+                       if precision == "high" else
+                       (K2_PAIR_TILE, STAGE_STEPS))
+        pq = _pair_table(GB, dev, tile)
+        pq_p, ntile = pq.data_ptr(), pq.numel() // tile
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_split = gram_split_plan(T, N, GB, n_sm)[0]
-    else:
-        n_split = _n_split(T, N, GB)
+        n_split = gram_split_plan(T, N, GB, n_sm, tile, stage)[0]
     n_split_m, n_split_s = _n_split_m0(T, N, GB), _n_split_scatter(T)
     part_g = part_m = part_s = out = None
     if xg is not None:

@@ -89,8 +89,9 @@ def test_pg_kernel_streams(gen):
 @pytest.mark.parametrize("GB", [4, 8, 12, 32, 40, 64])
 @pytest.mark.parametrize("case", ["first", "middle", "epilogue"])
 def test_group_pass_matches_plain(gen, GB, case, N):
-    """K2 (3xTF32 Gram, precision "high") against its plain version at a T
-    that is not a multiple of the 32-step stage, 70 and 200 lanes."""
+    """K2 (its Gram 3xTF32 on wgmma, precision "high") against its plain
+    version at a T that is not a multiple of the 32-step stage, 70 and 200
+    lanes."""
     Tn = 3001
     X = (torch.rand((2 * GB, Tn), generator=gen, device="cuda") < 0.3).float()
     xp = None if case == "first" else X[:GB]
@@ -205,6 +206,28 @@ def test_group_pass_gram_error_against_float64(gen, precision):
         j64 = Z.double() @ to_bf16(om).double()
         ek, ep = _rel(jk.double(), j64), _rel(jp.double(), j64)
     assert ek <= 2 * ep, (ek, ep)
+
+
+@pytest.mark.parametrize("lanes", [7, 70, 200, 257, 1000])
+@pytest.mark.parametrize("GB", [1, 4, 12, 32, 40, 64])
+def test_group_pass_tf32_matches_plain(gen, GB, lanes):
+    """K2's 3xTF32 Gram (the TF32 mode of the wgmma tile, "high") against
+    its plain version at T = 40 (less than one 32-step stage), 3001 and
+    4099 (ragged against the stage; several splits of T where the group is
+    small): every pair tile of 136 rows (GB = 64 has 16), lanes ragged
+    against 4 (4-byte copies of omega), 8 and 128, continuous design and
+    omega (nonzero lo halves); within 1e-5, bit-repeatable."""
+    npair = GB * (GB + 1) // 2
+    for Tn in (40, 3001, 4099):
+        X = _float_design(gen, GB, Tn)
+        om = 0.05 + 0.2 * torch.rand((Tn, lanes), generator=gen,
+                                     device="cuda")
+        u = torch.zeros((Tn, lanes), device="cuda")
+        jk = ss_group_pass_cuda(None, X, om, u, None)[1]
+        jp = ss_group_pass_plain(None, X, om, u, None)[1]
+        assert jk.shape == (npair, lanes)
+        assert _rel(jk, jp) <= 1e-5, (Tn, _rel(jk, jp))
+        assert torch.equal(jk, ss_group_pass_cuda(None, X, om, u, None)[1])
 
 
 def _float_design(gen, GB, Tn):
@@ -648,8 +671,8 @@ def test_binomial_sweep_on_card_dispatch(gen, n_trials, kernel):
                                                (20_000, 20, 4, 10, 250)])
 def test_group_gram_kernel_matches_plain(gen, T, N_pre, B, G, lanes,
                                          precision):
-    """K6 (3xTF32 at "high", fp32 FMA at "highest", one bf16 pass on wgmma
-    at "default") against its plain version: a ragged T with GB = 12, the
+    """K6 (3xTF32 on wgmma at "high", fp32 FMA at "highest", one bf16 pass
+    on wgmma at "default") against its plain version: a ragged T with GB = 12, the
     ensemble's GB = 40 over three lane tiles, GB = 28 (not a multiple of
     8) over two; GB = 64 (2080 pairs, 13 pair tiles of the "default"
     body), GB = 4 (one partial tile), T = 40 (less than one 64-step
@@ -686,12 +709,42 @@ def test_wgmma_probe_matches_torch_mm(gen):
         assert torch.equal(d, a.float().T @ b.float().T)
 
 
+def test_wgmma_tf32_probe_matches_the_split_product(gen):
+    """The "high" body's tile machinery on known tiles: one warpgroup, one
+    32-step stage of m64n120k8 TF32 products, A (omega) split into TF32 hi
+    and lo in registers, B as K-major Z_hi and Z_lo tiles in the 128-byte
+    swizzle. Values +-{1, 2, 3} + {-1, 0, 1} 2^-12 split into an integer
+    hi and a lo of 2^-12, so every sum is exact: the result must equal the
+    3xTF32 product of the splits (lo lo dropped). An identity B returns
+    A's steps as the columns, which checks the A fragment map alone."""
+    from pyglm_tpu_torch.ops.gram_cuda import (
+        TF32_PAIR_TILE, tf32_split, wgmma_tf32_probe)
+
+    def tile(shape):
+        ints = torch.randint(1, 4, shape, generator=gen, device="cuda") * (
+            2 * torch.randint(0, 2, shape, generator=gen, device="cuda") - 1)
+        frac = torch.randint(-1, 2, shape, generator=gen, device="cuda")
+        return (ints + frac * 2.0 ** -12).float().contiguous()
+    for _ in range(3):
+        a, b = tile((32, 64)), tile((TF32_PAIR_TILE, 32))
+        (ah, al), (bh, bl) = (
+            tuple(x.double() for x in tf32_split(t)) for t in (a, b))
+        assert float(al.abs().max()) > 0 and float(bl.abs().max()) > 0
+        want = al.T @ bh.T + ah.T @ bl.T + ah.T @ bh.T
+        assert torch.equal(wgmma_tf32_probe(a, b).double(), want)
+    a = (torch.arange(32, device="cuda")[:, None] * 64
+         + torch.arange(64, device="cuda")).float().contiguous()
+    b = torch.zeros((TF32_PAIR_TILE, 32), device="cuda")
+    b[torch.arange(32), torch.arange(32)] = 1.0
+    assert torch.equal(wgmma_tf32_probe(a, b), a.T @ b.T)
+
+
 def test_group_gram_error_against_float64(gen):
     """At config 5's shapes and inputs for one group (GB = 40, T = 2e4,
     4000 lanes, spikes at rate 0.35), each K6 body is no further from a
     float64 Gram of its operands (rounded to bf16 at "default") than 2x its
-    plain version: "high" (3xTF32), "highest" (fp32 FMA, folded every 512
-    steps) and "default" (one bf16 pass)."""
+    plain version: "high" (3xTF32 on wgmma), "highest" (fp32 FMA, folded
+    every 512 steps) and "default" (one bf16 pass)."""
     T, B, G, lanes = 20_000, 4, 10, 4000
     Xt = _design(gen, G, T, rate=0.35)
     om = 0.05 + 0.2 * torch.rand((T, lanes), generator=gen, device="cuda")
