@@ -12,8 +12,10 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      a run of calls), of its plain version and, where one PyTorch call
      computes the same function, of that call: at the flagships' shapes
      (N=200, T=100k, B=4, G=8) K1-K3 (K2's Gram in 3xTF32 on wgmma, timed
-     at g = 0 and at a middle group, the Gram kernel alone also timed by
-     torch.profiler; then in one bf16 pass
+     at g = 0 and at a middle group, the Gram kernel and the streaming
+     pass (the scatter and M0 in fp32, one pass over u) alone also timed
+     by torch.profiler, beside the library sequence of the pass and with
+     M0 held against a float64 M0; then in one bf16 pass
      ("default") and on a stochastically rounded Z ("sr", on the same
      rounding words as its plain version), both on wgmma over the bf16
      omega stream, the only omega K2 reads there (its scatter and sum_t
@@ -207,6 +209,9 @@ KERNELS = {
     "group_gram_bf16": ("pyglm_tpu_torch/csrc/group_gram.cu",
                         "pyglm_tpu/ops/gram_pallas.py:47"),
 }
+# K2's streaming pass at GB = 32 in its middle-group mode (scatter and
+# gather), as nvcc's log names it, omega f(loat) or t (uint16_t, bf16).
+STREAM_MIDDLE = "stream_pass_kernelILi32E{}Lb1ELb1E"
 # Fields every kernel's record must carry; library_ms may be null.
 RECORD_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
@@ -390,6 +395,60 @@ def kernel_ms(fn, reps, match):
     return sum(t for k, t in device_ms(fn, reps).items() if match in k)
 
 
+def call_kernels(fn, reps):
+    """{kernel name: device ms per call} of `fn` by torch.profiler (as
+    kernel_ms), and the kernels' short names, sorted."""
+    import re
+    from pyglm_tpu_torch.diagnostics.timing import device_ms
+    ks = device_ms(fn, reps)
+    names = sorted({m.group(1) for k in ks
+                    for m in [re.search(r"(\w+)(?:<[^()]*>)?\(", k)] if m})
+    return ks, names
+
+
+def stream_lib_ms(xp, xg, om, u, dw, reps):
+    """The library sequence of K2's streaming pass on a copy of u: the
+    scatter xp.T @ dw and u.addcmul_, then M0 = xg @ u, fp32 GEMMs (TF32
+    off)."""
+    u_l = u.clone()
+    return event_ms(
+        lambda: xg @ u_l.addcmul_(om, xp.T @ dw, value=-1.0), reps)
+
+
+def m0_f64_errors(xg, u_new, m0):
+    """(K2's M0, the plain version's xg @ u_new in fp32): each one's
+    max |diff| / max |ref| from the float64 M0 of the same u_new."""
+    m64 = xg.double() @ u_new.double()
+    return (rel_err(m0.double(), m64),
+            rel_err((xg @ u_new).double(), m64))
+
+
+def stream_fields(prec, s_ms, s_bound, s_lib, s_regs, m0_f64, kernels):
+    """The fields of K2's record at `prec` for its streaming pass: device
+    time, bound, the library sequence's time, registers and spills, M0's
+    float64 distance beside the plain version's, and the kernels a call
+    launches (short names)."""
+    return dict(
+        stream_kernel="stream_pass_kernel", stream_ms=s_ms[prec],
+        stream_bound_ms=s_bound[prec]["bound_ms"],
+        stream_bound_by=s_bound[prec]["bound_by"],
+        stream_library_ms=s_lib[prec],
+        stream_registers=s_regs[prec].get("registers"),
+        stream_spill_bytes=s_regs[prec].get("spill_bytes"),
+        m0_f64_rel_err=m0_f64[prec][0],
+        m0_plain_f64_rel_err=m0_f64[prec][1], device_kernels=kernels)
+
+
+def print_stream(prec, rec):
+    print(f"  K2 {prec}: the streaming pass alone {rec['stream_ms']:.4f} ms "
+          f"(profiler; bound {rec['stream_bound_ms']:.4f} ms, "
+          f"{rec['stream_bound_by']}; {rec['stream_registers']} registers, "
+          f"{rec['stream_spill_bytes']} B spilled); library (xp.T @ dw, "
+          f"addcmul_, xg @ u) {rec['stream_library_ms']:.4f} ms; M0 from a "
+          f"float64 M0 {rec['m0_f64_rel_err']:.2e} (plain "
+          f"{rec['m0_plain_f64_rel_err']:.2e})")
+
+
 def bf16_matmul_ms(Z, om, reps):
     """The library call of a bf16 Gram: cuBLAS on the materialised Z and
     omega in bf16, with an fp32 output where torch.mm offers one
@@ -481,6 +540,7 @@ def phase_kernels(check, record):
     out_k = ss_group_pass_cuda(xp, xg, omega, u_k, dw, True)
     out_p = ss_group_pass_plain(xp, xg, omega, u_p, dw, True)
     torch.cuda.synchronize()
+    m0_f64 = {"high": m0_f64_errors(xg, u_k, out_k[0])}
     errs = {"u": rel_err(u_k, u_p)}
     for name, a, b in zip(("M0", "Jgg", "sum_omega"), out_k, out_p):
         errs[name] = rel_err(a, b)
@@ -505,6 +565,10 @@ def phase_kernels(check, record):
     check(e_k <= F64_RATIO * e_p,
           f"K2 Gram (3xTF32) vs a float64 Gram: {e_k:.2e}; the fp32 plain "
           f"version: {e_p:.2e} (limit {F64_RATIO:g}x)")
+    check(m0_f64["high"][0] <= F64_RATIO * m0_f64["high"][1],
+          f"K2 M0 (fp32 streaming pass) vs a float64 M0: "
+          f"{m0_f64['high'][0]:.2e}; the fp32 plain version: "
+          f"{m0_f64['high'][1]:.2e} (limit {F64_RATIO:g}x)")
     ms = event_ms(lambda: ss_group_pass_cuda(xp, xg, omega, u_k, dw), 20)
     ms_g0 = event_ms(lambda: ss_group_pass_cuda(None, xg, omega, u_k, dw,
                                                 True), 20)
@@ -513,20 +577,36 @@ def phase_kernels(check, record):
     plain_ms = event_ms(lambda: ss_group_pass_plain(xp, xg, omega, u_p, dw),
                          5)
     lib_ms = event_ms(lambda: torch.matmul(Z, omega), 10)
-    # The Gram kernel alone (the wgmma TF32 body), by torch.profiler.
-    gram_ms = kernel_ms(lambda: ss_group_pass_cuda(xp, xg, omega, u_k, dw),
-                        20, "group_pass_tf32_kernel")
+    # The Gram kernel (the wgmma TF32 body) and the streaming pass (the
+    # scatter and M0 in one pass), each by its own device time as K2 runs
+    # them, the pass on a side stream beside the Gram, by torch.profiler;
+    # the library sequence of the streaming pass.
+    ks, k2_kernels = call_kernels(
+        lambda: ss_group_pass_cuda(xp, xg, omega, u_k, dw), 20)
+    gram_ms = sum(t for k, t in ks.items() if "group_pass_tf32_kernel" in k)
+    s_ms = {"high": sum(t for k, t in ks.items()
+                        if "stream_pass_kernel" in k)}
     check(gram_ms > 0, "K2 high: the profiler saw its wgmma TF32 Gram kernel")
+    check(s_ms["high"] > 0 and not any(
+        "m0_tc" in k or "scatter_kernel" in k for k in k2_kernels),
+          f"K2 high: the profiler saw its streaming pass and no other "
+          f"scatter or M0 kernel ({k2_kernels})")
+    s_lib = {"high": stream_lib_ms(xp, xg, omega, u0, dw, 10)}
     npair = GB * (GB + 1) // 2
     # xp, xg, omega, u in and out, dw; M0, packed Gram, sum omega out. The
-    # Gram's and the gather's FMAs as three TF32 products at the tensor
-    # cores' peak (precision "high"), the scatter's in fp32.
+    # Gram's FMAs as three TF32 products at the tensor cores' peak
+    # (precision "high"); the scatter's and M0's (2 T N GB operations each)
+    # in fp32.
     k2_bytes = 4 * (2 * GB * T + 3 * T * N + GB * N + (GB + npair + 1) * N)
-    m0_scatter = ((3 * 2 * T * N * GB, TF32_FLOPS),
+    m0_scatter = ((2 * T * N * GB, FP32_FLOPS),
                   (2 * T * N * GB, FP32_FLOPS))
+    # The streaming pass: xp, xg, u in and out, omega, dw in, M0 out.
+    pass_bytes = 4 * (2 * GB * T + 2 * T * N + 2 * GB * N)
+    s_bound = {"high": bound(pass_bytes + 4 * T * N, *m0_scatter)}
     gram_bound = bound(4 * (GB * T + T * N + npair * N),
                        (3 * 2 * T * N * npair, TF32_FLOPS))
     regs = kernel_regs("group_pass_tf32_kernel") or {}
+    s_regs = {"high": kernel_regs(STREAM_MIDDLE.format("f")) or {}}
     record["ss_group_pass"].update(
         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         precision="high", ms_g0=ms_g0, host_ms=host_ms, f64_rel_err=e_k,
@@ -535,6 +615,9 @@ def phase_kernels(check, record):
         gram_bound_by=gram_bound["bound_by"],
         gram_registers=regs.get("registers"),
         gram_spill_bytes=regs.get("spill_bytes"),
+        library_whole_ms=lib_ms + s_lib["high"],
+        **stream_fields("high", s_ms, s_bound, s_lib, s_regs, m0_f64,
+                        k2_kernels),
         **bound(k2_bytes, (3 * 2 * T * N * npair, TF32_FLOPS), *m0_scatter))
     rec = record["ss_group_pass"]
     print(f"  K2 {ms:.3f} ms per middle group, {ms_g0:.3f} at g = 0 (no "
@@ -544,7 +627,9 @@ def phase_kernels(check, record):
           f"{regs.get('registers')} registers, {regs.get('spill_bytes')} B "
           f"spilled); plain {plain_ms:.3f} ms, library (fp32 "
           f"matmul on the materialised Z) {lib_ms:.3f} ms; bound "
-          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, 3xTF32)")
+          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, 3xTF32); kernels "
+          f"{k2_kernels}")
+    print_stream("high", rec)
 
     # --- K2 "default" and "sr" at the same group, on omega's bf16 stream
     # alone, made once as the fused loop makes it once per update: the
@@ -557,6 +642,7 @@ def phase_kernels(check, record):
                                precision="default", om16=om_s)
     out_p = ss_group_pass_plain(xp, xg, None, u_p, dw, True,
                                 precision="default", om16=om_s)
+    m0_f64["default"] = m0_f64_errors(xg, u_k, out_k[0])
     # The scatter on the widened stream is the fp32 scatter of "high" on the
     # float32 rounded omega, bit for bit (and so is M0, which reads u).
     u_h = u0.clone()
@@ -597,6 +683,7 @@ def phase_kernels(check, record):
                                sr_seed=sr_seed, om16=om_s)
     out_p = ss_group_pass_plain(xp, xg, None, u_p, dw, True, precision="sr",
                                 r16=r16, om16=om_s)
+    m0_f64["sr"] = m0_f64_errors(xg, u_k, out_k[0])
     other = ss_group_pass_cuda(xp, xg, None, u0.clone(), dw, precision="sr",
                                sr_seed=(sr_seed[0] + 1, sr_seed[1]),
                                om16=om_s)[1]
@@ -615,6 +702,10 @@ def phase_kernels(check, record):
         check(same, f"K2 {prec} on the bf16 omega stream alone: u, M0 and "
               f"sum_omega equal bit for bit to K2 \"high\"'s fp32 scatter "
               f"on the float32 rounded omega")
+        e_m, e_mp = m0_f64[prec]
+        check(e_m <= F64_RATIO * e_mp,
+              f"K2 {prec} M0 vs a float64 M0: {e_m:.2e}; the fp32 plain "
+              f"version: {e_mp:.2e} (limit {F64_RATIO:g}x)")
     torch.cuda.synchronize()
     errs = {"u": rel_err(u_k, u_p)}
     for name, a, b in zip(("M0", "Jgg", "sum_omega"), out_k, out_p):
@@ -636,18 +727,28 @@ def phase_kernels(check, record):
     record["ss_group_pass_sr"].update(max_abs_err=max_abs, f64_rel_err=e_k,
                                       plain_f64_rel_err=e_p)
 
-    times, gram_ms = {}, {}
+    times, gram_ms, names = {}, {}, {}
     for prec in ("default", "sr", "sr", "default"):
         times.setdefault(prec, []).append(event_ms(
             lambda: ss_group_pass_cuda(xp, xg, None, u_k, dw, precision=prec,
                                        sr_seed=sr_seed, om16=om_s), 20))
     for prec, inst in (("default", "<false>"), ("sr", "<true>")):
-        gram_ms[prec] = kernel_ms(
+        ks, names[prec] = call_kernels(
             lambda: ss_group_pass_cuda(xp, xg, None, u_k, dw, precision=prec,
-                                       sr_seed=sr_seed, om16=om_s), 20,
-            f"group_pass_wgmma_kernel{inst}")
+                                       sr_seed=sr_seed, om16=om_s), 20)
+        gram_ms[prec] = sum(t for k, t in ks.items()
+                            if f"group_pass_wgmma_kernel{inst}" in k)
+        s_ms[prec] = sum(t for k, t in ks.items()
+                         if "stream_pass_kernel" in k)
         check(gram_ms[prec] > 0,
               f"K2 {prec}: the profiler saw its wgmma Gram kernel")
+        check(s_ms[prec] > 0 and not any(
+            "m0_tc" in k or "scatter_kernel" in k for k in names[prec]),
+              f"K2 {prec}: the profiler saw its streaming pass and no other "
+              f"scatter or M0 kernel ({names[prec]})")
+        s_lib[prec] = stream_lib_ms(xp, xg, om16, u0, dw, 10)
+        s_bound[prec] = bound(pass_bytes + 2 * om_s.numel(), *m0_scatter)
+        s_regs[prec] = kernel_regs(STREAM_MIDDLE.format("t")) or {}
     # The scatter alone (the epilogue: no Gram or M0 beside it), on the
     # float32 rounded omega as at "high" and on the bf16 stream, in turns.
     epi = {}
@@ -672,15 +773,15 @@ def phase_kernels(check, record):
     del r16
     lib_ms, lib_out = bf16_matmul_ms(to_bf16(Z), om16, 10)
     del Z
-    # The bf16 Gram over the bf16 peak; M0 3xTF32 and the scatter fp32.
-    # Bytes: as at "high", but omega is the bf16 stream, read once at 2
-    # bytes a (padded) lane. streamed: the bytes as K2 moves them, u read
-    # and written by the scatter and read by M0, the stream read by the
-    # scatter and by the Gram.
+    # The bf16 Gram over the bf16 peak; M0 and the scatter fp32. Bytes:
+    # as at "high", but omega is the bf16 stream, read once at 2 bytes a
+    # (padded) lane. streamed: the bytes as K2 moves them, u read and
+    # written once by the streaming pass, X_g and the stream read by the
+    # pass and by the Gram.
     k2_bytes16 = (k2_bytes - 4 * T * N + 2 * om_s.numel())
     k2_bound = bound(k2_bytes16, (2 * T * N * npair, BF16_FLOPS),
                      *m0_scatter)
-    streamed = bound(4 * (2 * GB * T + 3 * T * N + GB * N
+    streamed = bound(4 * (3 * GB * T + 2 * T * N + GB * N
                           + (GB + npair + 1) * N) + 2 * 2 * om_s.numel())
     gram_bound = bound(4 * GB * T + 2 * om_s.numel() + 4 * npair * N,
                        (2 * T * N * npair, BF16_FLOPS))
@@ -694,7 +795,10 @@ def phase_kernels(check, record):
             streamed_bound_ms=streamed["bound_ms"],
             epilogue_ms=min(epi["bf16"]), epilogue_bound_ms=epi_bound["bf16"],
             epilogue_fp32_ms=min(epi["fp32"]),
-            epilogue_fp32_bound_ms=epi_bound["fp32"], **k2_bound)
+            epilogue_fp32_bound_ms=epi_bound["fp32"],
+            library_whole_ms=lib_ms + s_lib[prec],
+            **stream_fields(prec, s_ms, s_bound, s_lib, s_regs, m0_f64,
+                            names[prec]), **k2_bound)
     print(f"  K2 default {times['default']} ms, sr {times['sr']} ms per "
           f"middle group (order default, sr, sr, default); the Gram kernel "
           f"alone {gram_ms['default']:.4f} / {gram_ms['sr']:.4f} ms "
@@ -704,6 +808,9 @@ def phase_kernels(check, record):
           f"the materialised bf16 Z, {lib_out} output) {lib_ms:.3f} ms; "
           f"bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}; "
           f"{streamed['bound_ms']:.4f} ms for the bytes as K2 streams them)")
+    for prec in ("default", "sr"):
+        print_stream(prec, record[{"default": "ss_group_pass_bf16",
+                                   "sr": "ss_group_pass_sr"}[prec]])
     phase_k2_sr(check, record, gen)
 
     # --- K3: that group's edge scan, same injected noise -----------------

@@ -1,6 +1,6 @@
 // Helpers shared by the kernels that stage operands through shared memory
-// and split the time axis (K2 in ss_group_pass.cu, K6 in group_gram.cu, the
-// 3xTF32 gather loop in gram_tc.cuh and the 3xTF32 Gram in gram_wgmma.cuh):
+// and split the time axis (K2 in ss_group_pass.cu, K6 in group_gram.cu and
+// the 3xTF32 Gram in gram_wgmma.cuh::gram_tile_tf32):
 // cp.async copies of 16 or 4 bytes (zero-filled where `ok` is false), the
 // split of an fp32 value into two TF32 operands, and the ordered,
 // compensated sum of a split's partials.
@@ -37,7 +37,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // x rounded to TF32, to nearest with ties away from zero: the result of
 // cvt.rna.tf32.f32 for finite x, in two integer operations at full rate
 // (the conversion instruction runs at a fraction of that, and with it the
-// split, not the tensor cores, set the pace of the mma.sync loop).
+// split, not the tensor cores, set the pace of an mma.sync loop).
 __device__ __forceinline__ uint32_t tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }

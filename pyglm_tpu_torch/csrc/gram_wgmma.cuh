@@ -64,7 +64,8 @@
 //     32 B spilled against ~340) 0.19 / 0.27.
 //   - The tensor cores truncate as they accumulate, so the fp32
 //     accumulators are folded every kFold stages (256 steps) into a second
-//     fp32 sum by Fast2Sum, as in gram_tc.cuh: 3.0e-7 from a float64 Gram
+//     fp32 sum by Fast2Sum (as the mma.sync tile loop before this
+//     header did; see gram_tile_tf32 below): 3.0e-7 from a float64 Gram
 //     at config 5 (1.8e-7 folded every 128 steps; the plain version
 //     5.7e-7). No atomics: a tile's sums run in one order (K2's splits of
 //     T are summed in split order by its reduction), so results repeat bit
@@ -499,8 +500,8 @@ __device__ __forceinline__ void gram_tile(
 //
 //   C[pr, n] = sum_{t_begin <= t < t_end} Z[pr, t] om[t, n],  Z = X_p X_q,
 //
-// to about fp32 accuracy, in the arithmetic of gram_tc.cuh's mma.sync loop
-// (copy_reduce::split): Z and omega are split as hi = tf32(x) (to nearest)
+// to about fp32 accuracy, in the arithmetic of the mma.sync loop it
+// replaced (copy_reduce::split): Z and omega are split as hi = tf32(x) (to nearest)
 // and lo = x - hi, and each product is lo.hi + hi.lo + hi.hi, the small
 // terms first, three m64nNPk8 TF32 products per 8-step slice; the fp32
 // accumulators are folded into a second sum by Fast2Sum every kFold3

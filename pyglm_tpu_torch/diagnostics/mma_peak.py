@@ -1,4 +1,4 @@
-"""Peak rate of the tensor-core instruction K2's 3xTF32 gather M0 uses.
+"""Peak rate of the mma.sync TF32 tensor-core instruction.
 
     python -m pyglm_tpu_torch.diagnostics.mma_peak
 
@@ -6,10 +6,12 @@ Builds a small kernel with nvcc (into ``build/pyglm_tpu_torch/``) that
 issues ``mma.sync.aligned.m16n8k8`` TF32 products (and, for scale, the
 m16n8k16 fp16 ones) back to back on registers, 8 independent accumulators
 per warp, 4 blocks per SM, and prints TFLOP/s for 4, 8 and 16 warps per
-block with the card's name and power limit. It bounds csrc/gram_tc.cuh
-(each fp32-grade product there costs three TF32 products), the mma.sync
-loop on which the 3xTF32 Grams ran before they moved to wgmma
-(csrc/gram_wgmma.cuh::gram_tile_tf32). Needs a CUDA card and nvcc.
+block with the card's name and power limit. It bounded the mma.sync
+tile loop (each fp32-grade product there cost three TF32 products) on
+which the 3xTF32 Grams ran before they moved to wgmma
+(csrc/gram_wgmma.cuh::gram_tile_tf32) and K2's M0 before its streaming
+pass (csrc/ss_group_pass.cu::stream_pass_kernel); no kernel of the port
+uses mma.sync now. Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 

@@ -36,7 +36,7 @@ _ULL = ctypes.c_ulonglong
 _ENTRY_POINTS = {
     "pg_devroye_launch": [_P, _P, _LL, _ULL, _ULL, _P],
     "ss_group_pass_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _ULL, _ULL, _P],
     "ss_edge_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P],

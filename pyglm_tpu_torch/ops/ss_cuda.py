@@ -22,11 +22,15 @@ K2's Gram runs in the mode of the caller's precision, as the TPU kernel's
 and lo, three products per slice, tiles of ``K2_TF32_PAIR_TILE`` rows),
 "default" one bf16 pass (Z and omega rounded to nearest even), "sr" one
 bf16 pass on a stochastically rounded Z, both over a bf16 omega stream
-(:func:`omega_bf16_stream`, made once per update by the fused loop). M0
-runs 3xTF32 on the mma.sync loop of ``csrc/gram_tc.cuh`` in every mode.
-At "default" and "sr" that stream is the only omega K2 reads: the scatter
-and sum_t omega widen it to fp32, as the TPU kernel streams one bf16 omega
-to all of its users (``ss_pallas.py:409-413``).
+(:func:`omega_bf16_stream`, made once per update by the fused loop).
+Beside the Gram, one streaming pass (``stream_pass_kernel``) applies the
+previous group's scatter and gathers M0 = X_g u from the u it has just
+written, in fp32 FMA in every mode, reading u once and writing it once, as
+the TPU kernel does both on one chunk in VMEM (``ss_pallas.py:322-332``);
+:func:`stream_pass_plan` splits T and the lanes for it. At "default" and
+"sr" the bf16 stream is the only omega K2 reads: the pass widens it to
+fp32 for the scatter and sum_t omega, as the TPU kernel streams one bf16
+omega to all of its users (``ss_pallas.py:409-413``).
 The words of "sr"'s rounding come from a Philox stream selected by a
 (seed, offset) pair per call, on the card in the kernel and on the CPU from
 :func:`sr_words`, which repeats the kernel's draw, so both devices round Z
@@ -214,6 +218,71 @@ def gram_split_plan(T: int, N: int, GB: int, n_sm: int = _H100_SMS,
     return -(-T // steps), steps
 
 
+# The streaming pass of K2 (csrc/ss_group_pass.cu stream_pass_kernel): lanes
+# per block at most, time steps per chunk, chunks in its cp.async ring; and
+# the shared memory of an SM (H100).
+STREAM_MAX_LANES = 256     # kMaxLanes
+STREAM_CHUNK = 16          # kCh
+STREAM_STAGES = 3          # kStages
+_STREAM_MIN_STEPS = 128    # steps per split at least (8 chunks)
+_SM_SMEM = 233472          # 228 KB per SM, 1 KB of it reserved per block
+
+
+def stream_rows(GB: int) -> int:
+    """The register rows R >= GB of the pass's instantiation (16, 32, 64):
+    a thread keeps R dW values and R partial sums of M0 for each of its
+    lanes."""
+    if not 1 <= GB <= _MAX_GB:
+        raise ValueError(f"ss_group_pass: GB={GB} outside 1..{_MAX_GB}")
+    return 16 if GB <= 16 else 32 if GB <= 32 else 64
+
+
+def stream_lanes_per_thread(GB: int) -> int:
+    """The lanes a thread of the pass serves (lanes_per_thread): 2 at GB <=
+    32, 1 above (a thread keeps dW and M0's sums for each of its lanes)."""
+    return 1 if stream_rows(GB) == 64 else 2
+
+
+def stream_smem_bytes(GB: int, lanes: int) -> int:
+    """Shared memory of one streaming-pass block of `lanes` lanes, omega
+    counted as fp32 (the mode that takes the most): X_p and X_g (R rows)
+    and u and omega (`lanes` wide), STREAM_CHUNK steps each, in a ring of
+    STREAM_STAGES chunks."""
+    return (STREAM_STAGES * STREAM_CHUNK
+            * 4 * (2 * stream_rows(GB) + 2 * lanes))
+
+
+def stream_pass_plan(T: int, N: int, GB: int, n_sm: int = _H100_SMS
+                     ) -> tuple[int, int, int]:
+    """(n_split, steps per split, lanes per block) of K2's streaming pass:
+    block (s, j) takes the steps [s steps, min(T, (s + 1) steps)) and the
+    lanes [j lanes, min(N, (j + 1) lanes)), so the blocks cover every step
+    and every lane once, none empty. The lanes split into the fewest tiles
+    of at most STREAM_MAX_LANES, each rounded up to whole warps of
+    :func:`stream_lanes_per_thread` lanes a thread (200 lanes at GB = 32:
+    one tile of 256, 128 threads). The splits fill one wave of `n_sm` SMs
+    at the residency the kernel allows: its __launch_bounds__ let a thread
+    take 255 registers, and shared memory (omega taken at 4 bytes, so that
+    the plan is the same in every mode), with at least _STREAM_MIN_STEPS
+    steps a split and at least 4 GB (a split's M0 partials, GB floats a
+    lane, are then at most an eighth of the u it reads and writes), the
+    steps a multiple of the chunk. At the flagship group (GB = 32, T = 1e5,
+    N = 200): 261 splits of 384 steps, 261 blocks at 2 an SM."""
+    L = stream_lanes_per_thread(GB)
+    per_tile = -(-N // -(-N // STREAM_MAX_LANES))
+    lanes = -(-per_tile // (32 * L)) * 32 * L
+    n_tiles = -(-N // lanes)
+    threads = lanes // L
+    per_sm = min(65536 // (256 * threads),
+                 _SM_SMEM // (stream_smem_bytes(GB, lanes) + 1024),
+                 2048 // threads)
+    n_split = max(1, min(per_sm * n_sm // n_tiles,
+                         -(-T // _STREAM_MIN_STEPS), T // (4 * GB)))
+    steps = -(-T // n_split)
+    steps = -(-steps // STREAM_CHUNK) * STREAM_CHUNK
+    return -(-T // steps), steps, lanes
+
+
 # ---------------------------------------------------------------------------
 # K2: scatter + gather + within-group Gram
 # ---------------------------------------------------------------------------
@@ -272,24 +341,6 @@ def _check_cuda_f32(name, t, shape):
                          f"got {tuple(t.shape)}")
 
 
-# The tile of K2's gather M0 = X_g u (csrc/gram_tc.cuh).
-_TC_ROWS, _TC_LANES = 64, 128
-
-
-def _n_split_m0(T: int, N: int, GB: int) -> int:
-    """Time splits of K2's M0 = X_g u on the tensor cores: about 528
-    blocks (2 waves), at least 256 steps each (128 splits at the
-    flagship)."""
-    tiles = (-(-N // _TC_LANES)) * (-(-GB // _TC_ROWS))
-    return max(1, min(128, -(-T // 256), -(-528 // tiles)))
-
-
-def _n_split_scatter(T: int) -> int:
-    """Time splits of K2's scatter: ~256 steps each (391 at T = 1e5), so
-    enough lanes x splits stream u and omega at once."""
-    return max(1, min(1024, -(-T // 256)))
-
-
 def _check_om16(om16, u):
     """The bf16 omega operand must be ``omega_bf16_stream(omega)``'s
     layout: contiguous (T, N8) torch.bfloat16 on u's device, for u of
@@ -309,10 +360,11 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
     Gram runs on wgmma in `precision`'s mode: "high" 3xTF32 on the fp32
     omega; "default" and "sr" one bf16 pass, "sr" rounding Z by the
     Philox words of ``sr_seed`` = (seed, offset), those of
-    :func:`sr_words`. M0 runs 3xTF32 and the scatter and sum_t omega fp32
-    in every mode: at "high" on the float32 omega, at "default" and "sr" on
-    `om16`, omega's bf16 stream (:func:`omega_bf16_stream`; made here from
-    omega when not given), the one operand K2 reads omega from there."""
+    :func:`sr_words`. The scatter, M0 and sum_t omega run in one fp32
+    streaming pass (:func:`stream_pass_plan`) in every mode: at "high" on
+    the float32 omega, at "default" and "sr" on `om16`, omega's bf16
+    stream (:func:`omega_bf16_stream`; made here from omega when not
+    given), the one operand K2 reads omega from there."""
     if precision not in _GRAM_MODES:
         raise ValueError(f"ss_group_pass: precision={precision!r}, one of "
                          f"{tuple(_GRAM_MODES)}")
@@ -351,22 +403,21 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
             om16 = omega_bf16_stream(omega)
         _check_om16(om16, u)
         om16_p, N8 = om16.data_ptr(), om16.shape[1]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split_p, steps, lanes = stream_pass_plan(T, N, GB, n_sm)
     n_split = 1
+    part_g = part_m = part_s = out = None
     if xg is not None:
         tile, stage = ((K2_TF32_PAIR_TILE, TF32_STAGE_STEPS)
                        if precision == "high" else
                        (K2_PAIR_TILE, STAGE_STEPS))
         pq = _pair_table(GB, dev, tile)
         pq_p, ntile = pq.data_ptr(), pq.numel() // tile
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         n_split = gram_split_plan(T, N, GB, n_sm, tile, stage)[0]
-    n_split_m, n_split_s = _n_split_m0(T, N, GB), _n_split_scatter(T)
-    part_g = part_m = part_s = out = None
-    if xg is not None:
         f32 = dict(dtype=torch.float32, device=dev)
         part_g = torch.empty((n_split, npair, N), **f32)
-        part_m = torch.empty((n_split_m, GB, N), **f32)
-        part_s = torch.empty((n_split_s, N), **f32)
+        part_m = torch.empty((n_split_p, GB, N), **f32)
+        part_s = torch.empty((n_split_p, N), **f32)
         out = torch.empty((GB + npair + 1, N), **f32)
 
     def ptr(t):
@@ -376,8 +427,8 @@ def ss_group_pass_cuda(xp, xg, omega, u, dw, want_sum_omega=False,
         err = lib.ss_group_pass_launch(
             ptr(xg), ptr(xp), om_p, om16_p, pq_p, u.data_ptr(),
             ptr(dw) if xp is not None else None, ptr(part_g), ptr(part_m),
-            ptr(part_s), ptr(out), T, N, N8, GB, n_split, n_split_m,
-            n_split_s, ntile, int(want_sum_omega), _GRAM_MODES[precision],
+            ptr(part_s), ptr(out), T, N, N8, GB, n_split, n_split_p, steps,
+            lanes, ntile, int(want_sum_omega), _GRAM_MODES[precision],
             seed, offset,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ss_group_pass")

@@ -350,6 +350,64 @@ def test_group_pass_sr_unbiased_over_launches(gen):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("precision", ["high", "default", "sr"])
+def test_group_pass_m0_error_against_float64(gen, precision):
+    """At the flagship group's shapes (GB = 32, T = 1e5, 200 lanes, a
+    design of spikes and the cosine basis, a middle group: scatter, then
+    gather), K2's M0 (the fp32 streaming pass, in every mode) is no further
+    from the float64 M0 of the u it has just written than 2x the fp32
+    plain version's (xg @ u, cuBLAS SGEMM with TF32 off) on that u."""
+    from pyglm_tpu_torch.ops.ss_cuda import omega_bf16_stream
+    GB, Tn, N = 32, 100_000, 200
+    X = _design(gen, 2 * GB // 4, Tn)[:2 * GB]
+    om = 0.05 + 0.2 * torch.rand((Tn, N), generator=gen, device="cuda")
+    kw = {}
+    if precision != "high":
+        om = to_bf16(om)
+        kw["om16"] = omega_bf16_stream(om)
+    u = 0.5 * torch.randn((Tn, N), generator=gen, device="cuda")
+    dw = 0.1 * torch.randn((GB, N), generator=gen, device="cuda")
+    m0 = ss_group_pass_cuda(X[:GB], X[GB:], om, u, dw, precision=precision,
+                            sr_seed=(3, 4), **kw)[0]
+    m64 = X[GB:].double() @ u.double()
+    ek, ep = _rel(m0.double(), m64), _rel((X[GB:] @ u).double(), m64)
+    assert ek <= 2 * ep, (ek, ep)
+
+
+@pytest.mark.parametrize("precision,key", [("high", "ss_group_pass"),
+                                           ("default", "ss_group_pass_bf16"),
+                                           ("sr", "ss_group_pass_sr")])
+def test_fused_sweep_launches_one_stream_pass_per_k2_call(gen, precision,
+                                                          key):
+    """A fused sweep at the flagship's width (200 lanes in 25 groups of GB
+    = 32: 26 K2 calls; T = 20000 bins of random spikes) launches K2's
+    streaming pass once per K2 call, counted by torch.profiler beside the
+    wrapper's count, and no other scatter or M0 kernel (the earlier
+    scatter_kernel and mma.sync m0_tc_kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyglm_tpu_torch import SparseBernoulliGLM
+    from pyglm_tpu_torch.models import weights
+    Y = (torch.rand((20_000, 200), generator=gen, device="cuda")
+         < 0.05).float()
+    m = SparseBernoulliGLM(200, seed=2, precision=precision, device="cuda")
+    m.add_data(Y)
+    m.fit(n_samples=1)
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        m.fit(n_samples=1)
+        torch.cuda.synchronize()
+    assert weights.LAST_SS_PATH == "fused"
+    assert _build.LAUNCHES[key] == 26
+    counts = {}
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CUDA":
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    n_pass = sum(c for k, c in counts.items() if "stream_pass_kernel" in k)
+    assert n_pass == 26, counts
+    assert not any("m0_tc_kernel" in k or "scatter_kernel" in k
+                   for k in counts), sorted(counts)
+
+
 def test_group_pass_rejects_wide_groups(gen):
     x = torch.zeros((65, 100), device="cuda")
     om = torch.zeros((100, 4), device="cuda")
