@@ -24,10 +24,12 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      K2's SR Gram at a small shape
      (unbiased over 256 seeds), then the NB kernels K4 (gamma-series PG;
      its bound from a count of the special-function operations its
-     proposals need at the SFU's rate) and K5 (CRT counts, per element and
-     summed per column: the law, both forms equal to the numpy twin's
-     draws bit for bit, device time by torch.profiler at the NB counts and
-     at a high-count shape); at the 8-chain
+     proposals need at the SFU's rate; its body for any number of series
+     terms K, against the four-term body at K = 4 and at K = 1, 2, 8 and
+     16 against pg_mean, pg_var and its plain version) and K5 (CRT counts,
+     per element and summed per column: the law, both forms equal to the
+     numpy twin's draws bit for bit, device time by torch.profiler at the
+     NB counts and at a high-count shape); at the 8-chain
      latent-distance ensemble's shapes (P=2001, T=20k, 4000 lanes, G=10)
      K6 (group Gram) at precision "high" (3xTF32 on wgmma), "highest"
      (fp32 FMA) and "default" (one bf16 pass on wgmma over a bf16 omega
@@ -74,7 +76,8 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      GaussianGLM at config 1's shape; every class of the model surface
      (the default model, BernoulliGLM, GaussianGLM, SparseGaussianGLM,
      NegativeBinomialGLM, BinomialGLM, the SBM) through fit and
-     fit_ensemble at N=12. Then, after the acceptance runs: parallel
+     fit_ensemble at N=12, and polya_gamma / pg_gamma_series at K != 4
+     (K4's run-time body). Then, after the acceptance runs: parallel
      tempering of config 5's model (fit_tempered, 8 rungs x 500 lanes,
      T=20k, "high": a 20 + 20-sweep pilot sets the ladder, 10 tempered
      sweeps timed, 2 profiled for the device busy time; K4 once, K6 once
@@ -87,7 +90,8 @@ CUDA card, nvcc and PyTorch built for CUDA; it imports nothing of JAX.
      regression: K1) and pgdrawv at 2e7 draws (K1; K4); and exact resume
      from a checkpoint at the flagship (two 5-sweep continuations equal).
      K1 and K4 against the port's exact native PG sampler
-     (pyglm_tpu_torch/native, built with g++; KS per c and b).
+     (pyglm_tpu_torch/native, built with g++; KS per c and b, K4 also at
+     K = 2 series terms).
   3. Correctness against references other than the port itself:
      - acceptance (pyglm_tpu_torch/acceptance.py): config 1 (dense,
        N=27), config 2 (NB, N=50), config 3 (N=100) and config 4 (SBM,
@@ -154,9 +158,20 @@ NB_GRID = [(0.3, 1.0), (1.0, 2.0), (2.5, 0.0), (4.5, 1.0), (13.0, 1.0),
            (40.0, 6.0)]
 CRT_GRID = [(1, 0.5), (4, 2.0), (12, 5.0), (15, 0.7)]
 KS_P_MIN = 1e-3          # two-sample KS gate, per c
-# The native oracle phase: K1 at each c, K4 at each (whole b, c), draws each.
+# The native oracle phase: K1 at each c, K4 at each (whole b, c, series
+# terms K), draws each.
 ORACLE_C1 = (0.0, 0.5, 2.0, 10.0)
-ORACLE_BC4 = ((2, 0.0), (5, 2.0), (17, 10.0))
+ORACLE_BC4 = ((2, 0.0, 4), (5, 2.0, 4), (17, 10.0, 4), (5, 2.0, 2))
+# K4's run-time body (csrc/pg_gamma.cu::gamma_series<kRunTimeK>): the
+# numbers of series terms it runs at the NB flagship's shape, the (b, c)
+# of NB_GRID of its KS against the plain version at the same K, and its
+# largest relative difference to the four-term body at K = 4 on the same
+# Philox stream. Its record's headline times are at K4_HEADLINE_K.
+K4_TERMS = (1, 2, 8, 16)
+K4_TERMS_BC = ((4.5, 1.0), (13.0, 1.0))
+K4_RT_TOL = 1e-6
+K4_HEADLINE_K = 8
+K4_RUN_TIME = "pg_gamma_series_runtime_k"
 ORACLE_DRAWS = 100_000
 REL_TOL = 1e-4           # K2, small slice: max |card - plain| / max |plain|
 W_ATOL = 1e-4            # K3: weights
@@ -316,47 +331,51 @@ def mt_rates(shape):
             np.interp(ls, np.log(grid), miss))
 
 
-def k4_sfu_ops(b, c, cutoff):
+def k4_sfu_ops(b, c, cutoff, K=4, algorithm=True):
     """Special-function operations for these inputs, summed over the
-    elements: (law, algorithm). `law` counts only what any exact sampler of
-    PG(b, c) must do from these inputs: per series element the 4 weights'
-    reciprocals, beta's division and reciprocal (2) and the tail sums (a
-    reciprocal below a = 0.5, else also an atan and 6 divisions); per
+    elements, at K series terms: (law, algorithm). `law` counts only what
+    any exact sampler of PG(b, c) must do from these inputs: per series
+    element the K weights' reciprocals, beta's division and reciprocal (2)
+    and the tail sums (a reciprocal below a = K'/8, K' = max(K, 4), else
+    also an atan and 6 divisions; one reciprocal per term K < k <= 4); per
     normal-regime element its moments (tanh, sqrt and 3 divisions: 5).
-    `algorithm` adds what K4's own sampler (csrc/pg_gamma.cu) spends, in
-    expectation over its proposals: per series element one proposal
-    stream, 4 / p_s proposals at the series' shape (acceptance p_s), then
-    1 / p_t at the tail's, in Box-Muller pairs of 4 operations (log, sqrt,
-    sin, cos; the stream ends on a whole pair), 2 logs for each proposal
-    the squeeze misses, the two shapes' 1/sqrt(9 d) (2), and a boost (log,
-    exp, division: 3) for each draw whose shape is below 1; per
-    normal-regime element a Box-Muller pair (4). Another normal generator
-    (a ziggurat) would spend no special function on the normals, so only
-    `law` bounds the function."""
+    `algorithm` (None unless asked) adds what K4's own sampler
+    (csrc/pg_gamma.cu) spends, in expectation over its proposals: per
+    series element one proposal stream, K / p_s proposals at the series'
+    shape (acceptance p_s), then 1 / p_t at the tail's, in Box-Muller pairs
+    of 4 operations (log, sqrt, sin, cos; the stream ends on a whole
+    pair), 2 logs for each proposal the squeeze misses, the two shapes'
+    1/sqrt(9 d) (2), and a boost (log, exp, division: 3) for each draw
+    whose shape is below 1; per normal-regime element a Box-Muller pair
+    (4). Another normal generator (a ziggurat) would spend no special
+    function on the normals, so only `law` bounds the function."""
     import numpy as np
     from pyglm_tpu_torch.ops.polyagamma import _tail_sums
     b, c = b.flatten(), c.flatten()
     normal = b >= cutoff
     ser = (b > 0) & ~normal
-    bp = b[ser].clamp_min(1e-6).double()
     a = c[ser].abs().double() / (2 * math.pi)
-    S1, S2, S3 = _tail_sums(a.float(), 4)
+    n_normal, n_small = int(normal.sum()), int((a < max(K, 4) / 8).sum())
+    law_ops = float((K + 2 + max(4 - K, 0)) * a.numel() + n_small
+                    + 8 * (a.numel() - n_small) + 5 * n_normal)
+    if not algorithm:
+        return law_ops, None
+    bp = b[ser].clamp_min(1e-6).double()
+    S1, S2, S3 = _tail_sums(a.float(), K)
     tpp = 2 * math.pi ** 2
     v_t = bp * S2.double() / (4 * math.pi ** 4)
     mu3 = 2 * bp * S3.double() / tpp ** 3
     beta = 2 * v_t / mu3.clamp_min(1e-30)
     alpha = (v_t * beta * beta).cpu().numpy()
-    bp, a = bp.cpu().numpy(), a.cpu().numpy()
+    bp = bp.cpu().numpy()
     p_s, miss_s = mt_rates(np.where(bp < 1, bp + 1, bp))
     p_t, miss_t = mt_rates(np.where(alpha < 1, alpha + 1, alpha))
-    prop_s, prop_t = 4.0 / p_s, 1.0 / p_t
-    law = 4 + 2 + np.where(a < 0.5, 1.0, 8.0)
+    prop_s, prop_t = K / p_s, 1.0 / p_t
     algo = (4.0 * ((prop_s + prop_t) / 2 + 0.25)
             + 2.0 * (miss_s * prop_s + miss_t * prop_t) + 2
-            + 12.0 * (bp < 1) + 3.0 * (alpha < 1))
-    n_normal = int(normal.sum())
-    law_ops = float(law.sum()) + 5.0 * n_normal
+            + 3.0 * K * (bp < 1) + 3.0 * (alpha < 1))
     return law_ops, law_ops + float(algo.sum()) + 4.0 * n_normal
+
 
 
 def k3_bound(G_, B_, lanes):
@@ -979,9 +998,80 @@ def phase_kernels_nb(check, record):
           f"{1e3 * law_ops / rate:.4f} ms); K4's algorithm spends "
           f"{algo_ops / (T * N):.2f} a draw, "
           f"{1e3 * algo_ops / rate:.4f} ms")
+    phase_k4_terms(check, record, b, psi, om, m, v, gen)
 
     # --- K5: CRT counts, exact law, and at (T, N) -------------------------
     phase_k5(check, record, gen, y)
+
+
+def phase_k4_terms(check, record, b, psi, om4, m, v, gen):
+    """K4's run-time body at the NB flagship's draw (b, psi): at K = 4
+    against the four-term body's draws `om4` on the same Philox stream
+    (max relative difference <= K4_RT_TOL); then at each K of K4_TERMS,
+    finite and positive, the sum against pg_mean (m; |z| < 5) and the
+    spread against pg_var (v; within 1%), KS against the plain version at
+    the same K at K4_TERMS_BC (200000 draws each, p > KS_P_MIN), CUDA
+    events around 10 calls beside the plain version's and the bound (the
+    bytes, or the law's special-function operations at K at the SFU's
+    rate)."""
+    import torch
+    from scipy.stats import ks_2samp
+    from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
+    from pyglm_tpu_torch.ops.polyagamma import pg_gamma_series_plain
+
+    def k4(bb, cc, seed, K, **kw):
+        return pg_gamma_series_cuda(bb, cc, seed, 0, K=K, **kw)
+
+    t0 = time.perf_counter()
+    rt = k4(b, psi, 1, 4, normal_cutoff=170.0, run_time_body=True)
+    diff = float(((rt.double() - om4.double()) / om4.double()).abs().max())
+    check(diff <= K4_RT_TOL,
+          f"K4 run-time body at K = 4 vs the four-term body on the same "
+          f"stream: max relative difference {diff:.3e} (<= {K4_RT_TOL:g}; "
+          f"equal: {bool(torch.equal(rt, om4))})")
+    rate, nbytes = sfu_rate(), 3 * 4 * T * N
+    by_k, worst = {}, 0.0
+    for K in K4_TERMS:
+        om = k4(b, psi, 1, K, normal_cutoff=170.0).double()
+        z = float((om.sum() - m.sum()) / v.sum().sqrt())
+        ratio = float(((om - m) ** 2).sum() / v.sum())
+        check(bool(torch.isfinite(om).all() and (om > 0).all())
+              and abs(z) < 5.0 and abs(ratio - 1.0) < 0.01,
+              f"K4 at K = {K}: finite, positive; sum vs pg_mean z = "
+              f"{z:.3f} (|z| < 5), spread vs pg_var {ratio:.5f} (within 1%)")
+        ks_p = []
+        for i, (bb, cc) in enumerate(K4_TERMS_BC):
+            bv = torch.full((200_000,), bb, device="cuda")
+            cv = torch.full((200_000,), cc, device="cuda")
+            kd, pd = k4(bv, cv, 500 + 10 * K + i, K), \
+                pg_gamma_series_plain(bv, cv, gen, K=K)
+            res = ks_2samp(kd.cpu().numpy(), pd.cpu().numpy())
+            worst = max(worst, abs(float(kd.double().mean()
+                                         - pd.double().mean())))
+            ks_p.append(float(res.pvalue))
+            check(res.pvalue > KS_P_MIN,
+                  f"K4 at K = {K} vs plain at (b, c)=({bb}, {cc}): KS "
+                  f"D={res.statistic:.5f} p={res.pvalue:.4f}")
+        ms = event_ms(lambda: k4(b, psi, 3, K, normal_cutoff=170.0), 10)
+        plain_ms = event_ms(
+            lambda: pg_gamma_series_plain(b, psi, gen, 170.0, K), 2)
+        law_ops = k4_sfu_ops(b, psi, 170.0, K, algorithm=False)[0]
+        kb = bound(nbytes, (law_ops, rate))
+        by_k[K] = dict(ms=ms, plain_ms=plain_ms, z=z, var_ratio=ratio,
+                       ks_p=ks_p, bytes_ms=1e3 * nbytes / HBM_BYTES_S,
+                       law_ms=1e3 * law_ops / rate, **kb)
+        print(f"  K4 at K = {K}: {ms:.4f} ms, plain {plain_ms:.3f} ms; "
+              f"bound {kb['bound_ms']:.4f} ms ({kb['bound_by']}; bytes "
+              f"{by_k[K]['bytes_ms']:.4f}, the law's operations "
+              f"{by_k[K]['law_ms']:.4f})", flush=True)
+    print(f"  K4's run-time body: {time.perf_counter() - t0:.2f} s of "
+          f"checks", flush=True)
+    head = by_k[K4_HEADLINE_K]
+    record[K4_RUN_TIME].update(
+        max_abs_err=worst, library_ms=None, at_K=K4_HEADLINE_K,
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], by_K=by_k,
+        k4_body_max_rel_diff=diff)
 
 
 def phase_k5(check, record, gen, y_nb):
@@ -1143,8 +1233,8 @@ def phase_native_oracle(check):
     """K1 and K4 against the port's exact host sampler
     (``pyglm_tpu_torch/native``: Polson, Scott and Windle's Devroye-type
     sampler on std::mt19937_64, built here with g++; the phase fails if it
-    cannot be built): K1 at each c of ORACLE_C1, K4 at each whole b and c
-    of ORACLE_BC4, ORACLE_DRAWS draws each, two-sample KS p > KS_P_MIN; the
+    cannot be built): K1 at each c of ORACLE_C1, K4 at each whole b, c and
+    number of series terms of ORACLE_BC4, ORACLE_DRAWS draws each, two-sample KS p > KS_P_MIN; the
     oracle on every host core."""
     import numpy as np
     import torch
@@ -1173,13 +1263,13 @@ def phase_native_oracle(check):
         o = native.pg_devroye_native(np.full(n, c), seed=31 + i,
                                      n_threads=threads)
         ks(f"K1 PG(1, {c})", k, o)
-    for i, (b, c) in enumerate(ORACLE_BC4):
+    for i, (b, c, K) in enumerate(ORACLE_BC4):
         k = pg_gamma_series_cuda(torch.full((n,), float(b), device="cuda"),
                                  torch.full((n,), c, device="cuda"), 400 + i,
-                                 0).cpu().numpy()
+                                 0, K=K).cpu().numpy()
         o = native.pg_int_b_native(np.full(n, float(b)), c, seed=41 + i,
                                    n_threads=threads)
-        ks(f"K4 PG({b}, {c})", k, o)
+        ks(f"K4 PG({b}, {c}) at K = {K}", k, o)
 
 
 def phase_slice(check, record, ctx):
@@ -1680,7 +1770,9 @@ SURFACE = (("default", "spikes", {}), ("BernoulliGLM", "spikes", {}),
 def phase_surface(check, record):
     """Each class of the model surface on the card at a small size (N=12,
     T=2000): construct, add_data, fit (3 samples) and fit_ensemble (2
-    stacked chains of 4 samples), finite results."""
+    stacked chains of 4 samples), finite results; then polya_gamma and
+    pg_gamma_series at each K of K4_TERMS on a (T, N) grid (K4's run-time
+    body, once a call)."""
     import numpy as np
     import pyglm_tpu_torch as ptt
     from pyglm_tpu_torch.ops import _build
@@ -1707,6 +1799,23 @@ def phase_surface(check, record):
                   f"spike_and_slab={m.spike_and_slab}): fit and "
                   f"fit_ensemble on the card, finite")
     _add_launches(record, dict(_build.LAUNCHES))
+    # The public samplers at K != 4 series terms: K4's run-time body.
+    import torch
+    _build.reset_launches()
+    gen = torch.Generator().manual_seed(5)
+    bq = torch.full((t, n), 2.5, device="cuda")
+    cq = torch.linspace(-3.0, 3.0, t * n, device="cuda").reshape(t, n)
+    calls = 0
+    for K in K4_TERMS:
+        for fn in (ptt.polya_gamma, ptt.pg_gamma_series):
+            x = fn(bq, cq, gen, K=K)
+            calls += 1
+            check(bool(torch.isfinite(x).all() and (x > 0).all()),
+                  f"{fn.__name__}(K={K}) on the card: finite, positive")
+    launches = _build.LAUNCHES["pg_gamma_series"]
+    check(launches == calls, f"K4's run-time body launched once a call at "
+          f"K in {K4_TERMS} ({launches} for {calls})")
+    record[K4_RUN_TIME]["launches"] += launches
 
 
 def _lagged_noise(gen, T_, N_):
@@ -3792,6 +3901,21 @@ def phase_mesh_parity(check, ctx):
     return {"mesh_parity_s": dt}
 
 
+def new_record():
+    """{name: the kernel's record, launches 0 and every measurement None}
+    for each kernel of KERNELS and for K4's run-time body, launched at
+    K != 4 under K4's launch key (its launches are counted where the
+    surface phase calls the public samplers at such K)."""
+    record = {name: {"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": 0,
+                     **{k: None for k in RECORD_KEYS[1:]}}
+              for name, (src, rep) in KERNELS.items()}
+    record[K4_RUN_TIME] = {
+        **record["pg_gamma_series"], "name": K4_RUN_TIME,
+        "body": "gamma_series<kRunTimeK>, any number of series terms K"}
+    return record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3820,10 +3944,7 @@ def main() -> int:
     _build.library()
 
     check = Checks()
-    record = {name: {"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": 0,
-                     **{k: None for k in RECORD_KEYS[1:]}}
-              for name, (src, rep) in KERNELS.items()}
+    record = new_record()
     summary, ctx = {}, {}
     t_run = time.perf_counter()
     # The timed phases first, alone on the card and the host. Then the

@@ -4,8 +4,12 @@
 //   PG(b, c) = 1/(2 pi^2) sum_k g_k / ((k - 1/2)^2 + a^2),  a = |c| / (2 pi),
 //   g_k ~ Gamma(b) iid.
 //
-// The first kTerms terms are drawn exactly; the tail k > kTerms is one draw
+// The first K terms are drawn exactly; the tail k > K is one draw
 // delta + Gamma(alpha) / beta whose first three moments match the tail's.
+// Two bodies: gamma_series<kTerms> for the TPU kernel's K = 4, its
+// constants folded, and gamma_series<kRunTimeK> for any other K >= 1, read
+// at run time (the JAX package runs K != 4 on its XLA path, polyagamma.py
+// pg_gamma_series; its Pallas kernel takes only 4).
 //
 // Replaces the TPU kernel pyglm_tpu/ops/pg_pallas.py::_pg_gamma_kernel
 // (launched by pg_gamma_series_pallas), the XLA-side tail parameters
@@ -49,6 +53,24 @@
 //   - d and 1/sqrt(9 d) once per shape and element, the tail's powers of
 //     K = 4 as constants, reciprocals where the old code divided (but in
 //     the tail sums' cancelling branch).
+// The run-time body keeps that design: one proposal stream (the first K
+// accepted proposals are the K terms, the next, tried at the tail's shape,
+// the tail), Box-Muller pairs, both squeezes. What K changes:
+//   - term k's weight 1/((k - 1/2)^2 + a^2) is computed when the term is
+//     taken, not held in K registers;
+//   - the tail sums' powers of K are computed once per thread (TailK), and
+//     they are those of K' = max(K, 4) plus the terms K < k <= 4 added
+//     exactly, their Taylor branch below a = K'/8 (0.5 at K' = 4). The JAX
+//     package's formulas at K itself fail away from 4: at K = 1 the
+//     Euler-Maclaurin correction makes S3 negative for a <= 0.35 (its
+//     draws are +inf there), and above K = 4 the exact branch cancels
+//     for 0.5 <= a << K (at K = 64 S3 is 41x off, or <= 0). At K = 4
+//     both bodies compute the same sums;
+//   - a boosted series (b < 1) takes its boost words four to a Philox
+//     call: the first call before the proposals, as the K = 4 body makes
+//     it, each next one when the four are spent;
+//   - the proposal budget is kRoundsPerDraw pairs per draw, (K + 1) draws,
+//     so an element keeps the K = 4 body's failure probability per draw.
 
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
@@ -61,6 +83,8 @@ constexpr float kPi = 3.14159265358979f;
 constexpr int kTerms = 4;              // _GAMMA_K of the TPU kernel
 constexpr float kK = (float)kTerms;
 constexpr int kMaxRounds = 1000;       // pairs of proposals per element
+constexpr int kRoundsPerDraw = kMaxRounds / (kTerms + 1);
+constexpr int kRunTimeK = 0;           // the body that reads K at run time
 
 // One Philox4x32-10 stream: key (seed), counter (offset, element); each
 // call's four words are used at once.
@@ -154,6 +178,58 @@ __device__ void tail_sums(float a, float* S1, float* S2, float* S3) {
   *S3 = t3 - (6.0f * kK / 24.0f) * (i2 * i2);
 }
 
+// tail_sums' constants at K' = max(K, kTerms), each in the float32 order
+// in which tail_sums folds it at K' = 4; K, the terms drawn exactly.
+struct TailK {
+  int K;
+  float k, ik, ik2, small;            // K', 1/K', 1/K'^2, K'/8
+  float t2a, t2b, t2c, t3a, t3b, t3c;  // the Taylor branch's coefficients
+  float e1, e2, e3;                    // the Euler-Maclaurin corrections'
+};
+
+__device__ TailK tail_k(int K) {
+  const float kK = (float)max(K, kTerms);
+  const float kK3 = kK * kK * kK, kK5 = kK3 * kK * kK;
+  const float kK7 = kK5 * kK * kK, kK9 = kK7 * kK * kK;
+  return {K, kK, 1.0f / kK, 1.0f / (kK * kK), 0.125f * kK,
+          1.0f / (3.0f * kK3), 2.0f / (5.0f * kK5), 3.0f / (7.0f * kK7),
+          1.0f / (5.0f * kK5), 3.0f / (7.0f * kK7), 2.0f / (3.0f * kK9),
+          2.0f * kK / 24.0f, 4.0f * kK / 24.0f, 6.0f * kK / 24.0f};
+}
+
+// The sums over k > K of tail_sums at run time: those over k > K' by its
+// formulas at K' (the Taylor branch below a = K'/8, where at K' > 4 the
+// exact one would cancel), plus the terms K < k <= K' exactly, smallest
+// first. At K = 4 the same operations as tail_sums.
+__device__ void tail_sums_k(float a, const TailK& t, float* S1, float* S2,
+                            float* S3) {
+  const float a2 = a * a, a4 = a2 * a2;
+  const float i1 = 1.0f / (t.k * t.k + a2), i2 = i1 * i1;
+  float t1, t2, t3;
+  if (a < t.small) {
+    const float aK2 = a2 * t.ik2;
+    t1 = (1.0f - aK2 * (1.0f / 3.0f) + aK2 * aK2 * (1.0f / 5.0f)) * t.ik;
+    t2 = t.t2a - a2 * t.t2b + a4 * t.t2c;
+    t3 = t.t3a - a2 * t.t3b + a4 * t.t3c;
+  } else {
+    const float at = atanf(a / t.k);
+    const float s2 = a2, s4 = a4, dK = t.k * t.k + s2;
+    t1 = at / a;
+    t2 = at / (2.0f * (a * s2)) - t.k / (2.0f * s2 * dK);
+    t3 = 3.0f * at / (8.0f * (a * s4)) - t.k / (4.0f * s2 * dK * dK) -
+         3.0f * t.k / (8.0f * s4 * dK);
+  }
+  *S1 = t1 - t.e1 * i2;
+  *S2 = t2 - t.e2 * (i2 * i1);
+  *S3 = t3 - t.e3 * (i2 * i2);
+  for (int k = kTerms; k > t.K; --k) {
+    const float h = (float)k - 0.5f, w = 1.0f / (h * h + a2);
+    *S1 += w;
+    *S2 += w * w;
+    *S3 += w * w * w;
+  }
+}
+
 // N(E[PG(b, c)], Var[PG(b, c)]) floored at 1e-30, with the moments of
 // pyglm_tpu_torch/ops/polyagamma.py::pg_mean and pg_var.
 __device__ float normal_approx(float b, float c, Philox& rng) {
@@ -191,7 +267,15 @@ __device__ __forceinline__ MTShape mt_shape(float shape) {
   return {d, rsqrtf(9.0f * d), 0.01f / d, boost};
 }
 
-__device__ float gamma_series(float b, float c, Philox& rng) {
+// PG(b, c) by the series of kT terms (kTerms), or of tk.K terms read at
+// run time (kRunTimeK).
+template <int kT>
+__device__ float gamma_series(float b, float c, Philox& rng,
+                              const TailK& tk);
+
+template <>
+__device__ float gamma_series<kTerms>(float b, float c, Philox& rng,
+                                      const TailK&) {
   const float bp = fmaxf(b, 1e-6f);
   const float a = fabsf(c) * (0.5f / kPi);
   const float a2 = a * a;
@@ -251,11 +335,76 @@ __device__ float gamma_series(float b, float c, Philox& rng) {
   return s * (1.0f / tpp) + delta + g_tail * ib;
 }
 
+template <>
+__device__ float gamma_series<kRunTimeK>(float b, float c, Philox& rng,
+                                         const TailK& tk) {
+  const int K = tk.K;
+  const float bp = fmaxf(b, 1e-6f);
+  const float a = fabsf(c) * (0.5f / kPi);
+  const float a2 = a * a;
+  float S1, S2, S3;
+  tail_sums_k(a, tk, &S1, &S2, &S3);
+  constexpr float tpp = 2.0f * kPi * kPi;
+  const float m_t = bp * S1 * (1.0f / tpp);
+  const float v_t = bp * S2 * (1.0f / (4.0f * kPi * kPi * kPi * kPi));
+  const float mu3 = 2.0f * bp * S3 * (1.0f / (tpp * tpp * tpp));
+  const float beta = 2.0f * v_t / fmaxf(mu3, 1e-30f);
+  const float alpha = v_t * beta * beta;
+  const float ib = 1.0f / beta;
+  const float delta = fmaxf(m_t - alpha * ib, 0.0f);
+  const MTShape ser = mt_shape(bp), tail = mt_shape(alpha);
+  uint4 bw = ser.boost ? rng.next() : make_uint4(0, 0, 0, 0);  // boosts
+  int left = 4;                // boost words left in bw
+  float s = 0.0f, g_tail = tail.d + 1.0f / 3.0f;
+  int n = 0;                   // accepted: series terms 0..K-1, then the tail
+  auto take = [&](float g) {
+    if (ser.boost) {
+      if (left == 0) {
+        bw = rng.next();
+        left = 4;
+      }
+      g *= expf(logf(unif(bw.x)) / bp);
+      bw = make_uint4(bw.y, bw.z, bw.w, 0);
+      --left;
+    }
+    const float h = (float)n + 0.5f;
+    s += g * (1.0f / (h * h + a2));
+    ++n;
+  };
+  auto propose = [&](float x, float u) {
+    if (n > K) return;
+    const bool t = n == K;
+    float v;
+    if (!mt_accept(x, u, t ? tail.d : ser.d, t ? tail.cm : ser.cm,
+                   t ? tail.sq : ser.sq, &v))
+      return;
+    if (t) {
+      g_tail = v;
+      ++n;
+    } else {
+      take(v);
+    }
+  };
+  const long long rounds = (long long)kRoundsPerDraw * (K + 1LL);
+  for (long long r = 0; r < rounds && n <= K; ++r) {
+    const uint4 wd = rng.next();
+    float x1, x2;
+    normal_pair(wd.x, wd.y, &x1, &x2);
+    propose(x1, unif(wd.z));
+    propose(x2, unif(wd.w));
+  }
+  while (n < K) take(ser.d + 1.0f / 3.0f);
+  if (tail.boost) g_tail *= expf(logf(unif(rng.next().x)) / alpha);
+  return s * (1.0f / tpp) + delta + g_tail * ib;
+}
+
+template <int kT>
 __global__ void pg_gamma_kernel(const float* __restrict__ b,
                                 const float* __restrict__ c,
                                 float* __restrict__ out, long long n,
                                 float cutoff, unsigned long long seed,
-                                unsigned long long offset) {
+                                unsigned long long offset, int K) {
+  const TailK tk = tail_k(K);         // unused by the kTerms body
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < n; i += stride) {
@@ -266,22 +415,31 @@ __global__ void pg_gamma_kernel(const float* __restrict__ b,
     }
     Philox rng(seed, (unsigned long long)i, offset);
     out[i] = bi >= cutoff ? normal_approx(bi, c[i], rng)
-                          : gamma_series(bi, c[i], rng);
+                          : gamma_series<kT>(bi, c[i], rng, tk);
   }
 }
 
 }  // namespace
 
+// K >= 1 terms: the kTerms body at K = 4, unless run_time_body, and the
+// run-time body otherwise.
 extern "C" int pg_gamma_series_launch(const float* b, const float* c,
                                       float* out, long long n, float cutoff,
                                       unsigned long long seed,
-                                      unsigned long long offset,
-                                      void* stream) {
+                                      unsigned long long offset, int K,
+                                      int run_time_body, void* stream) {
+  if (K < 1) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int threads = 256;
   long long blocks = (n + threads - 1) / threads;
   if (blocks > 132 * 64) blocks = 132 * 64;
-  pg_gamma_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      b, c, out, n, cutoff, seed, offset);
+  if (K == kTerms && !run_time_body)
+    pg_gamma_kernel<kTerms><<<(unsigned)blocks, threads, 0,
+                              (cudaStream_t)stream>>>(b, c, out, n, cutoff,
+                                                      seed, offset, K);
+  else
+    pg_gamma_kernel<kRunTimeK><<<(unsigned)blocks, threads, 0,
+                                 (cudaStream_t)stream>>>(
+        b, c, out, n, cutoff, seed, offset, K);
   return (int)cudaGetLastError();
 }

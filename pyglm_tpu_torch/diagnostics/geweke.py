@@ -29,7 +29,7 @@ from pyglm_tpu_torch.utils.utils import require_device
 
 
 def geweke_chain(seed: int, obs, network, N: int, B: int, basis, T: int,
-                 spike_slab: bool, n_iters: int = 2000,
+                 spike_slab: bool, n_iters: int = 2000, t_chunk: int = 64,
                  precision: str = "highest", group: int | None = None,
                  with_llc: bool = False, device="cuda"):
     """Run the successive-conditional simulator on generators seeded from
@@ -42,16 +42,18 @@ def geweke_chain(seed: int, obs, network, N: int, B: int, basis, T: int,
     (n, K), and each observation aux entry (r (n, N) for NB, eta (n, N)
     for the Gaussian).
 
-    ``precision`` and ``group`` pass to the sweep, so the same chain runs
-    either spike-and-slab loop at any mode. ``with_llc=True`` registers each
+    ``t_chunk``, ``precision`` and ``group`` pass to the sweep, so the
+    same chain runs either spike-and-slab loop at any mode (``t_chunk``,
+    the JAX package's default 64, reaches only the dense update's partial
+    sums). ``with_llc=True`` registers each
     regenerated dataset's ll cache, so that the cache-reading conditionals
     (NB's collapsed-CRT r update, the cached normaliser) face the test.
     """
     dev = require_device(device)
     basis = np.asarray(basis, np.float32)
     gens = chain_generators(seed, dev)
-    sweep = make_gibbs_sweep(obs, network, N, B, spike_slab, group=group,
-                             precision=precision)
+    sweep = make_gibbs_sweep(obs, network, N, B, spike_slab, t_chunk,
+                             group=group, precision=precision)
     gen = make_generator(obs, N, B)
     state = init_state_from_prior(gens, obs, network, N, B, spike_slab, dev)
 

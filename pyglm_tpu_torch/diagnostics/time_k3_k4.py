@@ -4,7 +4,8 @@ and K5 (CRT counts, ``csrc/crt.cu``) at the main paths' shapes, for the
 package of a given checkout.
 
     python pyglm_tpu_torch/diagnostics/time_k3_k4.py [ROOT] [--only k3|k4|k5]
-        [--tiles 8,16,32] [--cut rng|logs|setup|units|search|regs]...
+        [--tiles 8,16,32] [--terms 1,2,8,16]
+        [--cut rng|logs|setup|units|search|regs]...
 
 ROOT (default: the checkout holding this file) is put first on sys.path, so
 older checkouts' packages can be timed on the same card in one command, in
@@ -28,10 +29,15 @@ tile in turns, three rounds.
 K4 at (100000, 200), PG(y + 4, psi) with psi = -2 + 0.5 randn and NB counts
 y capped at 15 (the NB flagship's draw): the sum's z against pg_mean, the
 spread's ratio to pg_var, a digest, and CUDA events around 10 calls, three
-times. Each ``--cut`` (K4 only) removes one part of K4: ``rng`` replaces
-the Philox calls by a multiplicative hash, ``logs`` lets the squeezes
-accept every proposal (no log test), ``setup`` replaces the tail sums by
-constants; the cut copy of the package goes to ROOT/build/k4_cut_<parts>/
+times, and the registers and spills of each K4 kernel the build compiled
+(nvcc's ptxas report). ``--terms 1,2,8,16`` also runs K4's run-time body
+(a checkout whose wrapper takes K) at each of those numbers of series
+terms, and at K = 4, where it is held against the four-term body on the
+same Philox stream (max relative difference), each with the same z,
+spread, digest and times. Each ``--cut`` (K4 only) removes one part of
+K4: ``rng`` replaces the Philox calls by a multiplicative hash, ``logs``
+lets the squeezes accept every proposal (no log test), ``setup`` replaces
+the tail sums by constants; the cut copy of the package goes to ROOT/build/k4_cut_<parts>/
 and its draws follow another law by design, so only its time is read.
 K5 at (100000, 200) on two count sets: the NB flagship's (y as for K4,
 max_y 16) and a high-count one (psi = 0.5 randn, Gamma(4) e^psi Poisson
@@ -199,8 +205,10 @@ def time_k3(label, card, tiles):
                   flush=True)
 
 
-def time_k4(label, card):
+def time_k4(label, card, terms=()):
+    import re
     import torch
+    from pyglm_tpu_torch.ops import _build
     from pyglm_tpu_torch.ops.linalg import sample_gamma
     from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
     from pyglm_tpu_torch.ops.polyagamma import pg_mean, pg_var
@@ -227,6 +235,38 @@ def time_k4(label, card):
     print(f"{label}: K4 ({T}, {N}) ms {[round(t, 4) for t in times]}, "
           f"median {statistics.median(times):.4f}; sum z {z:.3f}, spread "
           f"ratio {ratio:.5f}, sha256 {digest(om)} ({card})", flush=True)
+    lines = _build.LOG_PATH.read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "pg_gamma_kernel" in line:
+            name = re.search(r"pg_gamma_kernel\w*", line).group(0)
+            text = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores", text)
+            print(f"{label}: {name} {regs.group(1) if regs else '?'} "
+                  f"registers, {spill.group(1) if spill else 0} B spilled",
+                  flush=True)
+    for K in terms:
+        kw = dict(normal_cutoff=170.0, K=K, run_time_body=True)
+        ok = pg_gamma_series_cuda(b, psi, 1, 0, **kw).double()
+        zk = float((ok.sum() - m.sum()) / v.sum().sqrt())
+        rk = float(((ok - m) ** 2).sum() / v.sum())
+        same = (f", max relative difference to the four-term body "
+                f"{float(((ok - om) / om).abs().max()):.3e}" if K == 4
+                else "")
+        tk = []
+        for _ in range(3):
+            pg_gamma_series_cuda(b, psi, 3, 0, **kw)
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            for i in range(10):
+                pg_gamma_series_cuda(b, psi, 3, i, **kw)
+            t1.record()
+            t1.synchronize()
+            tk.append(t0.elapsed_time(t1) / 10)
+        print(f"{label}: K4 run-time body K={K} ({T}, {N}) ms "
+              f"{[round(t, 4) for t in tk]}, median "
+              f"{statistics.median(tk):.4f}; sum z {zk:.3f}, spread ratio "
+              f"{rk:.5f}, sha256 {digest(ok)}{same} ({card})", flush=True)
 
 
 def _k5_counts(gen, hi):
@@ -297,6 +337,8 @@ def main() -> None:
     ap.add_argument("--only", choices=["k3", "k4", "k5"])
     ap.add_argument("--tiles", default=[],
                     type=lambda s: [int(x) for x in s.split(",")])
+    ap.add_argument("--terms", default=[],
+                    type=lambda s: [int(x) for x in s.split(",")])
     ap.add_argument("--cut", action="append", default=[],
                     choices=sorted(set(_CUTS) | set(_K5_CUTS)))
     args = ap.parse_args()
@@ -323,7 +365,8 @@ def main() -> None:
     if args.only in (None, "k3"):
         time_k3(str(root), card, args.tiles)
     if args.only in (None, "k4"):
-        time_k4(f"{root}" + "".join(f" --cut {c}" for c in args.cut), card)
+        time_k4(f"{root}" + "".join(f" --cut {c}" for c in args.cut), card,
+                args.terms)
     if args.only in (None, "k5"):
         time_k5(f"{root}" + "".join(f" --cut {c}" for c in args.cut), card)
 

@@ -29,7 +29,7 @@ from pyglm_tpu_torch.models.sweep import (
     Generators, GLMState, MeshGenerators, concat_datas, init_state_from_prior,
 )
 from pyglm_tpu_torch.models.weights import (
-    EdgeHypers, lane_hypers, pack_weights, resample_dense,
+    EdgeHypers, check_t_chunk, lane_hypers, pack_weights, resample_dense,
     resample_spike_slab_tspace, sufficient_stats, unpack_weights,
 )
 from pyglm_tpu_torch.utils.utils import fp32_matmul
@@ -120,8 +120,9 @@ def lane_inputs(network, chains):
 
 
 def make_stacked_sweep(obs, network, N: int, B: int, C: int,
-                       spike_slab: bool, group: int | None = None,
-                       precision: str = "highest", betas=None, mesh=None):
+                       spike_slab: bool, t_chunk: int = 512,
+                       group: int | None = None, precision: str = "highest",
+                       betas=None, mesh=None):
     """The C-chain lane-stacked sweep: (generators, stacked state, datas) ->
     (stacked state, diagnostics of shape (C,)): "log_likelihood",
     "n_edges", and "hmc_accept" for the latent-distance prior. The move
@@ -130,6 +131,9 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
     over the C*N lanes. The observation's ll cache and the Gaussian's
     cached Grams are not used (as in the JAX package): NB's r update takes
     its elementwise CRT branch, and a Gaussian family forms X' Omega X.
+    `t_chunk` reaches only the dense update's fp32 partial sums
+    (:func:`models.weights.sufficient_stats`); the kernels keep their own
+    splits of T.
 
     `betas` (C,), if given, tempers chain c to the beta_c-power posterior
     (models/tempering.py): the family's ``tempered_omega_kappa`` replaces
@@ -149,6 +153,7 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
     gathered, and the aux, the network resample and the swaps run
     replicated from the replicated generators.
     """
+    t_chunk = check_t_chunk(t_chunk)
     batched_net = isinstance(network, LatentDistanceConfig)
     beta_lane = (None if betas is None else torch.as_tensor(
         betas, dtype=torch.float32).repeat_interleave(N))       # (C*N,)
@@ -209,7 +214,7 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
             psi = (kappa - u) / omega
             del u
         else:
-            J, h = sufficient_stats(Xf, omega, kappa, mesh=mesh)
+            J, h = sufficient_stats(Xf, omega, kappa, t_chunk, mesh=mesh)
             eps = None
             if mesh is not None:        # drawn at full width, as unsharded
                 eps = torch.randn((C * N, Xf.shape[1]), generator=rep.device,
@@ -250,7 +255,8 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
 
 
 def make_stacked_sweep_sharded(obs, network, N: int, B: int, C: int, mesh,
-                               spike_slab: bool, group: int | None = None,
+                               spike_slab: bool, t_chunk: int = 512,
+                               group: int | None = None,
                                precision: str = "highest", betas=None):
     """Chains spread over a ("chain",) mesh of M ranks: each rank runs the
     ordinary stacked sweep for its C/M chains (betas, if given, its C/M
@@ -267,13 +273,14 @@ def make_stacked_sweep_sharded(obs, network, N: int, B: int, C: int, mesh,
     c = slice(mesh.index("chain") * (C // M), (mesh.index("chain") + 1)
               * (C // M))
     return make_stacked_sweep(obs, network, N, B, C // M, spike_slab,
-                              group=group, precision=precision,
+                              t_chunk, group=group, precision=precision,
                               betas=None if betas is None
                               else np.asarray(betas)[c])
 
 
 def make_stacked_sweep_gspmd(obs, network, N: int, B: int, C: int, mesh,
-                             spike_slab: bool, group: int | None = None,
+                             spike_slab: bool, t_chunk: int = 512,
+                             group: int | None = None,
                              precision: str = "highest", betas=None):
     """Chains over a ("chain", "time", "neuron") mesh: the stacked sweep of
     all C chains with the C*N lanes sharded jointly over ("chain",
@@ -290,8 +297,9 @@ def make_stacked_sweep_gspmd(obs, network, N: int, B: int, C: int, mesh,
     if N % mesh.shape["neuron"]:
         raise ValueError(f"N={N} must be divisible by the neuron mesh axis "
                          f"{mesh.shape['neuron']}")
-    return make_stacked_sweep(obs, network, N, B, C, spike_slab, group=group,
-                              precision=precision, betas=betas, mesh=mesh)
+    return make_stacked_sweep(obs, network, N, B, C, spike_slab, t_chunk,
+                              group=group, precision=precision, betas=betas,
+                              mesh=mesh)
 
 
 def chain_data_shardings(mesh, st, datas):
@@ -357,7 +365,8 @@ def run_stacked_chains(model, n_chains: int, n_samples: int,
     if len(seeds) != C:
         raise ValueError(f"{len(seeds)} seeds for {C} chains")
     dev = model.device
-    kw = dict(group=model.group, precision=model.precision)
+    kw = dict(t_chunk=model.t_chunk, group=model.group,
+              precision=model.precision)
     obs, net, N, B = model.observation, model.network, model.N, model.B
     datas = tuple(model.datas)
     gens = chain_generators(int(seeds[0]) + _SWEEP_SALT, dev)

@@ -28,8 +28,8 @@ from pyglm_tpu_torch.models.sweep import (
     sum_caches, total_log_likelihood,
 )
 from pyglm_tpu_torch.models.weights import (
-    _auto_group, check_precision, group_gram_blocks, pack_weights,
-    sufficient_stats,
+    _auto_group, check_precision, check_t_chunk, group_gram_blocks,
+    pack_weights, sufficient_stats,
 )
 from pyglm_tpu_torch.ops.basis import (
     cosine_basis, design_matrix, design_matrix_sharded,
@@ -55,6 +55,10 @@ class NonlinearAutoregressiveModel:
       spike_and_slab: the collapsed spike-and-slab update of (A, W), or
         (False, the default) the dense update with A = 1.
       seed: seed of this model's generators.
+      t_chunk: steps of T in each fp32 partial sum of the dense update's
+        J = X' Omega X and h (and of a dense Gaussian's cached Gram), the
+        JAX package's parameter; it reaches no kernel, as in the JAX
+        package it reaches only the XLA paths.
       precision: the accuracy of the spike-and-slab Gram, as in the JAX
         package. The loop is the fused K2 + K3 where the JAX dispatcher
         picks it (the flagship) and else the staged K6 + K3.
@@ -77,7 +81,8 @@ class NonlinearAutoregressiveModel:
         psi in fp32: every mode gives the same dense draw, where the JAX
         package's "default" runs J as one bf16 pass on the TPU). A Gaussian
         spike-and-slab model's cached group Gram (made once at add_data by
-        K6) takes the mode's K6 body.
+        K6) takes the mode's K6 body. log_likelihood() runs psi in fp32 at
+        every mode, as the sweep does (make_log_likelihood).
       group: presyn neurons per spike-and-slab group (default: the divisor
         of N nearest 8 with group*B % 8 == 0, i.e. 8 at N = 200, B = 4).
       device: where the data, the state and the kernels live: the card
@@ -95,10 +100,12 @@ class NonlinearAutoregressiveModel:
     def __init__(self, N: int, B: int = 4, L: int = 10, basis=None,
                  observation="bernoulli", network="dense",
                  spike_and_slab: bool = False, seed: int = 0,
-                 precision: str = "high", group: int | None = None,
-                 device="cuda", obs_kwargs: Optional[dict] = None,
+                 t_chunk: int = 512, precision: str = "high",
+                 group: int | None = None, device="cuda",
+                 obs_kwargs: Optional[dict] = None,
                  net_kwargs: Optional[dict] = None):
         check_precision(precision)
+        self.t_chunk = check_t_chunk(t_chunk)
         if basis is None:
             basis = cosine_basis(B=B, L=L)
         basis = np.asarray(basis, np.float32)
@@ -122,9 +129,10 @@ class NonlinearAutoregressiveModel:
 
         self._sweep = make_gibbs_sweep(self.observation, self.network, N,
                                        self.B, self.spike_and_slab,
-                                       group=self.group,
+                                       self.t_chunk, group=self.group,
                                        precision=self.precision)
-        self._loglik = make_log_likelihood(self.observation, N, self.B)
+        self._loglik = make_log_likelihood(self.observation, N, self.B,
+                                           precision=self.precision)
         self._generate = make_generator(self.observation, N, self.B)
         self.state: GLMState = init_state_from_prior(
             self.generators, self.observation, self.network, N, self.B,
@@ -204,7 +212,7 @@ class NonlinearAutoregressiveModel:
                                                  self.group,
                                                  precision=self.precision))
             else:
-                Gfull, XtY = sufficient_stats(Xf, ones, Yl)
+                Gfull, XtY = sufficient_stats(Xf, ones, Yl, self.t_chunk)
                 Gfull, XtY = time_sum(Gfull[0]), time_sum(XtY)
         llc = self.observation.ll_cache(Yl)
         if llc is not None:
@@ -638,8 +646,8 @@ class NonlinearAutoregressiveModel:
         C = betas.shape[0]
         seeds = list(range(1, C + 1) if seeds is None else seeds)
         args = (self.observation, self.network, self.N, self.B, betas)
-        kw = dict(spike_slab=self.spike_and_slab, group=self.group,
-                  precision=self.precision)
+        kw = dict(spike_slab=self.spike_and_slab, t_chunk=self.t_chunk,
+                  group=self.group, precision=self.precision)
         datas, rungs = tuple(self.datas), None
         if mesh is None:
             sweep = tempering.make_tempered_sweep(*args, **kw)

@@ -13,8 +13,8 @@ from typing import NamedTuple
 import torch
 
 from pyglm_tpu_torch.models.weights import (
-    pack_weights, resample_dense, resample_spike_slab_tspace,
-    sufficient_stats, unpack_weights,
+    check_precision, check_t_chunk, pack_weights, resample_dense,
+    resample_spike_slab_tspace, sufficient_stats, unpack_weights,
 )
 from pyglm_tpu_torch.ops.linalg import chol_small, solve_lower_t_small
 from pyglm_tpu_torch.utils.utils import fp32_matmul, logistic
@@ -73,8 +73,8 @@ def concat_datas(datas):
 
 
 def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
-                     group: int | None = None, precision: str = "highest",
-                     mesh=None):
+                     t_chunk: int = 512, group: int | None = None,
+                     precision: str = "highest", mesh=None):
     """One Gibbs sweep (the JAX package's move order):
       1. psi = Xf w;  (omega, kappa) from the family: PG(1, psi) by K1 for
          Bernoulli, PG(y + r, psi) or PG(n, psi) by K4 for NB and Binomial,
@@ -91,6 +91,10 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
     sweep), the dense one draws from the scaled full Gram.
     Returns (new_state, {"log_likelihood", "n_edges"}), both 0-d tensors,
     plus "hmc_accept" when the network state carries one.
+    `t_chunk` is the steps of T in each fp32 partial sum of the dense J and
+    h (:func:`models.weights.sufficient_stats`), the only sums it reaches,
+    as in the JAX package it reaches only the XLA paths: the kernels keep
+    their own splits of T.
     The datasets' ll caches are additive summaries (counts, scalar sums),
     so their sum stands for the concatenated data; it feeds the total
     log-likelihood and the NB collapsed-CRT r update.
@@ -111,6 +115,7 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
     log-likelihood is summed over both axes. Every rank returns the same
     diagnostics.
     """
+    t_chunk = check_t_chunk(t_chunk)
     if mesh is not None:
         from pyglm_tpu_torch.models.weights import lane_hypers, mesh_ss_path
         from pyglm_tpu_torch.parallel.sharding import (
@@ -152,12 +157,12 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
             for d in datas:
                 omega, kappa = obs.omega_kappa(pg_gen, d.Y, d.Xf @ w_full,
                                                aux)
-                Jd, hd = sufficient_stats(d.Xf, omega, kappa)
+                Jd, hd = sufficient_stats(d.Xf, omega, kappa, t_chunk)
                 J, h = J + Jd, h + hd
         else:
             Y, Xf, _ = rows(datas, w_full.device)
             omega, kappa = obs.omega_kappa(pg_gen, Y, Xf @ w_full, aux)
-            J, h = sufficient_stats(Xf, omega, kappa, mesh=mesh)
+            J, h = sufficient_stats(Xf, omega, kappa, t_chunk, mesh=mesh)
         eps = None
         if mesh is not None:            # drawn at full width, as unsharded
             eps = torch.randn((N, N * B + 1), generator=rep.device,
@@ -244,7 +249,15 @@ def total_log_likelihood(obs, Y, psi, aux, llc, mesh=None):
     return all_reduce_sum(ll.reshape(1), mesh, mesh.axis_names)[0]
 
 
-def make_log_likelihood(obs, N: int, B: int):
+def make_log_likelihood(obs, N: int, B: int, precision: str = "highest"):
+    """log p(Y | state) of one dataset, a 0-d tensor: psi = Xf w, then the
+    family's log_likelihood_sum. `precision` is the JAX package's parameter
+    (one of the four modes; ValueError otherwise); psi is a full float32
+    GEMM at every mode, as in the sweep, so the value equals the sweep's
+    own log-likelihood at every mode (the JAX package's einsum takes the
+    mode's precision)."""
+    check_precision(precision)
+
     @fp32_matmul()
     def log_likelihood(state: GLMState, data: GLMData):
         psi = data.Xf @ pack_weights(state.A, state.W, state.b)

@@ -120,30 +120,34 @@ def _check_tempering(obs):
 
 
 def _make_tempered_pass(obs, network, N: int, B: int, betas,
-                        spike_slab: bool, group: int | None = None,
-                        precision: str = "high"):
+                        spike_slab: bool, t_chunk: int = 512,
+                        group: int | None = None, precision: str = "high"):
     """The within-rung tempered Gibbs pass over the C rungs of `betas`, no
     swaps: (generators, stacked state, datas) -> (stacked state, diag),
     diag's "log_likelihood" (C,) untempered. It is the lane-stacked sweep
     at `betas` (``make_stacked_sweep``)."""
     _check_tempering(obs)
     return make_stacked_sweep(obs, network, N, B, len(betas), spike_slab,
-                              group=group, precision=precision, betas=betas)
+                              t_chunk, group=group, precision=precision,
+                              betas=betas)
 
 
 def make_tempered_sweep(obs, network, N: int, B: int, betas,
-                        spike_slab: bool = True, group: int | None = None,
-                        precision: str = "high"):
+                        spike_slab: bool = True, t_chunk: int = 512,
+                        group: int | None = None, precision: str = "high"):
     """The C-rung parallel-tempering sweep: (generators, stacked state,
     datas) -> (stacked state, diag). Rung c targets the beta_c-power
     posterior; rung C-1 (beta = 1) is the cold chain. diag:
     "log_likelihood" (C,) of the states after the swap (host),
     "n_edges" (C,) before it, "swap_accept" (C,), "swap_parity" (an int),
     and "hmc_accept" (C,) for the latent-distance prior. Raises ValueError
-    for a family that cannot temper (``tempering_blocker``)."""
+    for a family that cannot temper (``tempering_blocker``). `t_chunk`
+    reaches only the dense update's fp32 partial sums
+    (:func:`models.weights.sufficient_stats`), as in the JAX package it
+    reaches only the XLA paths; the kernels keep their own splits of T."""
     betas_h = torch.as_tensor(np.asarray(betas, np.float32))
     gibbs = _make_tempered_pass(obs, network, N, B, betas_h, spike_slab,
-                                group=group, precision=precision)
+                                t_chunk, group=group, precision=precision)
 
     def sweep(gens, st, datas):
         st, d = gibbs(gens, st, datas)
@@ -180,7 +184,7 @@ def _swap_diag(st, lls, perm, accept, parity, n_edges):
 
 
 def make_tempered_sweep_sharded(obs, network, N: int, B: int, betas, mesh,
-                                spike_slab: bool = True,
+                                spike_slab: bool = True, t_chunk: int = 512,
                                 group: int | None = None,
                                 precision: str = "high"):
     """The C-rung tempering sweep with rungs spread over a ("chain",) mesh
@@ -200,7 +204,7 @@ def make_tempered_sweep_sharded(obs, network, N: int, B: int, betas, mesh,
     betas_h = torch.as_tensor(np.asarray(betas, np.float32))
     C = betas_h.shape[0]
     gibbs = make_stacked_sweep_sharded(obs, network, N, B, C, mesh,
-                                       spike_slab, group=group,
+                                       spike_slab, t_chunk, group=group,
                                        precision=precision, betas=betas_h)
     Cl = C // mesh.shape["chain"]
     mine = torch.arange(mesh.index("chain") * Cl,
@@ -221,7 +225,7 @@ def make_tempered_sweep_sharded(obs, network, N: int, B: int, betas, mesh,
 
 
 def make_tempered_sweep_gspmd(obs, network, N: int, B: int, betas, mesh,
-                              spike_slab: bool = True,
+                              spike_slab: bool = True, t_chunk: int = 512,
                               group: int | None = None,
                               precision: str = "high"):
     """The C-rung tempering sweep on a ("chain", "time", "neuron") mesh:
@@ -238,7 +242,7 @@ def make_tempered_sweep_gspmd(obs, network, N: int, B: int, betas, mesh,
     _check_tempering(obs)
     betas_h = torch.as_tensor(np.asarray(betas, np.float32))
     gibbs = make_stacked_sweep_gspmd(obs, network, N, B, betas_h.shape[0],
-                                     mesh, spike_slab, group=group,
+                                     mesh, spike_slab, t_chunk, group=group,
                                      precision=precision, betas=betas_h)
 
     def sweep(gens, st, datas):

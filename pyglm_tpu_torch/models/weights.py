@@ -29,6 +29,7 @@ dispatcher picks it: the fused loop at precision "default", "sr" and
 """
 from __future__ import annotations
 
+import operator
 from typing import NamedTuple
 
 import torch
@@ -95,27 +96,38 @@ def unpack_weights(w_full, N: int, B: int):
     return W, w_full[N * B]
 
 
-# Time steps per fp32 partial sum of the dense statistics (the JAX
-# package's t_chunk), and the bytes of omega-weighted design that one batch
-# of chunks may hold.
+# Time steps per fp32 partial sum of the dense statistics (the default of
+# the JAX package's t_chunk), and the bytes of omega-weighted design that
+# one batch of chunks may hold.
 T_CHUNK = 512
 _CHUNK_BATCH_BYTES = 1 << 28
 
 
-def _chunks(T: int, per_step: int):
-    """(start, stop) of batches of whole T_CHUNK-step chunks, each batch's
+def check_t_chunk(t_chunk) -> int:
+    """t_chunk as an int >= 1; ValueError otherwise."""
+    try:
+        n = operator.index(t_chunk)
+    except TypeError:
+        n = None
+    if n is None or isinstance(t_chunk, bool) or n < 1:
+        raise ValueError(f"t_chunk must be an integer >= 1, got {t_chunk!r}")
+    return n
+
+
+def _chunks(T: int, per_step: int, t_chunk: int = T_CHUNK):
+    """(start, stop) of batches of whole t_chunk-step chunks, each batch's
     weighted design (per_step float32 a step) within _CHUNK_BATCH_BYTES."""
-    n = max(1, _CHUNK_BATCH_BYTES // (4 * per_step * T_CHUNK)) * T_CHUNK
+    n = max(1, _CHUNK_BATCH_BYTES // (4 * per_step * t_chunk)) * t_chunk
     return [(t0, min(t0 + n, T)) for t0 in range(0, T, n)]
 
 
-def _chunked(x, t0, t1):
-    """Rows t0 .. t1 of x (T, ...) as (chunks, T_CHUNK, ...), zero-padded."""
+def _chunked(x, t0, t1, t_chunk: int):
+    """Rows t0 .. t1 of x (T, ...) as (chunks, t_chunk, ...), zero-padded."""
     xs = x[t0:t1]
-    pad = -xs.shape[0] % T_CHUNK
+    pad = -xs.shape[0] % t_chunk
     if pad:
         xs = torch.cat([xs, xs.new_zeros((pad,) + tuple(xs.shape[1:]))])
-    return xs.reshape((-1, T_CHUNK) + tuple(xs.shape[1:]))
+    return xs.reshape((-1, t_chunk) + tuple(xs.shape[1:]))
 
 
 def _time_sum(x, mesh):
@@ -127,23 +139,29 @@ def _time_sum(x, mesh):
 
 
 @fp32_matmul()
-def sufficient_stats(Xf, omega, kappa, mesh=None):
+def sufficient_stats(Xf, omega, kappa, t_chunk: int = T_CHUNK,
+                     precision: str = "highest", mesh=None):
     """J[n] = Xf' diag(omega[:, n]) Xf and h[:, n] = Xf' kappa[:, n]: the
-    dense update's statistics, O(N T P^2). Each T_CHUNK-step chunk is one
+    dense update's statistics, O(N T P^2). Each `t_chunk`-step chunk is one
     fp32 batched GEMM (P x N P by the chunk's steps), and the chunks' sums
-    add up, as the JAX package's scan does; the GEMMs are full float32 at
-    every precision mode (the JAX package's einsum takes the mode's
-    precision: one bf16 pass at "default" on the TPU). Xf (T, P), omega
-    and kappa (T, N); returns J (N, P, P), h (P, N). Under a `mesh` the
-    rows are this time rank's and the lanes its own; J and h are summed
-    over "time" (one all-reduce)."""
+    add up, as the JAX package's scan does. `precision` (one of the four
+    modes; ValueError otherwise) is the JAX package's parameter, and the
+    GEMMs are full float32 at every mode, the port's rule for the dense J
+    and h (the JAX package's einsum takes the mode's precision: one bf16
+    pass at "default" on the TPU). Xf (T, P), omega and kappa (T, N);
+    returns J (N, P, P), h (P, N). Under a `mesh` the rows are this time
+    rank's and the lanes its own; J and h are summed over "time" (one
+    all-reduce)."""
+    check_precision(precision)
+    t_chunk = check_t_chunk(t_chunk)
     T, P = Xf.shape
     N = omega.shape[1]
     J = Xf.new_zeros((N, P, P))
-    for t0, t1 in _chunks(T, N * P):
-        xc, oc = _chunked(Xf, t0, t1), _chunked(omega, t0, t1)
+    for t0, t1 in _chunks(T, N * P, t_chunk):
+        xc = _chunked(Xf, t0, t1, t_chunk)
+        oc = _chunked(omega, t0, t1, t_chunk)
         xw = (oc[:, :, :, None] * xc[:, :, None, :]).reshape(
-            xc.shape[0], T_CHUNK, N * P)                  # (c, tc, N P)
+            xc.shape[0], t_chunk, N * P)                  # (c, tc, N P)
         J += torch.bmm(xw.transpose(1, 2), xc).sum(0).reshape(N, P, P)
     h = Xf.T @ kappa
     if mesh is None:
@@ -153,19 +171,24 @@ def sufficient_stats(Xf, omega, kappa, mesh=None):
 
 
 @fp32_matmul()
-def diag_blocks(Xf, omega, B: int):
+def diag_blocks(Xf, omega, B: int, t_chunk: int = T_CHUNK,
+                precision: str = "highest"):
     """Jd[j, n] = X_j' diag(omega[:, n]) X_j for every presyn j and postsyn
     n, (N_pre, N, B, B): the only quadratic-in-basis statistic the collapsed
-    edge scan needs, O(N^2 T B^2), chunked as :func:`sufficient_stats`."""
+    edge scan needs, O(N^2 T B^2), chunked as :func:`sufficient_stats`
+    (`t_chunk` steps a chunk; full float32 at every `precision`)."""
+    check_precision(precision)
+    t_chunk = check_t_chunk(t_chunk)
     T, P = Xf.shape
     N_pre, N = (P - 1) // B, omega.shape[1]
     acc = Xf.new_zeros((N_pre * B * B, N))
-    for t0, t1 in _chunks(T, N_pre * B * B + N):
-        xc = _chunked(Xf[:, :N_pre * B], t0, t1).reshape(
-            -1, T_CHUNK, N_pre, B)
+    for t0, t1 in _chunks(T, N_pre * B * B + N, t_chunk):
+        xc = _chunked(Xf[:, :N_pre * B], t0, t1, t_chunk).reshape(
+            -1, t_chunk, N_pre, B)
         Z = (xc[..., :, None] * xc[..., None, :]).reshape(
-            xc.shape[0], T_CHUNK, N_pre * B * B)
-        acc += torch.bmm(Z.transpose(1, 2), _chunked(omega, t0, t1)).sum(0)
+            xc.shape[0], t_chunk, N_pre * B * B)
+        acc += torch.bmm(Z.transpose(1, 2),
+                         _chunked(omega, t0, t1, t_chunk)).sum(0)
     return acc.reshape(N_pre, B, B, N).permute(0, 3, 1, 2)
 
 

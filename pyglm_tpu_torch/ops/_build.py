@@ -40,7 +40,8 @@ _ENTRY_POINTS = {
                              _ULL, _ULL, _P],
     "ss_edge_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P],
-    "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _P],
+    "pg_gamma_series_launch": [_P, _P, _P, _LL, _F, _ULL, _ULL, _I, _I,
+                               _P],
     "crt_sample_launch": [_P, _I, _P, _P, _I, _LL, _I, _I, _ULL, _ULL, _P],
     "group_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "group_gram_fp32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -12,8 +12,9 @@
 - :func:`pg_draw_unit` (also :data:`pg_devroye`): a CUDA tensor goes to the
   kernel, a CPU tensor to the plain version.
 - :func:`pg_gamma_series_plain`: PG(b, c) for real b > 0 by the gamma
-  series truncated at ``_GAMMA_K`` terms plus a three-moment shifted-gamma
-  tail, the plain version of kernel ``csrc/pg_gamma.cu``; with a finite
+  series truncated at K terms (``_GAMMA_K`` = 4 by default, the TPU
+  kernel's) plus a three-moment shifted-gamma tail, the plain version of
+  kernel ``csrc/pg_gamma.cu``; with a finite
   ``normal_cutoff`` it draws :func:`pg_normal_approx` where b >= cutoff.
 - :func:`polya_gamma`: the hybrid sampler, dispatching each element to one
   regime (zero, normal approximation, gamma series, Devroye);
@@ -25,6 +26,7 @@ PG(b, c) = (1/(2 pi^2)) sum_k g_k / ((k-1/2)^2 + c^2/(4 pi^2)), g_k ~ Gamma(b).
 from __future__ import annotations
 
 import math
+import operator
 
 import torch
 
@@ -37,6 +39,7 @@ _MAX_OUTER = 64        # proposal rounds (acceptance >= 0.9992 per round)
 _MAX_INNER = 64        # truncated-inverse-Gaussian rounds
 _N_SERIES = 4          # alternating-series terms: a_3/a_0 < 1e-17
 _GAMMA_K = 4           # gamma-series terms drawn exactly (the TPU kernel's K)
+_K_MAX = 2 ** 31 - 1   # the largest K kernel K4 takes (an int)
 # The reference's hybrid dispatch takes the normal approximation from
 # b ~ 170 on; the gamma series is valid below it at b-independent cost.
 _NORMAL_CUTOFF = 170.0
@@ -293,12 +296,20 @@ def _tail_sums(a, K: int):
     """(S1, S2, S3) = sum_{k>K} 1/d_k, 1/d_k^2, 1/d_k^3 with
     d_k = (k-1/2)^2 + a^2, by midpoint-rule integrals plus the first
     Euler-Maclaurin correction, in the JAX package's float32 formulas. The
-    exact S2/S3 cancel catastrophically for small a, so their Taylor series
-    take over below a = 0.5. Integer powers are written as the products
-    XLA evaluates for ``x ** n``."""
-    Kf = float(K)
+    exact S2/S3 cancel catastrophically for small a / K, so their Taylor
+    series take over below a = K/8. Integer powers are written as the
+    products XLA evaluates for ``x ** n``.
+
+    At K = 4 these are the JAX package's sums, operation for operation.
+    Below 4 the formulas run at K' = 4 and the terms K < k <= 4 are added
+    exactly: at K = 1 the JAX package's correction makes S3 negative for
+    a <= 0.35 (and its draws +inf there). Above 4 the Taylor branch reaches
+    a = K/8 (the JAX package switches at 0.5 for every K, where at K = 64
+    its S3 cancels to noise). Kernel K4's run-time body computes the
+    same."""
+    Kf = float(max(K, _GAMMA_K))
     asafe = torch.clamp(a, min=1e-12)
-    small = a < 0.5
+    small = a < Kf / 8.0
     a2 = a * a
     a4 = a2 * a2
     aK = a / Kf
@@ -323,6 +334,9 @@ def _tail_sums(a, K: int):
     S1 = S1 - (2.0 * Kf / 24.0) / (dKa * dKa)
     S2 = S2 - (4.0 * Kf / 24.0) / (dKa * dKa * dKa)
     S3 = S3 - (6.0 * Kf / 24.0) / (dKa * dKa * dKa * dKa)
+    for k in range(_GAMMA_K, K, -1):          # the terms K < k <= 4
+        w = 1.0 / ((k - 0.5) ** 2 + a2)
+        S1, S2, S3 = S1 + w, S2 + w * w, S3 + w * w * w
     return S1, S2, S3
 
 
@@ -345,20 +359,34 @@ def pg_normal_approx(b, c, generator: torch.Generator):
     return torch.clamp(x, min=1e-30)
 
 
-def _gamma_series(b, c, generator):
-    """The truncated series plus its tail, for flat b > 0."""
+def check_terms(K) -> int:
+    """K, the gamma series' exact terms, as an int in 1 .. 2^31 - 1;
+    ValueError for anything else, a float or a bool too (the JAX package's
+    K = 0 gives non-finite draws at c = 0)."""
+    try:
+        k = operator.index(K)
+    except TypeError:
+        k = None
+    if k is None or isinstance(K, bool) or not 1 <= k <= _K_MAX:
+        raise ValueError(f"K must be an integer number of terms in 1 .. "
+                         f"{_K_MAX}, got {K!r}")
+    return k
+
+
+def _gamma_series(b, c, generator, K: int):
+    """The truncated series of K terms plus its tail, for flat b > 0."""
     bs = torch.clamp(b, min=1e-6)
     a = torch.abs(c) / (2.0 * _PI)
-    ks = (torch.arange(_GAMMA_K, dtype=torch.float32, device=b.device)
+    ks = (torch.arange(K, dtype=torch.float32, device=b.device)
           + 0.5) ** 2
     d = ks + (a * a)[:, None]
-    g = sample_gamma(bs[:, None].expand(-1, _GAMMA_K), generator)
+    g = sample_gamma(bs[:, None].expand(-1, K), generator)
     s = torch.sum(g / d, dim=-1) / (2.0 * _PI * _PI)
     # The tail k > K as delta + Gamma(alpha) / beta, matching its first
     # three moments (third cumulants of the terms add: mu3 = 2 b S3 /
     # (2 pi^2)^3). Cauchy-Schwarz (S2^2 <= S1 S3) keeps the shift delta
     # >= 0, so the match stays on the positive support.
-    S1, S2, S3 = _tail_sums(a, _GAMMA_K)
+    S1, S2, S3 = _tail_sums(a, K)
     m_t = bs * S1 / (2.0 * _PI * _PI)
     v_t = bs * S2 / (4.0 * _PI ** 4)
     mu3_t = 2.0 * bs * S3 / (2.0 * _PI * _PI) ** 3
@@ -369,40 +397,45 @@ def _gamma_series(b, c, generator):
 
 
 def pg_gamma_series_plain(b, c, generator: torch.Generator,
-                          normal_cutoff: float = math.inf):
+                          normal_cutoff: float = math.inf,
+                          K: int = _GAMMA_K):
     """PG(b, c) for real b, elementwise over the broadcast of b and c: the
     normal approximation where b >= `normal_cutoff`, else 0 where b <= 0,
-    else the gamma series with K = ``_GAMMA_K`` exact Gamma(max(b, 1e-6))
-    terms (Marsaglia-Tsang, :func:`sample_gamma`) and the moment-matched
-    tail. With the default cutoff this is the JAX package's
-    ``pg_gamma_series(key, b, c, K=4)``. Draws on `generator`'s device.
+    else the gamma series with K exact Gamma(max(b, 1e-6)) terms
+    (Marsaglia-Tsang, :func:`sample_gamma`) and the moment-matched tail.
+    With the default cutoff this is the JAX package's
+    ``pg_gamma_series(key, b, c, K=K)``, with sound tail sums at K != 4
+    (:func:`_tail_sums`). Draws on `generator`'s device. ValueError unless
+    K is an integer >= 1.
 
     For b << 1 most Gamma(b) terms underflow to 0 in float32 (as they do in
     the JAX sampler); the tail's shift delta, proportional to b, keeps
     every draw > 0, which the sweep's psi = (kappa - u) / omega needs.
     """
+    K = check_terms(K)
     b, c = _f32_pair(b, c)
     out = torch.zeros_like(c)
     normal = b >= normal_cutoff
     series = (b > 0) & ~normal
     out[normal] = pg_normal_approx(b[normal], c[normal], generator)
-    out[series] = _gamma_series(b[series], c[series], generator)
+    out[series] = _gamma_series(b[series], c[series], generator, K)
     return out
 
 
-def _gamma_or_normal(b, c, generator, normal_cutoff):
-    """Kernel K4 for CUDA tensors, its plain version for CPU tensors."""
+def _gamma_or_normal(b, c, generator, normal_cutoff, K: int):
+    """Kernel K4 (at K terms) for CUDA tensors, its plain version for CPU
+    tensors."""
     if c.is_cuda:
         from pyglm_tpu_torch.ops.pg_gamma_cuda import pg_gamma_series_cuda
         return pg_gamma_series_cuda(b, c, *_build.philox_seed(generator),
-                                    normal_cutoff=normal_cutoff)
+                                    normal_cutoff=normal_cutoff, K=K)
     if c.device.type != "cpu":
         raise ValueError(f"polya_gamma: no PG sampler for device {c.device}")
-    return pg_gamma_series_plain(b, c, generator, normal_cutoff)
+    return pg_gamma_series_plain(b, c, generator, normal_cutoff, K)
 
 
 def polya_gamma(b, c, generator: torch.Generator, method: str = "auto",
-                mesh=None):
+                K: int = _GAMMA_K, mesh=None):
     """Hybrid PG(b, c) sampler over the broadcast of b and c.
 
     method:
@@ -414,6 +447,11 @@ def polya_gamma(b, c, generator: torch.Generator, method: str = "auto",
       "devroye" -- exact PG(1, c) for every element (b is ignored);
       "gamma"   -- the gamma series wherever b > 0, 0 elsewhere;
       "normal"  -- the normal approximation for every element.
+
+    K: the gamma series' exact terms (the JAX package's K, 4 by default);
+    K4 takes any integer K >= 1 (a body of its own for K = 4, one that
+    reads K at run time otherwise), so no K falls back to the plain
+    version. ValueError for K < 1 or a non-integer.
 
     Each element is drawn once, in its regime (the JAX package draws the
     normal and the gamma value for every element and overlays them). K4
@@ -428,31 +466,34 @@ def polya_gamma(b, c, generator: torch.Generator, method: str = "auto",
     """
     if method not in _METHODS:
         raise ValueError(f"unknown PG method {method!r}; one of {_METHODS}")
+    K = check_terms(K)
     b, c = _f32_pair(b, c)
     if mesh is not None:
-        return _mesh_draw(lambda bb, cc, g: polya_gamma(bb, cc, g, method),
+        return _mesh_draw(lambda bb, cc, g: polya_gamma(bb, cc, g, method,
+                                                        K),
                           generator, mesh, b, c)
     if method == "devroye":
         return pg_draw_unit(c, generator)
     cutoff = {"gamma": math.inf, "normal": -math.inf}.get(method,
                                                            _NORMAL_CUTOFF)
     if method != "auto":
-        return _gamma_or_normal(b, c, generator, cutoff)
+        return _gamma_or_normal(b, c, generator, cutoff, K)
     unit = b == 1.0
     n_unit = int(unit.sum())
     if n_unit == unit.numel():
         return pg_draw_unit(c, generator)
     if n_unit == 0:
-        return _gamma_or_normal(b, c, generator, cutoff)
+        return _gamma_or_normal(b, c, generator, cutoff, K)
     out = torch.empty_like(c)
     out[unit] = pg_draw_unit(c[unit], generator)
     rest = ~unit
-    out[rest] = _gamma_or_normal(b[rest], c[rest], generator, cutoff)
+    out[rest] = _gamma_or_normal(b[rest], c[rest], generator, cutoff, K)
     return out
 
 
-def pg_gamma_series(b, c, generator: torch.Generator):
-    """PG(b, c) by the gamma series wherever b > 0, 0 elsewhere (the JAX
-    package's ``pg_gamma_series``): kernel K4 for CUDA tensors, its plain
-    version for CPU tensors; ``polya_gamma(..., method="gamma")``."""
-    return polya_gamma(b, c, generator, method="gamma")
+def pg_gamma_series(b, c, generator: torch.Generator, K: int = _GAMMA_K):
+    """PG(b, c) by the gamma series of K exact terms wherever b > 0, 0
+    elsewhere (the JAX package's ``pg_gamma_series``): kernel K4 for CUDA
+    tensors, its plain version for CPU tensors;
+    ``polya_gamma(..., method="gamma", K=K)``."""
+    return polya_gamma(b, c, generator, method="gamma", K=K)

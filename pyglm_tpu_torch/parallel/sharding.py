@@ -631,7 +631,7 @@ def make_sharded_sweep(model, mesh: Mesh):
     from pyglm_tpu_torch.models.sweep import make_gibbs_sweep
     require_mesh(mesh, DATA_AXES)
     sweep = make_gibbs_sweep(model.observation, model.network, model.N,
-                             model.B, model.spike_and_slab,
+                             model.B, model.spike_and_slab, model.t_chunk,
                              group=model.group, precision=model.precision,
                              mesh=mesh)
     local = [model._ingest(d.Y, mesh) for d in model.datas]

@@ -553,6 +553,59 @@ def test_pg_gamma_kernel_regimes_and_streams(gen):
         pg_gamma_series_cuda(big.T, big, 1, 0)
 
 
+@pytest.mark.parametrize("K", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("b,c", [(0.3, 1.0), (4.5, 1.0), (40.0, 6.0)])
+def test_pg_gamma_run_time_body_matches_plain(gen, K, b, c):
+    """K4's run-time body at K series terms against the plain version at K
+    (KS p > 1e-3) and pg_mean (6 standard errors); at (0.3, 1) every term
+    is boosted, so K > 4 refills the boost words. Each call counts under
+    K4's launch key."""
+    from scipy.stats import ks_2samp
+    n = 100_000
+    bv, cv = torch.full((n,), b, device="cuda"), torch.full((n,), c,
+                                                            device="cuda")
+    before = _build.LAUNCHES["pg_gamma_series"]
+    k = pg_gamma_series_cuda(bv, cv, 23, 1, K=K)
+    assert _build.LAUNCHES["pg_gamma_series"] == before + 1
+    p = pg_gamma_series_plain(bv, cv, gen, K=K)
+    assert torch.isfinite(k).all() and (k > 0).all()
+    assert ks_2samp(k.cpu().numpy(), p.cpu().numpy()).pvalue > 1e-3
+    se = float(pg_var(b, c)) ** 0.5 / np.sqrt(n)
+    assert abs(float(k.double().mean()) - float(pg_mean(b, c))) < 6 * se
+
+
+def test_pg_gamma_run_time_body_at_four_is_the_four_term_body(gen):
+    """At K = 4 the run-time body draws what the four-term body draws on
+    the same stream, to 1e-6 relative (its tail sums' constants are
+    computed, not folded), and bit for bit where the series is boosted
+    (the same Philox words, the same arithmetic)."""
+    b = 0.2 + 10.0 * torch.rand((400, 500), generator=gen, device="cuda")
+    c = 4.0 * torch.randn((400, 500), generator=gen, device="cuda")
+    x = pg_gamma_series_cuda(b, c, 9, 2)
+    y = pg_gamma_series_cuda(b, c, 9, 2, K=4, run_time_body=True)
+    assert float(((x - y) / x).abs().max()) <= 1e-6
+    bs = torch.full((200_000,), 0.3, device="cuda")
+    cs = torch.ones_like(bs)
+    assert torch.equal(pg_gamma_series_cuda(bs, cs, 5, 0),
+                       pg_gamma_series_cuda(bs, cs, 5, 0, K=4,
+                                            run_time_body=True))
+
+
+def test_pg_gamma_public_samplers_take_K(gen):
+    from pyglm_tpu_torch.ops.polyagamma import pg_gamma_series, polya_gamma
+    b = torch.full((300, 40), 2.5, device="cuda")
+    c = torch.linspace(-3.0, 3.0, 12000, device="cuda").reshape(300, 40)
+    host = torch.Generator().manual_seed(1)
+    _build.reset_launches()
+    for K in (1, 7, 32):
+        for fn in (polya_gamma, pg_gamma_series):
+            x = fn(b, c, host, K=K)
+            assert x.is_cuda and torch.isfinite(x).all() and (x > 0).all()
+    assert _build.LAUNCHES["pg_gamma_series"] == 6
+    with pytest.raises(ValueError):
+        pg_gamma_series_cuda(b, c, 1, 0, K=0)
+
+
 @pytest.mark.parametrize("y_val,r_val", [(1, 0.5), (4, 2.0), (12, 5.0),
                                          (15, 0.7)])
 def test_crt_kernel_matches_plain_law(gen, y_val, r_val):

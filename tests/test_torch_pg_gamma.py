@@ -2,6 +2,12 @@
 the JAX package on the CPU.
 
 - ``_tail_sums`` elementwise against JAX (rtol 1e-5);
+- at K != 4 series terms: ``_tail_sums`` against float64 sums (at the
+  accuracy of the JAX package's own K = 4 sums) and against JAX's where
+  the two use the same formula; the plain sampler against JAX's
+  ``pg_gamma_series(..., K=K)`` (KS) and pg_mean (|z| < 6); K = 4 by
+  default, bit for bit; K threaded through the mesh path; a K that is no
+  whole number >= 1 raises;
 - the plain gamma-series sampler (the twin of kernel K4): sample mean and
   variance against pg_mean/pg_var (|z| < 6, the z of the variance from the
   sample's own fourth moment), two-sample KS against JAX's
@@ -58,6 +64,128 @@ def test_tail_sums_match_jax():
         g, r = g.numpy(), np.asarray(r)
         np.testing.assert_allclose(g[~band], r[~band], rtol=1e-5, atol=0)
         np.testing.assert_allclose(g[band], r[band], rtol=rtol_band, atol=0)
+
+
+# Sample points of a: the existing test's, a band over the exact branch's
+# start at larger K, and a log grid up to 300.
+_A_K = np.concatenate([[0.0, 1e-6, 0.1, 0.49, 0.499, 0.5, 0.51, 1.0, 5.0,
+                        50.0, 300.0], np.random.default_rng(0).uniform(
+                            0, 10, 200), np.linspace(0.5, 40.0, 300),
+                       np.geomspace(1.0, 300.0, 60)]).astype(np.float32)
+
+
+def _exact_tail_sums(a, K, kmax=20_000):
+    """sum_{k>K} d_k^-p, p = 1, 2, 3, in float64: the terms up to kmax,
+    then the integral of the rest."""
+    a = a.astype(np.float64)
+    k = np.arange(K + 1, kmax + 1, dtype=np.float64)
+    d = (k - 0.5)[None, :] ** 2 + a[:, None] ** 2
+    safe = np.maximum(a, 1e-300)
+    r1 = np.where(a > 0, (np.pi / 2 - np.arctan2(kmax, safe)) / safe,
+                  1.0 / kmax)
+    return ((1 / d).sum(1) + r1, (1 / d ** 2).sum(1) + 1 / (3 * kmax ** 3),
+            (1 / d ** 3).sum(1) + 1 / (5 * kmax ** 5))
+
+
+@pytest.mark.parametrize("K", [1, 2, 4, 8, 64])
+def test_tail_sums_at_K_match_float64(K):
+    """The sums the tail's moments come from, at K terms, against float64
+    sums, within the accuracy the JAX package's own sums have at K = 4
+    (1.1e-4, 1.6e-3 and 7.9e-3 at worst on these a): at K = 1 JAX's
+    formulas give S3 < 0 for a <= 0.35 (so +inf draws), and above K = 4
+    its exact branch cancels for 0.5 <= a << K (at K = 64 S3 is 41x off,
+    or <= 0); the port adds the terms K < k <= 4 exactly and starts that
+    branch at a = K/8, as kernel K4's run-time body does."""
+    got = tp._tail_sums(torch.from_numpy(_A_K), K)
+    for g, r, rtol in zip(got, _exact_tail_sums(_A_K, K), (2e-4, 2e-3, 1e-2)):
+        g = g.double().numpy()
+        assert (g > 0).all()
+        np.testing.assert_allclose(g, r, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("K", [1, 2, 8, 64])
+def test_tail_sums_at_K_match_jax_where_the_formulas_agree(K):
+    """Against JAX's _tail_sums at K where both packages run the same
+    formula (K >= 4, a < 0.5 or a >= K/8): rtol 1e-5, and 2e-5 / 1e-3 for
+    S2 / S3 where the exact branch cancels (its first fifth, as at K = 4
+    on 0.5 <= a < 2.1). At K = 1 and 2 the formulas differ everywhere: JAX's
+    S3 goes negative at K = 1 (asserted) and is 11% off at K = 2."""
+    a = _A_K
+    got = [g.numpy() for g in tp._tail_sums(torch.from_numpy(a), K)]
+    ref = [np.asarray(r) for r in jp._tail_sums(jnp.asarray(a), K)]
+    if K < 4:
+        exact = _exact_tail_sums(a, K)
+        assert np.abs(ref[2] / exact[2] - 1).max() > 0.1
+        assert (ref[2] < 0).any() == (K == 1)
+        return
+    same = (a < 0.5) | (a >= K / 8)
+    band = (a >= K / 8) & (a < 4.2 * K / 8)
+    assert same.sum() > 100 and band.sum() > 10
+    for g, r, rtol_band in zip(got, ref, (1e-5, 2e-5, 1e-3)):
+        np.testing.assert_allclose(g[same & ~band], r[same & ~band],
+                                   rtol=1e-5, atol=0)
+        np.testing.assert_allclose(g[band], r[band], rtol=rtol_band, atol=0)
+
+
+# Three points of GRID for the draws at K != 4. At K = 1 the JAX package's
+# draws are +inf at the first two (its S3 < 0 for a <= 0.35; asserted), so
+# there the port is held against JAX's K = 4 draws, the law both
+# approximate.
+K_GRID = [(1.0, 2.0), (4.5, 1.0), (40.0, 6.0)]
+
+
+@pytest.mark.parametrize("K", [1, 2, 8])
+@pytest.mark.parametrize("b,c", K_GRID)
+def test_plain_series_at_K_vs_jax(K, b, c):
+    n = 50_000
+    ours = _plain(b, c, seed=int(b * 100 + c) + 17 * K, n=n, K=K)
+    args = (jax.random.key(int(b * 100 + c) + K),
+            jnp.full((n,), b, jnp.float32), jnp.full((n,), c, jnp.float32))
+    ref = np.asarray(jp.pg_gamma_series(*args, K=K))
+    if K == 1 and c < 3.0:
+        assert np.isposinf(ref).all()
+        ref = np.asarray(jp.pg_gamma_series(*args, K=4))
+    assert np.isfinite(ours).all() and (ours > 0).all()
+    assert scipy.stats.ks_2samp(ours, ref).pvalue > P_MIN
+    m, v = float(tp.pg_mean(b, c)), float(tp.pg_var(b, c))
+    assert abs(ours.mean() - m) < Z_MAX * math.sqrt(v / n)
+
+
+def test_default_K_is_four_bit_for_bit():
+    b = torch.tensor([0.3, 1.0, 2.5, 4.5, 13.0, 200.0] * 500)
+    c = torch.linspace(-5.0, 5.0, b.numel())
+    for fn, kw in ((tp.polya_gamma, {}), (tp.polya_gamma, {"method": "real"}),
+                   (tp.pg_gamma_series, {})):
+        assert torch.equal(fn(b, c, _gen(3), **kw),
+                           fn(b, c, _gen(3), K=4, **kw))
+    assert torch.equal(tp.pg_gamma_series_plain(b, c, _gen(4), 170.0),
+                       tp.pg_gamma_series_plain(b, c, _gen(4), 170.0, 4))
+    # Another K is another draw.
+    assert not torch.equal(tp.pg_gamma_series(b, c, _gen(3)),
+                           tp.pg_gamma_series(b, c, _gen(3), K=2))
+
+
+def test_K_reaches_the_mesh_draw(monkeypatch):
+    """polya_gamma(mesh=) hands K to the tile's draw: with the mesh's
+    tiling replaced by the whole array, it is the unsharded draw at K."""
+    monkeypatch.setattr(tp, "_mesh_draw",
+                        lambda draw, g, mesh, *arrays: draw(*arrays, g))
+    b, c = torch.full((64, 6), 3.5), torch.linspace(-2.0, 2.0, 384)
+    for K in (1, 4, 7):
+        got = tp.polya_gamma(b, c.reshape(64, 6), _gen(8), method="gamma",
+                             K=K, mesh=object())
+        assert torch.equal(got, tp.pg_gamma_series(b, c.reshape(64, 6),
+                                                   _gen(8), K=K))
+
+
+@pytest.mark.parametrize("K", [0, -1, 2.5, 4.0, True, "4"])
+def test_K_must_be_a_whole_number_of_terms(K):
+    b, c = torch.ones(3), torch.zeros(3)
+    for call in (lambda: tp.polya_gamma(b, c, _gen(0), K=K),
+                 lambda: tp.pg_gamma_series(b, c, _gen(0), K=K),
+                 lambda: tp.pg_gamma_series_plain(b, c, _gen(0), K=K)):
+        with pytest.raises(ValueError, match="K must be"):
+            call()
 
 
 @pytest.mark.parametrize("b,c", GRID + [(1e-3, 1.0), (0.05, 1.0)])
