@@ -12,22 +12,23 @@ SparseNegativeBinomialGLM(200, B=4, L=10, max_y=16) fitted to T=100k counts
 of a truth model (seed 42, sigma_w=0.003, mu_bias=-2.0, counts capped at
 15), timed as ``flagship``. ``ensemble``: the
 acceptance suite's config 5 (latent-distance truth N=500, T=20k,
-mu_bias=-3), the lane-stacked sweep of 8 chains, 2 warm-up sweeps, then 2
-traced sweeps. Prints, per sweep: the wall time untraced (host clock, ending
-in a synchronize) and traced, the device busy time and idle share, the
-kernel time by name (torch.profiler), and for the ensemble the time of the
-spike-and-slab update, of K6 alone and of the network resample (HMC and
-NIW) alone, each timed apart on the same state. ``dense``: acceptance
-config 1, BernoulliGLM(27, B=4, L=10) on its truth's T=60k bins; ``sbm``:
-acceptance config 4 (SBM prior, K=5, N=100) on its truth's T=40k bins,
-with the network resample and its label scan timed apart (host clock);
-``gaussian``: SparseGaussianGLM(200, B=4, L=10) on T=100k bins of unit
-Gaussian noise (the staged loop on the cached group Gram); each timed as
-``flagship``. ``tempered``: config 5's model tempered (models/
-tempering.py), 8 rungs on the ladder of a 20 + 20-sweep pilot
-(fit_tempered's), 2 warm-up tempered sweeps, 3 timed, 2 traced. Every
-model, sweep and update runs at ``--precision`` ("high" by default, as
-the models). Needs a CUDA card.
+mu_bias=-3), the lane-stacked sweep of 8 chains, 2 warm-up sweeps, 3
+timed, then 2 traced sweeps. Prints, per sweep: the wall time untraced
+(host clock, ending in a synchronize) and traced, the device busy time and
+idle share, the kernel time by name (torch.profiler), and the program's
+span table over the timed sweeps (diagnostics/profiling.py's recorder, on
+while they run): each stage's self time (its span less the spans inside
+it) and whole time on the host clock, its calls, and the sweep's ``wait``
+spans (calls that make the host wait for the card) and kernel launches.
+``dense``: acceptance config 1, BernoulliGLM(27, B=4, L=10) on its truth's
+T=60k bins; ``sbm``: acceptance config 4 (SBM prior, K=5, N=100) on its
+truth's T=40k bins; ``gaussian``: SparseGaussianGLM(200, B=4, L=10) on
+T=100k bins of unit Gaussian noise (the staged loop on the cached group
+Gram); each timed as ``flagship``. ``tempered``: config 5's model
+tempered (models/tempering.py), 8 rungs on the ladder of a 20 + 20-sweep
+pilot (fit_tempered's), 2 warm-up tempered sweeps, 3 timed, 2 traced.
+Every model, sweep and update runs at ``--precision`` ("high" by default,
+as the models). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ import subprocess
 import time
 
 import torch
+
+from pyglm_tpu_torch.diagnostics.profiling import recording
 
 
 def _wall(fn, reps):
@@ -84,12 +87,32 @@ def _report(name, untraced, traced, kernels, top=14):
         print(f"  {v:9.3f} ms  {100 * v / busy:5.1f}%  {k[:90]}")
 
 
-def _timed(m, label):
-    for _ in range(3):
-        m.resample_model()
-    untraced = _wall(m.resample_model, 20)
-    traced, kernels = _trace(m.resample_model, 5)
+def _spans(rec):
+    """The recorded steps' span table, per step."""
+    n = len(rec.steps)
+    print(f"  spans per sweep (host clock, {n} timed sweeps): self ms, "
+          f"whole ms, calls")
+    for path, calls, total, own in rec.table():
+        print(f"  {own / n / 1e6:9.3f} {total / n / 1e6:9.3f} "
+              f"{calls / n:6.2f}  {path}")
+    waits = sum(s["waits"] for s in rec.steps) / n
+    launches = sum(sum(s["launches"].values()) for s in rec.steps) / n
+    print(f"  waits per sweep {waits:.2f}, kernel launches of the port's "
+          f"kernels per sweep {launches:.2f}")
+
+
+def _profile(label, one, warmup, reps, traced_reps):
+    for _ in range(warmup):
+        one()
+    with recording() as rec:
+        untraced = _wall(one, reps)
+    traced, kernels = _trace(one, traced_reps)
     _report(label, untraced, traced, kernels)
+    _spans(rec)
+
+
+def _timed(m, label):
+    _profile(label, m.resample_model, 3, 20, 5)
 
 
 def flagship(precision):
@@ -122,11 +145,8 @@ def nb(precision):
 def ensemble(precision):
     from pyglm_tpu_torch import NonlinearAutoregressiveModel
     from pyglm_tpu_torch.models.ensemble import (
-        chain_generators, lane_inputs, make_stacked_sweep, stack_states,
-        unstack_states)
+        chain_generators, make_stacked_sweep, stack_states)
     from pyglm_tpu_torch.models.sweep import init_state_from_prior
-    from pyglm_tpu_torch.models.weights import (
-        group_gram_blocks, resample_spike_slab_tspace)
     N, T, C, B = 500, 20_000, 8, 4
     kw = dict(B=B, L=10, observation="bernoulli",
               network="latent_distance", spike_and_slab=True)
@@ -142,33 +162,12 @@ def ensemble(precision):
     sweep = make_stacked_sweep(m.observation, m.network, N, B, C, True,
                                group=m.group, precision=precision)
     datas = tuple(m.datas)
-    for _ in range(2):
-        st, _ = sweep(gens, st, datas)
     box = [st]
 
     def one():
         box[0], _ = sweep(gens, box[0], datas)
-    untraced = _wall(one, 3)
-    traced, kernels = _trace(one, 2)
-    _report(f"ensemble stacked sweep ({C} chains x {N}, {precision})",
-            untraced, traced, kernels)
-    d = m.datas[0]
-    chains = unstack_states(box[0], C)
-    w, hyp = lane_inputs(m.network, chains)
-    psi = d.Xf @ w
-    omega, kappa = m.observation.omega_kappa(gens.host, d.Y.repeat(1, C),
-                                             psi, None)
-    ss_ms = _wall(lambda: resample_spike_slab_tspace(
-        gens.device, d.Xt, omega, kappa, psi, w, hyp, B, group=m.group,
-        precision=precision, host_generator=gens.host), 3)
-    k6_ms = _wall(lambda: group_gram_blocks(d.Xt, omega, B, m.group,
-                                            precision=precision), 3)
-    st1 = box[0]
-    net_ms = _wall(lambda: m.network.resample(gens, st1.net, st1.A, st1.W),
-                   3)
-    print(f"  apart, on the same state: spike-and-slab update {ss_ms:.2f} ms"
-          f" (K6 alone {k6_ms:.2f} ms), network resample (HMC + NIW) "
-          f"{net_ms:.2f} ms")
+    _profile(f"ensemble stacked sweep ({C} chains x {N}, {precision})", one,
+             2, 3, 2)
 
 
 def tempered(precision):
@@ -196,12 +195,8 @@ def tempered(precision):
 
     def one():
         box[0], _ = sweep(gens, box[0], datas)
-    for _ in range(2):
-        one()
-    untraced = _wall(one, 3)
-    traced, kernels = _trace(one, 2)
-    _report(f"tempered sweep ({C} rungs x {N}, betas "
-            f"{betas[0]:.4f}..1, {precision})", untraced, traced, kernels)
+    _profile(f"tempered sweep ({C} rungs x {N}, betas {betas[0]:.4f}..1, "
+             f"{precision})", one, 2, 3, 2)
 
 
 def _fitted(name, precision):
@@ -220,21 +215,8 @@ def dense(precision):
 
 
 def sbm(precision):
-    import numpy as np
-    m = _fitted("4_sbm", precision)
-    _timed(m, f"config 4 SBM sweep, N=100, K=5, T=40k ({precision})")
-    st, net = m.state, m.network
-    net_ms = _wall(lambda: net.resample(m.generators, st.net, st.A, st.W), 10)
-    tabs = [x.double().cpu().numpy() for x in
-            net._scan_tables(net._edge_tables(st.net, st.A, st.W))]
-    c, pi = st.net.c.numpy(), st.net.pi.double().numpy()
-    u = np.random.default_rng(0).random(net.N)
-    t0 = time.perf_counter()
-    for _ in range(10):
-        net._label_scan(*tabs, c, pi, u)
-    scan_ms = (time.perf_counter() - t0) / 10 * 1e3
-    print(f"  apart: the SBM resample {net_ms:.2f} ms (host clock), its "
-          f"label scan alone {scan_ms:.2f} ms (host)")
+    _timed(_fitted("4_sbm", precision),
+           f"config 4 SBM sweep, N=100, K=5, T=40k ({precision})")
 
 
 def gaussian(precision):

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pyglm_tpu_torch.diagnostics.profiling import span, wait
 from pyglm_tpu_torch.models.networks import LatentDistanceConfig
 from pyglm_tpu_torch.models.sweep import (
     Generators, GLMState, MeshGenerators, concat_datas, init_state_from_prior,
@@ -142,6 +143,11 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
     (kappa - u) / omega from the tempered kappa and omega. A family that
     tempers resamples no aux (``tempering_blocker``).
 
+    The sweep is one step span "stacked_sweep" of ``diagnostics.
+    profiling`` with the stages of models/sweep.py's: "hypers" (the lane
+    packing of the chains' weights, priors and Y), "psi", "pg_draws",
+    "weights", "aux", "loglik" and "network".
+
     With a ("chain", "time", "neuron") `mesh`
     (:func:`make_stacked_sweep_gspmd`) it is one rank's sweep:
     ``sweep(MeshGenerators, stacked state, local datas)``. The stacked
@@ -161,7 +167,8 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
 
     def on(name, x, device):
         if name not in on_dev:
-            on_dev[name] = x.to(device)
+            with wait(name):
+                on_dev[name] = x.to(device)
         return on_dev[name]
     if mesh is not None:
         from pyglm_tpu_torch.models.sweep import _concat_rows, mesh_rows
@@ -177,60 +184,72 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
 
     @fp32_matmul()
     def sweep(gens, st: GLMState, datas):
+        with span("stacked_sweep", step=True):
+            return stacked(gens, st, datas)
+
+    def stacked(gens, st: GLMState, datas):
         rep, pg_gen = (gens.replicated, gens.shard.host) if mesh is not None \
             else (gens, gens.host)
-        chains = unstack_states(st, C)
-        w_lane, hyp = lane_inputs(network, chains)
-        aux_lane = (None if st.aux is None else
-                    {k: v.reshape(-1) for k, v in st.aux.items()})
-        if mesh is None:
-            Y, Xf, Xt = concat_datas(datas)  # datasets concatenate in time
-            Y_lane = Y.repeat(1, C)                               # (T, C*N)
-            shard = path = None
-        else:
-            Y, Xf, Xt = _concat_rows(mesh_rows(datas, mesh), N, N * B + 1,
-                                     w_lane.device)
-            Y_lane = Y[:, on("cols", cols, Y.device)]
-            w_lane = w_lane[:, lanes].contiguous()
-            hyp = lane_hypers(hyp, lanes)
-            if aux_lane is not None:
-                aux_lane = {k: v[lanes] for k, v in aux_lane.items()}
-            shard = lane_sh._replace(generator=rep.host)
-            path = mesh_ss_path(precision,
-                                whole_rows=any(d.whole for d in datas))
+        with span("hypers"):
+            chains = unstack_states(st, C)
+            w_lane, hyp = lane_inputs(network, chains)
+            aux_lane = (None if st.aux is None else
+                        {k: v.reshape(-1) for k, v in st.aux.items()})
+            if mesh is None:
+                Y, Xf, Xt = concat_datas(datas)  # they concatenate in time
+                Y_lane = Y.repeat(1, C)                           # (T, C*N)
+                shard = path = None
+            else:
+                Y, Xf, Xt = _concat_rows(mesh_rows(datas, mesh), N,
+                                         N * B + 1, w_lane.device)
+                Y_lane = Y[:, on("cols", cols, Y.device)]
+                w_lane = w_lane[:, lanes].contiguous()
+                hyp = lane_hypers(hyp, lanes)
+                if aux_lane is not None:
+                    aux_lane = {k: v[lanes] for k, v in aux_lane.items()}
+                shard = lane_sh._replace(generator=rep.host)
+                path = mesh_ss_path(precision,
+                                    whole_rows=any(d.whole for d in datas))
 
-        psi = Xf @ w_lane
-        if beta_lane is None:
-            omega, kappa = obs.omega_kappa(pg_gen, Y_lane, psi, aux_lane)
-        else:
-            omega, kappa = obs.tempered_omega_kappa(
-                pg_gen, Y_lane, psi, aux_lane,
-                on("beta", beta_lane, psi.device))
-        if spike_slab:
-            A_lane, w_lane, u, _ = resample_spike_slab_tspace(
-                rep.device, Xt, omega, kappa, psi, w_lane, hyp, B,
-                group=group, precision=precision, host_generator=rep.host,
-                path=path, mesh=mesh)
-            psi = (kappa - u) / omega
-            del u
-        else:
-            J, h = sufficient_stats(Xf, omega, kappa, t_chunk, mesh=mesh)
-            eps = None
-            if mesh is not None:        # drawn at full width, as unsharded
-                eps = torch.randn((C * N, Xf.shape[1]), generator=rep.device,
-                                  device=psi.device)[lanes].contiguous()
-            w_lane = resample_dense(rep.device, J, h, hyp, B, eps=eps)
-            A_lane = torch.ones((N, w_lane.shape[1]), dtype=torch.float32,
-                                device=w_lane.device)
+        with span("psi"):
             psi = Xf @ w_lane
-        del omega, kappa
-        aux_lane = obs.resample_aux(pg_gen, aux_lane, Y_lane, psi,
-                                    shard=shard)
-        ll_el = obs.log_likelihood(Y_lane, psi, aux_lane)
-        if mesh is None:
-            lls = ll_el.reshape(-1, C, N).sum(dim=(0, 2))
-        else:
-            lls = shard.full(ll_el.sum(0)).reshape(C, N).sum(1)
+        with span("pg_draws"):
+            if beta_lane is None:
+                omega, kappa = obs.omega_kappa(pg_gen, Y_lane, psi, aux_lane)
+            else:
+                omega, kappa = obs.tempered_omega_kappa(
+                    pg_gen, Y_lane, psi, aux_lane,
+                    on("beta", beta_lane, psi.device))
+        with span("weights"):
+            if spike_slab:
+                A_lane, w_lane, u, _ = resample_spike_slab_tspace(
+                    rep.device, Xt, omega, kappa, psi, w_lane, hyp, B,
+                    group=group, precision=precision,
+                    host_generator=rep.host, path=path, mesh=mesh)
+                psi = (kappa - u) / omega
+                del u
+            else:
+                J, h = sufficient_stats(Xf, omega, kappa, t_chunk, mesh=mesh)
+                eps = None
+                if mesh is not None:    # drawn at full width, as unsharded
+                    eps = torch.randn((C * N, Xf.shape[1]),
+                                      generator=rep.device,
+                                      device=psi.device)[lanes].contiguous()
+                w_lane = resample_dense(rep.device, J, h, hyp, B, eps=eps)
+                A_lane = torch.ones((N, w_lane.shape[1]),
+                                    dtype=torch.float32, device=w_lane.device)
+                psi = Xf @ w_lane
+            del omega, kappa
+        with span("aux"):
+            aux_lane = obs.resample_aux(pg_gen, aux_lane, Y_lane, psi,
+                                        shard=shard)
+        with span("loglik"):
+            ll_el = obs.log_likelihood(Y_lane, psi, aux_lane)
+            if mesh is None:
+                lls = ll_el.reshape(-1, C, N).sum(dim=(0, 2))
+            else:
+                lls = shard.full(ll_el.sum(0)).reshape(C, N).sum(1)
+        if mesh is not None:
             Aw = all_gather(torch.cat([A_lane, w_lane]), mesh, LA, dim=1)
             A_lane, w_lane = Aw[:N], Aw[N:]
             if aux_lane is not None:
@@ -241,11 +260,12 @@ def make_stacked_sweep(obs, network, N: int, B: int, C: int,
         A = _from_lanes(A_lane, C).contiguous()                   # (C, N, N)
         aux = (None if aux_lane is None else
                {k: v.reshape(C, N) for k, v in aux_lane.items()})
-        if batched_net:
-            net = network.resample(rep, st.net, A, W)
-        else:
-            net = _stack([network.resample(rep, s.net, A[c], W[c])
-                          for c, s in enumerate(chains)])
+        with span("network"):
+            if batched_net:
+                net = network.resample(rep, st.net, A, W)
+            else:
+                net = _stack([network.resample(rep, s.net, A[c], W[c])
+                              for c, s in enumerate(chains)])
         diag = {"log_likelihood": lls, "n_edges": A.sum(dim=(1, 2))}
         if hasattr(net, "hmc_accept"):
             diag["hmc_accept"] = net.hmc_accept

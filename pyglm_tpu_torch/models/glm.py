@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pyglm_tpu_torch.diagnostics.profiling import span, wait
 from pyglm_tpu_torch.models.ensemble import (
     _CHAIN_SALT, chain_generators, ensemble_generators, run_stacked_chains,
 )
@@ -104,40 +105,42 @@ class NonlinearAutoregressiveModel:
                  group: int | None = None, device="cuda",
                  obs_kwargs: Optional[dict] = None,
                  net_kwargs: Optional[dict] = None):
-        check_precision(precision)
-        self.t_chunk = check_t_chunk(t_chunk)
-        if basis is None:
-            basis = cosine_basis(B=B, L=L)
-        basis = np.asarray(basis, np.float32)
-        self.N = N
-        self.L, self.B = basis.shape
-        self.basis = basis
-        self.spike_and_slab = bool(spike_and_slab)
-        self.precision = precision
-        self.device = require_device(device)
-        self.observation = (make_observation(observation, **(obs_kwargs or {}))
-                            if isinstance(observation, str) else observation)
-        self.network = (make_network(network, N=N, B=self.B,
-                                     **(net_kwargs or {}))
-                        if isinstance(network, str) else network)
-        self.group = _auto_group(N, self.B) if group is None else group
-        self.seed = int(seed)
-        self.generators = chain_generators(seed, self.device)
-        # Set by shard(): the mesh, and this rank's per-shard generators.
-        self._mesh = None
-        self.shard_generators: Generators | None = None
+        with span("init"):
+            check_precision(precision)
+            self.t_chunk = check_t_chunk(t_chunk)
+            if basis is None:
+                basis = cosine_basis(B=B, L=L)
+            basis = np.asarray(basis, np.float32)
+            self.N = N
+            self.L, self.B = basis.shape
+            self.basis = basis
+            self.spike_and_slab = bool(spike_and_slab)
+            self.precision = precision
+            self.device = require_device(device)
+            self.observation = (
+                make_observation(observation, **(obs_kwargs or {}))
+                if isinstance(observation, str) else observation)
+            self.network = (make_network(network, N=N, B=self.B,
+                                         **(net_kwargs or {}))
+                            if isinstance(network, str) else network)
+            self.group = _auto_group(N, self.B) if group is None else group
+            self.seed = int(seed)
+            self.generators = chain_generators(seed, self.device)
+            # Set by shard(): the mesh, and this rank's per-shard generators.
+            self._mesh = None
+            self.shard_generators: Generators | None = None
 
-        self._sweep = make_gibbs_sweep(self.observation, self.network, N,
-                                       self.B, self.spike_and_slab,
-                                       self.t_chunk, group=self.group,
-                                       precision=self.precision)
-        self._loglik = make_log_likelihood(self.observation, N, self.B,
-                                           precision=self.precision)
-        self._generate = make_generator(self.observation, N, self.B)
-        self.state: GLMState = init_state_from_prior(
-            self.generators, self.observation, self.network, N, self.B,
-            self.spike_and_slab, self.device)
-        self.datas: list[GLMData] = []
+            self._sweep = make_gibbs_sweep(
+                self.observation, self.network, N, self.B,
+                self.spike_and_slab, self.t_chunk, group=self.group,
+                precision=self.precision)
+            self._loglik = make_log_likelihood(self.observation, N, self.B,
+                                               precision=self.precision)
+            self._generate = make_generator(self.observation, N, self.B)
+            self.state: GLMState = init_state_from_prior(
+                self.generators, self.observation, self.network, N, self.B,
+                self.spike_and_slab, self.device)
+            self.datas: list[GLMData] = []
 
     @property
     def P(self) -> int:
@@ -153,22 +156,24 @@ class NonlinearAutoregressiveModel:
 
         On a sharded model every rank passes the whole Y and keeps its rows
         (``parallel.sharding.shard_model`` says how)."""
-        Y = as_f32(Y, self.device)
-        if Y.ndim != 2 or Y.shape[1] != self.N:
-            raise ValueError(f"expected (T, {self.N}) data, got "
-                             f"{tuple(Y.shape)}")
-        max_y = getattr(self.observation, "max_y", None)
-        if max_y is not None:
-            # The CRT r update sums max_y tables: a larger count would be
-            # dropped silently, biasing the r conditional.
-            y_max = float(Y.max())
-            if y_max > max_y:
-                raise ValueError(
-                    f"max observed count {y_max:.0f} exceeds the "
-                    f"observation family's max_y={max_y}; construct with "
-                    f"obs_kwargs=dict(max_y={int(y_max)}) or larger so the "
-                    f"CRT dispersion update sees every count")
-        self.datas.append(self._ingest(Y, self._mesh))
+        with span("add_data"):
+            Y = as_f32(Y, self.device)
+            if Y.ndim != 2 or Y.shape[1] != self.N:
+                raise ValueError(f"expected (T, {self.N}) data, got "
+                                 f"{tuple(Y.shape)}")
+            max_y = getattr(self.observation, "max_y", None)
+            if max_y is not None:
+                # The CRT r update sums max_y tables: a larger count would
+                # be dropped silently, biasing the r conditional.
+                y_max = float(Y.max())
+                if y_max > max_y:
+                    raise ValueError(
+                        f"max observed count {y_max:.0f} exceeds the "
+                        f"observation family's max_y={max_y}; construct "
+                        f"with obs_kwargs=dict(max_y={int(y_max)}) or "
+                        f"larger so the CRT dispersion update sees every "
+                        f"count")
+            self.datas.append(self._ingest(Y, self._mesh))
 
     def _ingest(self, Y, mesh=None) -> GLMData:
         """The GLMData of a whole (T, N) Y: on a `mesh`, this rank's rows of
@@ -274,9 +279,14 @@ class NonlinearAutoregressiveModel:
         """One Gibbs sweep over weights, adjacency, aux and network."""
         if not self.datas:
             raise RuntimeError("call add_data() or generate(keep=True) first")
-        self.state, diag = self._sweep(self._gens(), self.state,
-                                       tuple(self.datas))
-        return {k: float(v) for k, v in diag.items()}
+        with span("resample_model", step=True):
+            self.state, diag = self._sweep(self._gens(), self.state,
+                                           tuple(self.datas))
+            out = {}
+            for k, v in diag.items():
+                with wait("diag"):
+                    out[k] = float(v)
+        return out
 
     def log_likelihood(self, data=None) -> float:
         """Total log-likelihood of the registered data (or of a (T, N) Y)."""

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pyglm_tpu_torch.diagnostics.profiling import span, wait
 from pyglm_tpu_torch.models.weights import EdgeHypers
 from pyglm_tpu_torch.ops.linalg import (
     NIWParams, logdet_from_chol, niw_posterior, sample_beta,
@@ -46,6 +47,13 @@ class GaussianWeightsState(NamedTuple):
 
 def _is_scalar(x) -> bool:
     return np.ndim(x) == 0
+
+
+def _to(x, device, name: str):
+    """x on `device`; a copy from the host to the card waits for it (the
+    span ``wait.<name>``)."""
+    with wait(name):
+        return x.to(device)
 
 
 def _on_device(cfg, name: str, device, make):
@@ -108,14 +116,18 @@ def _masked_stats(W, mask):
     xbar = (m * W).sum(dim=(-3, -2)) / torch.clamp(n, min=1e-12)[..., None]
     diffs = (W - xbar[..., None, None, :]) * m
     S = torch.einsum("...ijb,...ijc->...bc", diffs, diffs)
-    flat = torch.cat([n[..., None], xbar, S.flatten(-2)], dim=-1).cpu()
+    with wait("weight_stats"):
+        flat = torch.cat([n[..., None], xbar, S.flatten(-2)], dim=-1).cpu()
     return (flat[..., 0], flat[..., 1:1 + B],
             flat[..., 1 + B:].reshape(*flat.shape[:-1], B, B))
 
 
 def _masked_niw_resample(generator, cfg, n, xbar, S):
-    """(mu, Sigma) ~ NIW posterior given the active-edge statistics."""
-    return sample_niw(generator, niw_posterior(_niw_params(cfg), n, xbar, S))
+    """(mu, Sigma) ~ NIW posterior given the active-edge statistics (the
+    span "niw")."""
+    with span("niw"):
+        return sample_niw(generator,
+                          niw_posterior(_niw_params(cfg), n, xbar, S))
 
 
 def _weight_hypers(cfg, state, device):
@@ -123,8 +135,8 @@ def _weight_hypers(cfg, state, device):
     shared prior of `state`, or the fixed prior of the config."""
     N, B = cfg.N, cfg.B
     if cfg.learn_weight_prior:
-        Lam = torch.linalg.inv(state.Sigma.cpu()).to(device)
-        return (state.mu.to(device).expand(N, N, B),
+        Lam = _to(torch.linalg.inv(state.Sigma.cpu()), device, "prior_lam")
+        return (_to(state.mu, device, "prior_mu").expand(N, N, B),
                 Lam.expand(N, N, B, B))
     return _on_device(cfg, "weights", device, lambda: tuple(
         torch.as_tensor(x, device=device) for x in cfg._fixed_hypers))
@@ -235,12 +247,14 @@ class ErdosRenyiConfig:
         N = self.N
         mu, Lam = _weight_hypers(self, state, device)
         def lrho_of(rho):
-            return logit(torch.clamp(rho, 1e-5, 1.0 - 1e-5)).to(device)
+            return logit(torch.clamp(rho, 1e-5, 1.0 - 1e-5))
         if self.learn_rho:
-            lrho = lrho_of(state.rho.cpu().expand(N, N))
+            lrho = _to(lrho_of(state.rho.cpu().expand(N, N)), device,
+                       "logit_rho")
         else:
             lrho = _on_device(self, "lrho", device, lambda: lrho_of(
-                torch.as_tensor(expand_scalar(self.rho_init, (N, N)))))
+                torch.as_tensor(expand_scalar(self.rho_init, (N, N)))
+            ).to(device))
         mu_b, lam_b = _bias_hypers(self, N, device)
         return EdgeHypers(mu, Lam, lrho, mu_b, lam_b)
 
@@ -256,8 +270,9 @@ class ErdosRenyiConfig:
         n, xbar, S = _masked_stats(W, A)
         rho = state.rho
         if self.learn_rho:
-            rho = sample_beta(self.a_rho + n, self.b_rho + A.numel() - n,
-                              generator)
+            with span("beta"):
+                rho = sample_beta(self.a_rho + n,
+                                  self.b_rho + A.numel() - n, generator)
         mu, Sigma = state.mu, state.Sigma
         if self.learn_weight_prior:
             mu, Sigma = _masked_niw_resample(generator, self, n, xbar, S)
@@ -315,25 +330,27 @@ class SBMConfig:
     def edge_hypers(self, state: SBMState, device) -> EdgeHypers:
         """Each edge's block pair's (mu, Lambda, logit rho), gathered on
         `device` from the (K, K) tables."""
-        ci = state.c.to(device)[:, None]
+        ci = _to(state.c, device, "sbm_labels")[:, None]
         cj = ci.T
-        Lam = torch.linalg.inv(state.Sigma).to(device)
-        lrho = logit(torch.clamp(state.rho, 1e-5, 1 - 1e-5)).to(device)
+        Lam = _to(torch.linalg.inv(state.Sigma), device, "sbm_lam")
+        lrho = _to(logit(torch.clamp(state.rho, 1e-5, 1 - 1e-5)), device,
+                   "sbm_logit_rho")
         mu_b, lam_b = _bias_hypers(self, self.N, device)
-        return EdgeHypers(state.mu.to(device)[ci, cj], Lam[ci, cj],
-                          lrho[ci, cj], mu_b, lam_b)
+        return EdgeHypers(_to(state.mu, device, "sbm_mu")[ci, cj],
+                          Lam[ci, cj], lrho[ci, cj], mu_b, lam_b)
 
     def _edge_tables(self, state: SBMState, A, W):
         """tbl[x, y, i, j] = log Bern(A_ij; rho[x, y])
         + A_ij log N(W_ij; mu[x, y], Sigma[x, y]), (K, K, N, N) on A's
         device."""
         dev = A.device
-        rho = torch.clamp(state.rho, 1e-5, 1 - 1e-5).to(dev)
+        rho = _to(torch.clamp(state.rho, 1e-5, 1 - 1e-5), dev, "table_rho")
         logB = (A * torch.log(rho)[:, :, None, None]
                 + (1 - A) * torch.log1p(-rho)[:, :, None, None])
-        Lam = torch.linalg.inv(state.Sigma).to(dev)            # (K,K,B,B)
-        logdet = logdet_from_chol(torch.linalg.cholesky(state.Sigma)).to(dev)
-        d = W - state.mu.to(dev)[:, :, None, None]            # (K,K,N,N,B)
+        Lam = _to(torch.linalg.inv(state.Sigma), dev, "table_lam")  # K,K,B,B
+        logdet = _to(logdet_from_chol(torch.linalg.cholesky(state.Sigma)),
+                     dev, "table_logdet")
+        d = W - _to(state.mu, dev, "table_mu")[:, :, None, None]  # K,K,N,N,B
         quad = torch.einsum("xyijb,xybc,xyijc->xyij", d, Lam, d)
         logN = -0.5 * (quad + logdet[:, :, None, None]
                        + self.B * math.log(2 * math.pi))
@@ -394,22 +411,27 @@ class SBMConfig:
         less n xbar xbar'."""
         N, K, B = self.N, self.K, self.B
         g = gens.host
-        parts = [*self._scan_tables(self._edge_tables(state, A, W)), A, W]
-        sizes = [x.numel() for x in parts]
-        host = torch.cat([x.reshape(-1) for x in parts]).cpu().double()
-        t_out, t_in, self_ll, A_h, W_h = (
-            x.reshape(p.shape) for x, p in zip(host.split(sizes), parts))
-        u = torch.rand((N,), generator=g, dtype=torch.float64)
-        c = torch.from_numpy(self._label_scan(
-            t_out.numpy(), t_in.numpy(), self_ll.numpy(), state.c.numpy(),
-            state.pi.double().numpy(), u.numpy()))
-        Z = torch.nn.functional.one_hot(c, K).double()        # (N, K)
-        n_k = Z.sum(0)
-        pi = sample_dirichlet(self.alpha_pi + n_k.float(), g)
+        with span("sbm_labels"):
+            parts = [*self._scan_tables(self._edge_tables(state, A, W)), A,
+                     W]
+            sizes = [x.numel() for x in parts]
+            with wait("sbm_tables"):
+                host = torch.cat([x.reshape(-1) for x in parts]).cpu()
+            t_out, t_in, self_ll, A_h, W_h = (
+                x.reshape(p.shape)
+                for x, p in zip(host.double().split(sizes), parts))
+            u = torch.rand((N,), generator=g, dtype=torch.float64)
+            c = torch.from_numpy(self._label_scan(
+                t_out.numpy(), t_in.numpy(), self_ll.numpy(),
+                state.c.numpy(), state.pi.double().numpy(), u.numpy()))
+            Z = torch.nn.functional.one_hot(c, K).double()    # (N, K)
+            n_k = Z.sum(0)
+            pi = sample_dirichlet(self.alpha_pi + n_k.float(), g)
         n_act = Z.T @ A_h @ Z                                  # (K, K)
-        rho = sample_beta((self.a_rho + n_act).float(),
-                          (self.b_rho + n_k[:, None] * n_k[None, :]
-                           - n_act).float(), g)
+        with span("beta"):
+            rho = sample_beta((self.a_rho + n_act).float(),
+                              (self.b_rho + n_k[:, None] * n_k[None, :]
+                               - n_act).float(), g)
 
         def block_sums(X):          # (N, N, ...) -> (K, K, ...), A's edges
             return torch.einsum("ix,ij...,jy->xy...", Z,
@@ -419,8 +441,8 @@ class SBMConfig:
         S = (block_sums(W_h[..., :, None] * W_h[..., None, :])
              - n_act[..., None, None] * xbar[..., :, None]
              * xbar[..., None, :])
-        mu, Sigma = sample_niw(g, niw_posterior(
-            _niw_params(self), n_act.float(), xbar.float(), S.float()))
+        mu, Sigma = _masked_niw_resample(g, self, n_act.float(),
+                                         xbar.float(), S.float())
         return SBMState(c, pi, rho, mu, Sigma)
 
 
@@ -666,12 +688,15 @@ class LatentDistanceConfig:
             state = LatentDistanceState(*(x[None] for x in state))
             A, W = A[None], W[None]
         C = A.shape[0]
-        if noise is None:
-            noise = self.draw_noise(gens.device, C, state.L.device)
-        L, gamma, rate = self._hmc(state.L, state.gamma, A, noise)
-        L = self._swap_scan(L, gamma, A, noise.swap_ij, noise.u_swap)
-        L = self._relocate_scan(L, gamma, A, noise.reloc_i, noise.reloc_z,
-                                noise.u_reloc)
+        with span("hmc"):
+            if noise is None:
+                noise = self.draw_noise(gens.device, C, state.L.device)
+            L, gamma, rate = self._hmc(state.L, state.gamma, A, noise)
+        with span("swap_scan"):
+            L = self._swap_scan(L, gamma, A, noise.swap_ij, noise.u_swap)
+        with span("relocate_scan"):
+            L = self._relocate_scan(L, gamma, A, noise.reloc_i,
+                                    noise.reloc_z, noise.u_reloc)
         mu, Sigma = state.mu, state.Sigma
         if self.learn_weight_prior:
             n, xbar, S = _masked_stats(W, A)

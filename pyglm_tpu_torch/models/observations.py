@@ -29,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from pyglm_tpu_torch.diagnostics.profiling import wait
 from pyglm_tpu_torch.ops.linalg import (
     crt_sample_sums, sample_gamma, sample_inverse_gamma,
 )
@@ -266,12 +267,15 @@ class NegativeBinomial(_FamilyBase):
         if cache is None:
             lsum = crt_sample_sums(Y, r, self.max_y, generator)
             sums = torch.stack([lsum.to(torch.float32), rate])
-            lsum, rate = (sums if shard is None else shard.full(sums)).cpu()
+            sums = sums if shard is None else shard.full(sums)
+            with wait("r_sums"):
+                lsum, rate = sums.cpu()
         else:
             table = torch.cat([cache["counts"], r[None]])
             if shard is not None:
                 table, rate = shard.gather(table), shard.full(rate)
-            host = torch.cat([table, rate[None]]).cpu()
+            with wait("r_sums"):
+                host = torch.cat([table, rate[None]]).cpu()
             lsum = _table_crt_sum(host[:-2], host[-2], host_gen)
             rate = host[-1]
         r_new = torch.clamp(sample_gamma(self.a_r + lsum, host_gen)
@@ -366,7 +370,8 @@ class Gaussian(_FamilyBase):
         eta = aux["eta"]
         sq = 0.5 * torch.sum((Y - psi) ** 2, dim=0)
         if shard is None:
-            host_gen, T, sq = generator, Y.shape[0], sq.cpu()
+            with wait("eta_sums"):
+                host_gen, T, sq = generator, Y.shape[0], sq.cpu()
         else:
             host_gen = shard.generator
             sums = shard.time_sum(torch.cat([sq, sq.new_tensor([Y.shape[0]])]))

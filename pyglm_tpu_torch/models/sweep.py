@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from pyglm_tpu_torch.diagnostics.profiling import span
 from pyglm_tpu_torch.models.weights import (
     check_precision, check_t_chunk, pack_weights, resample_dense,
     resample_spike_slab_tspace, sufficient_stats, unpack_weights,
@@ -91,6 +92,9 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
     sweep), the dense one draws from the scaled full Gram.
     Returns (new_state, {"log_likelihood", "n_edges"}), both 0-d tensors,
     plus "hmc_accept" when the network state carries one.
+    Its stages are spans of ``diagnostics.profiling``: "hypers" (the
+    packed weights and edge priors), "psi", "pg_draws", "weights" (the
+    update of (A, W, bias)), "aux", "network" and "loglik".
     `t_chunk` is the steps of T in each fp32 partial sum of the dense J and
     h (:func:`models.weights.sufficient_stats`), the only sums it reaches,
     as in the JAX package it reaches only the XLA paths: the kernels keep
@@ -129,10 +133,16 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
             return concat_datas(datas)
         return local_rows(datas, mesh, N, B, lanes, dev)
 
+    def psi_pg(pg_gen, Y, Xf, w_full, aux):
+        """(psi, omega, kappa) of one dataset's rows."""
+        with span("psi"):
+            psi = Xf @ w_full
+        with span("pg_draws"):
+            return (psi, *obs.omega_kappa(pg_gen, Y, psi, aux))
+
     def spike_slab_update(rep, pg_gen, w_full, hyp, datas, aux):
         Y, Xf, Xt = rows(datas, w_full.device)
-        psi = Xf @ w_full
-        omega, kappa = obs.omega_kappa(pg_gen, Y, psi, aux)
+        psi, omega, kappa = psi_pg(pg_gen, Y, Xf, w_full, aux)
         Jg = None
         if all(d.Gg0 is not None for d in datas):
             # (Ng, GB(GB+1)/2, 1) / eta along the lane axis
@@ -140,12 +150,14 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
         path = None if mesh is None else mesh_ss_path(
             precision, jg_given=Jg is not None,
             whole_rows=any(d.whole for d in datas))
-        A, w_full, u, _ = resample_spike_slab_tspace(
-            rep.device, Xt, omega, kappa, psi, w_full, hyp, B, group=group,
-            precision=precision, host_generator=rep.host, Jg=Jg, path=path,
-            mesh=mesh)
-        # psi under the NEW weights, recovered without a second matmul.
-        return A, w_full, Y, (kappa - u) / omega
+        with span("weights"):
+            A, w_full, u, _ = resample_spike_slab_tspace(
+                rep.device, Xt, omega, kappa, psi, w_full, hyp, B,
+                group=group, precision=precision, host_generator=rep.host,
+                Jg=Jg, path=path, mesh=mesh)
+            # psi under the NEW weights, recovered without a second matmul.
+            psi = (kappa - u) / omega
+        return A, w_full, Y, psi
 
     def dense_update(rep, pg_gen, w_full, hyp, datas, aux):
         if all(d.Gfull is not None for d in datas):
@@ -155,23 +167,27 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
         elif mesh is None:
             J = h = 0.0
             for d in datas:
-                omega, kappa = obs.omega_kappa(pg_gen, d.Y, d.Xf @ w_full,
-                                               aux)
-                Jd, hd = sufficient_stats(d.Xf, omega, kappa, t_chunk)
+                _, omega, kappa = psi_pg(pg_gen, d.Y, d.Xf, w_full, aux)
+                with span("weights"):
+                    Jd, hd = sufficient_stats(d.Xf, omega, kappa, t_chunk)
                 J, h = J + Jd, h + hd
         else:
             Y, Xf, _ = rows(datas, w_full.device)
-            omega, kappa = obs.omega_kappa(pg_gen, Y, Xf @ w_full, aux)
-            J, h = sufficient_stats(Xf, omega, kappa, t_chunk, mesh=mesh)
-        eps = None
-        if mesh is not None:            # drawn at full width, as unsharded
-            eps = torch.randn((N, N * B + 1), generator=rep.device,
-                              device=w_full.device)[lanes].contiguous()
-        w_full = resample_dense(rep.device, J, h, hyp, B, eps=eps)
+            _, omega, kappa = psi_pg(pg_gen, Y, Xf, w_full, aux)
+            with span("weights"):
+                J, h = sufficient_stats(Xf, omega, kappa, t_chunk, mesh=mesh)
+        with span("weights"):
+            eps = None
+            if mesh is not None:        # drawn at full width, as unsharded
+                eps = torch.randn((N, N * B + 1), generator=rep.device,
+                                  device=w_full.device)[lanes].contiguous()
+            w_full = resample_dense(rep.device, J, h, hyp, B, eps=eps)
         Y, Xf, _ = rows(datas, w_full.device)
         A = torch.ones((N, w_full.shape[1]), dtype=torch.float32,
                        device=w_full.device)
-        return A, w_full, Y, Xf @ w_full
+        with span("psi"):
+            psi = Xf @ w_full
+        return A, w_full, Y, psi
 
     update = spike_slab_update if spike_slab else dense_update
 
@@ -179,10 +195,11 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
     def sweep(gens, state: GLMState, datas):
         rep, pg_gen = ((gens, gens.host) if mesh is None
                        else (gens.replicated, gens.shard.host))
-        w_full = pack_weights(state.A, state.W, state.b)
-        hyp = network.edge_hypers(state.net, w_full.device)
-        if mesh is not None:
-            hyp = lane_hypers(hyp, lanes)
+        with span("hypers"):
+            w_full = pack_weights(state.A, state.W, state.b)
+            hyp = network.edge_hypers(state.net, w_full.device)
+            if mesh is not None:
+                hyp = lane_hypers(hyp, lanes)
         llc = sum_caches(datas)
         A, w_full, Y, psi = update(rep, pg_gen, w_full, hyp, datas,
                                    state.aux)
@@ -193,10 +210,13 @@ def make_gibbs_sweep(obs, network, N: int, B: int, spike_slab: bool,
                             dim=1)                            # one gather
             A_all, W_all = Aw[:N], unpack_weights(Aw[N:], N, B)[0]
             shard = lane_sh._replace(generator=rep.host)
-        aux = obs.resample_aux(pg_gen, state.aux, Y, psi, cache=llc,
-                               shard=shard)
-        net = network.resample(rep, state.net, A_all, W_all)
-        ll = total_log_likelihood(obs, Y, psi, aux, llc, mesh)
+        with span("aux"):
+            aux = obs.resample_aux(pg_gen, state.aux, Y, psi, cache=llc,
+                                   shard=shard)
+        with span("network"):
+            net = network.resample(rep, state.net, A_all, W_all)
+        with span("loglik"):
+            ll = total_log_likelihood(obs, Y, psi, aux, llc, mesh)
         diag = {"log_likelihood": ll, "n_edges": A_all.sum()}
         if hasattr(net, "hmc_accept"):
             diag["hmc_accept"] = net.hmc_accept

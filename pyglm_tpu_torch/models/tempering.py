@@ -29,6 +29,7 @@ import warnings
 import numpy as np
 import torch
 
+from pyglm_tpu_torch.diagnostics.profiling import span, wait
 from pyglm_tpu_torch.models.ensemble import (
     chain_generators, ensemble_generators, make_stacked_sweep, stack_states,
 )
@@ -110,7 +111,10 @@ def permute_states(st, perm):
         return {k: permute_states(v, perm) for k, v in st.items()}
     if isinstance(st, tuple):
         return type(st)(*(permute_states(f, perm) for f in st))
-    return st.index_select(0, perm.to(st.device))
+    if st.device != perm.device:
+        with wait("perm"):
+            perm = perm.to(st.device)
+    return st.index_select(0, perm)
 
 
 def _check_tempering(obs):
@@ -141,7 +145,9 @@ def make_tempered_sweep(obs, network, N: int, B: int, betas,
     "log_likelihood" (C,) of the states after the swap (host),
     "n_edges" (C,) before it, "swap_accept" (C,), "swap_parity" (an int),
     and "hmc_accept" (C,) for the latent-distance prior. Raises ValueError
-    for a family that cannot temper (``tempering_blocker``). `t_chunk`
+    for a family that cannot temper (``tempering_blocker``). The sweep is
+    one step span "tempered_sweep" (``diagnostics.profiling``) around the
+    stacked sweep's stages and the "swap". `t_chunk`
     reaches only the dense update's fp32 partial sums
     (:func:`models.weights.sufficient_stats`), as in the JAX package it
     reaches only the XLA paths; the kernels keep their own splits of T."""
@@ -150,10 +156,14 @@ def make_tempered_sweep(obs, network, N: int, B: int, betas,
                                 t_chunk, group=group, precision=precision)
 
     def sweep(gens, st, datas):
-        st, d = gibbs(gens, st, datas)
-        lls = d["log_likelihood"].cpu()            # one transfer a sweep
-        perm, accept, parity = swap_permutation(gens.host, lls, betas_h)
-        st = permute_states(st, perm)
+        with span("tempered_sweep", step=True):
+            st, d = gibbs(gens, st, datas)
+            with span("swap"):
+                with wait("lls"):
+                    lls = d["log_likelihood"].cpu()   # one transfer a sweep
+                perm, accept, parity = swap_permutation(gens.host, lls,
+                                                        betas_h)
+                st = permute_states(st, perm)
         return st, _swap_diag(st, lls, perm, accept, parity,
                               d["n_edges"])
 

@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from pyglm_tpu_torch.diagnostics.profiling import span
 from pyglm_tpu_torch.ops.linalg import (
     chol_small, gaussian_evidence, logdet_from_chol, sample_from_evidence,
     sample_mvn_info, solve_lower_small, solve_lower_t_small,
@@ -500,17 +501,19 @@ def _fused_loop(generator, host_generator, Xt, omega, om16, u, w, hyp, A,
 
 def _staged_loop(generator, Xt, omega, u, w, hyp, A, G, B, noise, precision,
                  Jg=None, shard=None):
-    """K6 once (unless the packed Jg is given), then per group M0 = X_g u,
-    K3 on Jg[g] and the scatter u -= omega * (X_g^T dW); updates u, w and A
-    in place and returns sum_t omega. On a mesh (`shard`) K6 runs on the
-    rank's rows and its Gram, unless given (then summed already), and each
-    M0 are summed over "time"; the sum returned is the rank's own."""
+    """K6 once (unless the packed Jg is given; the span "gram"), then per
+    group M0 = X_g u, K3 on Jg[g] and the scatter u -= omega * (X_g^T dW);
+    updates u, w and A in place and returns sum_t omega. On a mesh
+    (`shard`) K6 runs on the rank's rows and its Gram, unless given (then
+    summed already), and each M0 are summed over "time"; the sum returned
+    is the rank's own."""
     N = omega.shape[1]
     GB = G * B
     mesh = None if shard is None else shard.mesh
     if Jg is None:
-        Jg = group_gram_blocks(Xt, omega, B, G, precision=precision,
-                               mesh=mesh)
+        with span("gram"):
+            Jg = group_gram_blocks(Xt, omega, B, G, precision=precision,
+                                   mesh=mesh)
     for g in range(Jg.shape[0]):
         xg = Xt[g * GB:(g + 1) * GB]
         m0 = _time_sum(xg @ u, mesh)

@@ -19,6 +19,8 @@ from pathlib import Path
 
 import torch
 
+from pyglm_tpu_torch.diagnostics.profiling import count, span
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pyglm_tpu_torch"
@@ -134,15 +136,18 @@ def build(force: bool = False) -> float:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    build()
-    lib = ctypes.CDLL(str(LIB_PATH))
-    for name, argtypes in _ENTRY_POINTS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.pgt_error_string.argtypes = [ctypes.c_int]
-    lib.pgt_error_string.restype = ctypes.c_char_p
+    """The loaded kernel library, built first if needed: the span "build"
+    of ``diagnostics.profiling``, and its counter ``kernel_builds`` (1 where
+    nvcc ran)."""
+    with span("build"):
+        count("kernel_builds", int(build() > 0))
+        lib = ctypes.CDLL(str(LIB_PATH))
+        for name, argtypes in _ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.pgt_error_string.argtypes = [ctypes.c_int]
+        lib.pgt_error_string.restype = ctypes.c_char_p
     return lib
 
 

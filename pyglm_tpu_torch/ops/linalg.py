@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from pyglm_tpu_torch.diagnostics.profiling import wait
 from pyglm_tpu_torch.ops import _build
 
 _SMALL_B_MAX = 8
@@ -46,7 +47,8 @@ def sample_mvn_info(generator, h, Lambda, eps=None):
     """x ~ N(mu, Lambda^{-1}) with mu = Lambda^{-1} h (information form),
     batched over leading axes: Lambda = C C^T, mu = C^{-T} C^{-1} h,
     x = mu + C^{-T} eps, eps ~ N(0, I) from `generator` unless given."""
-    C = torch.linalg.cholesky(Lambda)
+    with wait("cholesky"):          # its error check reads the card
+        C = torch.linalg.cholesky(Lambda)
     mu = _solve_lower(C, _solve_lower(C, h), transpose=True)
     if eps is None:
         eps = torch.randn(h.shape, generator=generator, dtype=h.dtype,

@@ -30,6 +30,7 @@ import operator
 
 import torch
 
+from pyglm_tpu_torch.diagnostics.profiling import wait
 from pyglm_tpu_torch.ops import _build
 from pyglm_tpu_torch.ops.linalg import sample_gamma
 
@@ -479,7 +480,8 @@ def polya_gamma(b, c, generator: torch.Generator, method: str = "auto",
     if method != "auto":
         return _gamma_or_normal(b, c, generator, cutoff, K)
     unit = b == 1.0
-    n_unit = int(unit.sum())
+    with wait("pg_unit_count"):
+        n_unit = int(unit.sum())
     if n_unit == unit.numel():
         return pg_draw_unit(c, generator)
     if n_unit == 0:

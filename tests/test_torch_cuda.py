@@ -1078,3 +1078,112 @@ def test_one_rank_nccl_mesh_runs_the_sharded_sweep():
     r = _spawn_on_card(wk.cuda_nccl_rank, 1, "nccl")[0]
     assert r["backend"] == "nccl" and r["collectives"]["nccl"] > 0
     assert r["path"] == "mesh_fused" and np.all(np.isfinite(r["lls"]))
+
+
+_SINGLE = {"single": {}, "single_dense": dict(network="dense",
+                                              spike_and_slab=False),
+           "single_sbm": dict(network="sbm"),
+           "single_nb": dict(observation="negative_binomial"),
+           "single_binomial": dict(observation="binomial"),
+           "single_gaussian": dict(observation="gaussian")}
+
+
+def _span_loops(loop):
+    """One step of a small single (of each family and prior), stacked or
+    tempered loop on the card, after a first step that builds and caches
+    what it needs."""
+    import pyglm_tpu_torch as pt
+    from pyglm_tpu_torch.models.ensemble import (
+        chain_generators, ensemble_generators, make_stacked_sweep,
+        stack_states)
+    from pyglm_tpu_torch.models.sweep import init_state_from_prior
+    from pyglm_tpu_torch.models.tempering import make_tempered_sweep
+    g = torch.Generator(device="cuda").manual_seed(3)
+    if loop in _SINGLE:
+        N, T = 16, 3000
+        kw = dict(dict(network="erdos_renyi", spike_and_slab=True),
+                  **_SINGLE[loop])
+        m = pt.NonlinearAutoregressiveModel(N, B=4, L=10, group=8,
+                                            device="cuda", **kw)
+        m.add_data((torch.rand((T, N), generator=g, device="cuda")
+                    < 0.1).float())
+        step = m.resample_model
+    else:
+        N, T, C = 20, 360, 4
+        m = pt.NonlinearAutoregressiveModel(
+            N, B=4, L=10, network="latent_distance", spike_and_slab=True,
+            group=10, device="cuda",
+            net_kwargs=dict(hmc_steps=5, hmc_iters=2, swap_moves=2,
+                            relocate_moves=2))
+        m.add_data((torch.rand((T, N), generator=g, device="cuda")
+                    < 0.1).float())
+        if loop == "stacked":
+            sweep = make_stacked_sweep(m.observation, m.network, N, 4, C,
+                                       True, group=m.group,
+                                       precision=m.precision)
+        else:
+            sweep = make_tempered_sweep(m.observation, m.network, N, 4,
+                                        [0.25, 0.5, 0.75, 1.0],
+                                        group=m.group,
+                                        precision=m.precision)
+        box = [stack_states([init_state_from_prior(
+            ensemble_generators(sd, "cuda"), m.observation, m.network, N, 4,
+            True, "cuda") for sd in range(1, C + 1)])]
+        gens, datas = chain_generators(7, "cuda"), tuple(m.datas)
+
+        def step():
+            box[0], _ = sweep(gens, box[0], datas)
+    step()
+    torch.cuda.synchronize()
+    return step
+
+
+@pytest.mark.parametrize("loop", [*_SINGLE, "stacked", "tempered"])
+def test_every_sync_of_a_recorded_step_is_a_wait_span(gen, loop):
+    """Under the sync debug mode each call that makes the host wait for the
+    card warns; in one recorded step of each loop, family and prior every
+    warning comes while a ``wait.*`` span is the innermost open span, and
+    there are as many as the step's ``waits``."""
+    import warnings
+    from pyglm_tpu_torch.diagnostics import profiling
+    step = _span_loops(loop)
+    seen = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        rec = profiling._ACTIVE
+        inner = rec.spans[rec._open[-1]][0] if rec and rec._open else None
+        seen.append((inner, f"{filename}:{lineno}", str(message)[:60]))
+    torch.cuda.set_sync_debug_mode("warn")     # warns that it is a prototype
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            with profiling.recording() as rec:
+                step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(rec.steps) == 1 and rec.steps[0]["waits"] > 0
+    outside = [s for s in seen if not (s[0] or "").startswith("wait.")]
+    assert not outside, outside
+    assert len(seen) == rec.steps[0]["waits"], seen
+
+
+def test_k1_starts_after_its_pg_draws_span(gen):
+    """The spans' clock is the device trace's: in a device-only profile of
+    three recorded sweeps each K1 kernel starts after its sweep's
+    ``pg_draws`` span starts and before the sweep's span ends (the sweep
+    reads its diagnostics, so its kernels are done by then)."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyglm_tpu_torch.diagnostics.profiling import recording
+    step = _span_loops("single")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with recording() as rec:
+            for _ in range(3):
+                step()
+        torch.cuda.synchronize()
+    k1 = sorted(ev.start_ns() for ev in prof.profiler.kineto_results.events()
+                if "pg_devroye_kernel" in ev.name())
+    pg = [s[3] for s in rec.spans if s[0] == "pg_draws"]
+    ends = [rec.spans[st["span"]][4] for st in rec.steps]
+    assert len(k1) == len(pg) == len(ends) == 3
+    assert all(p <= k <= e for k, p, e in zip(k1, pg, ends)), (k1, pg, ends)
