@@ -183,6 +183,9 @@ SR_SAME_TOL = 1e-5
 # pooled ensemble of 8 lane-stacked chains.
 N5, T5, C5, G5 = 500, 20_000, 8, 10
 C5_TRUTH_NET = dict(dim=2, mu_bias=-3.0)
+# K7 at config 5's move (C5 chains of N5 positions in 2-D, 10 x 50 leapfrog
+# steps): the calls timed of K7 and of the plain move, and K7's target.
+K7_REPS, K7_PLAIN_REPS, K7_TARGET_MS = 20, 3, 10.0
 # H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, dense
 # TF32 on the tensor cores, HBM.
 FP32_FLOPS = 67e12
@@ -223,6 +226,9 @@ KERNELS = {
                          "pyglm_tpu/ops/ss_pallas.py:346"),
     "group_gram_bf16": ("pyglm_tpu_torch/csrc/group_gram.cu",
                         "pyglm_tpu/ops/gram_pallas.py:47"),
+    # No Pallas kernel: the JAX package's lax.scan of HMC trajectories.
+    "ld_hmc": ("pyglm_tpu_torch/csrc/ld_hmc.cu",
+               "pyglm_tpu/models/networks.py:525"),
 }
 # K2's streaming pass at GB = 32 in its middle-group mode (scatter and
 # gather), as nvcc's log names it, omega f(loat) or t (uint16_t, bf16).
@@ -2909,6 +2915,8 @@ def phase_config5(check, record, ctx):
               f"K1 launched once per stacked sweep ({launches['pg_devroye']})")
         check(launches["ss_edge_scan"] == n_sw * n_groups,
               f"K3 launched {n_groups} times per stacked sweep")
+        check(launches["ld_hmc"] == n_sw,
+              f"K7 launched once per stacked sweep ({launches['ld_hmc']})")
         for name in KERNELS:
             record[name]["launches"] += launches[name]
         return out, n_sw, dt
@@ -2940,6 +2948,56 @@ def phase_config5(check, record, ctx):
     return {"c5_stacked_sweeps_per_s": n_sw / dt,
             "c5_chain_sweeps_per_s": C5 * n_sw / dt,
             "c5_generate_s": gen_s, "c5_add_data_s": add_s}
+
+
+def phase_k7(check, record):
+    """K7 at config 5's move (C5 chains, N5 positions in 2-D, 10 x 50 at
+    eps = 0.15 / sqrt(N5)) against the plain move on the card, on the same
+    tensors and noise as the card's test compares them
+    (ops/ld_hmc_cuda.py::plain_agreement); one move of each timed by CUDA
+    events; K7's bound: an exp and a reciprocal per unordered pair and
+    gradient, an exp and a log per unordered pair and potential, at the
+    SFU's rate."""
+    import torch
+    from pyglm_tpu_torch.models.networks import LatentDistanceConfig
+    from pyglm_tpu_torch.ops.ld_hmc_cuda import plain_agreement
+
+    cfg = LatentDistanceConfig(N=N5, B=B, dim=2)
+    print(f"K7: the LD move at C={C5}, N={N5}, dim 2, {cfg.hmc_iters} x "
+          f"{cfg.hmc_steps}, eps {cfg.eps:.6f}", flush=True)
+    g = torch.Generator().manual_seed(23)
+    Lp = torch.randn((C5, N5, 2), generator=g)
+    gamma = -torch.rand((C5,), generator=g)
+    A = (torch.rand((C5, N5, N5), generator=g)
+         < torch.sigmoid(cfg._logit_rho(Lp, gamma))).float()
+    noise = cfg.draw_noise(g, C5, "cpu")
+    Lp, gamma, A = Lp.cuda(), gamma.cuda(), A.cuda()
+    noise = type(noise)(*(x.cuda() for x in noise))
+    r = plain_agreement(cfg, Lp, gamma, A, noise)
+    print(f"  against the plain move over {r['iters']} trajectories "
+          f"(smallest float64 margin {r['margin']:.2e}): counts K7 "
+          f"{r['counts_k7']}, float64 {r['counts_f64']}, float32 "
+          f"{r['counts_f32']}; L {r['L_f64']:.2e} / {r['L_f32']:.2e}, "
+          f"gamma {r['gamma_f64']:.2e} / {r['gamma_f32']:.2e} relative "
+          f"(float64 / float32)")
+    check(r["iters"] >= 1 and r["counts_k7"] == r["counts_f64"],
+          "K7's accepts are the float64 plain move's")
+    check(max(r["L_f64"], r["gamma_f64"], r["L_f32"], r["gamma_f32"])
+          <= 1e-4, "K7's L and gamma within 1e-4 of the plain move's")
+    ms = event_ms(lambda: cfg._hmc(Lp, gamma, A, noise), K7_REPS)
+    plain_ms = event_ms(lambda: cfg._hmc_plain(Lp, gamma, A, noise),
+                        K7_PLAIN_REPS)
+    pairs = C5 * N5 * (N5 + 1) // 2
+    evals = cfg.hmc_iters * cfg.hmc_steps + cfg.hmc_iters + 1
+    nbytes = 4 * (A.numel() + noise.mom_L.numel() + 2 * Lp.numel()
+                  + 3 * C5 * cfg.hmc_iters)
+    b = bound(nbytes, (2 * pairs * evals, sfu_rate()))
+    print(f"  K7 {ms:.3f} ms a move (bound {b['bound_ms']:.3f}, "
+          f"{b['bound_by']}); the plain move {plain_ms:.2f} ms")
+    check(ms < K7_TARGET_MS, f"K7 under {K7_TARGET_MS} ms a config-5 move")
+    record["ld_hmc"].update(max_abs_err=r["L_abs_f64"], ms=ms,
+                            plain_ms=plain_ms, library_ms=None,
+                            counts=r["counts_k7"], **b)
 
 
 def phase_staged_vs_fused(check, ctx):
@@ -3956,6 +4014,7 @@ def main() -> int:
         ("kernel_gram", lambda: phase_kernel_gram(check, record)),
         ("kernel_gram_flagship",
          lambda: phase_kernel_gram_flagship(check, record)),
+        ("k7", lambda: phase_k7(check, record)),
         ("slice", lambda: summary.update(phase_slice(check, record, ctx))),
         ("highest",
          lambda: summary.update(phase_highest(check, record, ctx))),

@@ -30,6 +30,7 @@ import torch
 
 from pyglm_tpu_torch.diagnostics.profiling import span, wait
 from pyglm_tpu_torch.models.weights import EdgeHypers
+from pyglm_tpu_torch.ops.ld_hmc_cuda import ld_hmc_cuda
 from pyglm_tpu_torch.ops.linalg import (
     NIWParams, logdet_from_chol, niw_posterior, sample_beta,
     sample_dirichlet, sample_niw,
@@ -590,10 +591,27 @@ class LatentDistanceConfig:
 
     def _hmc(self, L, gamma, A, noise: HMCNoise):
         """hmc_iters trajectories of hmc_steps merged-kick leapfrog steps
-        for C chains at once, each with its own MH test. The gradient at a
-        trajectory's end is its last step's, and the potential and gradient
-        at the next start are carried, so a trajectory costs hmc_steps
-        gradients. Returns (L, gamma, acceptance rate (C,))."""
+        for C chains at once, each with its own MH test: on the card one
+        launch of K7 (ops/ld_hmc_cuda.py), on the CPU :meth:`_hmc_plain`.
+        Returns (L, gamma, acceptance rate (C,))."""
+        if not L.is_cuda:
+            return self._hmc_plain(L, gamma, A, noise)
+        L, gamma, count = ld_hmc_cuda(
+            L.contiguous(), gamma.contiguous(), A.contiguous(),
+            noise.mom_L.contiguous(), noise.mom_gamma.contiguous(),
+            noise.u_hmc.contiguous(), self.eps, self.hmc_steps,
+            self.sigma_l, self.sigma_gamma)
+        rate = (count.to(torch.float32) / self.hmc_iters if self.hmc_iters
+                else torch.zeros_like(gamma))
+        return L, gamma, rate
+
+    def _hmc_plain(self, L, gamma, A, noise: HMCNoise, log_ratios=None):
+        """K7's plain version, in PyTorch ops on any device and dtype. The
+        gradient at a trajectory's end is its last step's, and the
+        potential and gradient at the next start are carried, so a
+        trajectory costs hmc_steps gradients. Each trajectory's log
+        acceptance ratio (C,) is appended to `log_ratios` where a list is
+        given. Returns (L, gamma, acceptance rate (C,))."""
         eps = self.eps
         U = self._potential(L, gamma, A)
         gL, gg = self._potential_grad(L, gamma, A)
@@ -615,7 +633,10 @@ class LatentDistanceConfig:
             mg = mg + 0.5 * eps * ggn
             Un = self._potential(Ln, gn, A)
             K1 = 0.5 * (torch.sum(mL ** 2, dim=(-2, -1)) + mg ** 2)
-            acc = torch.log(noise.u_hmc[:, k]) < U + K0 - Un - K1
+            log_ratio = U + K0 - Un - K1
+            if log_ratios is not None:
+                log_ratios.append(log_ratio)
+            acc = torch.log(noise.u_hmc[:, k]) < log_ratio
             a3 = acc[:, None, None]
             L, gL = torch.where(a3, Ln, L), torch.where(a3, gLn, gL)
             gamma, gg = torch.where(acc, gn, gamma), torch.where(acc, ggn, gg)

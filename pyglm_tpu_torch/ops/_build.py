@@ -51,6 +51,7 @@ _ENTRY_POINTS = {
     "group_gram_bf16_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wgmma_probe_launch": [_P, _P, _P, _P],
     "wgmma_tf32_probe_launch": [_P, _P, _P, _P],
+    "ld_hmc_launch": [_P] * 11 + [_I] * 5 + [_F] * 4 + [_I] * 5 + [_P],
 }
 
 # Kernel launches per wrapper, and per Gram mode for K2 and K6 (the bf16
@@ -61,7 +62,7 @@ _ENTRY_POINTS = {
 LAUNCHES = {"pg_devroye": 0, "ss_group_pass": 0, "ss_group_pass_bf16": 0,
             "ss_group_pass_sr": 0, "ss_edge_scan": 0, "pg_gamma_series": 0,
             "crt_sample": 0, "crt_sample_sums": 0, "group_gram": 0,
-            "group_gram_bf16": 0}
+            "group_gram_bf16": 0, "ld_hmc": 0}
 
 
 def reset_launches() -> None:

@@ -471,7 +471,8 @@ def test_sweep_on_card_launches_each_kernel(gen):
                                "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
                                "crt_sample": 0, "crt_sample_sums": 0,
-                               "group_gram": 0, "group_gram_bf16": 0}
+                               "group_gram": 0, "group_gram_bf16": 0,
+                               "ld_hmc": 0}
     assert np.isfinite(m.log_likelihood())
 
 
@@ -740,7 +741,8 @@ def test_nb_sweep_on_card_launches_k4_k2_k3(gen):
                                "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 3,
                                "crt_sample": 0, "crt_sample_sums": 0,
-                               "group_gram": 0, "group_gram_bf16": 0}
+                               "group_gram": 0, "group_gram_bf16": 0,
+                               "ld_hmc": 0}
     assert np.isfinite(m.log_likelihood())
     r = m.state.aux["r"]
     assert r.is_cuda and torch.all(r > 0)
@@ -915,7 +917,8 @@ def test_highest_sweep_launches_k6_not_k2(gen):
                                "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
                                "crt_sample": 0, "crt_sample_sums": 0,
-                               "group_gram": 3, "group_gram_bf16": 0}
+                               "group_gram": 3, "group_gram_bf16": 0,
+                               "ld_hmc": 0}
     assert np.isfinite(m.log_likelihood())
 
 
@@ -958,7 +961,8 @@ def test_staged_path_launches_k6_not_k2(gen):
                                "ss_group_pass_bf16": 0, "ss_group_pass_sr": 0,
                                "ss_edge_scan": 3 * 4, "pg_gamma_series": 0,
                                "crt_sample": 0, "crt_sample_sums": 0,
-                               "group_gram": 3, "group_gram_bf16": 0}
+                               "group_gram": 3, "group_gram_bf16": 0,
+                               "ld_hmc": 0}
     assert np.isfinite(m.log_likelihood())
 
 
@@ -1026,6 +1030,88 @@ def test_latent_distance_hmc_on_card_matches_cpu(gen):
     assert float((h.L - c.L.cpu()).abs().max()) <= 1e-4
     assert float((h.gamma - c.gamma.cpu()).abs().max()) <= 1e-4
     assert c.L.is_cuda and torch.isfinite(c.Sigma).all()
+
+
+# K7 (csrc/ld_hmc.cu): (C, N, dim, eps, hmc_iters, hmc_steps) of each case;
+# config 5's shape first. N = 2000 keeps the rows of A + A^T in global
+# scratch, N = 4000 at dim 8 the positions too.
+LD_HMC_CASES = {
+    "config5": (8, 500, 2, 0.15 / 500 ** 0.5, 10, 50),
+    "one_chain": (1, 500, 2, 0.15 / 500 ** 0.5, 10, 50),
+    "n37": (3, 37, 2, 0.03, 6, 20),
+    "n333": (2, 333, 2, 0.15 / 333 ** 0.5, 6, 30),
+    "dim1": (2, 200, 1, 0.15 / 200 ** 0.5, 6, 30),
+    "dim3": (2, 200, 3, 0.15 / 200 ** 0.5, 6, 30),
+    "n2000": (2, 2000, 2, 0.15 / 2000 ** 0.5, 3, 20),
+    "n4000_dim8": (1, 4000, 8, 0.15 / 4000 ** 0.5, 2, 10),
+}
+
+
+def _ld_hmc_problem(case, seed=0):
+    """A chain state near its own prior's draw: L ~ N(0, 1), gamma in
+    [-1, 0], A ~ Bern(sigmoid(lrho)), and the move's noise."""
+    from pyglm_tpu_torch.models.networks import LatentDistanceConfig
+    C, N, dim, eps, iters, steps = LD_HMC_CASES[case]
+    cfg = LatentDistanceConfig(N=N, B=4, dim=dim, hmc_eps=eps,
+                               hmc_iters=iters, hmc_steps=steps)
+    g = torch.Generator().manual_seed(seed)
+    L = torch.randn((C, N, dim), generator=g)
+    gamma = -torch.rand((C,), generator=g)
+    A = (torch.rand((C, N, N), generator=g)
+         < torch.sigmoid(cfg._logit_rho(L, gamma))).float()
+    noise = cfg.draw_noise(g, C, "cpu")
+    return (cfg, L.cuda(), gamma.cuda(), A.cuda(),
+            type(noise)(*(x.cuda() for x in noise)))
+
+
+@pytest.mark.parametrize("case", list(LD_HMC_CASES))
+def test_k7_matches_the_plain_hmc(gen, case):
+    """K7 and the plain move on the card, same tensors and noise
+    (ops/ld_hmc_cuda.py::plain_agreement): over the trajectories before the
+    first whose float64 margin |log u - log alpha| is 1e-3 or less on some
+    chain, the same accept counts as the plain move in float64, and L and
+    gamma within 1e-4 relative of it and of the plain move in float32 (on
+    the chains where that one's counts are the float64 ones)."""
+    from pyglm_tpu_torch.ops.ld_hmc_cuda import plain_agreement
+    cfg, L, gamma, A, noise = _ld_hmc_problem(case)
+    before = _build.LAUNCHES["ld_hmc"]
+    r = plain_agreement(cfg, L, gamma, A, noise, delta=1e-3)
+    assert _build.LAUNCHES["ld_hmc"] == before + 1
+    assert r["iters"] >= 1, r
+    assert r["counts_k7"] == r["counts_f64"], r
+    assert max(r["L_f64"], r["gamma_f64"]) <= 1e-4, r
+    assert max(r["L_f32"], r["gamma_f32"]) <= 1e-4, r
+
+
+def test_k7_is_one_launch_a_resample_and_never_waits(gen):
+    """A stacked resample launches K7 once; the move makes the host wait
+    for nothing (the sync debug mode raises on a wait) and opens no
+    ``wait.*`` span inside ``hmc``."""
+    from pyglm_tpu_torch.diagnostics.profiling import recording
+    from pyglm_tpu_torch.models.networks import LatentDistanceState
+    from pyglm_tpu_torch.models.sweep import Generators
+    cfg, L, gamma, A, noise = _ld_hmc_problem("n333")
+    C, B = L.shape[0], cfg.B
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cfg._hmc(L, gamma, A, noise)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    st = LatentDistanceState(L, gamma, torch.zeros(C, B),
+                             torch.eye(B).repeat(C, 1, 1),
+                             torch.zeros(C, device="cuda"))
+    W = torch.randn((C, *A.shape[1:], B), device="cuda") * A[..., None]
+    gens = Generators(torch.Generator(device="cuda").manual_seed(3),
+                      torch.Generator().manual_seed(4))
+    before = _build.LAUNCHES["ld_hmc"]
+    with recording() as rec:
+        out = cfg.resample(gens, st, A, W)
+    assert _build.LAUNCHES["ld_hmc"] == before + 1
+    paths = [rec.path(i) for i in range(len(rec.spans))]
+    assert "hmc" in paths
+    assert not [p for p in paths if p.startswith("hmc/")], paths
+    assert out.L.is_cuda and torch.isfinite(out.L).all()
 
 
 # ---------------------------------------------------------------------------
